@@ -1,0 +1,78 @@
+"""Bilinear patch sampling, batched over points.
+
+Port of ``ros_stereo_slam_tpu/ops/interp.py``.  The reference reads each
+patch with ``lax.dynamic_slice``, whose start index is CLAMPED into the
+image while the sub-pixel fraction still comes from the unclamped floor;
+:func:`extract_patches` does the same (a per-pixel clamp or a zero pad
+gives different numbers near borders).  One difference: ``dynamic_slice``
+first wraps a NEGATIVE start by the dimension, so the reference reads a
+tile that starts above or left of the image from the opposite border; here
+such a start clamps to 0, as the Pallas LK kernel's tile select does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def extract_patches(img: torch.Tensor, centers_xy: torch.Tensor, size: int) -> torch.Tensor:
+    """(N, 2) float (x, y) centers -> (N, size, size) bilinear patches.
+
+    Patch pixel (r, c) samples img at (y - (size-1)/2 + r, x - (size-1)/2 + c).
+    The (size+1)^2 integer tile's start is clamped to [0, dim - (size+1)]
+    (``lax.dynamic_slice`` semantics); callers keep validity masks.
+    """
+    H, W = img.shape
+    half = (size - 1) * 0.5
+    x0 = centers_xy[:, 0] - half
+    y0 = centers_xy[:, 1] - half
+    xi = torch.floor(x0)
+    yi = torch.floor(y0)
+    fx = (x0 - xi)[:, None, None]
+    fy = (y0 - yi)[:, None, None]
+    ys = torch.clamp(torch.nan_to_num(yi), 0, H - (size + 1)).long()
+    xs = torch.clamp(torch.nan_to_num(xi), 0, W - (size + 1)).long()
+    off = torch.arange(size + 1, device=img.device)
+    flat = (ys[:, None, None] + off[None, :, None]) * W + (xs[:, None, None] + off[None, None, :])
+    patch = img.reshape(-1)[flat]  # (N, size+1, size+1)
+    top = patch[:, :-1, :-1] * (1.0 - fx) + patch[:, :-1, 1:] * fx
+    bot = patch[:, 1:, :-1] * (1.0 - fx) + patch[:, 1:, 1:] * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def extract_patch(img: torch.Tensor, center_xy: torch.Tensor, size: int) -> torch.Tensor:
+    """Single-point form of :func:`extract_patches`: (2,) -> (size, size)."""
+    return extract_patches(img, center_xy[None], size)[0]
+
+
+def bilinear_at(img: torch.Tensor, pts_xy: torch.Tensor) -> torch.Tensor:
+    """Bilinear point samples: (N, 2) float (x, y) -> (N,) values."""
+    h, w = img.shape
+    # nan_to_num keeps a NaN point's gather in range (its value is garbage
+    # either way, as in the reference).
+    x = torch.clamp(torch.nan_to_num(pts_xy[:, 0]), 0.0, w - 1.001)
+    y = torch.clamp(torch.nan_to_num(pts_xy[:, 1]), 0.0, h - 1.001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    fx = x - x0
+    fy = y - y0
+    v00 = img[y0, x0]
+    v01 = img[y0, x0 + 1]
+    v10 = img[y0 + 1, x0]
+    v11 = img[y0 + 1, x0 + 1]
+    return (
+        v00 * (1 - fy) * (1 - fx)
+        + v01 * (1 - fy) * fx
+        + v10 * fy * (1 - fx)
+        + v11 * fy * fx
+    )
+
+
+def in_bounds(pts_xy: torch.Tensor, h: int, w: int, margin: float) -> torch.Tensor:
+    """(N,) bool mask: point at least `margin` px inside the image."""
+    return (
+        (pts_xy[:, 0] >= margin)
+        & (pts_xy[:, 0] < w - margin)
+        & (pts_xy[:, 1] >= margin)
+        & (pts_xy[:, 1] < h - margin)
+    )

@@ -7,13 +7,21 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. toolchain: the card's name and power limit, torch and its CUDA build,
    ``nvcc --version``, whether ``triton`` imports;
-2. build: every kernel of the odometry path, from ``csrc/`` (timed);
-3. kernels: each kernel against its plain PyTorch version on the card, at
+2. build: every kernel (K1 ``lk_level``, K2 ``orb_desc``, K3
+   ``vocab_descend``) from ``csrc/``, one ``nvcc`` per source, all started
+   together (timed);
+3. render (host, worker processes): the bench corridor and the jittered
+   two-lap revisit world, both at full KITTI geometry (1241x376);
+4. vocab: the full-width vocabulary (k = 9, L = 6: 531,441 words) trained
+   on the card with ``train_batched`` from every 8th revisit frame;
+5. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes, with median times from CUDA events;
-4. slice: the stereo-odometry main path (``run_offline`` on ``cuda:0``) over
-   the bench corridor at full KITTI geometry (1241x376), checked against
-   ground truth, with the kernels' launch counts from that run; then the
-   streaming driver (``StereoOdometry``) against ``run_offline``.
+6. slice: the stereo-odometry path (``run_offline`` on ``cuda:0``) over the
+   corridor, checked against ground truth, with K1's launch count from that
+   run; then the streaming driver (``StereoOdometry``) against ``run_offline``;
+7. slam: full SLAM with loop closure (``run_offline_slam`` on ``cuda:0``,
+   ``preset_loop_closure()`` at its defaults) over 257 revisit frames,
+   checked against ground truth, with K1/K2/K3 launch counts from that run.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -22,10 +30,13 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import json
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -45,6 +56,25 @@ K1_BORDER_PX = 10.0  # compare where both results stay this far inside
 JAX_CPU_ATE_M = 0.040
 ATE_BOUND_M = 0.10
 FRAMES = 48  # frames after frame 0: the run the JAX numbers above describe
+
+# Full SLAM: the bench's jittered revisit world (bench.py --world revisit
+# --jitter): 256 frames after frame 0, so a lap is 128 frames and a
+# revisit lies 128 frames after its first visit (> min_separation = 100).
+SLAM_FRAMES = 256
+LAP = (SLAM_FRAMES + 1) // 2
+REVISIT_TOL = 3  # an accepted match lies within 3 frames of query - LAP
+KERNELS = ("lk_level", "orb_desc", "vocab_descend")
+# K2 against its plain version: bits flip only where a pair's two samples
+# nearly tie (the kernel takes cos/sin from the normalized moments, the
+# plain version cos(atan2)); moments differ by the f32 summation order.
+# Besides the aggregate bound, no valid corner may differ in more than
+# K2_MAX_CORNER_BITS of its 256 bits: a few wholly wrong descriptors
+# would pass the aggregate bound alone.
+K2_MIN_AGREE = 0.995
+K2_MAX_CORNER_BITS = 4
+K2_MOMENT_ATOL = 2e-3
+K2_MOMENT_RTOL = 1e-5
+WARM_RUNS = 3
 
 
 def log(msg: str) -> None:
@@ -86,37 +116,99 @@ def phase_toolchain(torch) -> None:
 
 
 def phase_build() -> None:
+    """One nvcc per kernel source, all started together."""
     from ros_stereo_slam_tpu_torch.kernels import build
 
-    for name in ("lk_level",):
-        t0 = time.perf_counter()
-        build.load(name)
-        dt = time.perf_counter() - t0
-        log(f"build {name}: {dt:.2f} s ({build.library_path(name).name})")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        list(ex.map(build.load, KERNELS))
+    log(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s (parallel)")
+    for name in KERNELS:
+        secs = build.BUILD_LOG[name][0] if name in build.BUILD_LOG else 0.0
+        log(f"build {name}: {secs:.2f} s ({build.library_path(name).name})")
         if name in build.BUILD_LOG:
             for line in build.BUILD_LOG[name][1].splitlines():
                 if any(k in line for k in ("entry function", "registers", "spill")):
                     log(f"  ptxas: {line.strip()}")
 
 
-def render_corridor(n_frames: int):
-    """The bench corridor (bench.py::_render_world): seed 11, half_w 18 m,
-    full KITTI geometry.  Returns (left, right, depth0, poses)."""
+def _render_job(world_kw: dict, indices: list) -> list:
+    """Worker process: render frames `indices` of one SyntheticWorld."""
+    from ros_stereo_slam_tpu_torch.config import CameraConfig
+    from ros_stereo_slam_tpu_torch.data.synthetic import SyntheticWorld
+
+    world = SyntheticWorld(camera=CameraConfig(), **world_kw)
+    return [world.render(i) for i in indices]
+
+
+def _revisit_plan(n_total: int, shape: tuple[int, int]):
+    """The jittered revisit world of bench.py (--world revisit --jitter):
+    laps of a circle, lap 2+ with smoothly jittered poses, a per-lap
+    brightness and per-frame sensor noise, drawn from one generator in the
+    bench's order.  Returns (render jobs, per-frame (brightness, noise),
+    ground-truth poses)."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.data.synthetic import jitter_poses
+
+    lap = max(n_total // 2, 2)
+    r = lap * 0.8 / (2.0 * np.pi)  # ~0.8 m/frame
+    lap_poses = np.zeros((lap, 4, 4))
+    for i in range(lap):
+        th = 2 * np.pi * i / lap
+        c, sn = np.cos(th), np.sin(th)
+        lap_poses[i] = np.eye(4)
+        lap_poses[i, :3, :3] = np.array([[c, 0.0, sn], [0.0, 1.0, 0.0], [-sn, 0.0, c]])
+        lap_poses[i, :3, 3] = np.array([r * (1 - c), 0.0, r * sn])
+    rng = np.random.default_rng(17)
+    jobs, post, gt = [], [], []
+    for lap_i in range(-(-n_total // lap)):
+        poses_l = (lap_poses if lap_i == 0
+                   else jitter_poses(lap_poses, rng, trans_m=0.1, rot_deg=1.0))
+        b = rng.uniform(0.85, 1.15) if lap_i > 0 else 1.0
+        idx = list(range(min(lap, n_total - len(gt))))
+        for i in idx:
+            gt.append(poses_l[i])
+            post.append((b, rng.normal(0, 0.02, shape).astype(np.float32)) if lap_i > 0
+                        else None)
+        jobs.append((dict(n_frames=lap, seed=11, custom_poses=poses_l,
+                          half_w=max(3.0 * r, 18.0), end_z=max(6.0 * r, 260.0)), idx))
+    return jobs, post, np.stack(gt)
+
+
+def phase_render():
+    """Both worlds at full KITTI geometry, rendered by worker processes.
+
+    Returns ((corridor left, right, depth0, poses, camera),
+    (revisit left, right, poses))."""
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.config import CameraConfig
     from ros_stereo_slam_tpu_torch.data.synthetic import SyntheticWorld
 
-    world = SyntheticWorld(camera=CameraConfig(), n_frames=n_frames, seed=11,
-                           half_w=18.0)
-    lefts, rights, depth0 = [], [], None
-    for i in range(n_frames):
-        left, right, depth = world.render(i)
+    cam = CameraConfig()
+    # The bench corridor (bench.py::_render_world): seed 11, half_w 18 m.
+    corridor_kw = dict(n_frames=FRAMES + 1, seed=11, half_w=18.0)
+    corridor_poses = SyntheticWorld(camera=cam, **corridor_kw).poses
+    rev_jobs, rev_post, rev_gt = _revisit_plan(SLAM_FRAMES + 1, (cam.height, cam.width))
+    chunks = []  # (world kwargs, frame indices), 8 frames each
+    for kw, idx in [(corridor_kw, list(range(FRAMES + 1)))] + rev_jobs:
+        chunks += [(kw, idx[i:i + 8]) for i in range(0, len(idx), 8)]
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        frames = [f for part in pool.starmap(_render_job, chunks) for f in part]
+    corridor, revisit = frames[:FRAMES + 1], frames[FRAMES + 1:]
+    lefts, rights = [], []
+    for (left, right, _), pp in zip(revisit, rev_post):
+        if pp is not None:  # photometric jitter on the revisit laps
+            b, noise = pp
+            left = np.clip(left * b + noise, 0, 1)
+            right = np.clip(right * b + noise, 0, 1)
         lefts.append(left)
         rights.append(right)
-        if i == 0:
-            depth0 = depth
-    return np.stack(lefts), np.stack(rights), depth0, world.poses, world.camera
+    return ((np.stack([f[0] for f in corridor]), np.stack([f[1] for f in corridor]),
+             corridor[0][2], corridor_poses, cam),
+            (np.stack(lefts), np.stack(rights), rev_gt), workers)
 
 
 def cuda_ms(torch, fn, reps: int = 25) -> float:
@@ -218,6 +310,112 @@ def phase_kernels(torch, cases) -> dict:
     return {"max_abs_err": worst, "ms": rows[0][0], "plain_ms": rows[0][1]}
 
 
+def phase_vocab(torch, left, cfg, dev):
+    """The full-width vocabulary, trained on the card as bench.py trains
+    it: ORB of every 8th frame, train_batched at (vocab_k, vocab_levels)."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.models import vocab
+    from ros_stereo_slam_tpu_torch.ops import orb
+
+    lcc = cfg.loop
+    t0 = time.perf_counter()
+    descs, docs = [], []
+    for i in range(0, left.shape[0], 8):
+        f = orb.detect_and_compute(torch.from_numpy(left[i]).to(dev), lcc.orb_features,
+                                   cfg.frontend.fast_thresh / 255.0, n_levels=lcc.orb_levels)
+        descs.append(f.desc_sign[f.valid])
+        docs.append(np.full(int(f.valid.sum()), i))
+    X = torch.cat(descs)
+    voc = vocab.train_batched(X, k=lcc.vocab_k, levels=lcc.vocab_levels,
+                              doc_ids=np.concatenate(docs), device=dev)
+    torch.cuda.synchronize()
+    words = vocab.transform_words(voc, X)
+    n_used = int(torch.unique(words).numel())
+    log(f"vocab: k={voc.k} L={voc.levels} ({voc.n_words} words) trained on the card from "
+        f"{X.shape[0]} descriptors of {len(docs)} frames in {time.perf_counter() - t0:.2f} s; "
+        f"{n_used} words used; tables "
+        f"{[tuple(c.shape) for c in voc.centers[-2:]]} int8")
+    check(voc.n_words == lcc.vocab_k ** lcc.vocab_levels, "vocabulary size")
+    check(n_used > min(X.shape[0], voc.n_words) // 4,
+          f"only {n_used} words used by {X.shape[0]} descriptors")
+    return voc
+
+
+def k2_phase(torch, img, cfg) -> dict:
+    """K2 against orb._descriptors_plain at the four ORB levels of one
+    revisit frame, on the corners FAST + ANMS pick there (the main path's
+    shapes: 1241x376 .. 635x193, 173 .. 89 corners)."""
+    from ros_stereo_slam_tpu_torch.ops import orb, orb_cuda
+
+    lcc = cfg.loop
+    budgets = orb._level_budgets(lcc.orb_features, lcc.orb_levels, 1.25)
+    levels = orb.level_images(img, lcc.orb_levels, 1.25)
+    worst, n_bits, n_diff, rows = 0.0, 0, 0, []
+    for l, (lvl, budget) in enumerate(zip(levels, budgets)):
+        pts, valid = orb._level_corners(lvl, budget, cfg.frontend.fast_thresh / 255.0)
+        ks, km = orb_cuda.orb_descriptors(lvl, pts)
+        ps, pm = orb._descriptors_plain(lvl, pts)
+        torch.cuda.synchronize()
+        per_corner = (ks != ps)[valid].sum(dim=1)
+        diff = int(per_corner.sum())
+        corner_max = int(per_corner.max()) if per_corner.numel() else 0
+        nv = int(valid.sum())
+        merr = float((km - pm).abs().max())
+        m_ok = bool(((km - pm).abs() <= K2_MOMENT_ATOL + K2_MOMENT_RTOL * pm.abs()).all())
+        ms = cuda_ms(torch, lambda: orb_cuda.orb_descriptors(lvl, pts))
+        plain_ms = cuda_ms(torch, lambda: orb._descriptors_plain(lvl, pts))
+        H, W = lvl.shape
+        log(f"K2 level {l} {W}x{H}: N={budget} valid={nv} bits differing {diff}/{nv * 256} "
+            f"(at most {corner_max} in one corner) "
+            f"max|dm|={merr:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)")
+        check(nv > budget // 2, f"K2 level {l}: only {nv} valid corners")
+        check(m_ok, f"K2 level {l}: moments differ by {merr}")
+        check(corner_max <= K2_MAX_CORNER_BITS,
+              f"K2 level {l}: a corner differs in {corner_max} bits > {K2_MAX_CORNER_BITS}")
+        check(bool(torch.isin(ks, torch.tensor([-1.0, 1.0], device=ks.device)).all()),
+              f"K2 level {l}: signs not +-1")
+        worst = max(worst, merr)
+        n_bits += nv * 256
+        n_diff += diff
+        rows.append((ms, plain_ms))
+    agree = 1.0 - n_diff / n_bits
+    log(f"K2: bit agreement {agree:.5f} over {n_bits} bits of valid features "
+        f"(bound {K2_MIN_AGREE})")
+    check(agree >= K2_MIN_AGREE, f"K2 bit agreement {agree} < {K2_MIN_AGREE}")
+    # The headline time is level 0 (the largest call of a detection frame).
+    return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
+            "plain_ms": rows[0][1]}
+
+
+def k3_phase(torch, img, voc, cfg) -> dict:
+    """K3 against vocab._deep_descend_plain: one frame's 512 descriptors
+    (invalid ones all zero) through the deep levels of the trained
+    vocabulary; the word ids must be equal on every row."""
+    from ros_stereo_slam_tpu_torch.models import vocab
+    from ros_stereo_slam_tpu_torch.ops import orb, vocab_cuda
+
+    lcc = cfg.loop
+    q = orb.detect_and_compute(img, lcc.orb_features, cfg.frontend.fast_thresh / 255.0,
+                               n_levels=lcc.orb_levels).desc_sign
+    first = next(l for l, c in enumerate(voc.centers)
+                 if c.shape[0] > vocab._DESCEND_MASKED_ARGMAX_MAX_NODES)
+    node = vocab._descend(voc.centers, q, voc.k, first)  # the dense levels
+    deep = voc.centers[first:]
+    out = vocab_cuda.deep_descend(q, node, deep, voc.k)
+    ref = vocab._deep_descend_plain(q, node, deep, voc.k)
+    torch.cuda.synchronize()
+    mismatches = int((out != ref).sum())
+    ms = cuda_ms(torch, lambda: vocab_cuda.deep_descend(q, node, deep, voc.k))
+    plain_ms = cuda_ms(torch, lambda: vocab._deep_descend_plain(q, node, deep, voc.k))
+    log(f"K3 {q.shape[0]} descriptors ({int((q != 0).any(1).sum())} valid) through levels "
+        f"{first}..{len(voc.centers) - 1} {[tuple(c.shape) for c in deep]}: word ids "
+        f"differing {mismatches}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)")
+    check(mismatches == 0, f"K3: {mismatches} word ids differ from the plain version")
+    return {"max_abs_err": float((out - ref).abs().max()), "mismatches": mismatches,
+            "ms": ms, "plain_ms": plain_ms}
+
+
 def phase_slice(torch, left, right, poses, cam, dev) -> dict:
     import numpy as np
 
@@ -280,6 +478,67 @@ def phase_slice(torch, left, right, poses, cam, dev) -> dict:
     return {"launches": launches, "fps": F / med, "ate": ate}
 
 
+def phase_slam(torch, voc, left, right, gt, cfg, dev) -> dict:
+    """Full SLAM through run_offline_slam on the card: one cold run, then
+    warm runs; launch counts and host reads from the first warm run."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.models import slam_scan, step
+    from ros_stereo_slam_tpu_torch.ops import lk_cuda, orb_cuda, vocab_cuda
+    from ros_stereo_slam_tpu_torch.utils import metrics
+
+    L = torch.from_numpy(left).to(dev)
+    R = torch.from_numpy(right).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam_scan.run_offline_slam(cfg, voc, L, R, device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    times, counts = [], None
+    for rep in range(WARM_RUNS):
+        if rep == 0:
+            lk_cuda.LAUNCHES = orb_cuda.LAUNCHES = vocab_cuda.LAUNCHES = 0
+            step.HOST_READS = step.RESCUES = 0
+        t0 = time.perf_counter()
+        res = slam_scan.run_offline_slam(cfg, voc, L, R, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            counts = dict(lk_level=lk_cuda.LAUNCHES, orb_desc=orb_cuda.LAUNCHES,
+                          vocab_descend=vocab_cuda.LAUNCHES, host_reads=step.HOST_READS,
+                          rescues=step.RESCUES)
+    F = left.shape[0] - 1
+    traj = res.trajectory
+    check(traj.shape == (F + 1, 4, 4), f"trajectory shape {traj.shape}")
+    check(bool(np.isfinite(traj).all()), "non-finite poses")
+    ate = metrics.ate_rmse(traj, gt)
+    ate_odo = metrics.ate_rmse(res.trajectory_odo, gt)
+    med = statistics.median(times)
+    events = [(int(q), int(m), int(n)) for q, m, n in res.loop_events]
+    log(f"slam: {F + 1} revisit frames {left.shape[2]}x{left.shape[1]}, cold run "
+        f"{first_s:.3f} s, warm runs {[round(t, 4) for t in times]} s, median {med:.4f} s "
+        f"-> {F / med:.2f} fps (F/median)")
+    log(f"slam: ATE post-PGO {ate:.4f} m, odometry only {ate_odo:.4f} m; loop events "
+        f"(query, match, inliers) {events}; keyframes {1 + int(res.is_keyframe.sum())}; "
+        f"min PnP inliers {int(res.n_inliers.min())}; launches K1 {counts['lk_level']}, "
+        f"K2 {counts['orb_desc']}, K3 {counts['vocab_descend']}; host reads/frame "
+        f"{counts['host_reads'] / F:.2f}; rescues {counts['rescues']}; all tracked "
+        f"{bool(res.tracking_ok.all())}")
+    check(bool(res.tracking_ok.all()),
+          f"tracking lost on frames {np.nonzero(~res.tracking_ok)[0] + 1}")
+    check(len(events) >= 1, "no loop closure accepted")
+    for q, m, _ in events:
+        d = (q - m) % LAP
+        check(min(d, LAP - d) <= REVISIT_TOL,
+              f"closure ({q}, {m}) is not within {REVISIT_TOL} frames of a true revisit")
+    check(ate < ate_odo, f"post-PGO ATE {ate} m is not below odometry-only {ate_odo} m")
+    for name in KERNELS:
+        check(counts[name] > 0, f"the full-SLAM path launched no {name} kernel")
+    return {"counts": counts, "fps": F / med, "ate": ate, "ate_odo": ate_odo,
+            "events": events}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         log(f"FAIL: package {PKG}/ not found beside chip_smoke.py")
@@ -293,28 +552,56 @@ def main() -> int:
     import ros_stereo_slam_tpu_torch  # noqa: F401  (sets the float policy)
 
     dev = torch.device("cuda:0")
-    try:
-        phase_toolchain(torch)
-        phase_build()
+    from ros_stereo_slam_tpu_torch.config import preset_loop_closure
+
+    slam_cfg = preset_loop_closure()
+    phase_s = {}
+
+    def timed(name, fn, *args):
         t0 = time.perf_counter()
-        left, right, depth0, poses, cam = render_corridor(FRAMES + 1)
-        log(f"rendered {FRAMES + 1} corridor frames in "
-            f"{time.perf_counter() - t0:.1f} s (host)")
-        k1 = phase_kernels(torch, k1_cases(torch, left, depth0, poses, cam, dev))
-        sl = phase_slice(torch, left, right, poses, cam, dev)
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    try:
+        timed("toolchain", phase_toolchain, torch)
+        timed("build", phase_build)
+        (left, right, depth0, poses, cam), (rl, rr, rgt), workers = timed(
+            "render", phase_render)
+        log(f"rendered {left.shape[0]} corridor + {rl.shape[0]} revisit frames with "
+            f"{workers} worker processes (host)")
+        slam_cfg = slam_cfg.replace(camera=cam)
+        voc = timed("vocab", phase_vocab, torch, rl, slam_cfg, dev)
+        k1 = timed("kernels_k1", phase_kernels, torch,
+                   k1_cases(torch, left, depth0, poses, cam, dev))
+        probe = torch.from_numpy(rl[LAP + 2]).to(dev)  # a jittered revisit frame
+        k2 = timed("kernels_k2", k2_phase, torch, probe, slam_cfg)
+        k3 = timed("kernels_k3", k3_phase, torch, probe, voc, slam_cfg)
+        sl = timed("slice", phase_slice, torch, left, right, poses, cam, dev)
+        sm = timed("slam", phase_slam, torch, voc, rl, rr, rgt, slam_cfg, dev)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
-    print(json.dumps({"kernels": [{
-        "name": "lk_level",
-        "route": "cuda",
-        "source": f"{PKG}/csrc/lk_level.cu",
-        "replaces": "ros_stereo_slam_tpu/ops/lk_pallas.py:120",
-        "launches": sl["launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-    }]}), flush=True)
+    log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
+        f"total {sum(phase_s.values()):.1f} s")
+    replaces = {"lk_level": "ros_stereo_slam_tpu/ops/lk_pallas.py:120",
+                "orb_desc": "ros_stereo_slam_tpu/ops/orb_pallas.py:84",
+                "vocab_descend": "ros_stereo_slam_tpu/ops/vocab_pallas.py:72"}
+    # K1's launches are counted on its own path (the corridor slice); K2's
+    # and K3's on full SLAM, whose K1 count is in the log above.
+    launches = {"lk_level": sl["launches"], "orb_desc": sm["counts"]["orb_desc"],
+                "vocab_descend": sm["counts"]["vocab_descend"]}
+    rows = []
+    for name, meas in zip(KERNELS, (k1, k2, k3)):
+        row = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{name}.cu",
+               "replaces": replaces[name], "launches": launches[name],
+               "max_abs_err": meas["max_abs_err"], "ms": meas["ms"],
+               "plain_ms": meas["plain_ms"]}
+        if "mismatches" in meas:
+            row["mismatches"] = meas["mismatches"]
+        rows.append(row)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

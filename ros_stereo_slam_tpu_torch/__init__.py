@@ -8,9 +8,11 @@ Subpackages
 -----------
 - ``utils``   : Lie groups (SO3/SE3), pinhole camera, trajectory metrics.
 - ``data``    : synthetic ground-truth sequence generator.
-- ``ops``     : LK (plain version + the hand-written CUDA kernel), PnP,
-                triangulation, SOR, pyramids, sampling, small linalg.
-- ``models``  : SLAM state, the per-frame step, the odometry drivers.
+- ``ops``     : LK, ORB and the vocabulary descent (each a plain version +
+                a hand-written CUDA kernel), FAST, ANMS, PnP, F-matrix
+                RANSAC, triangulation, SOR, pyramids, sampling, linalg.
+- ``models``  : SLAM state, the per-frame step, the odometry drivers, the
+                vocabulary, loop closure, pose graph, full-SLAM driver.
 - ``kernels`` : builds ``csrc/*.cu`` with ``nvcc`` at first use.
 """
 

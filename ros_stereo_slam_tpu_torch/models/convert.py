@@ -1,9 +1,11 @@
 """State carried across between the JAX package and this port.
 
-The system has no weights; what it carries is the SLAM state.  The JAX
-package's ``SlamCarry`` (after ``jax.device_get``: NamedTuples of numpy
-arrays) becomes this package's :class:`~.step.SlamCarry` and back.  The
-input is read by field name only, so this module needs nothing of JAX.
+The system has no weights; what it carries is the SLAM state: the JAX
+package's ``SlamCarry`` and ``LCScanState`` (after ``jax.device_get``:
+NamedTuples of numpy arrays) become this package's and back, and its
+``Vocabulary`` (or the npz it saves) becomes a port vocabulary, so both
+packages can descend the same tree and query the same database.  Inputs
+are read by field name only, so this module needs nothing of JAX.
 
 The random key maps to the port's integer ``key`` as the 64-bit number of
 its two uint32 words and back.  The port's random streams are its own, so
@@ -12,11 +14,15 @@ a converted carry continues the same trajectory up to the RANSAC draws.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
+from ros_stereo_slam_tpu_torch.models.slam_scan import LCScanState
 from ros_stereo_slam_tpu_torch.models.state import KeyframeStore, TrackState
 from ros_stereo_slam_tpu_torch.models.step import SlamCarry
+from ros_stereo_slam_tpu_torch.models.vocab import Vocabulary
 
 
 def _t(a, device) -> torch.Tensor:
@@ -64,3 +70,50 @@ def carry_to_numpy(carry: SlamCarry) -> SlamCarry:
         dT_valid=n(carry.dT_valid),
         stereo_flow=n(carry.stereo_flow),
     )
+
+
+def vocab_from_numpy(src, device: torch.device | str) -> Vocabulary:
+    """A vocabulary of the JAX package -> port :class:`~.vocab.Vocabulary`.
+
+    `src` is a path to the npz that ``Vocabulary.save`` (or the bench's
+    vocabulary cache) writes, or any object with ``k``, ``levels``,
+    ``centers`` (per-level (k^(l+1), 256) sign arrays) and ``idf``.
+    """
+    if isinstance(src, (str, os.PathLike)):
+        return Vocabulary.load(os.fspath(src), device)
+    return Vocabulary(
+        k=int(src.k), levels=int(src.levels),
+        centers=[torch.from_numpy(np.asarray(c).astype(np.int8)).to(device)
+                 for c in src.centers],
+        idf=torch.from_numpy(np.asarray(src.idf, dtype=np.float32).copy()).to(device),
+    )
+
+
+def lc_state_from_numpy(tree, device: torch.device | str) -> LCScanState:
+    """JAX ``LCScanState`` of numpy arrays -> port ``LCScanState``.
+
+    The packed descriptors keep their bits (uint32 -> int32); the bf16
+    bins go through float32, which holds every bf16 value exactly.
+    """
+    def conv(name):
+        a = np.asarray(getattr(tree, name))
+        if name == "db_bits":
+            return torch.from_numpy(a.astype(np.uint32).view(np.int32).copy()).to(device)
+        if name == "db_bins":
+            return torch.from_numpy(a.astype(np.float32)).to(device).to(torch.bfloat16)
+        return _t(a, device)
+
+    return LCScanState(*(conv(f) for f in LCScanState._fields))
+
+
+def lc_state_to_numpy(lc: LCScanState) -> LCScanState:
+    """Port ``LCScanState`` -> numpy arrays in the JAX package's dtypes,
+    except ``db_bins``, which comes back as float32 (numpy has no bf16)."""
+    def conv(name, t):
+        if name == "db_bits":
+            return t.cpu().numpy().view(np.uint32)
+        if name == "db_bins":
+            return t.to(torch.float32).cpu().numpy()
+        return t.cpu().numpy()
+
+    return LCScanState(*(conv(f, getattr(lc, f)) for f in LCScanState._fields))

@@ -1,0 +1,419 @@
+"""Full SLAM (config 3): odometry with in-loop loop detection, then the
+host epilogue.
+
+Port of the single-lane path of ``ros_stereo_slam_tpu/models/slam_scan.py``.
+Where the reference is one jitted ``lax.scan``, this is a Python loop over
+frames staged on the device, as :func:`.pipeline.run_offline` is:
+
+- each frame runs :func:`.step.slam_frame_step`, then, on every
+  ``detect_every``-th frame, :func:`_lc_scan_step`: ORB (kernel K2), the
+  vocabulary descent (kernel K3 for the deep levels), the sparse BoW,
+  the binned shortlist and its exact rescore, and the database insert.
+  ``lax.cond`` on the cadence becomes a host branch on the frame id, which
+  the host knows, so it reads nothing from the device;
+- the sparse database (:class:`LCScanState`, ~130 MB at the reference
+  scale) stays on the device and is written IN PLACE, one ring row per
+  detection frame (the reference's scan carry copies nothing either);
+- the per-frame stats stay on the device and are read once after the loop;
+- the epilogue replays the gates on the host (:class:`EpilogueGater`),
+  verifies the surviving candidates, measures PnP loop edges, solves one
+  pose graph and rewrites the keyframe map.
+
+Batched and interleaved lanes and the chunked online driver are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ros_stereo_slam_tpu_torch.config import PipelineConfig
+from ros_stereo_slam_tpu_torch.models import frontend
+from ros_stereo_slam_tpu_torch.models import loop_closure as lc_mod
+from ros_stereo_slam_tpu_torch.models import pose_graph as pg_mod
+from ros_stereo_slam_tpu_torch.models import step as step_mod
+from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
+from ros_stereo_slam_tpu_torch.ops import lk, orb as orb_mod, pnp, pyramid, triangulate
+from ros_stereo_slam_tpu_torch.ops.topk import top_k
+from ros_stereo_slam_tpu_torch.utils import lie
+
+
+class LCScanState(NamedTuple):
+    """Device-resident sparse BoW database (a ring of `db_capacity` frames)."""
+
+    db_words: torch.Tensor  # (cap, nf) int32 merged word ids (0-padded)
+    db_wvals: torch.Tensor  # (cap, nf) f32 L1-normalized TF-IDF weights
+    db_bins: torch.Tensor  # (cap, n_bins) bf16 binned BoW (shortlist matvec)
+    db_bits: torch.Tensor  # (cap, nf, 8) int32 packed descriptors (uint32 bits)
+    db_pts: torch.Tensor  # (cap, nf, 2) f32
+    db_pt_valid: torch.Tensor  # (cap, nf) bool
+    db_valid: torch.Tensor  # (cap,) bool
+    db_ids: torch.Tensor  # (cap,) int32
+    last_words: torch.Tensor  # (nf,) int32 previous detected frame's BoW
+    last_wvals: torch.Tensor  # (nf,) f32
+    have_last: torch.Tensor  # () bool
+
+
+class LCScanStats(NamedTuple):
+    """Per-frame candidate shortlist (the host gates run on these)."""
+
+    top_ids: torch.Tensor  # (K,) int32 database frame ids (-1 padding)
+    top_scores: torch.Tensor  # (K,) f32 exact min-intersection scores
+    ns: torch.Tensor  # () f32 score against the previous detected frame
+
+
+def init_lc_state(cfg: PipelineConfig, device) -> LCScanState:
+    cap, nf = cfg.loop.db_capacity, cfg.loop.orb_features
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return LCScanState(
+        db_words=z((cap, nf), torch.int32),
+        db_wvals=z((cap, nf), torch.float32),
+        db_bins=z((cap, cfg.loop.n_bins), torch.bfloat16),
+        db_bits=z((cap, nf, orb_mod.N_BITS // 32), torch.int32),
+        db_pts=z((cap, nf, 2), torch.float32),
+        db_pt_valid=z((cap, nf), torch.bool),
+        db_valid=z((cap,), torch.bool),
+        db_ids=torch.full((cap,), -1, dtype=torch.int32, device=device),
+        last_words=z((nf,), torch.int32),
+        last_wvals=z((nf,), torch.float32),
+        have_last=z((), torch.bool),
+    )
+
+
+def _top_k_count(lcc) -> int:
+    """Top-K emitted per frame: no more than the shortlist or the database."""
+    return min(lcc.max_db_results, lcc.shortlist, lcc.db_capacity)
+
+
+def _null_stats(cfg: PipelineConfig, device) -> LCScanStats:
+    k = _top_k_count(cfg.loop)
+    return LCScanStats(
+        top_ids=torch.full((k,), -1, dtype=torch.int32, device=device),
+        top_scores=torch.full((k,), -1e9, dtype=torch.float32, device=device),
+        ns=torch.full((), -1.0, dtype=torch.float32, device=device),
+    )
+
+
+def _lc_scan_step(
+    lc: LCScanState,
+    left_img: torch.Tensor,
+    frame_id: int,
+    centers: list,
+    idf: torch.Tensor,
+    cfg: PipelineConfig,
+    vocab_k: int,
+) -> tuple[LCScanState, LCScanStats]:
+    """One detection frame: ORB -> sparse BoW -> query -> database insert.
+
+    The database rows of ring slot ``frame_id % db_capacity`` are written
+    in place; the returned state shares the input's tensors.
+    """
+    if left_img.dtype == torch.uint8:
+        left_img = left_img.to(torch.float32) * (1.0 / 255.0)
+    lcc = cfg.loop
+    n_words = idf.shape[0]
+    feats = orb_mod.detect_and_compute(
+        left_img, lcc.orb_features, cfg.frontend.fast_thresh / 255.0,
+        n_levels=lcc.orb_levels,
+    )
+    words = vocab_mod._descend(centers, feats.desc_sign, vocab_k, len(centers))
+    uw, uv = vocab_mod.bow_sparse(words, feats.valid, idf, n_words)
+    q_bins = vocab_mod.bin_of_sparse(uw, uv, lcc.n_bins)
+    ns = vocab_mod.score_pair_min(uw, uv, lc.last_words, lc.last_wvals)
+
+    # Binned shortlist over entries dated <= frame_id - dislocal - 1, then
+    # the exact min-intersection rescore: the gates see exact scores.
+    sdot = vocab_mod.score_db_binned(q_bins, lc.db_bins)
+    ok = lc.db_valid & (lc.db_ids <= frame_id - lcc.dislocal - 1)
+    sdot = torch.where(ok, sdot, torch.full_like(sdot, -1e9))
+    sl_scores, sl_idx = top_k(sdot, min(lcc.shortlist, lcc.db_capacity))
+    s_ex = vocab_mod.rescore_min(uw, uv, lc.db_words[sl_idx], lc.db_wvals[sl_idx])
+    s_ex = torch.where(sl_scores > -1e8, s_ex, torch.full_like(s_ex, -1e9))
+    top_scores, ti = top_k(s_ex, _top_k_count(lcc))
+    top_ids = torch.where(top_scores > -1e8, lc.db_ids[sl_idx[ti]],
+                          torch.full_like(top_scores, -1, dtype=torch.int32))
+    # The reference masks ns with `have_last` AFTER setting it, so a
+    # detection frame always reports the raw score (0 on the first frame);
+    # only skipped frames carry ns = -1 (_null_stats).
+    stats = LCScanStats(top_ids=top_ids, top_scores=top_scores, ns=ns)
+
+    slot = frame_id % lcc.db_capacity
+    lc.db_words[slot] = uw.to(torch.int32)
+    lc.db_wvals[slot] = uv
+    lc.db_bins[slot] = q_bins.to(torch.bfloat16)
+    lc.db_bits[slot] = feats.desc_bits
+    lc.db_pts[slot] = feats.pts
+    lc.db_pt_valid[slot] = feats.valid
+    lc.db_valid[slot] = True
+    lc.db_ids[slot] = frame_id
+    lc = lc._replace(last_words=uw.to(torch.int32), last_wvals=uv,
+                     have_last=torch.ones_like(lc.have_last))
+    return lc, stats
+
+
+def _stack(rows: list):
+    return type(rows[0])(*(torch.stack(f) for f in zip(*rows)))
+
+
+def run_sequence_slam(
+    left_seq: torch.Tensor,  # (F, H, W) f32 or uint8 — frames 1..F
+    right_seq: torch.Tensor,
+    carry: step_mod.SlamCarry,
+    lc: LCScanState,
+    grid_pts: torch.Tensor,
+    grid_mask: torch.Tensor,
+    centers: list,
+    idf: torch.Tensor,
+    cfg: PipelineConfig,
+    vocab_k: int,
+):
+    """Odometry + detection over a staged sequence.
+
+    Returns ((carry, lc), (frame stats, detection stats)), each stats
+    tuple stacked along frames and left on the device.
+    """
+    every = max(cfg.loop.detect_every, 1)
+    dev = left_seq.device
+    null = _null_stats(cfg, dev)
+    fstats, lstats = [], []
+    for i in range(left_seq.shape[0]):
+        fid = 1 + i
+        carry, fs = step_mod.slam_frame_step(carry, left_seq[i], right_seq[i],
+                                             grid_pts, grid_mask, cfg)
+        if fid % every == 0:
+            lc, ls = _lc_scan_step(lc, left_seq[i], fid, centers, idf, cfg, vocab_k)
+        else:
+            ls = null
+        fstats.append(fs)
+        lstats.append(ls)
+    if not fstats:
+        raise ValueError("run_sequence_slam needs at least one frame")
+    return (carry, lc), (_stack(fstats), _stack(lstats))
+
+
+class EpilogueGater:
+    """Replays the gate chain over per-frame candidate rows (host numpy).
+
+    nss / alpha / island / temporal gates (:class:`loop_closure.
+    CandidateGater`), the separation rule (query - match > min_separation),
+    the geometric check, then the cooldown.  The geometric check runs
+    before the cooldown is armed: a candidate that fails geometry does not
+    suppress the following frames.  Stateful across calls, so one instance
+    can process a sequence in blocks.
+    """
+
+    def __init__(self, cfg: PipelineConfig):
+        self.cfg = cfg
+        self.lcc = cfg.loop
+        self.every = max(cfg.loop.detect_every, 1)
+        self.gater = lc_mod.CandidateGater(cfg.loop, stride=self.every)
+        self.cooldown = 0
+
+    def process(self, lc: LCScanState, top_ids, top_scores, ns_arr, fid_start: int) -> list:
+        """Gate one block of per-frame shortlists; `fid_start` is the frame
+        id of row 0.  Returns accepted closures as (fid, match_id, best_idx,
+        inlier_mask, n_inliers).
+
+        Pass 1 runs the host gates over every detection frame in order;
+        pass 2 verifies all survivors on the device and reads the verdicts
+        once; pass 3 replays the cooldown over them.  The accept set is the
+        sequential one: a candidate inside a cooldown window is never
+        accepted, and one that fails geometry arms no cooldown.
+        """
+        lcc = self.lcc
+        n = top_ids.shape[0]
+        suppress_until = fid_start + self.cooldown - 1
+        cands = []
+        for i in range(n):
+            fid = fid_start + i
+            if fid % self.every != 0 or fid <= lcc.dislocal:
+                continue
+            gated = self.gater.gate(fid, top_ids[i], top_scores[i], float(ns_arr[i]))
+            if gated is None or fid <= suppress_until:
+                continue
+            best_id = gated[0]
+            if fid - best_id <= lcc.min_separation:
+                continue
+            cands.append((fid, best_id))
+
+        accepted = []
+        if cands:
+            n_inl_d, bi_d, im_d = lc_mod._geom_match_many(
+                lc.db_bits, lc.db_pts, lc.db_pt_valid,
+                [q for q, _ in cands], [m for _, m in cands],
+                lcc.geom_thresh_px, lcc.neigh_ratio, iters=lcc.geom_ransac_iters,
+            )
+            n_inl_b, bi_b, im_b = (t.cpu().numpy() for t in (n_inl_d, bi_d, im_d))
+            for ci, (fid, best_id) in enumerate(cands):
+                if fid <= suppress_until or int(n_inl_b[ci]) < lcc.geom_min_points:
+                    continue
+                suppress_until = fid + lcc.cooldown
+                accepted.append((fid, best_id, bi_b[ci], im_b[ci], int(n_inl_b[ci])))
+        self.cooldown = max(0, suppress_until - (fid_start + n - 1))
+        return accepted
+
+
+def _edges_pnp_batch(lq, rq, db_pts, db_pt_valid, best_idx, inl_mask, q_fids, m_fids,
+                     cfg: PipelineConfig):
+    """PnP loop-edge measurements of accepted closures.
+
+    Per closure: the query pair's full pyramids, left->right LK,
+    stereo triangulation, then PnP of the matched frame's 2D observations
+    against the query's 3D points, with the pair's :func:`edge_key`
+    generator.  Returns device tensors (n_inliers (P,), T_q_match (P, 4, 4)).
+    """
+    cam = step_mod._cam_of(cfg)
+    cap = cfg.loop.db_capacity
+    n_ok, Ts = [], []
+    for l1, r1, bi, im, qf, mf in zip(lq, rq, best_idx, inl_mask, q_fids, m_fids):
+        l1, r1 = step_mod._to_unit(l1), step_mod._to_unit(r1)
+        lp = tuple(pyramid.build_pyramid(l1, cfg.frontend.lk_levels))
+        rp = tuple(pyramid.build_pyramid(r1, cfg.frontend.lk_levels))
+        qs, ms = int(qf) % cap, int(mf) % cap
+        pts_q = db_pts[qs]
+        st = lk.track(lp, rp, pts_q, None, frontend._lk_params(cfg.frontend))
+        tri = triangulate.triangulate_rectified(
+            cam, float(cfg.camera.baseline), pts_q, st.points,
+            db_pt_valid[qs] & st.valid, max_depth=cfg.keyframes.max_depth,
+        )
+        uv_m = db_pts[ms][bi]
+        res = pnp.pnp_ransac(
+            lc_mod.edge_key(qf, mf, l1.device), cam, tri.points, uv_m, im & tri.valid,
+            thresh_px=cfg.loop.geom_thresh_px, iters=128,
+            refine_iters=cfg.pnp.refine_iters,
+            T_init=torch.eye(4, dtype=torch.float32, device=l1.device),
+        )
+        n_ok.append(res.n_inliers)
+        Ts.append(lie.inv_se3(res.T_cw))
+    return torch.stack(n_ok), torch.stack(Ts)
+
+
+def _measure_edges_pnp(lc_arrays, cands, geom, frame_of, cfg: PipelineConfig):
+    """PnP-measured loop edges Z = T_q^-1 T_match for accepted candidates,
+    None where PnP starves (the caller then uses the identity edge)."""
+    db_pts, db_pt_valid = lc_arrays
+    _, best_idx, inl_mask = geom
+    if not cands:
+        return []
+    frames = [frame_of(q) for q, _ in cands]
+    dev = db_pts.device
+    n_ok, Ts = _edges_pnp_batch(
+        [f[0] for f in frames], [f[1] for f in frames], db_pts, db_pt_valid,
+        torch.as_tensor(np.asarray(best_idx), device=dev),
+        torch.as_tensor(np.asarray(inl_mask), device=dev),
+        [q for q, _ in cands], [m for _, m in cands], cfg,
+    )
+    n_ok, Ts = n_ok.cpu().numpy(), Ts.cpu().numpy()
+    return [Ts[ci] if int(n_ok[ci]) >= cfg.loop.geom_min_points else None
+            for ci in range(len(cands))]
+
+
+def measure_loop_edges(accepted: list, lc: LCScanState, frame_of,
+                       cfg: PipelineConfig) -> tuple[list, list]:
+    """Accepted closures -> (loop events, (i, j, Z) pose-graph edges).
+
+    PnP-measured edges when configured; otherwise, or where PnP starves,
+    the reference's identity edge to the vertex before the match.
+    `frame_of`: callable ``fid -> (left, right)`` frames.
+    """
+    loop_events, loop_edges = [], []
+    if not accepted:
+        return loop_events, loop_edges
+    if cfg.loop.edge_measurement == "pnp":
+        sel = [(q, m) for q, m, _, _, _ in accepted]
+        geom = (np.asarray([a[4] for a in accepted]),
+                np.stack([a[2] for a in accepted]),
+                np.stack([a[3] for a in accepted]))
+        Zs = _measure_edges_pnp((lc.db_pts, lc.db_pt_valid), sel, geom, frame_of, cfg)
+    else:
+        Zs = [None] * len(accepted)
+    for (q, m, _, _, n_inl), Z in zip(accepted, Zs):
+        loop_events.append((q, m, n_inl))
+        if Z is None:
+            loop_edges.append((q, max(m - 1, 0), np.eye(4)))
+        else:
+            loop_edges.append((q, m, Z))
+    return loop_events, loop_edges
+
+
+@dataclass
+class ScanSlamResult:
+    trajectory: np.ndarray  # (F, 4, 4) post-PGO world-from-cam
+    trajectory_odo: np.ndarray  # (F, 4, 4) raw odometry chain
+    loop_events: list  # [(query, match, n_inliers)]
+    n_inliers: np.ndarray
+    is_keyframe: np.ndarray
+    tracking_ok: np.ndarray
+    keyframes: object
+    loop_edges: list = None  # accepted (i, j, Z) pose-graph loop edges
+
+
+def _epilogue_one(cfg: PipelineConfig, lc, top_ids, top_scores, ns, fstats, keyframes,
+                  frame_of) -> ScanSlamResult:
+    """Host epilogue: gates -> geometric check -> accept -> PnP loop edges
+    -> one PGO -> keyframe map rewrite.  `fstats` holds host arrays."""
+    traj_odo = np.concatenate([np.eye(4, dtype=np.float32)[None],
+                               np.asarray(fstats.T_wc)], axis=0)
+    gate = EpilogueGater(cfg)
+    accepted = gate.process(lc, top_ids, top_scores, ns, fid_start=1)
+    loop_events, loop_edges = measure_loop_edges(accepted, lc, frame_of, cfg)
+
+    trajectory = traj_odo
+    if loop_edges:
+        dev = keyframes.points.device
+        poses = torch.from_numpy(traj_odo).to(dev)
+        lZ = torch.from_numpy(np.stack([Z for _, _, Z in loop_edges]).astype(np.float32))
+        opt = pg_mod.optimize(
+            poses, traj_odo.shape[0], pg_mod.chain_measurements(poses),
+            torch.tensor([i for i, _, _ in loop_edges], device=dev),
+            torch.tensor([j for _, j, _ in loop_edges], device=dev),
+            lZ.to(dev), torch.ones((len(loop_edges),), dtype=torch.bool, device=dev),
+            iters=cfg.pgo.iters, cg_iters=cfg.pgo.cg_iters, damping=cfg.pgo.damping,
+        )
+        trajectory = opt.cpu().numpy()
+        # Post-PGO map consistency (the reference's updateOdometry): every
+        # keyframe cloud is re-expressed at its optimized pose.
+        fi = keyframes.frame_idx.to(torch.int64)
+        keyframes = keyframes._replace(
+            points=pg_mod.rewrite_points(keyframes.points, keyframes.frame_idx, poses, opt),
+            poses=opt[fi],
+            retrack=keyframes.retrack | keyframes.valid,
+        )
+    return ScanSlamResult(
+        trajectory=trajectory, trajectory_odo=traj_odo, loop_events=loop_events,
+        n_inliers=np.asarray(fstats.n_inliers), is_keyframe=np.asarray(fstats.is_keyframe),
+        tracking_ok=np.asarray(fstats.tracking_ok), keyframes=keyframes,
+        loop_edges=loop_edges,
+    )
+
+
+def run_offline_slam(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, left_seq, right_seq,
+                     device: torch.device | str = "cpu") -> ScanSlamResult:
+    """Full SLAM over a sequence: bootstrap, the frame loop, the epilogue.
+
+    left_seq/right_seq: (F, H, W) float32 or uint8 stacks (frame 0
+    included), numpy arrays or tensors, staged on `device` once; `vocab`
+    is moved there too.
+    """
+    from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage
+
+    grid_pts, grid_mask = _grid_for(cfg, device)
+    left, right = _stage(left_seq, device), _stage(right_seq, device)
+    voc = vocab.to(device)
+    carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg)
+    # frame 0 enters the database too (0 % detect_every == 0)
+    lc, _ = _lc_scan_step(init_lc_state(cfg, device), left[0], 0, voc.centers, voc.idf,
+                          cfg, voc.k)
+    (carry, lc), (fstats, lstats) = run_sequence_slam(
+        left[1:], right[1:], carry, lc, grid_pts, grid_mask, voc.centers, voc.idf, cfg, voc.k)
+    fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
+    top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
+    return _epilogue_one(cfg, lc, top_ids, top_scores, ns, fstats_h, carry.keyframes,
+                         lambda fid: (left[fid], right[fid]))

@@ -44,6 +44,14 @@ def spd_solve(B: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return chol_solve_small(cholesky_small(B), b)
 
 
+def spd_inverse_small(B: torch.Tensor) -> torch.Tensor:
+    """Inverse of (..., n, n) SPD matrices: L^-T L^-1 from :func:`cholesky_small`."""
+    L = cholesky_small(B)
+    eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device).expand(B.shape)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return Linv.transpose(-1, -2) @ Linv
+
+
 def null_vector(A: torch.Tensor, iters: int = 4) -> torch.Tensor:
     """Smallest right singular vector of each (..., m, n) matrix (m >= n-1).
 
@@ -58,8 +66,14 @@ def null_vector(A: torch.Tensor, iters: int = 4) -> torch.Tensor:
     x = torch.ones(A.shape[:-2] + (n,), dtype=A.dtype, device=A.device)
     for _ in range(iters):
         x = chol_solve_small(L, x)
-        x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
-                            min=1e-30)
+        norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        # A pivot clamped to 1e-30 (the shift lost to f32 rounding on an
+        # exactly rank-deficient system) scales x by ~1e30 and its squared
+        # norm overflows; rescale by the largest entry first there.
+        big = x / torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-30)
+        x = torch.where(torch.isfinite(norm), x / torch.clamp(norm, min=1e-30),
+                        big / torch.clamp(torch.linalg.vector_norm(big, dim=-1, keepdim=True),
+                                          min=1e-30))
     return x
 
 

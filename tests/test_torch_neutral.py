@@ -78,7 +78,9 @@ def test_port_import_pulls_in_no_jax():
         "import sys\n"
         "import ros_stereo_slam_tpu_torch\n"
         "from ros_stereo_slam_tpu_torch.models import convert, pipeline, step\n"
+        "from ros_stereo_slam_tpu_torch.models import loop_closure, pose_graph, slam_scan, vocab\n"
         "from ros_stereo_slam_tpu_torch.ops import lk_cuda, pnp, sor, triangulate\n"
+        "from ros_stereo_slam_tpu_torch.ops import anms, fast, orb, orb_cuda, ransac, vocab_cuda\n"
         "from ros_stereo_slam_tpu_torch.kernels import build\n"
         "from ros_stereo_slam_tpu_torch.utils import metrics\n"
         "import torch\n"

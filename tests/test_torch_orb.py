@@ -1,0 +1,212 @@
+"""FAST, ANMS and ORB of the port against the JAX package (jnp route).
+
+Same seeded numpy images go through both packages on the CPU.  Bounds:
+
+- FAST scores, the exact top corners and ANMS are bitwise equal: the
+  port sums the ring in the reference's order, and its top-k keeps the
+  reference's lowest-index-first order among ties (constructed tie cases
+  included).
+- ORB features: the same points (level 0 exactly; levels > 0 within
+  1e-4 px, the f32 rounding of the level-0 mapping), the same validity
+  and octaves, and >= 99.5 % of descriptor bits equal on valid features
+  (bits flip where the two samples of a pair nearly tie; the resize and
+  moment sums round differently, ROADMAP H8).  Measured: every bit and
+  point equal on this frame (124 and 187 valid features).
+- The descriptors' plain version against the jnp route on given corners:
+  moments within 1e-3 + 1e-5 relative, >= 99.5 % bits equal.
+- Fault F3 of the JAX package (ROADMAP queue 3): the Pallas kernel's tile
+  clamp describes a corner 18 px from the left border from a shifted
+  patch, so its moments differ from the jnp route's by far more than
+  rounding; the port follows the jnp route there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ros_stereo_slam_tpu.data.synthetic import _smooth_noise_2d, small_world
+from ros_stereo_slam_tpu.ops import anms as janms
+from ros_stereo_slam_tpu.ops import fast as jfast
+from ros_stereo_slam_tpu.ops import interp as jinterp
+from ros_stereo_slam_tpu.ops import orb as jorb
+from ros_stereo_slam_tpu_torch.ops import anms, fast, orb, topk
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def images():
+    world = small_world(n_frames=2, seed=5)
+    frame = world.render(0)[0].astype(np.float32)
+    noise = _smooth_noise_2d((160, 256), np.random.default_rng(3), octaves=5,
+                             base_period=16)
+    return {"frame": frame, "noise": noise}
+
+
+def test_constants_match_reference():
+    np.testing.assert_array_equal(orb._PAT_P, jorb._PAT_P)
+    np.testing.assert_array_equal(orb._PAT_Q, jorb._PAT_Q)
+    np.testing.assert_array_equal(orb._CENT, jorb._CENT)
+    for n_in, n_out in ((376, 301), (1241, 993), (188, 120)):
+        np.testing.assert_array_equal(orb._resize_matrix(n_in, n_out),
+                                      jorb._resize_matrix(n_in, n_out))
+
+
+@pytest.mark.parametrize("n,levels", [(512, 4), (128, 4), (64, 8), (40, 5), (32, 1)])
+def test_level_budgets_match_reference(n, levels):
+    assert orb._level_budgets(n, levels, 1.25) == jorb._level_budgets(n, levels, 1.25)
+
+
+@pytest.mark.parametrize("name", ["frame", "noise"])
+def test_fast_score_and_top_corners_bitwise(images, name):
+    img = images[name]
+    sj = np.asarray(jfast.fast_score(jnp.asarray(img), 12.0 / 255.0))
+    st = fast.fast_score(torch.from_numpy(img), 12.0 / 255.0)
+    np.testing.assert_array_equal(st.numpy(), sj)
+    pj, vj, mj = jfast.top_corners(jnp.asarray(sj), 400, exact=True)
+    pt, vt, mt = fast.top_corners(st, 400)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+
+
+@pytest.mark.parametrize("k", [1, 7, 64])
+def test_top_k_tie_order_matches_lax(k):
+    """The shared top-k helper: among equal values the lowest index first,
+    as lax.top_k (a tie-heavy integer-valued input, sentinels included)."""
+    import jax
+
+    rng = np.random.default_rng(k)
+    x = rng.integers(0, 5, size=(3, 64)).astype(np.float32)
+    x[:, ::9] = -1e9
+    vj, ij = jax.lax.top_k(jnp.asarray(x), k)
+    vt, it = topk.top_k(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+def test_top_corners_ties_take_lowest_index():
+    """Equal peaks and a zero plateau: the order is the reference's."""
+    score = np.zeros((40, 60), np.float32)
+    score[10::6, 8::7] = 0.5  # 30 isolated equal peaks
+    score[30, 50] = 0.9
+    pj, vj, _ = jfast.top_corners(jnp.asarray(score), 64, exact=True)
+    pt, vt, _ = fast.top_corners(torch.from_numpy(score), 64)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+def test_anms_ties_match_reference():
+    """Integer corners on a lattice with equal scores: the squared radii tie
+    exactly, and the kept set and its order must be the reference's."""
+    rng = np.random.default_rng(0)
+    xs, ys = np.meshgrid(np.arange(20, 200, 9), np.arange(20, 120, 7))
+    pts = np.stack([xs.ravel(), ys.ravel()], 1).astype(np.float32)
+    scores = rng.choice(np.array([0.2, 0.4], np.float32), size=pts.shape[0])
+    mask = rng.random(pts.shape[0]) > 0.1
+    for keep in (16, 64):
+        kj, vj = janms.anms(jnp.asarray(pts), jnp.asarray(scores), jnp.asarray(mask), keep)
+        kt, vt = anms.anms(torch.from_numpy(pts), torch.from_numpy(scores),
+                           torch.from_numpy(mask), keep)
+        np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+@pytest.mark.parametrize("n_features,n_levels", [(128, 4), (200, 1)])
+def test_detect_and_compute_matches_jnp_route(images, n_features, n_levels):
+    img = images["frame"]
+    fj = jorb.detect_and_compute(jnp.asarray(img), n_features, 12.0 / 255.0,
+                                 backend="jnp", n_levels=n_levels)
+    ft = orb.detect_and_compute(torch.from_numpy(img), n_features, 12.0 / 255.0,
+                                n_levels=n_levels)
+    valid = np.asarray(fj.valid)
+    np.testing.assert_array_equal(ft.valid.numpy(), valid)
+    np.testing.assert_array_equal(ft.octave.numpy(), np.asarray(fj.octave))
+    np.testing.assert_allclose(ft.pts.numpy(), np.asarray(fj.pts), atol=1e-4)
+    assert valid.sum() > n_features // 2
+    sj = np.asarray(fj.desc_sign)[valid]
+    st = ft.desc_sign.numpy()[valid]
+    assert (sj == st).mean() >= 0.995, (sj == st).mean()
+    assert not ft.desc_sign.numpy()[~valid].any()  # invalid rows are zero
+    # packed bits hold the reference's uint32 patterns
+    bj = np.asarray(fj.desc_bits)
+    bt = ft.desc_bits.numpy().view(np.uint32)
+    same_rows = (sj == st).all(axis=1)
+    np.testing.assert_array_equal(bt[valid][same_rows], bj[valid][same_rows])
+    assert not bt[~valid].any()
+    np.testing.assert_allclose(ft.angle.numpy()[valid][same_rows],
+                               np.asarray(fj.angle)[valid][same_rows], atol=1e-4)
+
+
+def test_descriptors_plain_matches_jnp_route(images):
+    img = images["noise"]
+    rng = np.random.default_rng(4)
+    pts = np.stack([rng.integers(20, 256 - 20, 64), rng.integers(20, 160 - 20, 64)],
+                   1).astype(np.float32)
+    sign, m = orb._descriptors_plain(torch.from_numpy(img), torch.from_numpy(pts))
+    imgj = jnp.asarray(img)
+    cent = jnp.asarray(jorb._CENT)
+    vals = jinterp.bilinear_at(imgj, (jnp.asarray(pts)[:, None, :] + cent[None])
+                               .reshape(-1, 2)).reshape(64, -1)
+    m10 = np.asarray(jnp.sum(vals * cent[None, :, 0], axis=1))
+    m01 = np.asarray(jnp.sum(vals * cent[None, :, 1], axis=1))
+    np.testing.assert_allclose(m.numpy(), np.stack([m10, m01], 1), atol=1e-3, rtol=1e-5)
+    # the jnp route's bits, from its own _level_features arithmetic
+    ang = np.arctan2(m01, m10)
+    ca, sa = np.cos(ang), np.sin(ang)
+    rot = jnp.asarray(np.stack([np.stack([ca, -sa], -1), np.stack([sa, ca], -1)], -2))
+    rp = jnp.einsum("nij,bj->nbi", rot, jnp.asarray(jorb._PAT_P)) + jnp.asarray(pts)[:, None]
+    rq = jnp.einsum("nij,bj->nbi", rot, jnp.asarray(jorb._PAT_Q)) + jnp.asarray(pts)[:, None]
+    vp = np.asarray(jinterp.bilinear_at(imgj, rp.reshape(-1, 2))).reshape(64, 256)
+    vq = np.asarray(jinterp.bilinear_at(imgj, rq.reshape(-1, 2))).reshape(64, 256)
+    ref = np.where(vp < vq, 1.0, -1.0)
+    assert (sign.numpy() == ref).mean() >= 0.995
+
+
+def test_pack_unpack_and_hamming_match_reference():
+    rng = np.random.default_rng(9)
+    bits = rng.random((12, 256)) > 0.5
+    pj = np.asarray(jorb.pack_bits(jnp.asarray(bits)))
+    pt = orb.pack_bits(torch.from_numpy(bits))
+    np.testing.assert_array_equal(pt.numpy().view(np.uint32), pj)
+    np.testing.assert_array_equal(orb.unpack_bits(pt).numpy(), bits)
+    np.testing.assert_array_equal(orb.sign_of_packed(pt).numpy(),
+                                  np.asarray(jorb.sign_of_packed(jnp.asarray(pj))))
+    sa, sb = orb.sign_of_packed(pt[:5]), orb.sign_of_packed(pt[5:])
+    np.testing.assert_array_equal(
+        orb.hamming_mxu(sa, sb).numpy(),
+        np.asarray(jorb.hamming_packed(jnp.asarray(pj[:5]), jnp.asarray(pj[5:]))))
+
+
+def test_f3_pallas_tile_clamp_shifts_border_corners(images):
+    """Fault F3: orb_pallas clamps the 44x44 tile into the image but keeps
+    the patch centre at 21, so a corner 18 px from the left border (valid:
+    the margin is 17) is described from a patch shifted by 3 px.  Its
+    moments differ from the jnp route's; a corner away from the border
+    agrees.  The port's plain version follows the jnp route."""
+    from ros_stereo_slam_tpu.ops import orb_pallas
+
+    img = images["noise"]
+    pts = np.array([[18.0, 60.0], [100.0, 60.0]], np.float32)
+    _, m_pallas = orb_pallas.orb_descriptors(jnp.asarray(img), jnp.asarray(pts),
+                                             select_dtype="f32", interpret=True)
+    m_pallas = np.asarray(m_pallas)
+    _, m_port = orb._descriptors_plain(torch.from_numpy(img), torch.from_numpy(pts))
+    cent = jnp.asarray(jorb._CENT)
+    vals = jinterp.bilinear_at(jnp.asarray(img), (jnp.asarray(pts)[:, None, :] + cent[None])
+                               .reshape(-1, 2)).reshape(2, -1)
+    m_jnp = np.stack([np.asarray(jnp.sum(vals * cent[None, :, 0], 1)),
+                      np.asarray(jnp.sum(vals * cent[None, :, 1], 1))], 1)
+    # away from the border the kernel agrees with the jnp route...
+    np.testing.assert_allclose(m_pallas[1], m_jnp[1], atol=1e-2)
+    # ... at x = 18 it does not (a shifted patch, not rounding)
+    assert np.abs(m_pallas[0] - m_jnp[0]).max() > 10.0, (m_pallas[0], m_jnp[0])
+    np.testing.assert_allclose(m_port.numpy(), m_jnp, atol=1e-3, rtol=1e-5)

@@ -1,0 +1,204 @@
+"""The vocabulary and sparse BoW of the port against the JAX package.
+
+Same seeded numpy inputs through both packages on the CPU.  Bounds:
+
+- word ids (``_descend``) exactly equal, on random +-1 tables at k = 9,
+  L = 5 (level 4, 59,049 rows, takes the deep gather route in both), and
+  on constructed ties (duplicate sibling rows, all-zero descriptors)
+  through both the dense masked-argmax and the deep route;
+- ``train_batched``: centers exactly equal to the JAX trainer's when both
+  start from the same initial centers (the draws differ: torch cannot
+  reproduce JAX keys), and the same TF-IDF weights within 1e-6;
+- sparse BoW: word lists equal, weights within 1e-6 (L1 norms summed in
+  another order); binned histograms within 1e-6; the bf16 binned scores
+  within one bf16 step of the score (8e-3 relative); exact
+  min-intersection scores within 1e-6;
+- ``vocab_from_numpy`` and the npz layout round-trip exactly.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ros_stereo_slam_tpu.models import vocab as jvocab
+from ros_stereo_slam_tpu_torch.models import convert, vocab
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _signs(rng, shape, dtype=np.float32):
+    return rng.choice(np.array([-1, 1], dtype), size=shape)
+
+
+def _tables(rng, k, levels):
+    return [_signs(rng, (k ** (l + 1), 256), np.int8) for l in range(levels)]
+
+
+def test_descend_word_ids_equal_k9_l5():
+    rng = np.random.default_rng(0)
+    k, L = 9, 5
+    tabs = _tables(rng, k, L)
+    q = _signs(rng, (256, 256))
+    q[::9] = 0.0  # invalid features
+    wj = np.asarray(jvocab._descend([jnp.asarray(t) for t in tabs], jnp.asarray(q), k, L))
+    wt = vocab._descend([torch.from_numpy(t) for t in tabs], torch.from_numpy(q), k, L)
+    np.testing.assert_array_equal(wt.numpy(), wj)
+    assert wj.max() >= k ** 4  # the deep level was reached
+    np.testing.assert_array_equal(wt.numpy()[::9], 0)  # zero rows: child 0 every level
+
+
+@pytest.mark.parametrize("max_dense", [8192, 16])
+def test_descend_ties_first_max(monkeypatch, max_dense):
+    """Duplicate sibling rows and all-zero descriptors: exact ties at every
+    level, on the dense route (all levels <= 8192 rows) and on the deep
+    route (threshold lowered to 16 rows in both packages)."""
+    monkeypatch.setattr(jvocab, "_DESCEND_MASKED_ARGMAX_MAX_NODES", max_dense)
+    monkeypatch.setattr(vocab, "_DESCEND_MASKED_ARGMAX_MAX_NODES", max_dense)
+    rng = np.random.default_rng(7)
+    k, L = 4, 3
+    tabs = []
+    for t in _tables(rng, k, L):
+        t = t.reshape(-1, k, 256)
+        t[:, 2] = t[:, 1]
+        t[:, 3] = t[:, 0]
+        tabs.append(t.reshape(-1, 256))
+    q = _signs(rng, (128, 256))
+    q[::5] = 0.0
+    wj = np.asarray(jvocab._descend([jnp.asarray(t) for t in tabs], jnp.asarray(q), k, L))
+    wt = vocab._descend([torch.from_numpy(t) for t in tabs], torch.from_numpy(q), k, L)
+    np.testing.assert_array_equal(wt.numpy(), wj)
+    assert set(np.unique(wj % k)) <= {0, 1}
+
+
+def _corpus(rng, n=600, n_clusters=12):
+    """Sign descriptors around a few cluster centers (10 % bit noise)."""
+    cent = _signs(rng, (n_clusters, 256))
+    X = cent[rng.integers(0, n_clusters, n)]
+    flip = rng.random(X.shape) < 0.1
+    return np.where(flip, -X, X).astype(np.float32), rng.integers(0, 20, n)
+
+
+def test_train_batched_equal_from_same_init():
+    rng = np.random.default_rng(1)
+    X, docs = _corpus(rng)
+    k, L, iters = 3, 3, 3
+    # The JAX trainer's loop, recording its initial centers per level.
+    Xj = jnp.asarray(X)
+    node = jnp.zeros((X.shape[0],), jnp.int32)
+    key = jax.random.PRNGKey(0)
+    inits, centers_j = [], []
+    for level in range(L):
+        G = k ** (level + 1)
+        key, k1 = jax.random.split(key)
+        C = jvocab._init_level(k1, Xj, node, k, G)
+        inits.append(np.array(C))
+        for _ in range(iters):
+            C = jvocab._update_level(Xj, jvocab._assign_level(Xj, node, C, k), C, G)
+        node = jvocab._assign_level(Xj, node, C, k)
+        centers_j.append(np.asarray(C))
+    voc_j = jvocab.Vocabulary(k=k, levels=L, centers=[jnp.asarray(c) for c in centers_j],
+                              idf=np.ones((k**L,), np.float32))
+    jvocab._idf_of(voc_j, X, docs)
+
+    Xt = torch.from_numpy(X)
+    centers_t = vocab._train_levels(Xt, k, L, iters,
+                                    lambda level, node, G: torch.from_numpy(inits[level]))
+    for ct, cj in zip(centers_t, centers_j):
+        np.testing.assert_array_equal(ct.numpy(), cj)
+    voc_t = vocab.Vocabulary(k=k, levels=L, centers=centers_t, idf=torch.ones(k**L))
+    vocab._idf_of(voc_t, Xt, docs)
+    np.testing.assert_allclose(voc_t.idf.numpy(), voc_j.idf, atol=1e-6)
+
+
+def test_train_batched_seeded_and_clusters():
+    """The port's own draws: one seed, one vocabulary; each cluster of the
+    corpus lands mostly in one word."""
+    rng = np.random.default_rng(2)
+    X, docs = _corpus(rng)
+    a = vocab.train_batched(X, k=3, levels=3, iters=4, seed=5, doc_ids=docs)
+    b = vocab.train_batched(X, k=3, levels=3, iters=4, seed=5, doc_ids=docs)
+    for ca, cb in zip(a.centers, b.centers):
+        assert torch.equal(ca, cb)
+        assert ca.dtype == torch.int8 and set(torch.unique(ca).tolist()) <= {-1, 1}
+    assert torch.equal(a.idf, b.idf)
+    words = vocab.transform_words(a, torch.from_numpy(X)).numpy()
+    assert words.max() < a.n_words
+    assert len(np.unique(words)) >= 6
+
+
+@pytest.fixture(scope="module")
+def small_vocab():
+    rng = np.random.default_rng(3)
+    X, docs = _corpus(rng, n=400)
+    return jvocab.train(X, k=4, levels=3, doc_ids=docs), rng
+
+
+def test_sparse_bow_and_scores_match_reference(small_vocab):
+    voc_j, rng = small_vocab
+    voc_t = convert.vocab_from_numpy(voc_j, "cpu")
+    n_words = voc_j.n_words
+    frames = []
+    for f in range(4):
+        q = _signs(rng, (96, 256))
+        valid = rng.random(96) > 0.2
+        q[~valid] = 0.0
+        wj = jvocab.transform_words(voc_j, jnp.asarray(q))
+        wt = vocab.transform_words(voc_t, torch.from_numpy(q))
+        np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
+        uwj, uvj = jvocab.bow_sparse(wj, jnp.asarray(valid), jnp.asarray(voc_j.idf), n_words)
+        uwt, uvt = vocab.bow_sparse(wt, torch.from_numpy(valid), voc_t.idf, n_words)
+        np.testing.assert_array_equal(uwt.numpy(), np.asarray(uwj))
+        np.testing.assert_allclose(uvt.numpy(), np.asarray(uvj), atol=1e-6)
+        frames.append(((uwj, uvj), (uwt, uvt)))
+    bj = [jvocab.bin_of_sparse(*fj, 64) for fj, _ in frames]
+    bt = [vocab.bin_of_sparse(*ft, 64) for _, ft in frames]
+    for a, b in zip(bt, bj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+    db_j = jnp.stack(bj[1:]).astype(jnp.bfloat16)
+    db_t = torch.stack(bt[1:]).to(torch.bfloat16)
+    sj = np.asarray(jvocab.score_db_binned(bj[0], db_j))
+    st = vocab.score_db_binned(bt[0], db_t).numpy()
+    np.testing.assert_allclose(st, sj, rtol=8e-3, atol=1e-6)
+    (uwj, uvj), (uwt, uvt) = frames[0]
+    for (cj, ct) in frames[1:]:
+        np.testing.assert_allclose(float(vocab.score_pair_min(uwt, uvt, *ct)),
+                                   float(jvocab.score_pair_min(uwj, uvj, *cj)), atol=1e-6)
+    cw_j = jnp.stack([f[0][0] for f in frames[1:]])
+    cv_j = jnp.stack([f[0][1] for f in frames[1:]])
+    cw_t = torch.stack([f[1][0] for f in frames[1:]])
+    cv_t = torch.stack([f[1][1] for f in frames[1:]])
+    np.testing.assert_allclose(vocab.rescore_min(uwt, uvt, cw_t, cv_t).numpy(),
+                               np.asarray(jvocab.rescore_min(uwj, uvj, cw_j, cv_j)), atol=1e-6)
+    # an all-invalid frame has no mass
+    uw0, uv0 = vocab.bow_sparse(wt, torch.zeros(96, dtype=torch.bool), voc_t.idf, n_words)
+    assert not uw0.any() and not uv0.any()
+
+
+def test_vocab_from_numpy_round_trip(small_vocab, tmp_path):
+    voc_j, _ = small_vocab
+    path_j = tmp_path / "jax.npz"
+    voc_j.save(str(path_j))
+    from_file = convert.vocab_from_numpy(path_j, "cpu")
+    from_obj = convert.vocab_from_numpy(voc_j, "cpu")
+    for v in (from_file, from_obj):
+        assert (v.k, v.levels, v.n_words) == (voc_j.k, voc_j.levels, voc_j.n_words)
+        for ct, cj in zip(v.centers, voc_j.centers):
+            assert ct.dtype == torch.int8
+            np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+        np.testing.assert_array_equal(v.idf.numpy(), voc_j.idf)
+    path_t = tmp_path / "port.npz"
+    from_file.save(str(path_t))
+    back = jvocab.Vocabulary.load(str(path_t))
+    assert (back.k, back.levels) == (voc_j.k, voc_j.levels)
+    for cb, cj in zip(back.centers, voc_j.centers):
+        np.testing.assert_array_equal(np.asarray(cb), np.asarray(cj))
+    np.testing.assert_array_equal(back.idf, voc_j.idf)

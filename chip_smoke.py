@@ -10,18 +10,26 @@ Phases (any failure exits non-zero and prints no result line):
 2. build: every kernel (K1 ``lk_level``, K2 ``orb_desc``, K3
    ``vocab_descend``) from ``csrc/``, one ``nvcc`` per source, all started
    together (timed);
-3. render (host, worker processes): the bench corridor and the jittered
-   two-lap revisit world, both at full KITTI geometry (1241x376);
+3. render (host, worker processes): the bench corridor and two jittered
+   two-lap revisit worlds (A, the bench's, and B, other seeds), all at
+   full KITTI geometry (1241x376);
 4. vocab: the full-width vocabulary (k = 9, L = 6: 531,441 words) trained
    on the card with ``train_batched`` from every 8th revisit frame;
-5. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, with median times from CUDA events;
+5. kernels: each kernel (K1, K2, K3 and the lane-gridded K1b, K2b)
+   against its plain PyTorch version on the card, at the main path's
+   shapes, with median times from CUDA events and the bound of each
+   call's work on the card;
 6. slice: the stereo-odometry path (``run_offline`` on ``cuda:0``) over the
    corridor, checked against ground truth, with K1's launch count from that
    run; then the streaming driver (``StereoOdometry``) against ``run_offline``;
 7. slam: full SLAM with loop closure (``run_offline_slam`` on ``cuda:0``,
    ``preset_loop_closure()`` at its defaults) over 257 revisit frames,
-   checked against ground truth, with K1/K2/K3 launch counts from that run.
+   checked against ground truth, with K1/K2/K3 launch counts from that run;
+8. batched_odo: the corridor split into 2 lanes of 24 frames through
+   ``step_batched.run_sequence_batched`` (bench.py's batched row), each
+   lane held against its single-lane run, with K1b's launch count;
+9. batched_slam: ``run_offline_slam_batched`` over worlds A and B as two
+   lanes, checked per lane against ground truth, with K1b/K2b/K3 counts.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -75,6 +83,22 @@ K2_MAX_CORNER_BITS = 4
 K2_MOMENT_ATOL = 2e-3
 K2_MOMENT_RTOL = 1e-5
 WARM_RUNS = 3
+# Batched lanes: the corridor splits into 2 lanes of FRAMES // 2 frames
+# (bench.py --lanes 2); full SLAM runs the revisit worlds A and B as 2
+# lanes.  A lane's poses must match its single-lane run with the same key
+# within LANE_TOL_M (the bound of tests/test_batched.py).
+LANES = 2
+LANE_TOL_M = 1e-4
+SLAM_WARM_RUNS_BATCHED = 2
+# Revisit worlds: (plan seed, world seed); A is bench.py's.  Frame 256
+# starts a third lap with a fresh jitter and brightness, a jump that some
+# seed pairs leave with under 10 PnP inliers; B's pair keeps >= 44 there.
+REVISIT_SEEDS = {"A": (17, 11), "B": (53, 59)}
+# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet): HBM bytes/s, float32 FLOP/s outside the tensor
+# cores, int8 OP/s.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+PEAK_INT8_S = 1979e12
 
 
 def log(msg: str) -> None:
@@ -141,12 +165,13 @@ def _render_job(world_kw: dict, indices: list) -> list:
     return [world.render(i) for i in indices]
 
 
-def _revisit_plan(n_total: int, shape: tuple[int, int]):
+def _revisit_plan(n_total: int, shape: tuple[int, int], plan_seed: int, world_seed: int):
     """The jittered revisit world of bench.py (--world revisit --jitter):
     laps of a circle, lap 2+ with smoothly jittered poses, a per-lap
-    brightness and per-frame sensor noise, drawn from one generator in the
-    bench's order.  Returns (render jobs, per-frame (brightness, noise),
-    ground-truth poses)."""
+    brightness and per-frame sensor noise, drawn from one generator
+    (`plan_seed`; the bench's is 17) in the bench's order, textures from
+    `world_seed` (the bench's is 11).  Returns (render jobs, per-frame
+    (brightness, noise), ground-truth poses)."""
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.data.synthetic import jitter_poses
@@ -160,7 +185,7 @@ def _revisit_plan(n_total: int, shape: tuple[int, int]):
         lap_poses[i] = np.eye(4)
         lap_poses[i, :3, :3] = np.array([[c, 0.0, sn], [0.0, 1.0, 0.0], [-sn, 0.0, c]])
         lap_poses[i, :3, 3] = np.array([r * (1 - c), 0.0, r * sn])
-    rng = np.random.default_rng(17)
+    rng = np.random.default_rng(plan_seed)
     jobs, post, gt = [], [], []
     for lap_i in range(-(-n_total // lap)):
         poses_l = (lap_poses if lap_i == 0
@@ -171,16 +196,17 @@ def _revisit_plan(n_total: int, shape: tuple[int, int]):
             gt.append(poses_l[i])
             post.append((b, rng.normal(0, 0.02, shape).astype(np.float32)) if lap_i > 0
                         else None)
-        jobs.append((dict(n_frames=lap, seed=11, custom_poses=poses_l,
+        jobs.append((dict(n_frames=lap, seed=world_seed, custom_poses=poses_l,
                           half_w=max(3.0 * r, 18.0), end_z=max(6.0 * r, 260.0)), idx))
     return jobs, post, np.stack(gt)
 
 
 def phase_render():
-    """Both worlds at full KITTI geometry, rendered by worker processes.
+    """The corridor and both revisit worlds at full KITTI geometry, rendered
+    by worker processes.
 
-    Returns ((corridor left, right, depth0, poses, camera),
-    (revisit left, right, poses))."""
+    Returns ((corridor left, right, depths {0, 24}, poses, camera),
+    {"A": (revisit left, right, poses), "B": ...}, workers)."""
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.config import CameraConfig
@@ -190,25 +216,32 @@ def phase_render():
     # The bench corridor (bench.py::_render_world): seed 11, half_w 18 m.
     corridor_kw = dict(n_frames=FRAMES + 1, seed=11, half_w=18.0)
     corridor_poses = SyntheticWorld(camera=cam, **corridor_kw).poses
-    rev_jobs, rev_post, rev_gt = _revisit_plan(SLAM_FRAMES + 1, (cam.height, cam.width))
+    plans = {name: _revisit_plan(SLAM_FRAMES + 1, (cam.height, cam.width), *seeds)
+             for name, seeds in REVISIT_SEEDS.items()}
     chunks = []  # (world kwargs, frame indices), 8 frames each
-    for kw, idx in [(corridor_kw, list(range(FRAMES + 1)))] + rev_jobs:
+    for kw, idx in [(corridor_kw, list(range(FRAMES + 1)))] + [
+            job for jobs, _, _ in plans.values() for job in jobs]:
         chunks += [(kw, idx[i:i + 8]) for i in range(0, len(idx), 8)]
     workers = max(1, min(8, os.cpu_count() or 1))
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
         frames = [f for part in pool.starmap(_render_job, chunks) for f in part]
-    corridor, revisit = frames[:FRAMES + 1], frames[FRAMES + 1:]
-    lefts, rights = [], []
-    for (left, right, _), pp in zip(revisit, rev_post):
-        if pp is not None:  # photometric jitter on the revisit laps
-            b, noise = pp
-            left = np.clip(left * b + noise, 0, 1)
-            right = np.clip(right * b + noise, 0, 1)
-        lefts.append(left)
-        rights.append(right)
+    corridor, rest = frames[:FRAMES + 1], frames[FRAMES + 1:]
+    worlds = {}
+    for name, (_, post, gt) in plans.items():
+        revisit, rest = rest[:SLAM_FRAMES + 1], rest[SLAM_FRAMES + 1:]
+        lefts, rights = [], []
+        for (left, right, _), pp in zip(revisit, post):
+            if pp is not None:  # photometric jitter on the revisit laps
+                b, noise = pp
+                left = np.clip(left * b + noise, 0, 1)
+                right = np.clip(right * b + noise, 0, 1)
+            lefts.append(left)
+            rights.append(right)
+        worlds[name] = (np.stack(lefts), np.stack(rights), gt)
+    per = FRAMES // LANES
     return ((np.stack([f[0] for f in corridor]), np.stack([f[1] for f in corridor]),
-             corridor[0][2], corridor_poses, cam),
-            (np.stack(lefts), np.stack(rights), rev_gt), workers)
+             {0: corridor[0][2], per: corridor[per][2]}, corridor_poses, cam),
+            worlds, workers)
 
 
 def cuda_ms(torch, fn, reps: int = 25) -> float:
@@ -228,7 +261,33 @@ def cuda_ms(torch, fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def k1_cases(torch, left, depth0, poses, cam, dev):
+K1_N, K1_S = 768, 15
+
+
+def _k1_points(rng, shape, depth, poses, i, cam):
+    """K1_N points of corridor frame i whose true position in frame i + 1
+    stays >= 40 px inside the image: (points, true positions in i + 1),
+    from the rendered depth of frame i."""
+    import numpy as np
+
+    H, W = shape
+    n, m = K1_N, 40
+    cand = np.stack([rng.uniform(m, W - m, 8 * n), rng.uniform(m, H - m, 8 * n)],
+                    axis=1)
+    z = depth[cand[:, 1].astype(int), cand[:, 0].astype(int)].astype(np.float64)
+    pc = np.stack([(cand[:, 0] - cam.cx) / cam.fx * z,
+                   (cand[:, 1] - cam.cy) / cam.fy * z, z], axis=1)
+    T01 = np.linalg.inv(poses[i + 1]) @ poses[i]
+    q = pc @ T01[:3, :3].T + T01[:3, 3]
+    uv1 = np.stack([cam.fx * q[:, 0] / q[:, 2] + cam.cx,
+                    cam.fy * q[:, 1] / q[:, 2] + cam.cy], axis=1)
+    keep = np.nonzero((uv1[:, 0] >= m) & (uv1[:, 0] < W - m)
+                      & (uv1[:, 1] >= m) & (uv1[:, 1] < H - m))[0][:n]
+    check(keep.size == n, f"only {keep.size} interior K1 points in frame {i}")
+    return cand[keep].astype(np.float32), uv1[keep]
+
+
+def k1_cases(torch, left, depths, poses, cam, dev):
     """K1 inputs at the main path's shapes: corridor frames 0 and 1, N = 768
     points whose true position stays >= 40 px inside both frames.  Guesses
     are the true flow plus noise, as the path hands them over: up to 1 px
@@ -240,23 +299,8 @@ def k1_cases(torch, left, depth0, poses, cam, dev):
     from ros_stereo_slam_tpu_torch.ops import lk, pyramid
 
     rng = np.random.default_rng(0)
-    H, W = left.shape[1:]
-    n, S, m = 768, 15, 40
-    cand = np.stack([rng.uniform(m, W - m, 8 * n), rng.uniform(m, H - m, 8 * n)],
-                    axis=1)
-    # True flow from frame 0 to 1: back-project with the rendered depth.
-    z = depth0[cand[:, 1].astype(int), cand[:, 0].astype(int)].astype(np.float64)
-    pc = np.stack([(cand[:, 0] - cam.cx) / cam.fx * z,
-                   (cand[:, 1] - cam.cy) / cam.fy * z, z], axis=1)
-    T01 = np.linalg.inv(poses[1]) @ poses[0]
-    q = pc @ T01[:3, :3].T + T01[:3, 3]
-    uv1 = np.stack([cam.fx * q[:, 0] / q[:, 2] + cam.cx,
-                    cam.fy * q[:, 1] / q[:, 2] + cam.cy], axis=1)
-    keep = np.nonzero((uv1[:, 0] >= m) & (uv1[:, 0] < W - m)
-                      & (uv1[:, 1] >= m) & (uv1[:, 1] < H - m))[0][:n]
-    check(keep.size == n, f"only {keep.size} interior K1 points")
-    pts = cand[keep].astype(np.float32)
-    uv1 = uv1[keep]
+    S = K1_S
+    pts, uv1 = _k1_points(rng, left.shape[1:], depths[0], poses, 0, cam)
 
     def seed(noise_px, scale=1.0):
         g = (uv1 + rng.uniform(-noise_px, noise_px, uv1.shape)) / scale
@@ -273,6 +317,39 @@ def k1_cases(torch, left, depth0, poses, cam, dev):
         ("L2 311x94 iters=10", ref_pyr[2], cur_pyr[2], (p / 4.0).contiguous(),
          seed(2.0, 4.0), base),
     ]
+
+
+def _bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32_S) -> dict:
+    """The least time the card could take for a call's work: the larger of
+    its bytes over the memory rate and its operations over the peak rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "bytes": nbytes, "ops": ops}
+
+
+def lk_work(lanes: int, H: int, W: int, n: int, S: int, iters: int) -> dict:
+    """K1's work on `lanes` lanes: both images of each lane read once, the
+    points and guesses read and the (N, 2) outputs written; operations per
+    point: the (S+2)^2 template samples (9 each), gradients and structure
+    tensor (16 per pixel), at most `iters` GN steps of S^2 samples and
+    products (14 per pixel; the early stop only lowers this, and the bytes
+    bound these shapes either way) and the residual (12 per pixel)."""
+    nbytes = lanes * (2 * H * W * 4 + n * 4 * 4 + n * 4 * 4)
+    ops = lanes * n * (9 * (S + 2) ** 2 + S * S * (16 + 14 * iters + 12))
+    return _bound(nbytes, ops)
+
+
+def orb_work(lanes: int, H: int, W: int, n: int) -> dict:
+    """K2's work on `lanes` lanes: each level image read once with the
+    corners and the constant patterns, the (N, 256) signs and (N, 2)
+    moments written; per corner 709 centroid samples (9 + 2 operations
+    each) and 512 rotated samples (4 + 9 each) and 256 compares."""
+    from ros_stereo_slam_tpu_torch.ops import orb
+
+    consts = (orb._CENT.size + orb._PAT_P.size + orb._PAT_Q.size) * 4
+    nbytes = lanes * (H * W * 4 + n * 2 * 4 + n * 256 * 4 + n * 2 * 4) + consts
+    ops = lanes * n * (len(orb._CENT) * 11 + 512 * 13 + 256)
+    return _bound(nbytes, ops)
 
 
 def phase_kernels(torch, cases) -> dict:
@@ -307,7 +384,110 @@ def phase_kernels(torch, cases) -> dict:
         worst = max(worst, err)
         rows.append((ms, plain_ms))
     # The headline time is the seeded temporal track (the per-frame call).
-    return {"max_abs_err": worst, "ms": rows[0][0], "plain_ms": rows[0][1]}
+    _, ref, _, pts, _, params = cases[0]
+    work = lk_work(1, *ref.shape, pts.shape[0], params.window, params.iters)
+    return {"max_abs_err": worst, "ms": rows[0][0], "plain_ms": rows[0][1], **work}
+
+
+def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
+    """K1b (``lk_level_batch_f32``) against its plain version (a loop of
+    lk._track_level over lanes) on the card: the batched odometry's two
+    lanes, corridor frames 0 -> 1 and 24 -> 25 at level 0 (1241x376), N =
+    768 points each, 6 iterations, guesses within 1 px of the truth; K1's
+    bounds.  Each lane must also equal the single-lane kernel's result
+    bitwise (one kernel body)."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.ops import interp, lk, lk_cuda
+
+    rng = np.random.default_rng(1)
+    starts = [b * (FRAMES // LANES) for b in range(LANES)]
+    pts, guesses = [], []
+    for i in starts:
+        p, uv1 = _k1_points(rng, left.shape[1:], depths[i], poses, i, cam)
+        pts.append(p)
+        guesses.append((uv1 + rng.uniform(-1.0, 1.0, uv1.shape)).astype(np.float32))
+    ref = torch.from_numpy(np.stack([left[i] for i in starts])).to(dev)
+    cur = torch.from_numpy(np.stack([left[i + 1] for i in starts])).to(dev)
+    P = torch.from_numpy(np.stack(pts)).to(dev)
+    G = torch.from_numpy(np.stack(guesses)).to(dev)
+    params = lk.LKParams(window=K1_S, levels=4, iters=6)
+    kg, kr, kok = lk_cuda.track_level_batch(ref, cur, P, G, params)
+    pg, pr, pok = lk_cuda.track_level_batch_plain(ref, cur, P, G, params)
+    singles = [lk_cuda.track_level(ref[b], cur[b], P[b], G[b], params) for b in range(LANES)]
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(kg).all()), "K1b: non-finite points")
+    H, W = ref.shape[1:]
+    inner = interp.in_bounds(kg, H, W, K1_BORDER_PX) & interp.in_bounds(pg, H, W, K1_BORDER_PX)
+    n, n_in = kok.numel(), int(inner.sum())
+    n_ok_diff = int((kok != pok).sum())
+    err = float((kg - pg)[inner].abs().max())
+    rerr = float((kr - pr)[inner].abs().max())
+    same = all(torch.equal(kg[b], s[0]) and torch.equal(kr[b], s[1]) for b, s in
+               enumerate(singles))
+    ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch(ref, cur, P, G, params))
+    plain_ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch_plain(ref, cur, P, G, params))
+    log(f"K1b {LANES} lanes L0 {W}x{H} iters=6: N={K1_N} per lane, ok={int(kok.sum())} "
+        f"ok_mismatch={n_ok_diff} compared={n_in} max|dpts|={err:.3e} px "
+        f"max|dresid|={rerr:.3e}; lanes equal the single-lane kernel: {same}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)")
+    check(n_ok_diff == 0, f"K1b: ok differs on {n_ok_diff} points")
+    check(n_in >= 0.95 * n, f"K1b: only {n_in}/{n} points stay interior")
+    check(err <= K1_PTS_ATOL, f"K1b: points differ by {err} px")
+    check(rerr <= K1_RESID_ATOL, f"K1b: resid differs by {rerr}")
+    check(same, "K1b: a lane differs from the single-lane kernel on the same inputs")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **lk_work(LANES, H, W, K1_N, K1_S, 6)}
+
+
+def k2b_phase(torch, imgs, cfg) -> dict:
+    """K2b (``orb_desc_batch_f32``) against its plain version (a loop of
+    orb._descriptors_plain over lanes) on the card at the four ORB levels of
+    two lanes (a jittered frame of world A and one of world B), on the
+    corners FAST + ANMS pick there; K2's bounds.  Each lane must equal the
+    single-lane kernel's result bitwise (one kernel body)."""
+    from ros_stereo_slam_tpu_torch.ops import orb, orb_cuda
+
+    lcc = cfg.loop
+    budgets = orb._level_budgets(lcc.orb_features, lcc.orb_levels, 1.25)
+    levels = orb.level_images(imgs, lcc.orb_levels, 1.25)
+    worst, n_bits, n_diff, rows = 0.0, 0, 0, []
+    for l, (lvl, budget) in enumerate(zip(levels, budgets)):
+        pts, valid = orb._level_corners(lvl, budget, cfg.frontend.fast_thresh / 255.0)
+        ks, km = orb_cuda.orb_descriptors_batch(lvl, pts)
+        ps, pm = orb_cuda.orb_descriptors_batch_plain(lvl, pts)
+        singles = [orb_cuda.orb_descriptors(lvl[b], pts[b]) for b in range(LANES)]
+        torch.cuda.synchronize()
+        per_corner = (ks != ps)[valid].sum(dim=-1)
+        diff = int(per_corner.sum())
+        corner_max = int(per_corner.max()) if per_corner.numel() else 0
+        nv = int(valid.sum())
+        merr = float((km - pm).abs().max())
+        m_ok = bool(((km - pm).abs() <= K2_MOMENT_ATOL + K2_MOMENT_RTOL * pm.abs()).all())
+        same = all(torch.equal(ks[b], s[0]) and torch.equal(km[b], s[1])
+                   for b, s in enumerate(singles))
+        ms = cuda_ms(torch, lambda: orb_cuda.orb_descriptors_batch(lvl, pts))
+        plain_ms = cuda_ms(torch, lambda: orb_cuda.orb_descriptors_batch_plain(lvl, pts))
+        H, W = lvl.shape[1:]
+        log(f"K2b level {l} {LANES}x{W}x{H}: N={budget} per lane, valid={nv} bits differing "
+            f"{diff}/{nv * 256} (at most {corner_max} in one corner) max|dm|={merr:.3e}; "
+            f"lanes equal the single-lane kernel: {same}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (median of 25)")
+        check(nv > LANES * budget // 2, f"K2b level {l}: only {nv} valid corners")
+        check(m_ok, f"K2b level {l}: moments differ by {merr}")
+        check(corner_max <= K2_MAX_CORNER_BITS,
+              f"K2b level {l}: a corner differs in {corner_max} bits > {K2_MAX_CORNER_BITS}")
+        check(same, f"K2b level {l}: a lane differs from the single-lane kernel")
+        worst = max(worst, merr)
+        n_bits += nv * 256
+        n_diff += diff
+        rows.append((ms, plain_ms))
+    agree = 1.0 - n_diff / n_bits
+    log(f"K2b: bit agreement {agree:.5f} over {n_bits} bits of valid features "
+        f"(bound {K2_MIN_AGREE})")
+    check(agree >= K2_MIN_AGREE, f"K2b bit agreement {agree} < {K2_MIN_AGREE}")
+    return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
+            "plain_ms": rows[0][1], **orb_work(LANES, *levels[0].shape[1:], budgets[0])}
 
 
 def phase_vocab(torch, left, cfg, dev):
@@ -385,7 +565,7 @@ def k2_phase(torch, img, cfg) -> dict:
     check(agree >= K2_MIN_AGREE, f"K2 bit agreement {agree} < {K2_MIN_AGREE}")
     # The headline time is level 0 (the largest call of a detection frame).
     return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
-            "plain_ms": rows[0][1]}
+            "plain_ms": rows[0][1], **orb_work(1, *levels[0].shape, budgets[0])}
 
 
 def k3_phase(torch, img, voc, cfg) -> dict:
@@ -412,8 +592,18 @@ def k3_phase(torch, img, voc, cfg) -> dict:
         f"{first}..{len(voc.centers) - 1} {[tuple(c.shape) for c in deep]}: word ids "
         f"differing {mismatches}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)")
     check(mismatches == 0, f"K3: {mismatches} word ids differ from the plain version")
+    # Bound: the descriptors and node ids read, the word ids written, and the
+    # k sibling rows of every node this run's descriptors visit, read once
+    # per level; k int8 dot products of 256 per descriptor and level.
+    rows_read, nodes = 0, node
+    for tbl in deep:
+        rows_read += int(torch.unique(nodes).numel()) * voc.k
+        nodes = vocab._deep_descend_plain(q, nodes, [tbl], voc.k)
+    n = q.shape[0]
+    work = _bound(n * 256 * 4 + 2 * n * 8 + rows_read * 256,
+                  n * len(deep) * voc.k * 256 * 2, PEAK_INT8_S)
     return {"max_abs_err": float((out - ref).abs().max()), "mismatches": mismatches,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms, **work}
 
 
 def phase_slice(torch, left, right, poses, cam, dev) -> dict:
@@ -539,6 +729,155 @@ def phase_slam(torch, voc, left, right, gt, cfg, dev) -> dict:
             "events": events}
 
 
+def phase_batched_odo(torch, left, right, poses, cam, dev) -> dict:
+    """bench.py's batched row (--lanes 2) on the card: the corridor splits
+    into 2 lanes of 24 frames through step_batched.run_sequence_batched at
+    preset_odometry(); one cold run, then warm runs, counts from the first
+    warm run.  Each lane is held against the single-lane run of the same
+    frames with that lane's key."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.config import preset_odometry
+    from ros_stereo_slam_tpu_torch.models import pipeline, step, step_batched
+    from ros_stereo_slam_tpu_torch.ops import lk_cuda
+    from ros_stereo_slam_tpu_torch.utils import metrics
+
+    cfg = preset_odometry().replace(camera=cam)
+    per = FRAMES // LANES
+    starts = [b * per for b in range(LANES)]
+    L = torch.from_numpy(left).to(dev)
+    R = torch.from_numpy(right).to(dev)
+    Ls = torch.stack([L[s:s + per + 1] for s in starts])  # (B, per + 1, H, W)
+    Rs = torch.stack([R[s:s + per + 1] for s in starts])
+    gp, gm = pipeline._grid_for(cfg, dev)
+    keys = step_batched.lane_keys(cfg.seed, LANES)
+
+    def run():
+        c0 = step.init_carry_batched(Ls[:, 0], Rs[:, 0], gp, gm, keys, cfg)
+        return step_batched.run_sequence_batched(Ls[:, 1:], Rs[:, 1:], c0, gp, gm, cfg)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    times, counts = [], None
+    for rep in range(WARM_RUNS):
+        if rep == 0:
+            lk_cuda.LAUNCHES = lk_cuda.BATCH_LAUNCHES = 0
+            step.HOST_READS = step.RESCUES = 0
+        t0 = time.perf_counter()
+        _, st = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            counts = dict(k1=lk_cuda.LAUNCHES, k1b=lk_cuda.BATCH_LAUNCHES,
+                          host_reads=step.HOST_READS, rescues=step.RESCUES)
+    T = st.T_wc.cpu().numpy()  # (per, B, 4, 4)
+    check(T.shape == (per, LANES, 4, 4), f"stats shape {T.shape}")
+    check(bool(np.isfinite(T).all()), "non-finite poses")
+    tracked = st.tracking_ok.cpu().numpy()
+    ates, lane_diff = [], []
+    for b, s0 in enumerate(starts):
+        traj = np.concatenate([np.eye(4, dtype=np.float32)[None], T[:, b]])
+        ates.append(metrics.ate_rmse(traj, poses[s0:s0 + per + 1]))
+        c = step.init_carry(Ls[b, 0], Rs[b, 0], gp, gm, keys[b], cfg)
+        _, ss = step.run_sequence(Ls[b, 1:], Rs[b, 1:], c, gp, gm, cfg)
+        lane_diff.append(float(np.abs(T[:, b, :3, 3] - ss.T_wc[:, :3, 3].cpu().numpy()).max()))
+    med = statistics.median(times)
+    log(f"batched_odo: {LANES} lanes x {per} frames {left.shape[2]}x{left.shape[1]}, cold "
+        f"{first_s:.3f} s, warm runs {[round(t, 4) for t in times]} s, median {med:.4f} s "
+        f"-> {LANES * per / med:.2f} fps aggregate (B * per / median, as bench.py)")
+    log(f"batched_odo: ATE per lane {[round(a, 4) for a in ates]} m (bound {ATE_BOUND_M}), "
+        f"keyframes per lane {(st.is_keyframe.sum(0) + 1).tolist()}, rescues {counts['rescues']}, "
+        f"host reads/frame {counts['host_reads'] / per:.2f}, K1b launches {counts['k1b']}, "
+        f"K1 launches {counts['k1']}, max |dt| vs the single-lane runs per lane "
+        f"{[f'{d:.2e}' for d in lane_diff]} m, all tracked {bool(tracked.all())}")
+    check(bool(tracked.all()), f"batched tracking lost at (frame, lane) {np.argwhere(~tracked)}")
+    check(max(ates) < ATE_BOUND_M, f"worst-lane ATE {max(ates)} m >= {ATE_BOUND_M} m")
+    check(counts["host_reads"] == 2 * per,
+          f"{counts['host_reads']} host reads over {per} frames, not 2 per frame")
+    check(counts["k1b"] > 0, "the batched path launched no K1b kernel")
+    check(counts["k1"] == 0, f"the batched path launched the single-lane K1 {counts['k1']} times")
+    check(max(lane_diff) <= LANE_TOL_M,
+          f"a lane differs from its single-lane run by {max(lane_diff)} m > {LANE_TOL_M}")
+    return {"launches": counts["k1b"], "fps": LANES * per / med, "ate_worst": max(ates),
+            "lane_diff": max(lane_diff)}
+
+
+def phase_batched_slam(torch, voc, worlds, cfg, dev) -> dict:
+    """run_offline_slam_batched on the card over revisit worlds A and B as two
+    lanes (preset_loop_closure() at its defaults): one cold run, then warm
+    runs, counts from the first warm run; every lane checked as phase slam
+    checks its run."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.models import slam_scan, step
+    from ros_stereo_slam_tpu_torch.ops import lk_cuda, orb_cuda, vocab_cuda
+    from ros_stereo_slam_tpu_torch.utils import metrics
+
+    L = torch.from_numpy(np.stack([worlds[n][0] for n in REVISIT_SEEDS])).to(dev)
+    R = torch.from_numpy(np.stack([worlds[n][1] for n in REVISIT_SEEDS])).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam_scan.run_offline_slam_batched(cfg, voc, L, R, device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    times, counts = [], None
+    for rep in range(SLAM_WARM_RUNS_BATCHED):
+        if rep == 0:
+            lk_cuda.LAUNCHES = lk_cuda.BATCH_LAUNCHES = 0
+            orb_cuda.LAUNCHES = orb_cuda.BATCH_LAUNCHES = vocab_cuda.LAUNCHES = 0
+            step.HOST_READS = step.RESCUES = 0
+        t0 = time.perf_counter()
+        res = slam_scan.run_offline_slam_batched(cfg, voc, L, R, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            counts = dict(k1=lk_cuda.LAUNCHES, k1b=lk_cuda.BATCH_LAUNCHES,
+                          k2=orb_cuda.LAUNCHES, k2b=orb_cuda.BATCH_LAUNCHES,
+                          k3=vocab_cuda.LAUNCHES, host_reads=step.HOST_READS,
+                          rescues=step.RESCUES)
+    F = L.shape[1] - 1
+    med = statistics.median(times)
+    log(f"batched_slam: {LANES} lanes x {F + 1} revisit frames, cold {first_s:.3f} s, warm "
+        f"runs {[round(t, 4) for t in times]} s, median {med:.4f} s -> "
+        f"{LANES * F / med:.2f} fps aggregate (B * F / median)")
+    log(f"batched_slam: launches K1b {counts['k1b']}, K2b {counts['k2b']}, K3 {counts['k3']} "
+        f"(single-lane K1 {counts['k1']} and K2 {counts['k2']}: the epilogue's loop edges "
+        f"and checks), host reads/frame {counts['host_reads'] / F:.2f}, rescues "
+        f"{counts['rescues']}")
+    out = []
+    for name, r in zip(REVISIT_SEEDS, res):
+        gt = worlds[name][2]
+        traj = r.trajectory
+        check(traj.shape == (F + 1, 4, 4), f"lane {name}: trajectory shape {traj.shape}")
+        check(bool(np.isfinite(traj).all()), f"lane {name}: non-finite poses")
+        ate = metrics.ate_rmse(traj, gt)
+        ate_odo = metrics.ate_rmse(r.trajectory_odo, gt)
+        events = [(int(q), int(m), int(n)) for q, m, n in r.loop_events]
+        log(f"batched_slam lane {name}: ATE post-PGO {ate:.4f} m, odometry only "
+            f"{ate_odo:.4f} m; loop events (query, match, inliers) {events}; keyframes "
+            f"{1 + int(r.is_keyframe.sum())}; min PnP inliers {int(r.n_inliers.min())}; all "
+            f"tracked {bool(r.tracking_ok.all())}")
+        check(bool(r.tracking_ok.all()),
+              f"lane {name}: tracking lost on frames {np.nonzero(~r.tracking_ok)[0] + 1}")
+        check(len(events) >= 1, f"lane {name}: no loop closure accepted")
+        for q, m, _ in events:
+            d = (q - m) % LAP
+            check(min(d, LAP - d) <= REVISIT_TOL,
+                  f"lane {name}: closure ({q}, {m}) is not within {REVISIT_TOL} frames of a "
+                  f"true revisit")
+        check(ate < ate_odo, f"lane {name}: post-PGO ATE {ate} m is not below odometry-only "
+                             f"{ate_odo} m")
+        out.append({"lane": name, "ate": ate, "ate_odo": ate_odo, "events": events})
+    for k in ("k1b", "k2b", "k3"):
+        check(counts[k] > 0, f"the batched full-SLAM path launched no {k} kernel")
+    check(counts["host_reads"] == 2 * F,
+          f"{counts['host_reads']} host reads over {F} frames, not 2 per frame")
+    return {"counts": counts, "fps": LANES * F / med, "lanes": out}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         log(f"FAIL: package {PKG}/ not found beside chip_smoke.py")
@@ -549,6 +888,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("FAIL: torch.cuda.is_available() is false; this smoke run needs a GPU")
         return 2
+    import numpy as np
+
     import ros_stereo_slam_tpu_torch  # noqa: F401  (sets the float policy)
 
     dev = torch.device("cuda:0")
@@ -567,37 +908,51 @@ def main() -> int:
     try:
         timed("toolchain", phase_toolchain, torch)
         timed("build", phase_build)
-        (left, right, depth0, poses, cam), (rl, rr, rgt), workers = timed(
-            "render", phase_render)
-        log(f"rendered {left.shape[0]} corridor + {rl.shape[0]} revisit frames with "
-            f"{workers} worker processes (host)")
+        (left, right, depths, poses, cam), worlds, workers = timed("render", phase_render)
+        rl, rr, rgt = worlds["A"]
+        log(f"rendered {left.shape[0]} corridor + {len(worlds)} x {rl.shape[0]} revisit "
+            f"frames with {workers} worker processes (host)")
         slam_cfg = slam_cfg.replace(camera=cam)
         voc = timed("vocab", phase_vocab, torch, rl, slam_cfg, dev)
         k1 = timed("kernels_k1", phase_kernels, torch,
-                   k1_cases(torch, left, depth0, poses, cam, dev))
+                   k1_cases(torch, left, depths, poses, cam, dev))
         probe = torch.from_numpy(rl[LAP + 2]).to(dev)  # a jittered revisit frame
         k2 = timed("kernels_k2", k2_phase, torch, probe, slam_cfg)
         k3 = timed("kernels_k3", k3_phase, torch, probe, voc, slam_cfg)
+        k1b = timed("kernels_k1b", k1b_phase, torch, left, depths, poses, cam, dev)
+        probes = torch.from_numpy(np.stack([worlds[n][0][LAP + 2] for n in REVISIT_SEEDS]))
+        k2b = timed("kernels_k2b", k2b_phase, torch, probes.to(dev), slam_cfg)
         sl = timed("slice", phase_slice, torch, left, right, poses, cam, dev)
         sm = timed("slam", phase_slam, torch, voc, rl, rr, rgt, slam_cfg, dev)
+        bo = timed("batched_odo", phase_batched_odo, torch, left, right, poses, cam, dev)
+        bs = timed("batched_slam", phase_batched_slam, torch, voc, worlds, slam_cfg, dev)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
         f"total {sum(phase_s.values()):.1f} s")
-    replaces = {"lk_level": "ros_stereo_slam_tpu/ops/lk_pallas.py:120",
-                "orb_desc": "ros_stereo_slam_tpu/ops/orb_pallas.py:84",
-                "vocab_descend": "ros_stereo_slam_tpu/ops/vocab_pallas.py:72"}
-    # K1's launches are counted on its own path (the corridor slice); K2's
-    # and K3's on full SLAM, whose K1 count is in the log above.
-    launches = {"lk_level": sl["launches"], "orb_desc": sm["counts"]["orb_desc"],
-                "vocab_descend": sm["counts"]["vocab_descend"]}
+    log(f"single-lane vs batched on this card: odometry {sl['fps']:.2f} fps vs "
+        f"{bo['fps']:.2f} fps aggregate over {LANES} lanes; full SLAM {sm['fps']:.2f} fps vs "
+        f"{bs['fps']:.2f} fps aggregate")
+    # (name, source, TPU kernel it replaces, launches on its own path, measures).
+    # K1's launches are counted on the corridor slice, K2's and K3's on full
+    # SLAM, K1b's on the batched odometry and K2b's on batched full SLAM.
+    # No single PyTorch call computes any of them, so library_ms is null.
+    table = [
+        ("lk_level", "lk_level", "lk_pallas.py:120", sl["launches"], k1),
+        ("orb_desc", "orb_desc", "orb_pallas.py:84", sm["counts"]["orb_desc"], k2),
+        ("vocab_descend", "vocab_descend", "vocab_pallas.py:72",
+         sm["counts"]["vocab_descend"], k3),
+        ("lk_level_batch", "lk_level", "lk_pallas.py:361", bo["launches"], k1b),
+        ("orb_desc_batch", "orb_desc", "orb_pallas.py:207", bs["counts"]["k2b"], k2b),
+    ]
     rows = []
-    for name, meas in zip(KERNELS, (k1, k2, k3)):
-        row = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{name}.cu",
-               "replaces": replaces[name], "launches": launches[name],
+    for name, src, replaces, launches, meas in table:
+        row = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}.cu",
+               "replaces": f"ros_stereo_slam_tpu/ops/{replaces}", "launches": launches,
                "max_abs_err": meas["max_abs_err"], "ms": meas["ms"],
-               "plain_ms": meas["plain_ms"]}
+               "plain_ms": meas["plain_ms"], "bound_ms": meas["bound_ms"],
+               "bound_by": meas["bound_by"], "library_ms": None}
         if "mismatches" in meas:
             row["mismatches"] = meas["mismatches"]
         rows.append(row)

@@ -13,6 +13,11 @@
 // against the clamped start (the reference's _select_tile), so reads never
 // leave the image.  All arithmetic is f32.
 //
+// Lanes (the batched entry point lk_level_batch_f32, replacing the TPU entry
+// point track_level_batch): blockIdx.y is the lane; lane b reads images at
+// offset b * H * W and points and outputs at offset b * n_pts * 2.  The
+// single-lane entry point lk_level_f32 is the same kernel with one lane.
+//
 // What bounds it on an H100: per call about 0.05 GFLOP and a few tens of MB
 // of bilinear loads that hit L2 (a 1241x376 f32 level is 1.87 MB; L2 is
 // 50 MB), plus one warp reduction per GN iteration.  At N = 768 points there
@@ -31,7 +36,8 @@
 //
 // What the TPU kernel does and this one does not: (40, 256) aligned
 // superblock loads, one-hot selection matmuls, pltpu.roll, SMEM point arrays,
-// _UNROLL point groups, custom_vmap, and the bf16 select type.
+// _UNROLL point groups, custom_vmap, the bf16 select type, and the edge pad of
+// every lane's images to the (8, 128) tile geometry.
 
 #include <cuda_runtime.h>
 
@@ -76,6 +82,15 @@ lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, in
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kWarpsPerBlock + warp;
   if (p >= n_pts) return;  // warp-uniform
+  // This block's sequence lane: its images and point rows.
+  const size_t img_off = static_cast<size_t>(blockIdx.y) * H * W;
+  const size_t pt_off = static_cast<size_t>(blockIdx.y) * n_pts * 2;
+  ref += img_off;
+  cur += img_off;
+  ref_pts += pt_off;
+  guesses += pt_off;
+  out_pts += pt_off;
+  out_meta += pt_off;
 
   const int T = S + 2;
   const int SS = S * S;
@@ -185,27 +200,23 @@ lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, in
 }
 
 template <int PPL>
-cudaError_t launch(const float* ref, const float* cur, int H, int W, const float* ref_pts,
-                   const float* guesses, int n_pts, int S, int iters, float eps, float* out_pts,
-                   float* out_meta, cudaStream_t stream) {
-  const int blocks = (n_pts + kWarpsPerBlock - 1) / kWarpsPerBlock;
+cudaError_t launch(const float* ref, const float* cur, int n_lanes, int H, int W,
+                   const float* ref_pts, const float* guesses, int n_pts, int S, int iters,
+                   float eps, float* out_pts, float* out_meta, cudaStream_t stream) {
+  const dim3 grid((n_pts + kWarpsPerBlock - 1) / kWarpsPerBlock, n_lanes);
   const size_t smem = static_cast<size_t>(kWarpsPerBlock) * (S + 2) * (S + 2) * sizeof(float);
-  lk_level_kernel<PPL><<<blocks, kWarpsPerBlock * 32, smem, stream>>>(
+  lk_level_kernel<PPL><<<grid, kWarpsPerBlock * 32, smem, stream>>>(
       ref, cur, H, W, ref_pts, guesses, n_pts, S, iters, eps, out_pts, out_meta);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes).  Images (H, W) f32 row-major;
-// ref_pts, guesses, out_pts, out_meta (n_pts, 2) f32 row-major; out_meta
-// holds (min_eig, resid).  Requires 1 <= S <= 32, H >= S + 3, W >= S + 3
-// (the caller checks).  Launches on `stream` and returns cudaGetLastError().
-extern "C" int lk_level_f32(const void* ref, const void* cur, int H, int W, const void* ref_pts,
-                            const void* guesses, int n_pts, int S, int iters, float eps,
-                            void* out_pts, void* out_meta, void* stream) {
-  if (n_pts <= 0) return static_cast<int>(cudaSuccess);
-  if (S < 1 || S > 32 || H < S + 3 || W < S + 3) return static_cast<int>(cudaErrorInvalidValue);
+// Both entry points: n_lanes lanes of (H, W) images and (n_pts, 2) points.
+int lk_level_lanes(const void* ref, const void* cur, int n_lanes, int H, int W,
+                   const void* ref_pts, const void* guesses, int n_pts, int S, int iters,
+                   float eps, void* out_pts, void* out_meta, void* stream) {
+  if (n_pts <= 0 || n_lanes <= 0) return static_cast<int>(cudaSuccess);
+  if (S < 1 || S > 32 || H < S + 3 || W < S + 3 || n_lanes > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* r = static_cast<const float*>(ref);
   const auto* cu = static_cast<const float*>(cur);
   const auto* rp = static_cast<const float*>(ref_pts);
@@ -216,11 +227,35 @@ extern "C" int lk_level_f32(const void* ref, const void* cur, int H, int W, cons
   const int ppl = (S * S + 31) / 32;
   cudaError_t err;
   if (ppl <= 8) {
-    err = launch<8>(r, cu, H, W, rp, g, n_pts, S, iters, eps, op, om, st);
+    err = launch<8>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, op, om, st);
   } else if (ppl <= 16) {
-    err = launch<16>(r, cu, H, W, rp, g, n_pts, S, iters, eps, op, om, st);
+    err = launch<16>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, op, om, st);
   } else {
-    err = launch<32>(r, cu, H, W, rp, g, n_pts, S, iters, eps, op, om, st);
+    err = launch<32>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, op, om, st);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  Images (H, W) f32 row-major;
+// ref_pts, guesses, out_pts, out_meta (n_pts, 2) f32 row-major; out_meta
+// holds (min_eig, resid).  Requires 1 <= S <= 32, H >= S + 3, W >= S + 3
+// (the caller checks).  Launch on `stream` and return cudaGetLastError().
+extern "C" int lk_level_f32(const void* ref, const void* cur, int H, int W, const void* ref_pts,
+                            const void* guesses, int n_pts, int S, int iters, float eps,
+                            void* out_pts, void* out_meta, void* stream) {
+  return lk_level_lanes(ref, cur, 1, H, W, ref_pts, guesses, n_pts, S, iters, eps, out_pts,
+                        out_meta, stream);
+}
+
+// The same for n_lanes independent lanes stacked on a leading axis: images
+// (n_lanes, H, W), points and outputs (n_lanes, n_pts, 2); one launch, lanes
+// on blockIdx.y (1 <= n_lanes <= 65535).
+extern "C" int lk_level_batch_f32(const void* ref, const void* cur, int n_lanes, int H, int W,
+                                  const void* ref_pts, const void* guesses, int n_pts, int S,
+                                  int iters, float eps, void* out_pts, void* out_meta,
+                                  void* stream) {
+  return lk_level_lanes(ref, cur, n_lanes, H, W, ref_pts, guesses, n_pts, S, iters, eps,
+                        out_pts, out_meta, stream);
 }

@@ -15,6 +15,12 @@
 // contraction), so the two differ only through the moments' summation order
 // and cos/sin from m / r instead of cos(atan2(m01, m10)).
 //
+// Lanes (the batched entry point orb_desc_batch_f32, replacing the TPU entry
+// point orb_descriptors_batch): blockIdx.y is the lane; lane b reads its image
+// at offset b * H * W, its corners at b * n_pts * 2 and writes its signs at
+// b * n_pts * 256 and its moments at b * n_pts * 2.  The single-lane entry
+// point orb_desc_f32 is the same kernel with one lane.
+//
 // What bounds it on an H100: about 1,220 bilinear samples (4 loads each) per
 // keypoint, ~512 keypoints per frame over four levels; the level image
 // (1.9 MB at 1241x376) stays in L2.  So it is bound by the latency of those
@@ -30,7 +36,7 @@
 // loads and one-hot selection matmuls, the clamp of the 44x44 tile into the
 // image (which moves corners within 21 px of a border: fault F3), tent-weight
 // sampling matmuls, SMEM point arrays, _UNROLL point groups, the bf16 select
-// type, and the grid=(B,) lane batching.
+// type, and the edge pad of every lane's image to the (8, 128) tile geometry.
 
 #include <cuda_runtime.h>
 
@@ -76,6 +82,11 @@ orb_desc_kernel(const float* __restrict__ img, int H, int W, const float* __rest
   const int p = blockIdx.x * kWarpsPerBlock + static_cast<int>(threadIdx.x >> 5);
   const int lane = static_cast<int>(threadIdx.x & 31);
   if (p >= n_pts) return;  // uniform per warp
+  // This block's sequence lane: its image, corners and output rows.
+  img += static_cast<size_t>(blockIdx.y) * H * W;
+  pts += static_cast<size_t>(blockIdx.y) * n_pts * 2;
+  out_sign += static_cast<size_t>(blockIdx.y) * n_pts * kBits;
+  out_moments += static_cast<size_t>(blockIdx.y) * n_pts * 2;
   // W - 1.001 in double, then rounded to float: the bound the plain version uses.
   const float xmax = static_cast<float>(W - 1.001);
   const float ymax = static_cast<float>(H - 1.001);
@@ -116,22 +127,42 @@ orb_desc_kernel(const float* __restrict__ img, int H, int W, const float* __rest
   }
 }
 
-}  // namespace
-
-// Plain C entry point (loaded with ctypes).  img (H, W) f32 row-major with
-// H, W >= 2; pts (n_pts, 2) f32 xy; cent (n_cent, 2), pat_p and pat_q (256, 2)
-// f32 offsets; out_sign (n_pts, 256) f32; out_moments (n_pts, 2) f32 (m10, m01).
-// Launches on `stream` and returns cudaGetLastError().
-extern "C" int orb_desc_f32(const void* img, int H, int W, const void* pts, int n_pts,
-                            const void* cent, int n_cent, const void* pat_p, const void* pat_q,
-                            void* out_sign, void* out_moments, void* stream) {
-  if (n_pts <= 0) return static_cast<int>(cudaSuccess);
-  if (H < 2 || W < 2 || n_cent <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n_pts + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  orb_desc_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+// Both entry points: n_lanes lanes of an (H, W) image and (n_pts, 2) corners.
+int orb_desc_lanes(const void* img, int n_lanes, int H, int W, const void* pts, int n_pts,
+                   const void* cent, int n_cent, const void* pat_p, const void* pat_q,
+                   void* out_sign, void* out_moments, void* stream) {
+  if (n_pts <= 0 || n_lanes <= 0) return static_cast<int>(cudaSuccess);
+  if (H < 2 || W < 2 || n_cent <= 0 || n_lanes > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n_pts + kWarpsPerBlock - 1) / kWarpsPerBlock, n_lanes);
+  orb_desc_kernel<<<grid, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), H, W, static_cast<const float*>(pts), n_pts,
       static_cast<const float*>(cent), n_cent, static_cast<const float*>(pat_p),
       static_cast<const float*>(pat_q), static_cast<float*>(out_sign),
       static_cast<float*>(out_moments));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  img (H, W) f32 row-major with
+// H, W >= 2; pts (n_pts, 2) f32 xy; cent (n_cent, 2), pat_p and pat_q (256, 2)
+// f32 offsets; out_sign (n_pts, 256) f32; out_moments (n_pts, 2) f32 (m10, m01).
+// Launch on `stream` and return cudaGetLastError().
+extern "C" int orb_desc_f32(const void* img, int H, int W, const void* pts, int n_pts,
+                            const void* cent, int n_cent, const void* pat_p, const void* pat_q,
+                            void* out_sign, void* out_moments, void* stream) {
+  return orb_desc_lanes(img, 1, H, W, pts, n_pts, cent, n_cent, pat_p, pat_q, out_sign,
+                        out_moments, stream);
+}
+
+// The same for n_lanes lanes stacked on a leading axis: img (n_lanes, H, W),
+// pts (n_lanes, n_pts, 2), out_sign (n_lanes, n_pts, 256), out_moments
+// (n_lanes, n_pts, 2); one launch, lanes on blockIdx.y (1 <= n_lanes <= 65535).
+extern "C" int orb_desc_batch_f32(const void* img, int n_lanes, int H, int W, const void* pts,
+                                  int n_pts, const void* cent, int n_cent, const void* pat_p,
+                                  const void* pat_q, void* out_sign, void* out_moments,
+                                  void* stream) {
+  return orb_desc_lanes(img, n_lanes, H, W, pts, n_pts, cent, n_cent, pat_p, pat_q, out_sign,
+                        out_moments, stream);
 }

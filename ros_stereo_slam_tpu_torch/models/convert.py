@@ -10,6 +10,11 @@ are read by field name only, so this module needs nothing of JAX.
 The random key maps to the port's integer ``key`` as the 64-bit number of
 its two uint32 words and back.  The port's random streams are its own, so
 a converted carry continues the same trajectory up to the RANSAC draws.
+
+Lane-stacked trees (the reference's ``vmap(init_carry)`` and its batched
+database) carry over as they are: every field keeps its leading lane
+axis, the (B, 2) keys become a tuple of B ints and the lanes' common
+frame index one int, as :func:`.step.init_carry_batched` makes them.
 """
 
 from __future__ import annotations
@@ -30,12 +35,17 @@ def _t(a, device) -> torch.Tensor:
 
 
 def carry_from_numpy(tree, device: torch.device | str) -> SlamCarry:
-    """JAX ``SlamCarry`` of numpy arrays -> port ``SlamCarry`` on `device`."""
+    """JAX ``SlamCarry`` of numpy arrays (one lane, or lane-stacked) -> port
+    ``SlamCarry`` on `device`."""
     if getattr(tree, "ba", None) is not None:
         raise NotImplementedError("a carry with BA state is not ported")
-    words = np.asarray(tree.key, dtype=np.uint64).ravel()
-    if words.shape != (2,):
-        raise ValueError(f"expected a uint32[2] PRNG key, got shape {words.shape}")
+    words = np.asarray(tree.key, dtype=np.uint64)
+    if words.ndim not in (1, 2) or words.shape[-1] != 2:
+        raise ValueError(f"expected uint32[2] PRNG keys, got shape {words.shape}")
+    keys = tuple((int(w[0]) << 32) | int(w[1]) for w in words.reshape(-1, 2))
+    frame_idx = np.unique(np.asarray(tree.frame_idx))
+    if frame_idx.size != 1:
+        raise ValueError(f"lanes on different frames {frame_idx}: the port steps them in lockstep")
     tr, kf = tree.track, tree.keyframes
     return SlamCarry(
         track=TrackState(*(_t(getattr(tr, f), device) for f in TrackState._fields)),
@@ -43,8 +53,8 @@ def carry_from_numpy(tree, device: torch.device | str) -> SlamCarry:
         keyframes=KeyframeStore(*(_t(getattr(kf, f), device)
                                   for f in KeyframeStore._fields)),
         ref_pyr=tuple(_t(level, device) for level in tree.ref_pyr),
-        key=(int(words[0]) << 32) | int(words[1]),
-        frame_idx=int(tree.frame_idx),
+        key=keys if words.ndim == 2 else keys[0],
+        frame_idx=int(frame_idx[0]),
         dT=_t(tree.dT, device),
         dT_valid=_t(tree.dT_valid, device),
         stereo_flow=_t(tree.stereo_flow, device),
@@ -53,19 +63,24 @@ def carry_from_numpy(tree, device: torch.device | str) -> SlamCarry:
 
 def carry_to_numpy(carry: SlamCarry) -> SlamCarry:
     """Port ``SlamCarry`` -> the same fields as numpy arrays, in the JAX
-    package's dtypes (``key`` as uint32[2], ``frame_idx`` as int32)."""
+    package's dtypes (``key`` as uint32[2], ``frame_idx`` as int32; a
+    lane-stacked carry gives (B, 2) keys and (B,) frame indices)."""
 
     def n(t: torch.Tensor) -> np.ndarray:
         return t.detach().cpu().numpy()
+
+    lanes = isinstance(carry.key, tuple)
+    keys = carry.key if lanes else (carry.key,)
+    key = np.array([[(k >> 32) & 0xFFFFFFFF, k & 0xFFFFFFFF] for k in keys], dtype=np.uint32)
 
     return SlamCarry(
         track=TrackState(*(n(x) for x in carry.track)),
         T_wc=n(carry.T_wc),
         keyframes=KeyframeStore(*(n(x) for x in carry.keyframes)),
         ref_pyr=tuple(n(level) for level in carry.ref_pyr),
-        key=np.array([(carry.key >> 32) & 0xFFFFFFFF, carry.key & 0xFFFFFFFF],
-                     dtype=np.uint32),
-        frame_idx=np.int32(carry.frame_idx),
+        key=key if lanes else key[0],
+        frame_idx=(np.full(len(keys), carry.frame_idx, np.int32) if lanes
+                   else np.int32(carry.frame_idx)),
         dT=n(carry.dT),
         dT_valid=n(carry.dT_valid),
         stereo_flow=n(carry.stereo_flow),
@@ -90,7 +105,8 @@ def vocab_from_numpy(src, device: torch.device | str) -> Vocabulary:
 
 
 def lc_state_from_numpy(tree, device: torch.device | str) -> LCScanState:
-    """JAX ``LCScanState`` of numpy arrays -> port ``LCScanState``.
+    """JAX ``LCScanState`` of numpy arrays (one lane, or lane-stacked) ->
+    port ``LCScanState``.
 
     The packed descriptors keep their bits (uint32 -> int32); the bf16
     bins go through float32, which holds every bf16 value exactly.

@@ -58,7 +58,7 @@ class StereoOdometry:
     """Streaming odometry driver over the frame step."""
 
     config: PipelineConfig
-    device: torch.device | str = "cpu"
+    device: torch.device | str = "cuda"
     frame_count: int = field(init=False, default=0)
 
     def __post_init__(self):
@@ -144,7 +144,7 @@ def run_offline(
     cfg: PipelineConfig,
     left_seq,
     right_seq,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> OfflineResult:
     """Run a full sequence: frame-0 bootstrap, then every frame.
 

@@ -19,8 +19,12 @@ frames staged on the device, as :func:`.pipeline.run_offline` is:
   verifies the surviving candidates, measures PnP loop edges, solves one
   pose graph and rewrites the keyframe map.
 
-Batched and interleaved lanes and the chunked online driver are not
-ported yet.
+Batched lanes (:func:`run_offline_slam_batched`): B sequences step in
+lockstep through :mod:`.step_batched`, and every detection frame runs
+:func:`_lc_scan_step` once for all lanes (ORB's K2 and the descent's K3
+launched once for every lane), each lane writing its own database row in
+place.  The interleaved lane cadence (a measured refutation in the
+reference) and the chunked online driver are not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ros_stereo_slam_tpu_torch.models import frontend
 from ros_stereo_slam_tpu_torch.models import loop_closure as lc_mod
 from ros_stereo_slam_tpu_torch.models import pose_graph as pg_mod
 from ros_stereo_slam_tpu_torch.models import step as step_mod
+from ros_stereo_slam_tpu_torch.models import step_batched
 from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
 from ros_stereo_slam_tpu_torch.ops import lk, orb as orb_mod, pnp, pyramid, triangulate
 from ros_stereo_slam_tpu_torch.ops.topk import top_k
@@ -43,7 +48,8 @@ from ros_stereo_slam_tpu_torch.utils import lie
 
 
 class LCScanState(NamedTuple):
-    """Device-resident sparse BoW database (a ring of `db_capacity` frames)."""
+    """Device-resident sparse BoW database (a ring of `db_capacity` frames);
+    batched lanes stack one database per lane on a leading axis."""
 
     db_words: torch.Tensor  # (cap, nf) int32 merged word ids (0-padded)
     db_wvals: torch.Tensor  # (cap, nf) f32 L1-normalized TF-IDF weights
@@ -66,11 +72,13 @@ class LCScanStats(NamedTuple):
     ns: torch.Tensor  # () f32 score against the previous detected frame
 
 
-def init_lc_state(cfg: PipelineConfig, device) -> LCScanState:
+def init_lc_state(cfg: PipelineConfig, device, lanes: int | None = None) -> LCScanState:
+    """An empty database on `device` (one per lane with `lanes`)."""
     cap, nf = cfg.loop.db_capacity, cfg.loop.orb_features
+    ln = () if lanes is None else (lanes,)
 
     def z(shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(ln + shape, dtype=dtype, device=device)
 
     return LCScanState(
         db_words=z((cap, nf), torch.int32),
@@ -80,7 +88,7 @@ def init_lc_state(cfg: PipelineConfig, device) -> LCScanState:
         db_pts=z((cap, nf, 2), torch.float32),
         db_pt_valid=z((cap, nf), torch.bool),
         db_valid=z((cap,), torch.bool),
-        db_ids=torch.full((cap,), -1, dtype=torch.int32, device=device),
+        db_ids=torch.full(ln + (cap,), -1, dtype=torch.int32, device=device),
         last_words=z((nf,), torch.int32),
         last_wvals=z((nf,), torch.float32),
         have_last=z((), torch.bool),
@@ -92,12 +100,12 @@ def _top_k_count(lcc) -> int:
     return min(lcc.max_db_results, lcc.shortlist, lcc.db_capacity)
 
 
-def _null_stats(cfg: PipelineConfig, device) -> LCScanStats:
+def _null_stats(cfg: PipelineConfig, device, lead: tuple = ()) -> LCScanStats:
     k = _top_k_count(cfg.loop)
     return LCScanStats(
-        top_ids=torch.full((k,), -1, dtype=torch.int32, device=device),
-        top_scores=torch.full((k,), -1e9, dtype=torch.float32, device=device),
-        ns=torch.full((), -1.0, dtype=torch.float32, device=device),
+        top_ids=torch.full(lead + (k,), -1, dtype=torch.int32, device=device),
+        top_scores=torch.full(lead + (k,), -1e9, dtype=torch.float32, device=device),
+        ns=torch.full(lead, -1.0, dtype=torch.float32, device=device),
     )
 
 
@@ -114,16 +122,21 @@ def _lc_scan_step(
 
     The database rows of ring slot ``frame_id % db_capacity`` are written
     in place; the returned state shares the input's tensors.
+
+    Lane form: (B, H, W) frames against a lane-stacked database (one
+    detection per lane, all lanes on frame `frame_id`); every lane writes
+    its own row, and the stats gain a leading lane axis.
     """
-    if left_img.dtype == torch.uint8:
-        left_img = left_img.to(torch.float32) * (1.0 / 255.0)
+    left_img = step_mod._to_unit(left_img).contiguous()
     lcc = cfg.loop
     n_words = idf.shape[0]
     feats = orb_mod.detect_and_compute(
         left_img, lcc.orb_features, cfg.frontend.fast_thresh / 255.0,
         n_levels=lcc.orb_levels,
     )
-    words = vocab_mod._descend(centers, feats.desc_sign, vocab_k, len(centers))
+    # all lanes' descriptors descend the tree as one batch
+    words = vocab_mod._descend(centers, feats.desc_sign.reshape(-1, orb_mod.N_BITS), vocab_k,
+                               len(centers)).reshape(feats.valid.shape)
     uw, uv = vocab_mod.bow_sparse(words, feats.valid, idf, n_words)
     q_bins = vocab_mod.bin_of_sparse(uw, uv, lcc.n_bins)
     ns = vocab_mod.score_pair_min(uw, uv, lc.last_words, lc.last_wvals)
@@ -134,10 +147,12 @@ def _lc_scan_step(
     ok = lc.db_valid & (lc.db_ids <= frame_id - lcc.dislocal - 1)
     sdot = torch.where(ok, sdot, torch.full_like(sdot, -1e9))
     sl_scores, sl_idx = top_k(sdot, min(lcc.shortlist, lcc.db_capacity))
-    s_ex = vocab_mod.rescore_min(uw, uv, lc.db_words[sl_idx], lc.db_wvals[sl_idx])
+    rows = sl_idx[..., None]  # each lane's shortlisted database rows
+    s_ex = vocab_mod.rescore_min(uw, uv, torch.take_along_dim(lc.db_words, rows, dim=-2),
+                                 torch.take_along_dim(lc.db_wvals, rows, dim=-2))
     s_ex = torch.where(sl_scores > -1e8, s_ex, torch.full_like(s_ex, -1e9))
     top_scores, ti = top_k(s_ex, _top_k_count(lcc))
-    top_ids = torch.where(top_scores > -1e8, lc.db_ids[sl_idx[ti]],
+    top_ids = torch.where(top_scores > -1e8, lc.db_ids.gather(-1, sl_idx.gather(-1, ti)),
                           torch.full_like(top_scores, -1, dtype=torch.int32))
     # The reference masks ns with `have_last` AFTER setting it, so a
     # detection frame always reports the raw score (0 on the first frame);
@@ -145,14 +160,13 @@ def _lc_scan_step(
     stats = LCScanStats(top_ids=top_ids, top_scores=top_scores, ns=ns)
 
     slot = frame_id % lcc.db_capacity
-    lc.db_words[slot] = uw.to(torch.int32)
-    lc.db_wvals[slot] = uv
-    lc.db_bins[slot] = q_bins.to(torch.bfloat16)
-    lc.db_bits[slot] = feats.desc_bits
-    lc.db_pts[slot] = feats.pts
-    lc.db_pt_valid[slot] = feats.valid
-    lc.db_valid[slot] = True
-    lc.db_ids[slot] = frame_id
+    ring = left_img.dim() - 2  # the ring axis: 0, or 1 under a lane axis
+    for field, row in ((lc.db_words, uw), (lc.db_wvals, uv), (lc.db_bins, q_bins),
+                       (lc.db_bits, feats.desc_bits), (lc.db_pts, feats.pts),
+                       (lc.db_pt_valid, feats.valid)):
+        field.select(ring, slot).copy_(row)
+    lc.db_valid.select(ring, slot).fill_(True)
+    lc.db_ids.select(ring, slot).fill_(frame_id)
     lc = lc._replace(last_words=uw.to(torch.int32), last_wvals=uv,
                      have_last=torch.ones_like(lc.have_last))
     return lc, stats
@@ -179,23 +193,68 @@ def run_sequence_slam(
     Returns ((carry, lc), (frame stats, detection stats)), each stats
     tuple stacked along frames and left on the device.
     """
+    return _run_frames(left_seq, right_seq, carry, lc, grid_pts, grid_mask, centers, idf, cfg,
+                       vocab_k, step_mod.slam_frame_step, _null_stats(cfg, left_seq.device))
+
+
+def _run_frames(frames_l, frames_r, carry, lc, grid_pts, grid_mask, centers, idf,
+                cfg: PipelineConfig, vocab_k: int, frame_step, null: LCScanStats):
+    """The frame loop of both drivers: `frame_step` on every frame, then,
+    on every ``detect_every``-th frame, :func:`_lc_scan_step` (`null` stats
+    on the others).  frames_l[i] is frame i + 1 (of every lane)."""
     every = max(cfg.loop.detect_every, 1)
-    dev = left_seq.device
-    null = _null_stats(cfg, dev)
     fstats, lstats = [], []
-    for i in range(left_seq.shape[0]):
+    for i in range(frames_l.shape[0]):
         fid = 1 + i
-        carry, fs = step_mod.slam_frame_step(carry, left_seq[i], right_seq[i],
-                                             grid_pts, grid_mask, cfg)
+        carry, fs = frame_step(carry, frames_l[i], frames_r[i], grid_pts, grid_mask, cfg)
         if fid % every == 0:
-            lc, ls = _lc_scan_step(lc, left_seq[i], fid, centers, idf, cfg, vocab_k)
+            lc, ls = _lc_scan_step(lc, frames_l[i], fid, centers, idf, cfg, vocab_k)
         else:
             ls = null
         fstats.append(fs)
         lstats.append(ls)
     if not fstats:
-        raise ValueError("run_sequence_slam needs at least one frame")
+        raise ValueError("the SLAM drivers need at least one frame after frame 0")
     return (carry, lc), (_stack(fstats), _stack(lstats))
+
+
+def _refuse_unported_lanes(rgb, interleave: bool) -> None:
+    if rgb is not None:
+        raise NotImplementedError("RGB colouring of the batched run is not ported")
+    if interleave:
+        raise NotImplementedError(
+            "interleave=True is not ported (measured slower than the lockstep "
+            "cadence in the reference)")
+
+
+def run_sequence_slam_batched(
+    left_seq: torch.Tensor,  # (B, F, H, W) f32 or uint8 — frames 1..F per lane
+    right_seq: torch.Tensor,
+    carry: step_mod.SlamCarry,
+    lc: LCScanState,
+    grid_pts: torch.Tensor,
+    grid_mask: torch.Tensor,
+    centers: list,
+    idf: torch.Tensor,
+    cfg: PipelineConfig,
+    vocab_k: int,
+    rgb_seq=None,
+    interleave: bool = False,
+):
+    """B lanes of odometry + detection in lockstep: the batched step, and
+    on every ``detect_every``-th frame one lane-form :func:`_lc_scan_step`
+    for all lanes (the reference's lockstep cadence).
+
+    `carry` from :func:`.step.init_carry_batched`, `lc` from
+    ``init_lc_state(..., lanes=B)``.  Returns ((carry, lc), (frame stats,
+    detection stats)), the stats frame-major, (F, B, ...), as the
+    reference's scan gives them.
+    """
+    _refuse_unported_lanes(rgb_seq, interleave)
+    null = _null_stats(cfg, left_seq.device, (left_seq.shape[0],))
+    return _run_frames(left_seq.transpose(0, 1), right_seq.transpose(0, 1), carry, lc,
+                       grid_pts, grid_mask, centers, idf, cfg, vocab_k,
+                       step_batched.slam_frame_step_batched, null)
 
 
 class EpilogueGater:
@@ -394,8 +453,52 @@ def _epilogue_one(cfg: PipelineConfig, lc, top_ids, top_scores, ns, fstats, keyf
     )
 
 
+def _lane(tree, b: int):
+    """Lane b of a lane-stacked NamedTuple of tensors (views)."""
+    return type(tree)(*(x[b] for x in tree))
+
+
+def run_offline_slam_batched(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, left_seqs,
+                             right_seqs, device: torch.device | str = "cuda", rgb_seqs=None,
+                             interleave: bool = False) -> list[ScanSlamResult]:
+    """Batched full SLAM over B sequences: the batched bootstrap, one
+    lockstep loop of odometry + detection for all lanes, then the host
+    epilogue per lane.  Returns one :class:`ScanSlamResult` per lane.
+
+    left_seqs/right_seqs: (B, F, H, W) float32 or uint8 stacks (frame 0
+    included), numpy arrays or tensors, staged on `device` once.  Lane b
+    starts from key ``step_batched.lane_keys(cfg.seed, B)[b]``.  The
+    database is one per lane (about 135 MB each at the reference scale).
+    `rgb_seqs` and `interleave=True` are not ported and raise.
+    """
+    from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage
+
+    _refuse_unported_lanes(rgb_seqs, interleave)
+    step_batched.check_batched(cfg)
+    grid_pts, grid_mask = _grid_for(cfg, device)
+    left, right = _stage(left_seqs, device), _stage(right_seqs, device)
+    B = left.shape[0]
+    voc = vocab.to(device)
+    carry = step_mod.init_carry_batched(left[:, 0], right[:, 0], grid_pts, grid_mask,
+                                        step_batched.lane_keys(cfg.seed, B), cfg)
+    lc, _ = _lc_scan_step(init_lc_state(cfg, device, lanes=B), left[:, 0], 0, voc.centers,
+                          voc.idf, cfg, voc.k)
+    (carry, lc), (fstats, lstats) = run_sequence_slam_batched(
+        left[:, 1:], right[:, 1:], carry, lc, grid_pts, grid_mask, voc.centers, voc.idf, cfg,
+        voc.k)
+    fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
+    top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
+    return [
+        _epilogue_one(cfg, _lane(lc, b), top_ids[:, b], top_scores[:, b], ns[:, b],
+                      step_mod.FrameStats(*(f[:, b] for f in fstats_h)),
+                      _lane(carry.keyframes, b),
+                      lambda fid, b=b: (left[b, fid], right[b, fid]))
+        for b in range(B)
+    ]
+
+
 def run_offline_slam(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, left_seq, right_seq,
-                     device: torch.device | str = "cpu") -> ScanSlamResult:
+                     device: torch.device | str = "cuda") -> ScanSlamResult:
     """Full SLAM over a sequence: bootstrap, the frame loop, the epilogue.
 
     left_seq/right_seq: (F, H, W) float32 or uint8 stacks (frame 0

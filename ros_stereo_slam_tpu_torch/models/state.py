@@ -2,7 +2,8 @@
 
 Port of ``ros_stereo_slam_tpu/models/state.py`` (``TrackState`` and
 ``KeyframeStore``).  Every store has a static capacity plus a validity
-mask or count, as in the reference.
+mask or count, as in the reference.  The batched-lane drivers stack B
+lanes on a leading axis of every field (``lanes=B`` in ``empty``).
 """
 
 from __future__ import annotations
@@ -21,13 +22,14 @@ class TrackState(NamedTuple):
     mask: torch.Tensor  # (N,) bool
 
     @staticmethod
-    def empty(capacity: int, device: torch.device | str) -> "TrackState":
+    def empty(capacity: int, device: torch.device | str, lanes: int | None = None) -> "TrackState":
         f32 = dict(dtype=torch.float32, device=device)
+        ln = () if lanes is None else (lanes,)
         return TrackState(
-            pts2d=torch.zeros((capacity, 2), **f32),
-            pts3d=torch.zeros((capacity, 3), **f32),
-            colors=torch.zeros((capacity, 3), **f32),
-            mask=torch.zeros((capacity,), dtype=torch.bool, device=device),
+            pts2d=torch.zeros((*ln, capacity, 2), **f32),
+            pts3d=torch.zeros((*ln, capacity, 3), **f32),
+            colors=torch.zeros((*ln, capacity, 3), **f32),
+            mask=torch.zeros((*ln, capacity), dtype=torch.bool, device=device),
         )
 
 
@@ -48,19 +50,21 @@ class KeyframeStore(NamedTuple):
     count: torch.Tensor  # () i32 — number of keyframes inserted (may exceed K)
 
     @staticmethod
-    def empty(capacity: int, block: int, device: torch.device | str) -> "KeyframeStore":
+    def empty(capacity: int, block: int, device: torch.device | str,
+              lanes: int | None = None) -> "KeyframeStore":
         f32 = dict(dtype=torch.float32, device=device)
+        ln = () if lanes is None else (lanes,)
         return KeyframeStore(
-            poses=torch.eye(4, **f32).repeat(capacity, 1, 1),
-            frame_idx=torch.zeros((capacity,), dtype=torch.int32, device=device),
-            points=torch.zeros((capacity, block, 3), **f32),
-            colors=torch.zeros((capacity, block, 3), **f32),
-            point_mask=torch.zeros((capacity, block), dtype=torch.bool, device=device),
-            retrack=torch.zeros((capacity,), dtype=torch.bool, device=device),
-            valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
-            count=torch.zeros((), dtype=torch.int32, device=device),
+            poses=torch.eye(4, **f32).repeat(*ln, capacity, 1, 1),
+            frame_idx=torch.zeros((*ln, capacity), dtype=torch.int32, device=device),
+            points=torch.zeros((*ln, capacity, block, 3), **f32),
+            colors=torch.zeros((*ln, capacity, block, 3), **f32),
+            point_mask=torch.zeros((*ln, capacity, block), dtype=torch.bool, device=device),
+            retrack=torch.zeros((*ln, capacity), dtype=torch.bool, device=device),
+            valid=torch.zeros((*ln, capacity), dtype=torch.bool, device=device),
+            count=torch.zeros(ln, dtype=torch.int32, device=device),
         )
 
     @property
     def capacity(self) -> int:
-        return self.poses.shape[0]
+        return self.poses.shape[-3]

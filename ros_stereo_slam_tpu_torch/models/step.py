@@ -18,6 +18,12 @@ Only the default static choices are ported: the grid sampler, LK stereo
 matching with the epipolar gate, no temporal F-gate and no BA.  The others
 raise ``NotImplementedError``.  The RGB map path (``left_rgb``) is not
 ported yet.
+
+The step is written for lanes (:func:`_step_lanes`: a leading lane axis B
+on every tensor, one host read per branch for all lanes); the single-lane
+step runs it with one lane and the batched-lane step of
+:mod:`.step_batched` with B, so a lane rounds as its single-lane run does.
+:func:`init_carry_batched` is the lanes' frame-0 bootstrap.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ class SlamCarry(NamedTuple):
     T_wc: torch.Tensor  # (4, 4) current pose (world-from-cam)
     keyframes: KeyframeStore
     ref_pyr: tuple  # pyramid of the previous left image
-    key: int  # base seed of the per-frame generators
+    key: int  # base seed of the per-frame generators (one per lane: a tuple)
     frame_idx: int  # index of the next frame
     # Previous inter-frame motion, the constant-velocity prior that seeds
     # the temporal LK track; dT_valid is False until one real motion has
@@ -122,13 +128,14 @@ def _bootstrap_track(
 
     Returns (track, right_uv, right_mask).  `stereo_flow` (N, 2), if given,
     seeds the L->R match from each grid slot's last measured disparity.
+    Lane form: (B, h, w) pyramids, (B, N, 2) grid points, (B, 4, 4) poses.
     """
     fe, kfc = cfg.frontend, cfg.keyframes
     res = lk.track(left_pyr, right_pyr, grid_pts, stereo_flow,
                    frontend._lk_stereo_params(fe))
     # Rectified pair: a valid match has y_l == y_r and positive disparity.
-    dy = res.points[:, 1] - grid_pts[:, 1]
-    disp = grid_pts[:, 0] - res.points[:, 0]
+    dy = res.points[..., 1] - grid_pts[..., 1]
+    disp = grid_pts[..., 0] - res.points[..., 0]
     m = (grid_mask & res.valid & (torch.abs(dy) <= fe.stereo_epipolar_tol_px)
          & (disp > 0.05))
     tri = triangulate.triangulate_rectified(
@@ -165,21 +172,66 @@ def _track_and_pnp(carry: SlamCarry, ref_pyr, c_pyr, init_flow, lk_params,
 
 
 def _insert_keyframe(kf: KeyframeStore, track: TrackState, T_wc: torch.Tensor,
-                     frame_idx: int) -> KeyframeStore:
+                     frame_idx: int, sel: torch.Tensor | None = None) -> KeyframeStore:
     """Write the keyframe into ring slot count % capacity.
 
     The store's arrays are updated IN PLACE (the reference copies them);
     only ``count`` is a new tensor.  The slot stays on the device.
+
+    Lane form (every field with a leading lane axis B, `sel` (B,) bool):
+    only the lanes in `sel` write their slot and advance their count; the
+    other lanes' slots are written back unchanged, so no lane's store is
+    touched by another lane's keyframe and nothing is read on the host.
     """
-    slot = (kf.count.long() % kf.capacity).reshape(1)
-    kf.poses.index_copy_(0, slot, T_wc[None])
-    kf.frame_idx.index_fill_(0, slot, frame_idx)
-    kf.points.index_copy_(0, slot, track.pts3d[None])
-    kf.colors.index_copy_(0, slot, track.colors[None])
-    kf.point_mask.index_copy_(0, slot, track.mask[None])
-    kf.retrack.index_fill_(0, slot, False)
-    kf.valid.index_fill_(0, slot, True)
-    return kf._replace(count=kf.count + 1)
+    if sel is None:  # one store: the lane form with one lane (views)
+        out = _insert_keyframe(KeyframeStore(*(x[None] for x in kf)),
+                               TrackState(*(x[None] for x in track)), T_wc[None], frame_idx,
+                               torch.ones((1,), dtype=torch.bool, device=T_wc.device))
+        return KeyframeStore(*(x[0] for x in out))
+    lanes = torch.arange(sel.shape[0], device=sel.device)
+    slot = kf.count.long() % kf.capacity
+
+    def put(field: torch.Tensor, new: torch.Tensor) -> None:
+        keep = sel.reshape((-1,) + (1,) * (new.dim() - 1))
+        field[lanes, slot] = torch.where(keep, new, field[lanes, slot])
+
+    put(kf.poses, T_wc)
+    put(kf.frame_idx, torch.full_like(slot, frame_idx, dtype=kf.frame_idx.dtype))
+    put(kf.points, track.pts3d)
+    put(kf.colors, track.colors)
+    put(kf.point_mask, track.mask)
+    put(kf.retrack, torch.zeros_like(sel))
+    put(kf.valid, torch.ones_like(sel))
+    return kf._replace(count=kf.count + sel.to(kf.count.dtype))
+
+
+def _where_lanes(pred: torch.Tensor, a, b):
+    """Per-lane select over matching tuples of tensors (or tensors):
+    pred (B,), leaves (B, ...)."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(pred.reshape(pred.shape + (1,) * (a.dim() - 1)), a, b)
+    merged = [_where_lanes(pred, x, y) for x, y in zip(a, b, strict=True)]
+    return type(a)(*merged) if hasattr(a, "_fields") else tuple(merged)
+
+
+def _map_carry(carry: SlamCarry, fn, key) -> SlamCarry:
+    """`fn` applied to every tensor of the carry; `key` replaces the key."""
+    return SlamCarry(
+        track=TrackState(*map(fn, carry.track)), T_wc=fn(carry.T_wc),
+        keyframes=KeyframeStore(*map(fn, carry.keyframes)),
+        ref_pyr=tuple(map(fn, carry.ref_pyr)), key=key, frame_idx=carry.frame_idx,
+        dT=fn(carry.dT), dT_valid=fn(carry.dT_valid), stereo_flow=fn(carry.stereo_flow),
+    )
+
+
+def _one_lane(carry: SlamCarry) -> SlamCarry:
+    """A single-lane carry as the lane form with B = 1 (views)."""
+    return _map_carry(carry, lambda t: t[None], (carry.key,))
+
+
+def _drop_lane(carry: SlamCarry) -> SlamCarry:
+    """The only lane of a B = 1 carry (views)."""
+    return _map_carry(carry, lambda t: t[0], carry.key[0])
 
 
 def slam_frame_step(
@@ -193,14 +245,40 @@ def slam_frame_step(
     """One odometry frame on the frames' device.
 
     `left_img`/`right_img` (H, W) are float32 in [0, 1] or uint8 (cast
-    here, per frame).
+    here, per frame).  It runs :func:`_step_lanes` with one lane, so a
+    lane of the batched step rounds exactly as this step does.
+    """
+    _check_supported(cfg)
+    new, stats = _step_lanes(_one_lane(carry), left_img[None], right_img[None], grid_pts,
+                             grid_mask, cfg)
+    return _drop_lane(new), FrameStats(*(s[0] for s in stats))
+
+
+def _step_lanes(
+    carry: SlamCarry,
+    left_img: torch.Tensor,
+    right_img: torch.Tensor,
+    grid_pts: torch.Tensor,
+    grid_mask: torch.Tensor,
+    cfg: PipelineConfig,
+) -> tuple[SlamCarry, FrameStats]:
+    """The frame step of B lanes: `carry` with a leading lane axis on every
+    tensor and B keys, (B, H, W) frames, the (N, 2) grid shared by all
+    lanes.  Every branch costs one host read of "does any lane take it";
+    when it runs, it runs for all lanes and a per-lane ``where`` keeps it
+    only in the lanes that take it.  With one lane that is the reference's
+    ``lax.cond``; with B it is the reference's batch-hoisted branch
+    (``step_batched.py``).
     """
     global RESCUES
-    _check_supported(cfg)
-    left_img, right_img = _to_unit(left_img), _to_unit(right_img)
+    # frames sliced from a (B, F, H, W) stack are strided views; the
+    # kernels take contiguous lanes
+    left_img = _to_unit(left_img).contiguous()
+    right_img = _to_unit(right_img).contiguous()
     fe, pc, kfc = cfg.frontend, cfg.pnp, cfg.keyframes
     cam = _cam_of(cfg)
     dev = left_img.device
+    B = left_img.shape[0]
     seeded = fe.lk_seed == "const_velocity"
     # Lazy pyramid: the seeded path touches only the finest levels; the
     # rescue builds the coarse ones itself.
@@ -209,22 +287,22 @@ def slam_frame_step(
     T_prior = lie.inv_se3(carry.T_wc)
 
     def track_and_pnp(ref_pyr, c_pyr, init_flow, lk_params, stream):
-        gen = _generator(carry.key, carry.frame_idx, stream, dev)
+        gens = [_generator(k, carry.frame_idx, stream, dev) for k in carry.key]
         return _track_and_pnp(carry, ref_pyr, c_pyr, init_flow, lk_params,
-                              gen, cfg, cam, T_prior)
+                              gens, cfg, cam, T_prior)
 
     if seeded:
         # Predict the pose by replaying the last inter-frame motion, project
         # the landmarks, and track on a shallow pyramid from that seed.
-        T_pred_cw = lie.inv_se3(carry.T_wc @ carry.dT)
+        T_pred_cw = lie.inv_se3(lie.compose(carry.T_wc, carry.dT))
         uv_pred, z_ok = project(cam, lie.transform_points(T_pred_cw, carry.track.pts3d))
-        h0, w0 = cur_pyr[0].shape
+        h0, w0 = cur_pyr[0].shape[-2:]
         seed_ok = (z_ok & torch.isfinite(uv_pred).all(-1)
                    & interp.in_bounds(uv_pred, h0, w0, fe.lk_window // 2 + 1))
-        init_flow = torch.where(seed_ok[:, None], uv_pred - carry.track.pts2d,
+        init_flow = torch.where(seed_ok[..., None], uv_pred - carry.track.pts2d,
                                 torch.zeros_like(uv_pred))
         n_lvl = min(fe.lk_seeded_levels, fe.lk_levels)
-        tracked_pts, m, p = track_and_pnp(
+        tracked = track_and_pnp(
             carry.ref_pyr[:n_lvl], cur_pyr[:n_lvl], init_flow,
             frontend._lk_params(fe)._replace(
                 iters=fe.lk_seeded_iters, walk_iters=fe.lk_seeded_walk_iters),
@@ -232,44 +310,49 @@ def slam_frame_step(
         )
         # Rescue: a wrong velocity prior starves PnP — re-track unseeded on
         # the full pyramid (coarse levels of both frames built only here).
-        if _host_read((p.n_inliers < fe.lk_rescue_min_inliers) | ~carry.dT_valid):
+        need_rescue = (tracked[2].n_inliers < fe.lk_rescue_min_inliers) | ~carry.dT_valid
+        if _host_read(need_rescue.any()):
             RESCUES += 1
             ref_full = tuple(pyramid.build_pyramid(carry.ref_pyr[0], fe.lk_levels))
             cur_full = tuple(pyramid.build_pyramid(left_img, fe.lk_levels))
-            tracked_pts, m, p = track_and_pnp(
-                ref_full, cur_full, None, frontend._lk_params(fe), _STREAM_RESCUE)
+            rescued = track_and_pnp(ref_full, cur_full, None, frontend._lk_params(fe),
+                                    _STREAM_RESCUE)
+            tracked = _where_lanes(need_rescue, rescued, tracked)
     else:
-        tracked_pts, m, p = track_and_pnp(
+        tracked = track_and_pnp(
             carry.ref_pyr, cur_pyr, None, frontend._lk_params(fe), _STREAM_TRACK)
+    tracked_pts, m, p = tracked
 
     tracking_ok = p.n_inliers >= pc.min_inliers
-    T_wc = torch.where(tracking_ok, lie.inv_se3(p.T_cw), carry.T_wc)
+    T_wc = torch.where(tracking_ok[:, None, None], lie.inv_se3(p.T_cw), carry.T_wc)
+    track = carry.track._replace(pts2d=tracked_pts, mask=p.inliers & m)
+    flow = carry.stereo_flow
+    keyframes = carry.keyframes
 
     # --- keyframe trigger + re-triangulation ---
     is_kf = (p.n_inliers < kfc.min_pnp_inliers) | ~tracking_ok
-    if _host_read(is_kf):
+    if _host_read(is_kf.any()):
+        gp = grid_pts.expand(B, -1, -1).contiguous()
+        gm = grid_mask.expand(B, -1)
         if seeded:
             n_lvl = min(fe.lk_stereo_seeded_levels, fe.lk_levels)
             right_pyr = tuple(pyramid.build_pyramid(right_img, n_lvl))
-            track, r_uv, _ = _bootstrap_track(
-                cur_pyr[:n_lvl], right_pyr, grid_pts, grid_mask, T_wc, cfg,
+            kf_track, r_uv, _ = _bootstrap_track(
+                cur_pyr[:n_lvl], right_pyr, gp, gm, T_wc, cfg,
                 stereo_flow=carry.stereo_flow,
             )
-            flow = torch.where(track.mask[:, None], r_uv - grid_pts, carry.stereo_flow)
+            flow = _where_lanes(is_kf, torch.where(kf_track.mask[..., None], r_uv - gp,
+                                                   carry.stereo_flow), flow)
         else:
             right_pyr = tuple(pyramid.build_pyramid(right_img, fe.lk_levels))
-            track, _, _ = _bootstrap_track(
-                cur_pyr, right_pyr, grid_pts, grid_mask, T_wc, cfg)
-            flow = carry.stereo_flow
-        keyframes = _insert_keyframe(carry.keyframes, track, T_wc, carry.frame_idx)
-    else:
-        track = carry.track._replace(pts2d=tracked_pts, mask=p.inliers & m)
-        flow = carry.stereo_flow
-        keyframes = carry.keyframes
+            kf_track, _, _ = _bootstrap_track(cur_pyr, right_pyr, gp, gm, T_wc, cfg)
+        track = _where_lanes(is_kf, kf_track, track)
+        keyframes = _insert_keyframe(keyframes, track, T_wc, carry.frame_idx, is_kf)
 
     # Velocity update: keep the last good estimate through a tracking
     # failure (the held pose would otherwise zero the prior).
-    dT_new = torch.where(tracking_ok, lie.inv_se3(carry.T_wc) @ T_wc, carry.dT)
+    dT_new = torch.where(tracking_ok[:, None, None], lie.compose(lie.inv_se3(carry.T_wc), T_wc),
+                         carry.dT)
     new_carry = SlamCarry(
         track=track,
         T_wc=T_wc,
@@ -283,12 +366,12 @@ def slam_frame_step(
     )
     stats = FrameStats(
         T_wc=T_wc,
-        n_tracked=m.sum(),
+        n_tracked=m.sum(-1),
         n_inliers=p.n_inliers,
         is_keyframe=is_kf,
         tracking_ok=tracking_ok,
         used_retry=p.used_retry,
-        ba_rms=torch.zeros((), dtype=torch.float32, device=dev),
+        ba_rms=torch.zeros((B,), dtype=torch.float32, device=dev),
     )
     return new_carry, stats
 
@@ -302,41 +385,68 @@ def init_carry(
     cfg: PipelineConfig,
 ) -> SlamCarry:
     """Frame-0 bootstrap: stereo-triangulate the grid, insert keyframe 0."""
+    return _drop_lane(init_carry_batched(left_img[None], right_img[None], grid_pts, grid_mask,
+                                         (int(key),), cfg))
+
+
+def init_carry_batched(
+    left_imgs: torch.Tensor,
+    right_imgs: torch.Tensor,
+    grid_pts: torch.Tensor,
+    grid_mask: torch.Tensor,
+    keys,
+    cfg: PipelineConfig,
+) -> SlamCarry:
+    """Frame-0 bootstrap of B lanes at once (the reference's
+    ``vmap(init_carry)``): (B, H, W) images, one int key per lane, the
+    (N, 2) grid shared by all lanes.  Every tensor of the carry gains a
+    leading lane axis, ``key`` becomes a tuple of B keys and ``frame_idx``
+    stays one int (lanes step in lockstep).  Lane b equals
+    ``init_carry(..., key=keys[b], ...)``.
+    """
     _check_supported(cfg)
-    left_img, right_img = _to_unit(left_img), _to_unit(right_img)
+    B = left_imgs.shape[0]
+    if left_imgs.dim() != 3 or right_imgs.shape != left_imgs.shape or len(keys) != B:
+        raise ValueError(f"expected (B, H, W) images and B keys: {tuple(left_imgs.shape)}, "
+                         f"{tuple(right_imgs.shape)}, {len(keys)} keys")
+    left_imgs = _to_unit(left_imgs).contiguous()
+    right_imgs = _to_unit(right_imgs).contiguous()
     fe = cfg.frontend
-    dev = left_img.device
-    left_pyr = pyramid.build_pyramid(left_img, fe.lk_levels)
-    right_pyr = pyramid.build_pyramid(right_img, fe.lk_levels)
-    T0 = torch.eye(4, dtype=torch.float32, device=dev)
-    track, r_uv, _ = _bootstrap_track(left_pyr, right_pyr, grid_pts, grid_mask, T0, cfg)
-    kf = KeyframeStore.empty(cfg.keyframes.max_keyframes, fe.max_points, dev)
-    kf = _insert_keyframe(kf, track, T0, 0)
-    stereo_flow = torch.where(track.mask[:, None], r_uv - track.pts2d,
-                              torch.zeros_like(r_uv))
+    dev = left_imgs.device
+    left_pyr = pyramid.build_pyramid(left_imgs, fe.lk_levels)
+    right_pyr = pyramid.build_pyramid(right_imgs, fe.lk_levels)
+    T0 = torch.eye(4, dtype=torch.float32, device=dev).expand(B, 4, 4).contiguous()
+    gp = grid_pts.expand(B, -1, -1).contiguous()
+    track, r_uv, _ = _bootstrap_track(left_pyr, right_pyr, gp, grid_mask.expand(B, -1), T0, cfg)
+    kf = KeyframeStore.empty(cfg.keyframes.max_keyframes, fe.max_points, dev, lanes=B)
+    kf = _insert_keyframe(kf, track, T0, 0, torch.ones((B,), dtype=torch.bool, device=dev))
+    stereo_flow = torch.where(track.mask[..., None], r_uv - gp, torch.zeros_like(r_uv))
     # Carry only the pyramid depth the steady-state (seeded) path touches.
     ref_keep = (left_pyr[: _happy_levels(fe)]
                 if fe.lk_seed == "const_velocity" else left_pyr)
     return SlamCarry(
         track=track, T_wc=T0, keyframes=kf, ref_pyr=tuple(ref_keep),
-        key=int(key), frame_idx=1,
-        dT=torch.eye(4, dtype=torch.float32, device=dev),
-        dT_valid=torch.zeros((), dtype=torch.bool, device=dev),
+        key=tuple(int(k) for k in keys), frame_idx=1,
+        dT=T0.clone(),
+        dT_valid=torch.zeros((B,), dtype=torch.bool, device=dev),
         stereo_flow=stereo_flow,
     )
 
 
-def _stack_stats(stats: list[FrameStats], device) -> FrameStats:
+def _stack_stats(stats: list[FrameStats], device, lead: tuple = ()) -> FrameStats:
+    """Per-frame stats stacked along a new frame axis 0; `lead` is the lane
+    shape of each frame's stats, for an empty sequence."""
     if stats:
         return FrameStats(*(torch.stack(f) for f in zip(*stats)))
     f32 = dict(dtype=torch.float32, device=device)
     i64 = dict(dtype=torch.int64, device=device)
     b = dict(dtype=torch.bool, device=device)
+    e = (0,) + tuple(lead)
     return FrameStats(
-        T_wc=torch.zeros((0, 4, 4), **f32), n_tracked=torch.zeros((0,), **i64),
-        n_inliers=torch.zeros((0,), **i64), is_keyframe=torch.zeros((0,), **b),
-        tracking_ok=torch.zeros((0,), **b), used_retry=torch.zeros((0,), **b),
-        ba_rms=torch.zeros((0,), **f32),
+        T_wc=torch.zeros(e + (4, 4), **f32), n_tracked=torch.zeros(e, **i64),
+        n_inliers=torch.zeros(e, **i64), is_keyframe=torch.zeros(e, **b),
+        tracking_ok=torch.zeros(e, **b), used_retry=torch.zeros(e, **b),
+        ba_rms=torch.zeros(e, **f32),
     )
 
 

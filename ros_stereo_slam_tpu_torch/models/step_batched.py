@@ -1,0 +1,117 @@
+"""Batched-lane (DP-over-sequences) odometry: B sequences per frame step.
+
+Port of ``ros_stereo_slam_tpu/models/step_batched.py``.  Where the
+reference vmaps the single-lane step over B independent sequences, every
+tensor here carries a leading lane axis written out, so each launch
+serves all B lanes: K1 runs once per pyramid level for all lanes
+(``lk_cuda.track_level_batch``), PnP solves every lane's hypotheses at
+once, and the keyframe bootstrap triangulates all lanes together.
+
+The step is :func:`.step._step_lanes`, the body that the single-lane
+step runs with one lane, in the reference's four phases:
+
+1. the seeded temporal track + PnP for all lanes;
+2. the rescue re-track, run for all lanes when ANY lane needs it, then a
+   per-lane ``where`` keeps it only in the lanes that asked;
+3. the pose update and the continue-branch state;
+4. the keyframe branch, likewise run when any lane triggers it, merged
+   per lane, with a masked ring insert that writes only the triggering
+   lanes' stores.
+
+The reference's two ``lax.cond(jnp.any(...))`` become one host read each
+(counted in ``step.HOST_READS``): 2 per frame, whatever B is.
+
+Per-lane semantics equal :func:`.step.slam_frame_step`'s: lane b of a
+batched run is the single-lane run started with
+``init_carry(..., key=lane_keys(seed, B)[b], ...)`` (each lane draws its
+RANSAC sets from its own generators, and every sum is taken per lane in
+an order that does not depend on B: on the CPU the two agree bitwise).  Only the const-velocity-seeded
+configuration is batched, as in the reference; RGB frames, BA, the
+mapping preset and the shared keyframe cadence (``batch_align_window``,
+a measured refutation in the reference) are not ported and raise.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ros_stereo_slam_tpu_torch.config import PipelineConfig
+from ros_stereo_slam_tpu_torch.models import step as step_mod
+from ros_stereo_slam_tpu_torch.models.step import FrameStats, SlamCarry
+
+
+def lane_keys(seed: int, lanes: int) -> tuple[int, ...]:
+    """The base key of each lane of a batched run started from `seed`.
+
+    The reference splits ``PRNGKey(seed)`` into B keys, whose streams torch
+    cannot reproduce; here lane b's key (the ``key`` of its per-frame
+    generators, ``step._generator``) is word b of
+    ``SeedSequence([seed, lanes])``.  Lane b of a batched run equals the
+    single-lane run started with ``init_carry(..., key=lane_keys(seed,
+    lanes)[b], ...)``.
+    """
+    words = np.random.SeedSequence([int(seed), int(lanes)]).generate_state(lanes, np.uint64)
+    return tuple(int(w) for w in words)
+
+
+def check_batched(cfg: PipelineConfig) -> None:
+    """Raise for the configurations the batched step does not run."""
+    step_mod._check_supported(cfg)
+    if cfg.frontend.lk_seed != "const_velocity":
+        raise ValueError(
+            "the batched step requires the const-velocity-seeded config (the "
+            "batch hoist targets the seeded/rescue split); got "
+            f"lk_seed={cfg.frontend.lk_seed!r}")
+    if cfg.keyframes.batch_align_window > 1:
+        raise NotImplementedError(
+            "batch_align_window > 1 is not ported (measured slower and less "
+            "accurate in the reference)")
+    if cfg.export_map and not cfg.loop.enabled:
+        raise NotImplementedError("the mapping preset (RGB map export) is not ported")
+
+
+def slam_frame_step_batched(
+    carry: SlamCarry,
+    left_img: torch.Tensor,
+    right_img: torch.Tensor,
+    grid_pts: torch.Tensor,
+    grid_mask: torch.Tensor,
+    cfg: PipelineConfig,
+) -> tuple[SlamCarry, FrameStats]:
+    """One odometry frame for B lanes (see the module docstring).
+
+    `carry` from :func:`.step.init_carry_batched` (a leading lane axis on
+    every tensor); `left_img`/`right_img` (B, H, W) float32 in [0, 1] or
+    uint8; `grid_pts` (N, 2) and `grid_mask` (N,) shared by all lanes.
+    Returns the new carry and (B, ...) stats.
+    """
+    check_batched(cfg)
+    if left_img.dim() != 3 or right_img.shape != left_img.shape \
+            or len(carry.key) != left_img.shape[0]:
+        raise ValueError(f"expected (B, H, W) frames for {len(carry.key)} lanes, got "
+                         f"{tuple(left_img.shape)} and {tuple(right_img.shape)}")
+    return step_mod._step_lanes(carry, left_img, right_img, grid_pts, grid_mask, cfg)
+
+
+def run_sequence_batched(
+    left_seq: torch.Tensor,  # (B, F, H, W) float32 or uint8 — frames 1..F per lane
+    right_seq: torch.Tensor,
+    carry: SlamCarry,
+    grid_pts: torch.Tensor,
+    grid_mask: torch.Tensor,
+    cfg: PipelineConfig,
+    rgb_seq=None,
+) -> tuple[SlamCarry, FrameStats]:
+    """Step B staged sequences in lockstep; stats come back frame-major,
+    (F, B, ...), as the reference's scan gives them.  `rgb_seq` (colouring
+    the map from RGB frames) is not ported and raises."""
+    if rgb_seq is not None:
+        raise NotImplementedError("rgb_seq (the RGB map path) is not ported")
+    check_batched(cfg)
+    stats = []
+    for i in range(left_seq.shape[1]):
+        carry, st = slam_frame_step_batched(carry, left_seq[:, i], right_seq[:, i],
+                                            grid_pts, grid_mask, cfg)
+        stats.append(st)
+    return carry, step_mod._stack_stats(stats, left_seq.device, (left_seq.shape[0],))

@@ -17,7 +17,10 @@ node n's children are rows [n k, (n + 1) k).  At the reference scale
   everything after them is exact integer work, so a seed gives the same
   vocabulary on the CPU and on the card (not JAX's: its keys differ).
 - The sparse BoW, binned shortlist and exact min-intersection rescore
-  are the reference's formulas (see its module docstring).
+  are the reference's formulas (see its module docstring).  Each also
+  takes a leading lane axis (the batched-lane drivers), every lane
+  sorted, merged and scored on its own; lanes descend the tree as one
+  flattened (B N, 256) batch.
 
 The reference's deep-table tail pad (``prepare_centers_for_scan``,
 ``vocab_pallas.pad_table``) is a TPU mechanic and is not ported.
@@ -65,7 +68,7 @@ class Vocabulary:
                             idf=self.idf.cpu().numpy().astype(np.float32), **arrs)
 
     @staticmethod
-    def load(path: str, device="cpu") -> "Vocabulary":
+    def load(path: str, device="cuda") -> "Vocabulary":
         with np.load(path) as z:
             levels = int(z["levels"])
             return Vocabulary(
@@ -166,7 +169,7 @@ def _train_levels(X: torch.Tensor, k: int, levels: int, iters: int, init_level) 
 
 def train_batched(
     descriptors, k: int = 9, levels: int = 6, iters: int = 6, seed: int = 0,
-    doc_ids: np.ndarray | None = None, device="cpu",
+    doc_ids: np.ndarray | None = None, device="cuda",
 ) -> Vocabulary:
     """Level-synchronous trainer from (N, 256) sign descriptors (array or tensor).
 
@@ -240,45 +243,50 @@ def bow_sparse(words: torch.Tensor, valid: torch.Tensor, idf: torch.Tensor,
 
     Returns ``(uwords, uvals)``, each (N,): unique word ids with merged,
     L1-normalized TF-IDF weights; padding entries are (word 0, weight 0).
+    Lane form: (B, N) in, (B, N) out, each lane on its own.
     """
     del n_words  # the reference's static width; the shapes carry it here
-    n = words.shape[0]
     w = torch.where(valid, idf[words], 0.0)
     big = torch.iinfo(torch.int32).max
-    order = torch.argsort(torch.where(valid, words, big), stable=True)
-    sw, sv = words[order], valid[order]
-    svw = torch.where(sv, w[order], 0.0)
+    order = torch.argsort(torch.where(valid, words, big), dim=-1, stable=True)
+    sw, sv = words.gather(-1, order), valid.gather(-1, order)
+    svw = torch.where(sv, w.gather(-1, order), 0.0)
     first = sv.clone()
-    first[1:] &= sw[1:] != sw[:-1]
+    first[..., 1:] &= sw[..., 1:] != sw[..., :-1]
     # duplicate merge as a segment sum over the sorted runs; invalid rows
     # sort to the tail with zero weight
-    seg = torch.clamp(torch.cumsum(first.to(torch.int64), 0) - 1, min=0)
-    sums = torch.zeros((n,), dtype=torch.float32, device=words.device).index_add_(0, seg, svw)
+    seg = torch.clamp(torch.cumsum(first.to(torch.int64), -1) - 1, min=0)
+    sums = torch.zeros_like(svw).scatter_add_(-1, seg, svw)
     uw = torch.where(first, sw, torch.zeros_like(sw))
-    uv = torch.where(first, sums[seg], 0.0)
-    return uw, uv / torch.clamp(uv.sum(), min=1e-12)
+    uv = torch.where(first, sums.gather(-1, seg), 0.0)
+    return uw, uv / torch.clamp(uv.sum(-1, keepdim=True), min=1e-12)
 
 
 def bin_of_sparse(uw: torch.Tensor, uv: torch.Tensor, n_bins: int) -> torch.Tensor:
-    """Sparse BoW -> (n_bins,) histogram over word id mod n_bins."""
-    return torch.zeros((n_bins,), dtype=torch.float32, device=uv.device).index_add_(
-        0, uw.to(torch.int64) % n_bins, uv)
+    """Sparse BoW -> (n_bins,) histogram over word id mod n_bins ((B, n_bins)
+    for (B, N) lanes)."""
+    return torch.zeros(uv.shape[:-1] + (n_bins,), dtype=torch.float32,
+                       device=uv.device).scatter_add_(-1, uw.to(torch.int64) % n_bins, uv)
 
 
 def score_db_binned(q_bins: torch.Tensor, db_bins: torch.Tensor) -> torch.Tensor:
-    """Shortlist scores: one (capacity, n_bins) @ (n_bins,) bf16 matvec."""
-    return (db_bins.to(torch.bfloat16) @ q_bins.to(torch.bfloat16)).to(torch.float32)
+    """Shortlist scores: one (capacity, n_bins) @ (n_bins,) bf16 matvec
+    (per lane for (B, capacity, n_bins) and (B, n_bins))."""
+    q = q_bins.to(torch.bfloat16)[..., None]
+    return (db_bins.to(torch.bfloat16) @ q)[..., 0].to(torch.float32)
 
 
 def score_pair_min(uw, uv, w, v) -> torch.Tensor:
-    """Exact min-intersection of two merged-unique sparse rows."""
-    eq = w[:, None] == uw[None, :]
-    m = torch.minimum(v[:, None], uv[None, :])
-    return torch.where(eq, m, 0.0).sum()
+    """Exact min-intersection of two merged-unique sparse rows (per lane
+    for (B, N) rows)."""
+    eq = w[..., :, None] == uw[..., None, :]
+    m = torch.minimum(v[..., :, None], uv[..., None, :])
+    return torch.where(eq, m, 0.0).sum((-2, -1))
 
 
 def rescore_min(uw, uv, cw, cv) -> torch.Tensor:
-    """Exact min-intersection of the query vs C candidate sparse rows: (C,)."""
-    eq = cw[:, :, None] == uw[None, None, :]
-    m = torch.minimum(cv[:, :, None], uv[None, None, :])
-    return torch.where(eq, m, 0.0).sum(dim=(1, 2))
+    """Exact min-intersection of the query vs C candidate sparse rows: (C,)
+    (lane form: (B, N) query, (B, C, N) candidates -> (B, C))."""
+    eq = cw[..., :, :, None] == uw[..., None, None, :]
+    m = torch.minimum(cv[..., :, :, None], uv[..., None, None, :])
+    return torch.where(eq, m, 0.0).sum(dim=(-2, -1))

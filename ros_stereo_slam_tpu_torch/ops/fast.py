@@ -9,6 +9,9 @@ on the CPU; ties between corners then resolve the same way.
 :func:`top_corners` is the reference's exact variant (``exact=True``).
 Its default, ``lax.approx_max_k``, is a TPU mechanic: off the TPU the
 JAX package is exact too.
+
+Lane form: both functions also take a (B, H, W) stack of lane images and
+work on the last two axes (the batched-lane drivers).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ _ARC = 9  # FAST-9
 
 def _shift(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     """img shifted so out[y, x] = img[y + dy, x + dx] (rolled edges)."""
-    return torch.roll(img, (-dy, -dx), dims=(0, 1))
+    return torch.roll(img, (-dy, -dx), dims=(-2, -1))
 
 
 def _contiguous_any(mask16: torch.Tensor) -> torch.Tensor:
@@ -61,7 +64,7 @@ def fast_score(img: torch.Tensor, thresh: float = 12.0 / 255.0) -> torch.Tensor:
         dark_score = dark_score + torch.where(dark[s], -diff[s] - thresh, zero)
     score = (torch.where(_contiguous_any(bright), bright_score, zero)
              + torch.where(_contiguous_any(dark), dark_score, zero))
-    h, w = img.shape
+    h, w = img.shape[-2:]
     interior = torch.zeros((h, w), dtype=torch.bool, device=img.device)
     interior[3:h - 3, 3:w - 3] = True
     return torch.where(interior, score, zero)
@@ -70,7 +73,8 @@ def fast_score(img: torch.Tensor, thresh: float = 12.0 / 255.0) -> torch.Tensor:
 def top_corners(
     score: torch.Tensor, capacity: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Top-`capacity` 3x3 peaks -> ((N, 2) xy points, (N,) scores, (N,) valid).
+    """Top-`capacity` 3x3 peaks -> ((N, 2) xy points, (N,) scores, (N,) valid)
+    (lane form: (B, H, W) scores -> (B, N, 2), (B, N), (B, N)).
 
     Exact top-k; among equal scores the lowest raster index comes first.
     """
@@ -80,9 +84,9 @@ def top_corners(
             if dy or dx:
                 m = torch.maximum(m, _shift(score, dy, dx))
     peak = torch.where(score >= m, score, torch.zeros_like(score))
-    flat = peak.reshape(-1)
-    vals, idx = top_k(flat, min(capacity, flat.shape[0]))
-    w = score.shape[1]
+    flat = peak.flatten(-2)
+    vals, idx = top_k(flat, min(capacity, flat.shape[-1]))
+    w = score.shape[-1]
     pts = torch.stack([(idx % w).to(torch.float32),
-                       torch.div(idx, w, rounding_mode="floor").to(torch.float32)], dim=1)
+                       torch.div(idx, w, rounding_mode="floor").to(torch.float32)], dim=-1)
     return pts, vals, vals > 0.0

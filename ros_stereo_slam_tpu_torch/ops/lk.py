@@ -8,6 +8,10 @@ photometric residual, all N points advancing together.
 It runs the CPU path and is the oracle of the CUDA kernel in
 ``ops/lk_cuda.py``; :func:`_dispatch_level` hands every level to
 ``lk_cuda.track_level``, where the tensors' device picks the route.
+
+Lane form: :func:`track` also takes pyramids of (B, h, w) levels with
+(B, N, 2) points (the batched-lane drivers); each level then goes through
+``lk_cuda.track_level_batch``, one kernel launch for all lanes.
 The reference's freeze-polish phase (``walk_iters < iters``) is reached
 by no configuration and is not ported: asking for it raises.
 """
@@ -97,11 +101,19 @@ def _track_level(
 
 
 def _dispatch_level(ref_img, cur_img, ref_pts, guesses, params: LKParams):
-    """One level through ``lk_cuda.track_level``: the CUDA kernel for CUDA
-    tensors, :func:`_track_level` for CPU tensors."""
+    """One level through ``lk_cuda.track_level`` ((H, W) images, or a stack
+    of one lane) or ``lk_cuda.track_level_batch`` ((B, H, W) lanes, B > 1):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Both entry points run one kernel body, so a lane's result does not
+    depend on the route."""
     from ros_stereo_slam_tpu_torch.ops import lk_cuda
 
-    return lk_cuda.track_level(ref_img, cur_img, ref_pts, guesses, params)
+    if ref_img.dim() == 2:
+        return lk_cuda.track_level(ref_img, cur_img, ref_pts, guesses, params)
+    if ref_img.shape[0] > 1:
+        return lk_cuda.track_level_batch(ref_img, cur_img, ref_pts, guesses, params)
+    out = lk_cuda.track_level(ref_img[0], cur_img[0], ref_pts[0], guesses[0], params)
+    return tuple(t[None] for t in out)
 
 
 def track(
@@ -116,34 +128,35 @@ def track(
     `ref_pyr` / `cur_pyr`: sequences from :func:`pyramid.build_pyramid`
     (finest first); their length sets the number of levels.
     `init_flow`: optional (N, 2) prior displacement (e.g. stereo prior).
+    Lane form: (B, h, w) levels, (B, N, 2) points and flow, (B, N) outputs.
     """
     levels = len(ref_pyr)
-    n = ref_pts.shape[0]
+    lead = ref_pts.shape[:-1]
     flow = torch.zeros_like(ref_pts) if init_flow is None else init_flow
 
     scale = float(2 ** (levels - 1))
     guesses = (ref_pts + flow) / scale
-    ok_fine = torch.ones((n,), dtype=torch.bool, device=ref_pts.device)
-    resid = torch.zeros((n,), dtype=torch.float32, device=ref_pts.device)
+    ok_fine = torch.ones(lead, dtype=torch.bool, device=ref_pts.device)
+    resid = torch.zeros(lead, dtype=torch.float32, device=ref_pts.device)
     # A point out of range AT A GIVEN LEVEL keeps its prior guess there
     # instead of absorbing an update computed from clamped reads.
     margin = params.window // 2 + 1
     for lvl in range(levels - 1, -1, -1):
         ref_lvl = ref_pts / float(2**lvl)
-        h_l, w_l = ref_pyr[lvl].shape
+        h_l, w_l = ref_pyr[lvl].shape[-2:]
         tracked, resid, ok = _dispatch_level(
             ref_pyr[lvl], cur_pyr[lvl], ref_lvl, guesses, params
         )
         usable = ok & interp.in_bounds(ref_lvl, h_l, w_l, margin) & interp.in_bounds(
             tracked, h_l, w_l, margin
         )
-        guesses = torch.where(usable[:, None], tracked, guesses)
+        guesses = torch.where(usable[..., None], tracked, guesses)
         if lvl == 0:
             ok_fine = usable
         else:
             guesses = guesses * 2.0
 
-    h, w = cur_pyr[0].shape
+    h, w = cur_pyr[0].shape[-2:]
     valid = (
         ok_fine
         & interp.in_bounds(ref_pts, h, w, margin)

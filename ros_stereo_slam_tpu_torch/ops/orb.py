@@ -14,6 +14,11 @@ matrices, as two matmuls.
 Packed descriptors are (N, 8) int32 holding the reference's uint32 bit
 patterns (torch has no full uint32 support): bit j of word w is
 descriptor bit 32 w + j.
+
+Lane form (the batched-lane drivers): :func:`detect_and_compute` also
+takes a (B, H, W) stack of lane images and returns (B, N, ...) features;
+each ORB level's descriptors then go through
+:func:`.orb_cuda.orb_descriptors_batch`, one kernel launch for all lanes.
 """
 
 from __future__ import annotations
@@ -65,18 +70,18 @@ class OrbFeatures(NamedTuple):
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(N, 256) bool -> (N, 8) int32 (uint32 bit patterns)."""
-    b = bits.reshape(bits.shape[0], 8, 32).to(torch.int64)
+    """(..., 256) bool -> (..., 8) int32 (uint32 bit patterns)."""
+    b = bits.reshape(bits.shape[:-1] + (8, 32)).to(torch.int64)
     shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
     words = (b << shifts).sum(-1)  # < 2^32
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
-    """(N, 8) packed -> (N, 256) bool (inverse of :func:`pack_bits`)."""
+    """(..., 8) packed -> (..., 256) bool (inverse of :func:`pack_bits`)."""
     shifts = torch.arange(32, dtype=torch.int64, device=packed.device)
-    b = ((packed.to(torch.int64) & 0xFFFFFFFF)[:, :, None] >> shifts) & 1
-    return b.reshape(packed.shape[0], N_BITS).to(torch.bool)
+    b = ((packed.to(torch.int64) & 0xFFFFFFFF)[..., None] >> shifts) & 1
+    return b.reshape(packed.shape[:-1] + (N_BITS,)).to(torch.bool)
 
 
 def sign_of_packed(packed: torch.Tensor) -> torch.Tensor:
@@ -124,7 +129,7 @@ def _descriptors_plain(img: torch.Tensor, pts: torch.Tensor) -> tuple[torch.Tens
 def _level_corners(img: torch.Tensor, budget: int, fast_thresh: float):
     """FAST-9 + exact top corners + ANMS on one level: (budget, 2) integer
     corners and their validity (>= PATCH // 2 + 2 px inside the image)."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     score = fast.fast_score(img, fast_thresh)
     cand_pts, cand_scores, cand_mask = fast.top_corners(score, 4 * budget)
     pts, valid = anms.anms(cand_pts, cand_scores, cand_mask, budget)
@@ -134,15 +139,17 @@ def _level_corners(img: torch.Tensor, budget: int, fast_thresh: float):
 def _level_features(img: torch.Tensor, budget: int, fast_thresh: float):
     """Detection + description on ONE pyramid level (level coordinates).
 
-    Returns (pts, angle, packed bits, sign, valid) with `budget` rows.
+    Returns (pts, angle, packed bits, sign, valid) with `budget` rows
+    (per lane for a (B, h, w) stack).
     """
     from ros_stereo_slam_tpu_torch.ops import orb_cuda
 
     pts, valid = _level_corners(img, budget, fast_thresh)
-    sign_k, m = orb_cuda.orb_descriptors(img, pts)
-    angle = torch.atan2(m[:, 1], m[:, 0])
-    bits = (sign_k > 0.0) & valid[:, None]
-    sign = sign_k * valid[:, None]  # invalid rows -> zero vectors
+    describe = orb_cuda.orb_descriptors_batch if img.dim() == 3 else orb_cuda.orb_descriptors
+    sign_k, m = describe(img, pts)
+    angle = torch.atan2(m[..., 1], m[..., 0])
+    bits = (sign_k > 0.0) & valid[..., None]
+    sign = sign_k * valid[..., None]  # invalid rows -> zero vectors
     return pts, angle, pack_bits(bits), sign, valid
 
 
@@ -194,7 +201,7 @@ def _resize_matrix_on(n_in: int, n_out: int, device: torch.device) -> torch.Tens
 def level_images(img: torch.Tensor, n_levels: int, scale_factor: float) -> list:
     """The ORB pyramid: level l is `img` resized by scale_factor^-l (at least
     32 px a side) with the reference's bilinear resize matrices."""
-    h, w = img.shape
+    h, w = img.shape[-2:]
     out = [img]
     for l in range(1, n_levels):
         s = scale_factor**l
@@ -217,9 +224,9 @@ def detect_and_compute(
     With `n_levels` > 1 the features come from a bilinear image pyramid
     at per-level downscale `scale_factor`; points are reported in level-0
     coordinates with their detection level, and descriptors are computed
-    on the level image.
+    on the level image.  A (B, H, W) stack gives (B, n_features, ...).
     """
-    h, w = img.shape
+    h, w = img.shape[-2:]
     budgets = ([n_features] if n_levels <= 1
                else _level_budgets(n_features, n_levels, scale_factor))
     parts = []
@@ -227,10 +234,11 @@ def detect_and_compute(
                                                                    scale_factor))):
         pts, angle, bits, sign, valid = _level_features(lvl_img, budget, fast_thresh)
         if l > 0:  # pixel-center mapping back to level 0: x0 = (x_l + 0.5) s - 0.5
-            sy = float(np.float32(h / lvl_img.shape[0]))
-            sx = float(np.float32(w / lvl_img.shape[1]))
-            pts = torch.stack([(pts[:, 0] + 0.5) * sx - 0.5,
-                               (pts[:, 1] + 0.5) * sy - 0.5], dim=1)
-        octave = torch.full((budget,), l, dtype=torch.int32, device=img.device)
+            sy = float(np.float32(h / lvl_img.shape[-2]))
+            sx = float(np.float32(w / lvl_img.shape[-1]))
+            pts = torch.stack([(pts[..., 0] + 0.5) * sx - 0.5,
+                               (pts[..., 1] + 0.5) * sy - 0.5], dim=-1)
+        octave = torch.full(valid.shape, l, dtype=torch.int32, device=img.device)
         parts.append((pts, angle, bits, sign, valid, octave))
-    return OrbFeatures(*(torch.cat([p[i] for p in parts]) for i in range(6)))
+    point_axis = img.dim() - 2
+    return OrbFeatures(*(torch.cat([p[i] for p in parts], dim=point_axis) for i in range(6)))

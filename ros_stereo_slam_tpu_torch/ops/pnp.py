@@ -9,6 +9,12 @@ Huber-IRLS Gauss-Newton polish rounds.
 Sampling is split from solving: :func:`pnp_ransac` draws the index sets
 from a ``torch.Generator`` and hands them to :func:`_pnp_from_sets`, so a
 test can feed the solver index sets drawn by the JAX reference.
+
+Lane form (the batched-lane drivers): every input gains a leading lane
+axis B, :func:`pnp_ransac` takes one generator per lane (each lane draws
+its own index sets, as its single-lane run would) and
+:func:`_pnp_from_sets` solves all lanes at once; the retry ladder and
+``used_retry`` are per lane.
 """
 
 from __future__ import annotations
@@ -29,6 +35,15 @@ class PnPResult(NamedTuple):
     n_inliers: torch.Tensor  # () int
     errors: torch.Tensor  # (N,) reprojection error (px) under final pose
     used_retry: torch.Tensor  # () bool — loose-threshold ladder engaged
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor, lanes: bool) -> torch.Tensor:
+    """x[idx] along the point (or hypothesis) axis; with `lanes`, x has a
+    leading lane axis and lane b of `idx` indexes lane b of x."""
+    if not lanes:
+        return x[idx]
+    b = torch.arange(x.shape[0], device=x.device)
+    return x[b.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
 
 
 def _p6p_dlt(X: torch.Tensor, xn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -109,7 +124,17 @@ def _gn_refine(
     damping: float = 1e-4,
 ) -> torch.Tensor:
     """Huber-IRLS Gauss-Newton on SE(3), batched over leading dimensions:
-    T0 (..., 4, 4), X (..., N, 3), uv (..., N, 2), weights_mask (..., N)."""
+    T0 (..., 4, 4), X (..., N, 3), uv (..., N, 2), weights_mask (..., N).
+
+    The steps run in float64 and the result is rounded back to T0's type:
+    the card's reductions and batched products sum in an order that
+    depends on the batch shape (one lane or several), and RANSAC turns a
+    last-bit difference into a different inlier set a few frames later.
+    In float64 those differences stay far below float32's rounding, so a
+    lane's pose does not depend on how many lanes run beside it.
+    """
+    out_dtype = T0.dtype
+    T0, X, uv, weights_mask = (a.to(torch.float64) for a in (T0, X, uv, weights_mask))
     eye3 = torch.eye(3, dtype=X.dtype, device=X.device)
     eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
     T = T0
@@ -135,11 +160,14 @@ def _gn_refine(
                          huber_px / torch.clamp(rn, min=1e-9))
         wgt = wh * weights_mask
         Jw = J * wgt[..., None, None]
-        H = torch.einsum("...nki,...nkj->...ij", Jw, J) + damping * eye6
-        b = torch.einsum("...nki,...nk->...i", Jw, r)
+        # Normal equations as products and sums over (point, row), not
+        # einsum: on the CPU a batched BLAS call rounds differently from an
+        # unbatched one; these sums do not depend on the number of lanes.
+        H = (Jw[..., :, None] * J[..., None, :]).sum((-4, -3)) + damping * eye6
+        b = (Jw * r[..., None]).sum((-3, -2))
         dxi = linalg.spd_solve(H, -b)
         T = lie.exp_se3(dxi) @ T
-    return T
+    return T.to(out_dtype)
 
 
 def _pnp_from_sets(
@@ -158,57 +186,64 @@ def _pnp_from_sets(
 ) -> PnPResult:
     """The PnP solve on given minimal sets: `idx` (K, 6) for the DLT
     family, `idx2` (K2, 8) for the prior-seeded GN family (used iff
-    `T_init` is given)."""
+    `T_init` is given).  Lane form: idx (B, K, 6), idx2 (B, K2, 8), pts3d
+    (B, N, 3), uv (B, N, 2), mask (B, N), T_init (B, 4, 4)."""
+    lanes = mask.dim() == 2
     xn = torch.stack([(uv[..., 0] - cam.cx) / cam.fx,
                       (uv[..., 1] - cam.cy) / cam.fy], dim=-1)
-    Rk, tk = _p6p_dlt(pts3d[idx], xn[idx])  # (K, 3, 3), (K, 3)
+    Rk, tk = _p6p_dlt(_rows(pts3d, idx, lanes), _rows(xn, idx, lanes))  # (K, 3, 3), (K, 3)
     if T_init is not None:
-        n_gn = idx2.shape[0]
         T_gn = _gn_refine(
-            cam, T_init.expand(n_gn, 4, 4), pts3d[idx2], uv[idx2],
+            cam, T_init.unsqueeze(-3).expand(idx2.shape[:-1] + (4, 4)),
+            _rows(pts3d, idx2, lanes), _rows(uv, idx2, lanes),
             torch.ones(idx2.shape, dtype=pts3d.dtype, device=pts3d.device), 5,
         )
-        Rk = torch.cat([Rk, T_gn[:, :3, :3]], dim=0)
-        tk = torch.cat([tk, T_gn[:, :3, 3]], dim=0)
+        Rk = torch.cat([Rk, T_gn[..., :3, :3]], dim=-3)
+        tk = torch.cat([tk, T_gn[..., :3, 3]], dim=-2)
 
-    err = _reproj_errors(cam, Rk, tk, pts3d, uv)  # (K, N)
-    inl = (err < thresh_px) & mask[None, :]
-    counts = inl.sum(1)
-    best = torch.argmax(counts)
+    # (K, N) errors of every hypothesis at every point
+    if lanes:
+        err = _reproj_errors(cam, Rk, tk, pts3d[:, None], uv[:, None])
+    else:
+        err = _reproj_errors(cam, Rk, tk, pts3d, uv)
+    inl = (err < thresh_px) & mask[..., None, :]
+    counts = inl.sum(-1)
+    best = torch.argmax(counts, dim=-1)
     # Retry ladder folded into one pass: if the tight threshold starves,
     # pick (and gate) by the loose one over the SAME hypothesis set.
     use_thresh = thresh_px
-    starved = torch.zeros((), dtype=torch.bool, device=pts3d.device)
+    starved = torch.zeros(best.shape, dtype=torch.bool, device=pts3d.device)
     if retry_thresh_px is not None:
-        inl_r = (err < retry_thresh_px) & mask[None, :]
-        best_r = torch.argmax(inl_r.sum(1))
-        starved = counts[best] < min_inliers
+        inl_r = (err < retry_thresh_px) & mask[..., None, :]
+        best_r = torch.argmax(inl_r.sum(-1), dim=-1)
+        starved = _rows(counts, best, lanes) < min_inliers
         best = torch.where(starved, best_r, best)
-        use_thresh = torch.where(starved, float(retry_thresh_px), float(thresh_px))
-        inl = torch.where(starved, inl_r, inl)
-    T = lie.make_se3(Rk[best], tk[best])
+        use_thresh = torch.where(starved, float(retry_thresh_px),
+                                 float(thresh_px)).unsqueeze(-1)
+        inl = torch.where(starved[..., None, None], inl_r, inl)
+    T = lie.make_se3(_rows(Rk, best, lanes), _rows(tk, best, lanes))
 
     # GN polish on the best hypothesis' inliers (Huber tighter than the
     # gate), re-score, one more round on the expanded set, final score.
-    T = _gn_refine(cam, T, pts3d, uv, inl[best].to(pts3d.dtype), refine_iters,
+    T = _gn_refine(cam, T, pts3d, uv, _rows(inl, best, lanes).to(pts3d.dtype), refine_iters,
                    huber_px=huber_px)
-    final_err = _reproj_errors(cam, T[:3, :3], T[:3, 3], pts3d, uv)
+    final_err = _reproj_errors(cam, T[..., :3, :3], T[..., :3, 3], pts3d, uv)
     final_inl = (final_err < use_thresh) & mask
     T = _gn_refine(cam, T, pts3d, uv, final_inl.to(pts3d.dtype), refine_iters,
                    huber_px=huber_px)
-    final_err = _reproj_errors(cam, T[:3, :3], T[:3, 3], pts3d, uv)
+    final_err = _reproj_errors(cam, T[..., :3, :3], T[..., :3, 3], pts3d, uv)
     final_inl = (final_err < use_thresh) & mask
     return PnPResult(
         T_cw=T,
         inliers=final_inl,
-        n_inliers=final_inl.sum(),
+        n_inliers=final_inl.sum(-1),
         errors=final_err,
         used_retry=starved,
     )
 
 
 def pnp_ransac(
-    gen: torch.Generator,
+    gen: torch.Generator | list,
     cam: Pinhole,
     pts3d: torch.Tensor,
     uv: torch.Tensor,
@@ -225,11 +260,22 @@ def pnp_ransac(
 
     `T_init` (optional 4x4 prior, e.g. the previous frame's pose) adds the
     prior-seeded GN hypothesis family, which stays alive on planar scenes
-    where the P6P DLT degenerates.
+    where the P6P DLT degenerates.  Lane form: `gen` is a list of B
+    generators and every tensor has a leading lane axis; lane b draws from
+    gen[b] exactly what its single-lane call would.
     """
-    idx = _sample_minimal_sets(gen, mask, iters, 6)
-    idx2 = (_sample_minimal_sets(gen, mask, max(iters // 4, 16), 8)
-            if T_init is not None else None)
+    def draw(g, m):
+        idx = _sample_minimal_sets(g, m, iters, 6)
+        idx2 = (_sample_minimal_sets(g, m, max(iters // 4, 16), 8)
+                if T_init is not None else None)
+        return idx, idx2
+
+    if mask.dim() == 2:
+        sets = [draw(g, m) for g, m in zip(gen, mask, strict=True)]
+        idx = torch.stack([a for a, _ in sets])
+        idx2 = torch.stack([b for _, b in sets]) if T_init is not None else None
+    else:
+        idx, idx2 = draw(gen, mask)
     return _pnp_from_sets(
         idx, idx2, cam, pts3d, uv, mask, thresh_px=thresh_px,
         refine_iters=refine_iters, T_init=T_init,

@@ -5,6 +5,9 @@ with edge replication followed by 2x decimation, written as index
 gathers and adds (no convolution, so no cuDNN TF32 path is involved).
 The reference folds blur + decimation into a matmul, a TPU device; the
 math is the same: output row i is sum_k w_k x[clip(2i + k - 2)].
+
+Every function works on the last two axes, so a (B, H, W) stack of lane
+images gives a pyramid of (B, h, w) levels.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def _filter1d(img: torch.Tensor, taps, axis: int, stride: int = 1) -> torch.Tens
 
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
     """Blur + 2x decimate; an odd size n gives (n + 1) // 2 samples."""
-    return _filter1d(_filter1d(img, _K5, 0, stride=2), _K5, 1, stride=2)
+    return _filter1d(_filter1d(img, _K5, -2, stride=2), _K5, -1, stride=2)
 
 
 def build_pyramid(img: torch.Tensor, levels: int) -> list[torch.Tensor]:
@@ -54,6 +57,6 @@ def scharr_gradients(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """
     smooth = (3.0 / 16.0, 10.0 / 16.0, 3.0 / 16.0)
     diff = (-0.5, 0.0, 0.5)
-    ix = _filter1d(_filter1d(img, diff, 1), smooth, 0)
-    iy = _filter1d(_filter1d(img, diff, 0), smooth, 1)
+    ix = _filter1d(_filter1d(img, diff, -1), smooth, -2)
+    iy = _filter1d(_filter1d(img, diff, -2), smooth, -1)
     return ix, iy

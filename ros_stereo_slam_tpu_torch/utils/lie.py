@@ -147,10 +147,17 @@ def trans(T: torch.Tensor) -> torch.Tensor:
     return T[..., :3, 3]
 
 
+def _rows_times(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """sum_k M[..., k, :] * v[..., k] (= M^T v) for (..., 3, 3) M and (..., 3)
+    v, as elementwise products summed in a fixed order: a batched matmul on
+    the card rounds differently for one transform and for a batch of them,
+    and the frame step's poses must not depend on how many lanes it steps."""
+    return M[..., 0, :] * v[..., 0:1] + M[..., 1, :] * v[..., 1:2] + M[..., 2, :] * v[..., 2:3]
+
+
 def inv_se3(T: torch.Tensor) -> torch.Tensor:
     """Inverse of a rigid transform: [R,t]^-1 = [R^T, -R^T t]."""
-    Rt = T[..., :3, :3].transpose(-1, -2)
-    return make_se3(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+    return make_se3(T[..., :3, :3].transpose(-1, -2), -_rows_times(T[..., :3, :3], T[..., :3, 3]))
 
 
 def exp_se3(xi: torch.Tensor) -> torch.Tensor:
@@ -178,13 +185,19 @@ def adjoint_se3(T: torch.Tensor) -> torch.Tensor:
 
 
 def compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
-    """T_a @ T_b (kept as a named op for readability at call sites)."""
-    return Ta @ Tb
+    """T_a @ T_b for (..., 4, 4) transforms, as elementwise products summed
+    in a fixed order (see :func:`_rows_times`)."""
+    out = Ta[..., :, 0:1] * Tb[..., 0:1, :]
+    for k in range(1, 4):
+        out = out + Ta[..., :, k:k + 1] * Tb[..., k:k + 1, :]
+    return out
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Apply a (4, 4) transform to (N, 3) points: R @ p + t."""
-    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+    """Apply a (4, 4) transform to (N, 3) points: R @ p + t (elementwise
+    products summed in a fixed order, see :func:`_rows_times`)."""
+    Rt = T[..., None, :3, :3].transpose(-1, -2)
+    return _rows_times(Rt, pts) + T[..., None, :3, 3]
 
 
 def quat_from_rot(R: torch.Tensor) -> torch.Tensor:

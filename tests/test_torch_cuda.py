@@ -1,4 +1,5 @@
-"""Kernels K1, K2 and K3 on the card against their plain versions.
+"""Kernels K1, K2 and K3, and the lane-gridded K1b and K2b, on the card
+against their plain versions.
 
 These tests need an NVIDIA GPU and nvcc; without them they skip.  The file
 imports nothing of JAX, so it runs on the GPU host, which has no JAX:
@@ -16,6 +17,9 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
   ROADMAP H8); moments within 2e-3 + 1e-5 relative (f32 sums
   of 709 terms in another order).
 - K3 (``csrc/vocab_descend.cu``): word ids equal on every row (exact).
+- K1b and K2b (the batched entry points of the same sources): K1's and
+  K2's bounds against the lane loops of the plain versions, and bitwise
+  equal, lane by lane, to the single-lane entry points (one kernel body).
 """
 
 import numpy as np
@@ -195,3 +199,88 @@ def test_vocab_kernel_wrapper_checks_inputs(cuda_device):
     # a node outside its table comes back as -1 instead of reading past it
     out = vocab_cuda.deep_descend(q, torch.tensor([0, 8, 9, 100], device=cuda_device), [t], k)
     assert out.tolist()[:2] == [0, 24] and out.tolist()[2:] == [-1, -1]
+
+
+def _lanes(seeds, n, shape=(192, 256)):
+    """(B, ...) stacks of _setup's image pairs, points and guesses, one
+    lane per seed, each lane with its own shift."""
+    cases = [_setup(sd, n, shape, shift=(-2 + b, 3 - 2 * b)) for b, sd in enumerate(seeds)]
+    return [torch.stack(t) for t in zip(*cases)]
+
+
+@pytest.mark.parametrize("window,iters", [(15, 6), (21, 10)])
+def test_batch_kernel_matches_plain_version(cuda_device, window, iters):
+    args = [t.to(cuda_device) for t in _lanes((1, 2, 3), 200)]
+    params = lk.LKParams(window=window, iters=iters, walk_iters=max(iters, 10))
+    before, before_1 = lk_cuda.BATCH_LAUNCHES, lk_cuda.LAUNCHES
+    kg, kr, kok = lk_cuda.track_level_batch(*args, params)
+    assert (lk_cuda.BATCH_LAUNCHES, lk_cuda.LAUNCHES) == (before + 1, before_1)
+    pg, pr, pok = lk_cuda.track_level_batch_plain(*args, params)
+    torch.cuda.synchronize()
+    assert torch.equal(kok, pok)
+    np.testing.assert_allclose(kg.cpu().numpy(), pg.cpu().numpy(), atol=5e-3)
+    np.testing.assert_allclose(kr.cpu().numpy(), pr.cpu().numpy(), atol=1e-2)
+    for b in range(3):  # each lane: the single-lane entry point, bitwise
+        sg, sr, sok = lk_cuda.track_level(*(t[b] for t in args), params)
+        assert torch.equal(sg, kg[b]) and torch.equal(sr, kr[b]) and torch.equal(sok, kok[b])
+    one = lk_cuda.track_level_batch(*(t[:1] for t in args), params)  # B = 1
+    assert all(torch.equal(x[0], y[0]) for x, y in zip(one, (kg, kr, kok)))
+
+
+def test_batch_kernel_wrapper_checks_inputs(cuda_device):
+    img, cur, pts, guess = [t.to(cuda_device) for t in _lanes((0, 1), 16)]
+    params = lk.LKParams(window=15, iters=6)
+    with pytest.raises(ValueError, match="images"):
+        lk_cuda.track_level_batch(img, cur[:1], pts, guess, params)
+    with pytest.raises(ValueError, match="B, N, 2"):
+        lk_cuda.track_level_batch(img, cur, pts[:1], guess, params)
+    with pytest.raises(ValueError, match="contiguous"):
+        lk_cuda.track_level_batch(img.transpose(1, 2), cur.transpose(1, 2), pts, guess, params)
+    with pytest.raises(TypeError, match="float32"):
+        lk_cuda.track_level_batch(img, cur, pts.double(), guess, params)
+    with pytest.raises(ValueError, match="B, H, W"):
+        lk_cuda.track_level_batch(img[0], cur[0], pts[0], guess[0], params)
+
+
+def test_orb_batch_kernel_matches_plain_version(cuda_device):
+    """Two lanes at the main path's level-0 shape, and a third, black lane
+    where every sample is exactly 0, so every pair ties (both routes give
+    -1 there)."""
+    rng = np.random.default_rng(9)
+    shape, budget = (376, 1241), 173
+    imgs = torch.from_numpy(np.stack(
+        [_smooth_noise_2d(shape, rng, octaves=5, base_period=24) for _ in range(2)]
+        + [np.zeros(shape, np.float32)])).to(cuda_device)
+    pts, valid = orb._level_corners(imgs[:2], budget, 12.0 / 255.0)
+    pts = torch.cat([pts, pts[:1]]).contiguous()
+    valid = torch.cat([valid, valid[:1]])
+    before, before_1 = orb_cuda.BATCH_LAUNCHES, orb_cuda.LAUNCHES
+    ks, km = orb_cuda.orb_descriptors_batch(imgs, pts)
+    assert (orb_cuda.BATCH_LAUNCHES, orb_cuda.LAUNCHES) == (before + 1, before_1)
+    ps, pm = orb_cuda.orb_descriptors_batch_plain(imgs, pts)
+    torch.cuda.synchronize()
+    assert int(valid[:2].sum()) > budget
+    assert (ks == ps)[:2][valid[:2]].float().mean().item() >= 0.995
+    assert int((ks != ps)[:2][valid[:2]].sum(dim=-1).max()) <= 4
+    np.testing.assert_allclose(km.cpu().numpy(), pm.cpu().numpy(), atol=2e-3, rtol=1e-5)
+    assert bool((ks[2] == -1.0).all()) and torch.equal(ks[2], ps[2])  # ties
+    for b in range(3):
+        s1, m1 = orb_cuda.orb_descriptors(imgs[b], pts[b])
+        assert torch.equal(s1, ks[b]) and torch.equal(m1, km[b])
+    one = orb_cuda.orb_descriptors_batch(imgs[:1], pts[:1])  # B = 1
+    assert torch.equal(one[0][0], ks[0]) and torch.equal(one[1][0], km[0])
+
+
+def test_orb_batch_kernel_wrapper_checks_inputs(cuda_device):
+    imgs = torch.rand((2, 64, 96), device=cuda_device)
+    pts = torch.full((2, 4, 2), 32.0, device=cuda_device)
+    with pytest.raises(ValueError, match="B, N, 2"):
+        orb_cuda.orb_descriptors_batch(imgs, pts[:1])
+    with pytest.raises(TypeError, match="float32"):
+        orb_cuda.orb_descriptors_batch(imgs.double(), pts)
+    with pytest.raises(ValueError, match="contiguous"):
+        orb_cuda.orb_descriptors_batch(imgs.transpose(1, 2), pts)
+    with pytest.raises(ValueError, match="B, H, W"):
+        orb_cuda.orb_descriptors_batch(imgs[0], pts[0])
+    sign, m = orb_cuda.orb_descriptors_batch(imgs, torch.empty((2, 0, 2), device=cuda_device))
+    assert sign.shape == (2, 0, 256) and m.shape == (2, 0, 2)

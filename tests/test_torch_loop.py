@@ -303,5 +303,4 @@ def test_unported_parts_documented():
     """The pieces this slice leaves out are absent, not stubs."""
     assert not hasattr(lc, "LoopDetector")
     assert not hasattr(pg, "PoseGraph")
-    assert not hasattr(slam_scan, "run_offline_slam_batched")
     assert dataclasses.is_dataclass(slam_scan.ScanSlamResult)

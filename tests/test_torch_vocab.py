@@ -124,8 +124,8 @@ def test_train_batched_seeded_and_clusters():
     corpus lands mostly in one word."""
     rng = np.random.default_rng(2)
     X, docs = _corpus(rng)
-    a = vocab.train_batched(X, k=3, levels=3, iters=4, seed=5, doc_ids=docs)
-    b = vocab.train_batched(X, k=3, levels=3, iters=4, seed=5, doc_ids=docs)
+    a = vocab.train_batched(X, k=3, levels=3, iters=4, seed=5, doc_ids=docs, device="cpu")
+    b = vocab.train_batched(X, k=3, levels=3, iters=4, seed=5, doc_ids=docs, device="cpu")
     for ca, cb in zip(a.centers, b.centers):
         assert torch.equal(ca, cb)
         assert ca.dtype == torch.int8 and set(torch.unique(ca).tolist()) <= {-1, 1}

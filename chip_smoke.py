@@ -165,13 +165,15 @@ def _render_job(world_kw: dict, indices: list) -> list:
     return [world.render(i) for i in indices]
 
 
-def _revisit_plan(n_total: int, shape: tuple[int, int], plan_seed: int, world_seed: int):
+def _revisit_plan(n_total: int, shape: tuple[int, int], plan_seed: int, world_seed: int,
+                  keep_noise: bool = True):
     """The jittered revisit world of bench.py (--world revisit --jitter):
     laps of a circle, lap 2+ with smoothly jittered poses, a per-lap
     brightness and per-frame sensor noise, drawn from one generator
     (`plan_seed`; the bench's is 17) in the bench's order, textures from
     `world_seed` (the bench's is 11).  Returns (render jobs, per-frame
-    (brightness, noise), ground-truth poses)."""
+    (brightness, noise), ground-truth poses); with `keep_noise` false the
+    noise is drawn (so the later laps are the same) but not kept."""
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.data.synthetic import jitter_poses
@@ -194,11 +196,45 @@ def _revisit_plan(n_total: int, shape: tuple[int, int], plan_seed: int, world_se
         idx = list(range(min(lap, n_total - len(gt))))
         for i in idx:
             gt.append(poses_l[i])
-            post.append((b, rng.normal(0, 0.02, shape).astype(np.float32)) if lap_i > 0
-                        else None)
+            if lap_i > 0:
+                noise = rng.normal(0, 0.02, shape).astype(np.float32)
+                post.append((b, noise if keep_noise else None))
+            else:
+                post.append(None)
         jobs.append((dict(n_frames=lap, seed=world_seed, custom_poses=poses_l,
                           half_w=max(3.0 * r, 18.0), end_z=max(6.0 * r, 260.0)), idx))
     return jobs, post, np.stack(gt)
+
+
+def revisit_frames(seeds: tuple[int, int], frames: list, camera=None, noise_seed: int = 0):
+    """Frames `frames` of the revisit world with (plan, world) `seeds`,
+    rendered one by one: (left, right) stacks.  With no `camera`, at full
+    KITTI geometry with the world's own noise, as phase render makes them;
+    with a smaller `camera`, the same poses, textures and per-lap
+    brightness, with the sensor noise drawn at the camera's size from
+    `noise_seed` (the world's own is drawn at full size)."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.config import CameraConfig
+    from ros_stereo_slam_tpu_torch.data.synthetic import SyntheticWorld
+
+    full = CameraConfig()
+    jobs, post, _ = _revisit_plan(SLAM_FRAMES + 1, (full.height, full.width), *seeds,
+                                  keep_noise=camera is None)
+    rng = np.random.default_rng(noise_seed)
+    lap = len(jobs[0][1])
+    lefts, rights = [], []
+    for f in frames:
+        kw, _ = jobs[f // lap]
+        left, right, _ = SyntheticWorld(camera=camera or full, **kw).render(f % lap)
+        if post[f] is not None:
+            b, noise = post[f]
+            if noise is None:
+                noise = rng.normal(0, 0.02, left.shape).astype(np.float32)
+            left, right = np.clip(left * b + noise, 0, 1), np.clip(right * b + noise, 0, 1)
+        lefts.append(left)
+        rights.append(right)
+    return np.stack(lefts).astype(np.float32), np.stack(rights).astype(np.float32)
 
 
 def phase_render():
@@ -327,29 +363,88 @@ def _bound(nbytes: float, ops: float, peak_ops: float = PEAK_F32_S) -> dict:
             else "operations", "bytes": nbytes, "ops": ops}
 
 
-def lk_work(lanes: int, H: int, W: int, n: int, S: int, iters: int) -> dict:
-    """K1's work on `lanes` lanes: both images of each lane read once, the
-    points and guesses read and the (N, 2) outputs written; operations per
-    point: the (S+2)^2 template samples (9 each), gradients and structure
-    tensor (16 per pixel), at most `iters` GN steps of S^2 samples and
-    products (14 per pixel; the early stop only lowers this, and the bytes
-    bound these shapes either way) and the residual (12 per pixel)."""
-    nbytes = lanes * (2 * H * W * 4 + n * 4 * 4 + n * 4 * 4)
-    ops = lanes * n * (9 * (S + 2) ** 2 + S * S * (16 + 14 * iters + 12))
-    return _bound(nbytes, ops)
+def _sectors(torch, H: int, W: int, y0, x0, h: int, w: int) -> int:
+    """Distinct 32-byte sectors (8 f32 pixels of the flat, lane-major
+    layout) of (B, H, W) images that boxes cover: box m of lane b covers
+    rows y0[b, m] .. + h - 1 and columns x0[b, m] .. + w - 1."""
+    dev = y0.device
+    lane = torch.arange(y0.shape[0], device=dev).reshape(-1, 1, 1, 1)
+    rows = y0[..., None, None] + torch.arange(h, device=dev)[:, None]
+    cols = x0[..., None, None] + torch.arange(w, device=dev)
+    flat = (lane * H + rows) * W + cols
+    return int(torch.unique(flat.reshape(-1) // 8).numel())
 
 
-def orb_work(lanes: int, H: int, W: int, n: int) -> dict:
-    """K2's work on `lanes` lanes: each level image read once with the
-    corners and the constant patterns, the (N, 256) signs and (N, 2)
-    moments written; per corner 709 centroid samples (9 + 2 operations
-    each) and 512 rotated samples (4 + 9 each) and 256 compares."""
+def _tile_start(torch, pos, n: int, dim: int):
+    """lk_level.cu's tile_start: floor(pos) clamped to [0, dim - (n + 1)]."""
+    return torch.clamp(torch.floor(torch.nan_to_num(pos, nan=0.0)), 0, dim - (n + 1)).long()
+
+
+def lk_evals(torch, track, guesses, out, iters: int) -> int:
+    """Gauss-Newton steps K1 evaluated over all points of one call.  A
+    point stops at the first step under eps, and a point that stopped at
+    step j gives the same result with `iters` = j, so j is the fewest
+    iterations that reproduce `out`; `track(k)` reruns the call with k.  A
+    point whose `ok` is false returns its guess and counts one step."""
+    j = torch.full(out.shape[:-1], iters, dtype=torch.long, device=out.device)
+    for k in range(iters - 1, -1, -1):
+        same = ((guesses if k == 0 else track(k)[0]) == out).all(-1)
+        j = torch.where(same, torch.full_like(j, k), j)
+    return int(torch.where(j < iters, j + 1, j).sum())
+
+
+def lk_work(torch, ref_pts, guesses, out_pts, H: int, W: int, S: int, evals: int) -> dict:
+    """K1's work on (B, N, 2) points of B lanes.  Bytes: the 32-byte
+    sectors that the (S+3)^2 template tiles cover in the reference images
+    and the (S+1)^2 sample tiles at the guess and at the result cover in
+    the current images (each read once; the steps between add little), the
+    points and guesses read, the points, residuals and flags written.
+    Operations per point: the (S+2)^2 template samples (9 each), gradients
+    and structure tensor (16 per pixel) and the residual (12 per pixel),
+    and `evals` Gauss-Newton steps of S^2 samples and products (14 per
+    pixel) over all points."""
+    T, half = S + 2, (S - 1) * 0.5
+    B, n = ref_pts.shape[:2]
+    ry = _tile_start(torch, ref_pts[..., 1] - half - 1.0, T, H)
+    rx = _tile_start(torch, ref_pts[..., 0] - half - 1.0, T, W)
+    cur = torch.cat([guesses, out_pts], dim=1)
+    cy = _tile_start(torch, cur[..., 1] - half, S, H)
+    cx = _tile_start(torch, cur[..., 0] - half, S, W)
+    sectors = (_sectors(torch, H, W, ry, rx, T + 1, T + 1)
+               + _sectors(torch, H, W, cy, cx, S + 1, S + 1))
+    nbytes = sectors * 32 + B * n * (4 * 4 + 2 * 4 + 4 + 1)
+    ops = B * n * (9 * T * T + S * S * (16 + 12)) + evals * S * S * 14
+    return {**_bound(nbytes, ops), "image_sectors": sectors}
+
+
+def orb_work(torch, img, pts, moments) -> dict:
+    """K2's work on B lanes: (B, H, W) level images, (B, N, 2) corners and
+    the (B, N, 2) moments the kernel found.  Bytes: the 32-byte sectors
+    that the 2x2 footprints of every centroid sample and of every rotated
+    pattern sample cover (positions as the kernel computes them, up to
+    rounding), the corners and the constant patterns read once, the
+    (N, 256) signs and (N, 2) moments written.  Operations per corner: 709
+    centroid samples (9 + 2 each), 512 rotated samples (4 + 9 each) and 256
+    compares."""
     from ros_stereo_slam_tpu_torch.ops import orb
 
+    B, H, W = img.shape
+    n = pts.shape[1]
+    dev = pts.device
+    cent = torch.from_numpy(orb._CENT).to(dev)
+    pat = torch.cat([torch.from_numpy(orb._PAT_P), torch.from_numpy(orb._PAT_Q)]).to(dev)
+    m10, m01 = moments[..., 0:1], moments[..., 1:2]
+    r = torch.sqrt(torch.clamp(m10 * m10 + m01 * m01, min=1e-18))
+    ca, sa = m10 / r, m01 / r
+    rot = torch.stack([ca * pat[:, 0] - sa * pat[:, 1], sa * pat[:, 0] + ca * pat[:, 1]], -1)
+    pos = torch.nan_to_num(torch.cat([pts[:, :, None, :] + cent, pts[:, :, None, :] + rot], 2))
+    x0 = torch.floor(torch.clamp(pos[..., 0], 0.0, float(W - 1.001))).long().reshape(B, -1)
+    y0 = torch.floor(torch.clamp(pos[..., 1], 0.0, float(H - 1.001))).long().reshape(B, -1)
+    sectors = _sectors(torch, H, W, y0, x0, 2, 2)
     consts = (orb._CENT.size + orb._PAT_P.size + orb._PAT_Q.size) * 4
-    nbytes = lanes * (H * W * 4 + n * 2 * 4 + n * 256 * 4 + n * 2 * 4) + consts
-    ops = lanes * n * (len(orb._CENT) * 11 + 512 * 13 + 256)
-    return _bound(nbytes, ops)
+    nbytes = sectors * 32 + consts + B * n * (2 * 4 + 256 * 4 + 2 * 4)
+    ops = B * n * (len(orb._CENT) * 11 + 512 * 13 + 256)
+    return {**_bound(nbytes, ops), "image_sectors": sectors}
 
 
 def phase_kernels(torch, cases) -> dict:
@@ -384,8 +479,13 @@ def phase_kernels(torch, cases) -> dict:
         worst = max(worst, err)
         rows.append((ms, plain_ms))
     # The headline time is the seeded temporal track (the per-frame call).
-    _, ref, _, pts, _, params = cases[0]
-    work = lk_work(1, *ref.shape, pts.shape[0], params.window, params.iters)
+    _, ref, cur, pts, guess, params = cases[0]
+    out = lk_cuda.track_level(ref, cur, pts, guess, params)[0]
+    evals = lk_evals(torch, lambda k: lk_cuda.track_level(
+        ref, cur, pts, guess, params._replace(iters=k)), guess, out, params.iters)
+    work = lk_work(torch, pts[None], guess[None], out[None], *ref.shape, params.window, evals)
+    log(f"K1 bound: {work['image_sectors']} image sectors, {evals} GN steps over "
+        f"{pts.shape[0]} points: {work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
     return {"max_abs_err": worst, "ms": rows[0][0], "plain_ms": rows[0][1], **work}
 
 
@@ -436,8 +536,12 @@ def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
     check(err <= K1_PTS_ATOL, f"K1b: points differ by {err} px")
     check(rerr <= K1_RESID_ATOL, f"K1b: resid differs by {rerr}")
     check(same, "K1b: a lane differs from the single-lane kernel on the same inputs")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            **lk_work(LANES, H, W, K1_N, K1_S, 6)}
+    evals = lk_evals(torch, lambda k: lk_cuda.track_level_batch(
+        ref, cur, P, G, params._replace(iters=k)), G, kg, params.iters)
+    work = lk_work(torch, P, G, kg, H, W, K1_S, evals)
+    log(f"K1b bound: {work['image_sectors']} image sectors, {evals} GN steps over "
+        f"{LANES} x {K1_N} points: {work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work}
 
 
 def k2b_phase(torch, imgs, cfg) -> dict:
@@ -482,12 +586,16 @@ def k2b_phase(torch, imgs, cfg) -> dict:
         n_bits += nv * 256
         n_diff += diff
         rows.append((ms, plain_ms))
+        if l == 0:
+            work = orb_work(torch, lvl, pts, km)
     agree = 1.0 - n_diff / n_bits
     log(f"K2b: bit agreement {agree:.5f} over {n_bits} bits of valid features "
         f"(bound {K2_MIN_AGREE})")
     check(agree >= K2_MIN_AGREE, f"K2b bit agreement {agree} < {K2_MIN_AGREE}")
+    log(f"K2b bound: {work['image_sectors']} image sectors at level 0: "
+        f"{work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
     return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
-            "plain_ms": rows[0][1], **orb_work(LANES, *levels[0].shape[1:], budgets[0])}
+            "plain_ms": rows[0][1], **work}
 
 
 def phase_vocab(torch, left, cfg, dev):
@@ -559,13 +667,17 @@ def k2_phase(torch, img, cfg) -> dict:
         n_bits += nv * 256
         n_diff += diff
         rows.append((ms, plain_ms))
+        if l == 0:
+            work = orb_work(torch, lvl[None], pts[None], km[None])
     agree = 1.0 - n_diff / n_bits
     log(f"K2: bit agreement {agree:.5f} over {n_bits} bits of valid features "
         f"(bound {K2_MIN_AGREE})")
     check(agree >= K2_MIN_AGREE, f"K2 bit agreement {agree} < {K2_MIN_AGREE}")
     # The headline time is level 0 (the largest call of a detection frame).
+    log(f"K2 bound: {work['image_sectors']} image sectors at level 0: "
+        f"{work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
     return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
-            "plain_ms": rows[0][1], **orb_work(1, *levels[0].shape, budgets[0])}
+            "plain_ms": rows[0][1], **work}
 
 
 def k3_phase(torch, img, voc, cfg) -> dict:

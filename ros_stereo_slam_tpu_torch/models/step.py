@@ -148,7 +148,7 @@ def _bootstrap_track(
     )
     gray = interp.bilinear_at(left_pyr[0], grid_pts)
     track = TrackState(
-        pts2d=grid_pts, pts3d=lie.transform_points(T_wc, tri.points),
+        pts2d=grid_pts, pts3d=_lane_by_lane(lie.transform_points, T_wc, tri.points),
         colors=torch.stack([gray, gray, gray], dim=-1), mask=clean,
     )
     return track, res.points, clean
@@ -178,36 +178,53 @@ def _insert_keyframe(kf: KeyframeStore, track: TrackState, T_wc: torch.Tensor,
     The store's arrays are updated IN PLACE (the reference copies them);
     only ``count`` is a new tensor.  The slot stays on the device.
 
-    Lane form (every field with a leading lane axis B, `sel` (B,) bool):
-    only the lanes in `sel` write their slot and advance their count; the
-    other lanes' slots are written back unchanged, so no lane's store is
-    touched by another lane's keyframe and nothing is read on the host.
+    Lane form (every field with a leading lane axis B): only the lanes in
+    `sel` (B,) bool write their slot and advance their count; the other
+    lanes' slots are written back unchanged, so no lane's store is touched
+    by another lane's keyframe and nothing is read on the host.  Without
+    `sel`, every lane writes.
     """
-    if sel is None:  # one store: the lane form with one lane (views)
+    if T_wc.dim() == 2:  # one store: the lane form with one lane (views)
         out = _insert_keyframe(KeyframeStore(*(x[None] for x in kf)),
-                               TrackState(*(x[None] for x in track)), T_wc[None], frame_idx,
-                               torch.ones((1,), dtype=torch.bool, device=T_wc.device))
+                               TrackState(*(x[None] for x in track)), T_wc[None], frame_idx)
         return KeyframeStore(*(x[0] for x in out))
-    lanes = torch.arange(sel.shape[0], device=sel.device)
+    lanes = torch.arange(T_wc.shape[0], device=T_wc.device)
     slot = kf.count.long() % kf.capacity
 
-    def put(field: torch.Tensor, new: torch.Tensor) -> None:
-        keep = sel.reshape((-1,) + (1,) * (new.dim() - 1))
-        field[lanes, slot] = torch.where(keep, new, field[lanes, slot])
+    def put(field: torch.Tensor, new) -> None:
+        if sel is not None:
+            keep = sel.reshape((-1,) + (1,) * (field.dim() - 2))
+            new = torch.where(keep, new, field[lanes, slot])
+        field[lanes, slot] = new
 
     put(kf.poses, T_wc)
-    put(kf.frame_idx, torch.full_like(slot, frame_idx, dtype=kf.frame_idx.dtype))
+    put(kf.frame_idx, frame_idx)
     put(kf.points, track.pts3d)
     put(kf.colors, track.colors)
     put(kf.point_mask, track.mask)
-    put(kf.retrack, torch.zeros_like(sel))
-    put(kf.valid, torch.ones_like(sel))
-    return kf._replace(count=kf.count + sel.to(kf.count.dtype))
+    put(kf.retrack, False)
+    put(kf.valid, True)
+    return kf._replace(count=kf.count + (1 if sel is None else sel.to(kf.count.dtype)))
+
+
+def _lane_by_lane(fn, *args):
+    """`fn` on each lane's slice of `args`, stacked on the lane axis.  The
+    pose products of the step go through here: a batched 4x4 product
+    rounds differently for one transform and for a batch of them (mm
+    against bmm on the CPU, cuBLAS kernels on the card), so every lane runs
+    the same 2-D call whatever B is.  With one lane the result is a view of
+    that call's, so the single-lane step launches what a 2-D step would."""
+    outs = [fn(*(a[b] for a in args)) for b in range(args[0].shape[0])]
+    return outs[0][None] if len(outs) == 1 else torch.stack(outs)
 
 
 def _where_lanes(pred: torch.Tensor, a, b):
     """Per-lane select over matching tuples of tensors (or tensors):
-    pred (B,), leaves (B, ...)."""
+    pred (B,), leaves (B, ...).  It merges a branch that runs when any lane
+    takes it, so with one lane that lane took it: `a` is returned as it is,
+    with no select to launch."""
+    if pred.shape[0] == 1:
+        return a
     if isinstance(a, torch.Tensor):
         return torch.where(pred.reshape(pred.shape + (1,) * (a.dim() - 1)), a, b)
     merged = [_where_lanes(pred, x, y) for x, y in zip(a, b, strict=True)]
@@ -284,7 +301,7 @@ def _step_lanes(
     # rescue builds the coarse ones itself.
     cur_pyr = tuple(pyramid.build_pyramid(
         left_img, _happy_levels(fe) if seeded else fe.lk_levels))
-    T_prior = lie.inv_se3(carry.T_wc)
+    T_prior = _lane_by_lane(lie.inv_se3, carry.T_wc)
 
     def track_and_pnp(ref_pyr, c_pyr, init_flow, lk_params, stream):
         gens = [_generator(k, carry.frame_idx, stream, dev) for k in carry.key]
@@ -294,8 +311,10 @@ def _step_lanes(
     if seeded:
         # Predict the pose by replaying the last inter-frame motion, project
         # the landmarks, and track on a shallow pyramid from that seed.
-        T_pred_cw = lie.inv_se3(lie.compose(carry.T_wc, carry.dT))
-        uv_pred, z_ok = project(cam, lie.transform_points(T_pred_cw, carry.track.pts3d))
+        T_pred_cw = _lane_by_lane(lambda T, dT: lie.inv_se3(lie.compose(T, dT)),
+                                  carry.T_wc, carry.dT)
+        uv_pred, z_ok = project(
+            cam, _lane_by_lane(lie.transform_points, T_pred_cw, carry.track.pts3d))
         h0, w0 = cur_pyr[0].shape[-2:]
         seed_ok = (z_ok & torch.isfinite(uv_pred).all(-1)
                    & interp.in_bounds(uv_pred, h0, w0, fe.lk_window // 2 + 1))
@@ -324,7 +343,8 @@ def _step_lanes(
     tracked_pts, m, p = tracked
 
     tracking_ok = p.n_inliers >= pc.min_inliers
-    T_wc = torch.where(tracking_ok[:, None, None], lie.inv_se3(p.T_cw), carry.T_wc)
+    T_wc = torch.where(tracking_ok[:, None, None], _lane_by_lane(lie.inv_se3, p.T_cw),
+                       carry.T_wc)
     track = carry.track._replace(pts2d=tracked_pts, mask=p.inliers & m)
     flow = carry.stereo_flow
     keyframes = carry.keyframes
@@ -347,11 +367,12 @@ def _step_lanes(
             right_pyr = tuple(pyramid.build_pyramid(right_img, fe.lk_levels))
             kf_track, _, _ = _bootstrap_track(cur_pyr, right_pyr, gp, gm, T_wc, cfg)
         track = _where_lanes(is_kf, kf_track, track)
-        keyframes = _insert_keyframe(keyframes, track, T_wc, carry.frame_idx, is_kf)
+        keyframes = _insert_keyframe(keyframes, track, T_wc, carry.frame_idx,
+                                     is_kf if B > 1 else None)
 
     # Velocity update: keep the last good estimate through a tracking
     # failure (the held pose would otherwise zero the prior).
-    dT_new = torch.where(tracking_ok[:, None, None], lie.compose(lie.inv_se3(carry.T_wc), T_wc),
+    dT_new = torch.where(tracking_ok[:, None, None], _lane_by_lane(lie.compose, T_prior, T_wc),
                          carry.dT)
     new_carry = SlamCarry(
         track=track,
@@ -419,7 +440,7 @@ def init_carry_batched(
     gp = grid_pts.expand(B, -1, -1).contiguous()
     track, r_uv, _ = _bootstrap_track(left_pyr, right_pyr, gp, grid_mask.expand(B, -1), T0, cfg)
     kf = KeyframeStore.empty(cfg.keyframes.max_keyframes, fe.max_points, dev, lanes=B)
-    kf = _insert_keyframe(kf, track, T0, 0, torch.ones((B,), dtype=torch.bool, device=dev))
+    kf = _insert_keyframe(kf, track, T0, 0)
     stereo_flow = torch.where(track.mask[..., None], r_uv - gp, torch.zeros_like(r_uv))
     # Carry only the pyramid depth the steady-state (seeded) path touches.
     ref_keep = (left_pyr[: _happy_levels(fe)]

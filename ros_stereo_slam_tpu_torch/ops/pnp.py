@@ -42,8 +42,9 @@ def _rows(x: torch.Tensor, idx: torch.Tensor, lanes: bool) -> torch.Tensor:
     leading lane axis and lane b of `idx` indexes lane b of x."""
     if not lanes:
         return x[idx]
-    b = torch.arange(x.shape[0], device=x.device)
-    return x[b.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
+    flat = idx.reshape((x.shape[0], -1) + (1,) * (x.dim() - 2))
+    flat = flat.expand(flat.shape[:2] + x.shape[2:])
+    return torch.gather(x, 1, flat).reshape(idx.shape + x.shape[2:])
 
 
 def _p6p_dlt(X: torch.Tensor, xn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -160,9 +161,9 @@ def _gn_refine(
                          huber_px / torch.clamp(rn, min=1e-9))
         wgt = wh * weights_mask
         Jw = J * wgt[..., None, None]
-        # Normal equations as products and sums over (point, row), not
-        # einsum: on the CPU a batched BLAS call rounds differently from an
-        # unbatched one; these sums do not depend on the number of lanes.
+        # Normal equations as products and sums over (point, row): two
+        # launches each, where einsum's batched product also copies its
+        # operands into the product's layout.
         H = (Jw[..., :, None] * J[..., None, :]).sum((-4, -3)) + damping * eye6
         b = (Jw * r[..., None]).sum((-3, -2))
         dxi = linalg.spd_solve(H, -b)
@@ -189,14 +190,16 @@ def _pnp_from_sets(
     `T_init` is given).  Lane form: idx (B, K, 6), idx2 (B, K2, 8), pts3d
     (B, N, 3), uv (B, N, 2), mask (B, N), T_init (B, 4, 4)."""
     lanes = mask.dim() == 2
+    # the GN steps' float64 points, converted once for the three GN calls
+    X64, uv64 = pts3d.to(torch.float64), uv.to(torch.float64)
     xn = torch.stack([(uv[..., 0] - cam.cx) / cam.fx,
                       (uv[..., 1] - cam.cy) / cam.fy], dim=-1)
     Rk, tk = _p6p_dlt(_rows(pts3d, idx, lanes), _rows(xn, idx, lanes))  # (K, 3, 3), (K, 3)
     if T_init is not None:
         T_gn = _gn_refine(
             cam, T_init.unsqueeze(-3).expand(idx2.shape[:-1] + (4, 4)),
-            _rows(pts3d, idx2, lanes), _rows(uv, idx2, lanes),
-            torch.ones(idx2.shape, dtype=pts3d.dtype, device=pts3d.device), 5,
+            _rows(X64, idx2, lanes), _rows(uv64, idx2, lanes),
+            torch.ones(idx2.shape, dtype=torch.float64, device=pts3d.device), 5,
         )
         Rk = torch.cat([Rk, T_gn[..., :3, :3]], dim=-3)
         tk = torch.cat([tk, T_gn[..., :3, 3]], dim=-2)
@@ -225,11 +228,11 @@ def _pnp_from_sets(
 
     # GN polish on the best hypothesis' inliers (Huber tighter than the
     # gate), re-score, one more round on the expanded set, final score.
-    T = _gn_refine(cam, T, pts3d, uv, _rows(inl, best, lanes).to(pts3d.dtype), refine_iters,
+    T = _gn_refine(cam, T, X64, uv64, _rows(inl, best, lanes).to(torch.float64), refine_iters,
                    huber_px=huber_px)
     final_err = _reproj_errors(cam, T[..., :3, :3], T[..., :3, 3], pts3d, uv)
     final_inl = (final_err < use_thresh) & mask
-    T = _gn_refine(cam, T, pts3d, uv, final_inl.to(pts3d.dtype), refine_iters,
+    T = _gn_refine(cam, T, X64, uv64, final_inl.to(torch.float64), refine_iters,
                    huber_px=huber_px)
     final_err = _reproj_errors(cam, T[..., :3, :3], T[..., :3, 3], pts3d, uv)
     final_inl = (final_err < use_thresh) & mask

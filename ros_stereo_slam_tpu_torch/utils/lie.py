@@ -131,12 +131,18 @@ def left_jacobian_inv_so3(phi: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# The last row of every transform, one tensor per (device, dtype): a
+# broadcast view of it completes a batch of transforms with no fill launched.
+_LAST_ROW: dict = {}
+
+
 def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (..., 4, 4) transforms from R (..., 3, 3) and t (..., 3)."""
+    key = (R.device, R.dtype)
+    if key not in _LAST_ROW:
+        _LAST_ROW[key] = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype, device=R.device)
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
-    return torch.cat([top, bottom], dim=-2)
+    return torch.cat([top, _LAST_ROW[key].expand(R.shape[:-2] + (1, 4))], dim=-2)
 
 
 def rot(T: torch.Tensor) -> torch.Tensor:
@@ -147,17 +153,10 @@ def trans(T: torch.Tensor) -> torch.Tensor:
     return T[..., :3, 3]
 
 
-def _rows_times(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """sum_k M[..., k, :] * v[..., k] (= M^T v) for (..., 3, 3) M and (..., 3)
-    v, as elementwise products summed in a fixed order: a batched matmul on
-    the card rounds differently for one transform and for a batch of them,
-    and the frame step's poses must not depend on how many lanes it steps."""
-    return M[..., 0, :] * v[..., 0:1] + M[..., 1, :] * v[..., 1:2] + M[..., 2, :] * v[..., 2:3]
-
-
 def inv_se3(T: torch.Tensor) -> torch.Tensor:
     """Inverse of a rigid transform: [R,t]^-1 = [R^T, -R^T t]."""
-    return make_se3(T[..., :3, :3].transpose(-1, -2), -_rows_times(T[..., :3, :3], T[..., :3, 3]))
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return make_se3(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
 
 
 def exp_se3(xi: torch.Tensor) -> torch.Tensor:
@@ -185,19 +184,13 @@ def adjoint_se3(T: torch.Tensor) -> torch.Tensor:
 
 
 def compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
-    """T_a @ T_b for (..., 4, 4) transforms, as elementwise products summed
-    in a fixed order (see :func:`_rows_times`)."""
-    out = Ta[..., :, 0:1] * Tb[..., 0:1, :]
-    for k in range(1, 4):
-        out = out + Ta[..., :, k:k + 1] * Tb[..., k:k + 1, :]
-    return out
+    """T_a @ T_b (kept as a named op for readability at call sites)."""
+    return Ta @ Tb
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Apply a (4, 4) transform to (N, 3) points: R @ p + t (elementwise
-    products summed in a fixed order, see :func:`_rows_times`)."""
-    Rt = T[..., None, :3, :3].transpose(-1, -2)
-    return _rows_times(Rt, pts) + T[..., None, :3, 3]
+    """Apply a (4, 4) transform to (N, 3) points: R @ p + t."""
+    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
 
 
 def quat_from_rot(R: torch.Tensor) -> torch.Tensor:

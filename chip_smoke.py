@@ -17,8 +17,11 @@ Phases (any failure exits non-zero and prints no result line):
    on the card with ``train_batched`` from every 8th revisit frame;
 5. kernels: each kernel (K1, K2, K3 and the lane-gridded K1b, K2b)
    against its plain PyTorch version on the card, at the main path's
-   shapes, with median times from CUDA events and the bound of each
-   call's work on the card;
+   shapes, with the median time of a wrapper call (CUDA events around
+   it: ``ms``), the kernel's own time (200 bare launches of the C entry
+   point back to back between two events: ``device_ms``), an empty
+   kernel's time taken the same way (the launch floor) and the bound of
+   each call's work on the card;
 6. slice: the stereo-odometry path (``run_offline`` on ``cuda:0``) over the
    corridor, checked against ground truth, with K1's launch count from that
    run; then the streaming driver (``StereoOdometry``) against ``run_offline``;
@@ -297,6 +300,31 @@ def cuda_ms(torch, fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, launch, reps: int = 200, rounds: int = 5) -> float:
+    """The kernel's own milliseconds: `launch` (a bare call of the C entry
+    point on pre-allocated outputs, the wrappers' ``bare_launch``) made
+    `reps` times back to back on one stream between two CUDA events, over
+    `reps`; the median of `rounds`.  Once the queue is ahead of the card
+    this reads the kernel and not the host; for a kernel shorter than a
+    launch it reads the launch rate (see ``empty_launch``)."""
+    for _ in range(20):
+        launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        err = 0
+        start.record()
+        for _ in range(reps):
+            err |= launch()
+        end.record()
+        end.synchronize()
+        check(err == 0, f"a bare kernel launch failed: cudaError {err}")
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 K1_N, K1_S = 768, 15
 
 
@@ -469,15 +497,16 @@ def phase_kernels(torch, cases) -> dict:
         rerr = float((kr - pr)[inner].abs().max())
         ms = cuda_ms(torch, lambda: lk_cuda.track_level(ref, cur, pts, guess, params))
         plain_ms = cuda_ms(torch, lambda: lk._track_level(ref, cur, pts, guess, params))
+        dev_ms = device_ms(torch, lk_cuda.bare_launch(ref, cur, pts, guess, params))
         log(f"K1 {name}: N={n} ok={int(kok.sum())} ok_mismatch={n_ok_diff} "
             f"compared={n_in} max|dpts|={err:.3e} px max|dresid|={rerr:.3e} "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)")
+            f"wrapper {ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain {plain_ms:.4f} ms")
         check(n_ok_diff == 0, f"K1 {name}: ok differs on {n_ok_diff} points")
         check(n_in >= 0.95 * n, f"K1 {name}: only {n_in}/{n} points stay interior")
         check(err <= K1_PTS_ATOL, f"K1 {name}: points differ by {err} px")
         check(rerr <= K1_RESID_ATOL, f"K1 {name}: resid differs by {rerr}")
         worst = max(worst, err)
-        rows.append((ms, plain_ms))
+        rows.append((ms, plain_ms, dev_ms))
     # The headline time is the seeded temporal track (the per-frame call).
     _, ref, cur, pts, guess, params = cases[0]
     out = lk_cuda.track_level(ref, cur, pts, guess, params)[0]
@@ -486,7 +515,8 @@ def phase_kernels(torch, cases) -> dict:
     work = lk_work(torch, pts[None], guess[None], out[None], *ref.shape, params.window, evals)
     log(f"K1 bound: {work['image_sectors']} image sectors, {evals} GN steps over "
         f"{pts.shape[0]} points: {work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
-    return {"max_abs_err": worst, "ms": rows[0][0], "plain_ms": rows[0][1], **work}
+    return {"max_abs_err": worst, "ms": rows[0][0], "plain_ms": rows[0][1],
+            "device_ms": rows[0][2], **work}
 
 
 def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
@@ -527,10 +557,11 @@ def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
                enumerate(singles))
     ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch(ref, cur, P, G, params))
     plain_ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch_plain(ref, cur, P, G, params))
+    dev_ms = device_ms(torch, lk_cuda.bare_launch(ref, cur, P, G, params))
     log(f"K1b {LANES} lanes L0 {W}x{H} iters=6: N={K1_N} per lane, ok={int(kok.sum())} "
         f"ok_mismatch={n_ok_diff} compared={n_in} max|dpts|={err:.3e} px "
-        f"max|dresid|={rerr:.3e}; lanes equal the single-lane kernel: {same}; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)")
+        f"max|dresid|={rerr:.3e}; lanes equal the single-lane kernel: {same}; wrapper "
+        f"{ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain {plain_ms:.4f} ms")
     check(n_ok_diff == 0, f"K1b: ok differs on {n_ok_diff} points")
     check(n_in >= 0.95 * n, f"K1b: only {n_in}/{n} points stay interior")
     check(err <= K1_PTS_ATOL, f"K1b: points differ by {err} px")
@@ -541,7 +572,7 @@ def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
     work = lk_work(torch, P, G, kg, H, W, K1_S, evals)
     log(f"K1b bound: {work['image_sectors']} image sectors, {evals} GN steps over "
         f"{LANES} x {K1_N} points: {work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **work}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **work}
 
 
 def k2b_phase(torch, imgs, cfg) -> dict:
@@ -572,11 +603,12 @@ def k2b_phase(torch, imgs, cfg) -> dict:
                    for b, s in enumerate(singles))
         ms = cuda_ms(torch, lambda: orb_cuda.orb_descriptors_batch(lvl, pts))
         plain_ms = cuda_ms(torch, lambda: orb_cuda.orb_descriptors_batch_plain(lvl, pts))
+        dev_ms = device_ms(torch, orb_cuda.bare_launch(lvl, pts))
         H, W = lvl.shape[1:]
         log(f"K2b level {l} {LANES}x{W}x{H}: N={budget} per lane, valid={nv} bits differing "
             f"{diff}/{nv * 256} (at most {corner_max} in one corner) max|dm|={merr:.3e}; "
-            f"lanes equal the single-lane kernel: {same}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms (median of 25)")
+            f"lanes equal the single-lane kernel: {same}; wrapper {ms:.4f} ms, kernel alone "
+            f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms")
         check(nv > LANES * budget // 2, f"K2b level {l}: only {nv} valid corners")
         check(m_ok, f"K2b level {l}: moments differ by {merr}")
         check(corner_max <= K2_MAX_CORNER_BITS,
@@ -585,7 +617,7 @@ def k2b_phase(torch, imgs, cfg) -> dict:
         worst = max(worst, merr)
         n_bits += nv * 256
         n_diff += diff
-        rows.append((ms, plain_ms))
+        rows.append((ms, plain_ms, dev_ms))
         if l == 0:
             work = orb_work(torch, lvl, pts, km)
     agree = 1.0 - n_diff / n_bits
@@ -595,7 +627,7 @@ def k2b_phase(torch, imgs, cfg) -> dict:
     log(f"K2b bound: {work['image_sectors']} image sectors at level 0: "
         f"{work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
     return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
-            "plain_ms": rows[0][1], **work}
+            "plain_ms": rows[0][1], "device_ms": rows[0][2], **work}
 
 
 def phase_vocab(torch, left, cfg, dev):
@@ -653,10 +685,12 @@ def k2_phase(torch, img, cfg) -> dict:
         m_ok = bool(((km - pm).abs() <= K2_MOMENT_ATOL + K2_MOMENT_RTOL * pm.abs()).all())
         ms = cuda_ms(torch, lambda: orb_cuda.orb_descriptors(lvl, pts))
         plain_ms = cuda_ms(torch, lambda: orb._descriptors_plain(lvl, pts))
+        dev_ms = device_ms(torch, orb_cuda.bare_launch(lvl, pts))
         H, W = lvl.shape
         log(f"K2 level {l} {W}x{H}: N={budget} valid={nv} bits differing {diff}/{nv * 256} "
             f"(at most {corner_max} in one corner) "
-            f"max|dm|={merr:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)")
+            f"max|dm|={merr:.3e} wrapper {ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
         check(nv > budget // 2, f"K2 level {l}: only {nv} valid corners")
         check(m_ok, f"K2 level {l}: moments differ by {merr}")
         check(corner_max <= K2_MAX_CORNER_BITS,
@@ -666,7 +700,7 @@ def k2_phase(torch, img, cfg) -> dict:
         worst = max(worst, merr)
         n_bits += nv * 256
         n_diff += diff
-        rows.append((ms, plain_ms))
+        rows.append((ms, plain_ms, dev_ms))
         if l == 0:
             work = orb_work(torch, lvl[None], pts[None], km[None])
     agree = 1.0 - n_diff / n_bits
@@ -677,7 +711,7 @@ def k2_phase(torch, img, cfg) -> dict:
     log(f"K2 bound: {work['image_sectors']} image sectors at level 0: "
         f"{work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
     return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
-            "plain_ms": rows[0][1], **work}
+            "plain_ms": rows[0][1], "device_ms": rows[0][2], **work}
 
 
 def k3_phase(torch, img, voc, cfg) -> dict:
@@ -700,9 +734,11 @@ def k3_phase(torch, img, voc, cfg) -> dict:
     mismatches = int((out != ref).sum())
     ms = cuda_ms(torch, lambda: vocab_cuda.deep_descend(q, node, deep, voc.k))
     plain_ms = cuda_ms(torch, lambda: vocab._deep_descend_plain(q, node, deep, voc.k))
+    dev_ms = device_ms(torch, vocab_cuda.bare_launch(q.contiguous(), node, deep, voc.k))
     log(f"K3 {q.shape[0]} descriptors ({int((q != 0).any(1).sum())} valid) through levels "
         f"{first}..{len(voc.centers) - 1} {[tuple(c.shape) for c in deep]}: word ids "
-        f"differing {mismatches}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)")
+        f"differing {mismatches}; wrapper {ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
     check(mismatches == 0, f"K3: {mismatches} word ids differ from the plain version")
     # Bound: the descriptors and node ids read, the word ids written, and the
     # k sibling rows of every node this run's descriptors visit, read once
@@ -715,7 +751,7 @@ def k3_phase(torch, img, voc, cfg) -> dict:
     work = _bound(n * 256 * 4 + 2 * n * 8 + rows_read * 256,
                   n * len(deep) * voc.k * 256 * 2, PEAK_INT8_S)
     return {"max_abs_err": float((out - ref).abs().max()), "mismatches": mismatches,
-            "ms": ms, "plain_ms": plain_ms, **work}
+            "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **work}
 
 
 def phase_slice(torch, left, right, poses, cam, dev) -> dict:
@@ -1026,6 +1062,11 @@ def main() -> int:
             f"frames with {workers} worker processes (host)")
         slam_cfg = slam_cfg.replace(camera=cam)
         voc = timed("vocab", phase_vocab, torch, rl, slam_cfg, dev)
+        from ros_stereo_slam_tpu_torch.ops import lk_cuda
+
+        floor_ms = device_ms(torch, lk_cuda.empty_launch())
+        log(f"launch floor: an empty kernel, launched and timed as the kernels' device_ms "
+            f"is, takes {floor_ms * 1e3:.3f} us")
         k1 = timed("kernels_k1", phase_kernels, torch,
                    k1_cases(torch, left, depths, poses, cam, dev))
         probe = torch.from_numpy(rl[LAP + 2]).to(dev)  # a jittered revisit frame
@@ -1050,6 +1091,9 @@ def main() -> int:
     # K1's launches are counted on the corridor slice, K2's and K3's on full
     # SLAM, K1b's on the batched odometry and K2b's on batched full SLAM.
     # No single PyTorch call computes any of them, so library_ms is null.
+    # ms is the time of a wrapper call (CUDA events around it, host work
+    # included), device_ms the kernel's own (bare launches back to back),
+    # launch_floor_ms an empty kernel's, taken the same way.
     table = [
         ("lk_level", "lk_level", "lk_pallas.py:120", sl["launches"], k1),
         ("orb_desc", "orb_desc", "orb_pallas.py:84", sm["counts"]["orb_desc"], k2),
@@ -1064,7 +1108,8 @@ def main() -> int:
                "replaces": f"ros_stereo_slam_tpu/ops/{replaces}", "launches": launches,
                "max_abs_err": meas["max_abs_err"], "ms": meas["ms"],
                "plain_ms": meas["plain_ms"], "bound_ms": meas["bound_ms"],
-               "bound_by": meas["bound_by"], "library_ms": None}
+               "bound_by": meas["bound_by"], "library_ms": None,
+               "device_ms": meas["device_ms"], "launch_floor_ms": floor_ms}
         if "mismatches" in meas:
             row["mismatches"] = meas["mismatches"]
         rows.append(row)

@@ -259,3 +259,12 @@ extern "C" int lk_level_batch_f32(const void* ref, const void* cur, int n_lanes,
   return lk_level_lanes(ref, cur, n_lanes, H, W, ref_pts, guesses, n_pts, S, iters, eps,
                         out_pts, out_meta, stream);
 }
+
+// An empty kernel on `stream`: the cost of a launch alone on this card and
+// driver, the floor under every kernel time measured from the host.
+__global__ void empty_kernel() {}
+
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}

@@ -119,6 +119,42 @@ def track_level(
     return torch.where(ok[:, None], out_pts, guesses), out_meta[:, 1], ok
 
 
+def bare_launch(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams):
+    """A zero-argument callable that launches the kernel once on outputs
+    allocated here (the batched entry point for (B, H, W) images, else the
+    single-lane one) and returns its cudaError: the kernel alone, without
+    the wrapper's checks, allocations and trailing ops, for timing.  It
+    counts no launch."""
+    batch = ref_img.dim() == 3
+    _check(ref_img, cur_img, ref_pts, guesses, params, lanes=ref_img.shape[0] if batch else 0)
+    outs = (torch.empty_like(ref_pts), torch.empty_like(ref_pts))
+    H, W = ref_img.shape[-2:]
+    args = (ref_img.data_ptr(), cur_img.data_ptr(), *ref_img.shape[:-2], H, W,
+            ref_pts.data_ptr(), guesses.data_ptr(), ref_pts.shape[-2], params.window,
+            params.iters, float(params.eps), outs[0].data_ptr(), outs[1].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    fn = _bind(batch)
+
+    def launch() -> int:
+        return fn(*args)
+
+    launch.outputs = outs  # kept alive with the callable
+    return launch
+
+
+def empty_launch():
+    """A zero-argument callable that launches the source's empty kernel (one
+    thread, no work) on the current stream: the launch floor of this card
+    and driver, timed the way :func:`bare_launch` callables are."""
+    from ros_stereo_slam_tpu_torch.kernels import build
+
+    fn = build.load("lk_level").empty_launch
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: fn(stream)
+
+
 def track_level_batch_plain(
     ref_imgs: torch.Tensor,
     cur_imgs: torch.Tensor,

@@ -96,6 +96,29 @@ def orb_descriptors(img: torch.Tensor, pts: torch.Tensor) -> tuple[torch.Tensor,
     return sign, moments
 
 
+def bare_launch(img: torch.Tensor, pts: torch.Tensor):
+    """A zero-argument callable that launches the kernel once on outputs
+    allocated here (the batched entry point for a (B, H, W) stack, else the
+    single-lane one) and returns its cudaError: the kernel alone, without
+    the wrapper's checks and allocations, for timing.  It counts no launch."""
+    batch = img.dim() == 3
+    _check(img, pts, lanes=img.shape[0] if batch else 0)
+    outs = (torch.empty((*pts.shape[:-1], orb.N_BITS), dtype=torch.float32, device=img.device),
+            torch.empty_like(pts))
+    cent, pat_p, pat_q = orb._consts(img.device)
+    H, W = img.shape[-2:]
+    args = (img.data_ptr(), *img.shape[:-2], H, W, pts.data_ptr(), pts.shape[-2],
+            cent.data_ptr(), cent.shape[0], pat_p.data_ptr(), pat_q.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    fn = _bind(batch)
+
+    def launch() -> int:
+        return fn(*args)
+
+    launch.outputs = outs  # kept alive with the callable
+    return launch
+
+
 def orb_descriptors_batch_plain(imgs: torch.Tensor,
                                 pts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the lane kernel: :func:`orb._descriptors_plain` on

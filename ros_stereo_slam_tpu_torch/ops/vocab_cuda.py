@@ -60,6 +60,30 @@ def _check(q: torch.Tensor, node: torch.Tensor, tables, k: int) -> None:
             raise ValueError(f"table of {t.shape[0]} rows exceeds int32 node ids")
 
 
+def bare_launch(q: torch.Tensor, node: torch.Tensor, tables, k: int):
+    """A zero-argument callable that launches the kernel once on an output
+    allocated here and returns its cudaError: the kernel alone, without the
+    wrapper's checks, conversions and allocations, for timing.  `q` must be
+    contiguous float32 and 16-byte aligned.  It counts no launch."""
+    tables = tuple(tables)
+    _check(q, node, tables, k)
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("q must be contiguous and 16-byte aligned")
+    node32 = node.to(torch.int32).contiguous()
+    out = torch.empty((q.shape[0],), dtype=torch.int32, device=q.device)
+    ptrs = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
+    rows = (ctypes.c_int * len(tables))(*(t.shape[0] for t in tables))
+    args = (q.data_ptr(), node32.data_ptr(), q.shape[0], ptrs, rows, len(tables), k,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    fn = _bind()
+
+    def launch() -> int:
+        return fn(*args)
+
+    launch.outputs = (out, node32, tables)  # kept alive with the callable
+    return launch
+
+
 def deep_descend(q: torch.Tensor, node: torch.Tensor, tables, k: int) -> torch.Tensor:
     """Descend (N,) entry `node` ids through the deep `tables`; (N,) int64 out.
 

@@ -17,7 +17,8 @@ Phases (any failure exits non-zero and prints no result line):
    on the card with ``train_batched`` from every 8th revisit frame;
 5. kernels: each kernel (K1, K2, K3 and the lane-gridded K1b, K2b)
    against its plain PyTorch version on the card, at the main path's
-   shapes, with the median time of a wrapper call (CUDA events around
+   shapes and at image borders (K1: points within a window of a border;
+   K2: corners 17..21 px from each border), with the median time of a wrapper call (CUDA events around
    it: ``ms``), the kernel's own time (200 bare launches of the C entry
    point back to back between two events: ``device_ms``), an empty
    kernel's time taken the same way (the launch floor) and the bound of
@@ -58,6 +59,7 @@ PKG = "ros_stereo_slam_tpu_torch"
 K1_PTS_ATOL = 5e-3  # px
 K1_RESID_ATOL = 1e-2
 K1_BORDER_PX = 10.0  # compare where both results stay this far inside
+K1_BORDER_INSIDE = 0.9  # share of the border case's points that stay in the image
 
 # The slice's reference: the JAX package's run_offline on the same 48
 # corridor frames, measured on a host CPU (NOT on any GPU): ATE 0.040 m,
@@ -426,7 +428,9 @@ def lk_work(torch, ref_pts, guesses, out_pts, H: int, W: int, S: int, evals: int
     sectors that the (S+3)^2 template tiles cover in the reference images
     and the (S+1)^2 sample tiles at the guess and at the result cover in
     the current images (each read once; the steps between add little), the
-    points and guesses read, the points, residuals and flags written.
+    points and guesses read, the points, residuals and flags written.  A
+    kernel that stages these tiles reads the same sectors, so the count
+    holds for it as it stands.
     Operations per point: the (S+2)^2 template samples (9 each), gradients
     and structure tensor (16 per pixel) and the residual (12 per pixel),
     and `evals` Gauss-Newton steps of S^2 samples and products (14 per
@@ -450,8 +454,10 @@ def orb_work(torch, img, pts, moments) -> dict:
     the (B, N, 2) moments the kernel found.  Bytes: the 32-byte sectors
     that the 2x2 footprints of every centroid sample and of every rotated
     pattern sample cover (positions as the kernel computes them, up to
-    rounding), the corners and the constant patterns read once, the
-    (N, 256) signs and (N, 2) moments written.  Operations per corner: 709
+    rounding), the corners, their validity flags and the constant patterns
+    read once, the (N, 256) signs, (N, 2) moments and (N, 8) packed words
+    written.  A kernel that stages each corner's patch reads the same
+    sectors, so the count holds for it as it stands.  Operations per corner: 709
     centroid samples (9 + 2 each), 512 rotated samples (4 + 9 each) and 256
     compares."""
     from ros_stereo_slam_tpu_torch.ops import orb
@@ -470,7 +476,7 @@ def orb_work(torch, img, pts, moments) -> dict:
     y0 = torch.floor(torch.clamp(pos[..., 1], 0.0, float(H - 1.001))).long().reshape(B, -1)
     sectors = _sectors(torch, H, W, y0, x0, 2, 2)
     consts = (orb._CENT.size + orb._PAT_P.size + orb._PAT_Q.size) * 4
-    nbytes = sectors * 32 + consts + B * n * (2 * 4 + 256 * 4 + 2 * 4)
+    nbytes = sectors * 32 + consts + B * n * (2 * 4 + 1 + 256 * 4 + 2 * 4 + 8 * 4)
     ops = B * n * (len(orb._CENT) * 11 + 512 * 13 + 256)
     return {**_bound(nbytes, ops), "image_sectors": sectors}
 
@@ -485,9 +491,12 @@ def phase_kernels(torch, cases) -> dict:
     worst, rows = 0.0, []
     for name, ref, cur, pts, guess, params in cases:
         kg, kr, kok = lk_cuda.track_level(ref, cur, pts, guess, params)
+        again = lk_cuda.track_level(ref, cur, pts, guess, params)
         pg, pr, pok = lk._track_level(ref, cur, pts, guess, params)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(kg).all()), f"K1 {name}: non-finite points")
+        check(all(torch.equal(x, y) for x, y in zip((kg, kr, kok), again)),
+              f"K1 {name}: two runs of the same call differ")
         H, W = ref.shape
         inner = (interp.in_bounds(kg, H, W, K1_BORDER_PX)
                  & interp.in_bounds(pg, H, W, K1_BORDER_PX))
@@ -515,8 +524,48 @@ def phase_kernels(torch, cases) -> dict:
     work = lk_work(torch, pts[None], guess[None], out[None], *ref.shape, params.window, evals)
     log(f"K1 bound: {work['image_sectors']} image sectors, {evals} GN steps over "
         f"{pts.shape[0]} points: {work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
+    k1_border_case(torch, ref, params)
     return {"max_abs_err": worst, "ms": rows[0][0], "plain_ms": rows[0][1],
             "device_ms": rows[0][2], **work}
+
+
+def k1_border_case(torch, img, params) -> None:
+    """K1 on points within `window` px of a border, where every tile start
+    clamps: the image is tracked into itself from guesses within 1 px, out of
+    a buffer whose rows above and below the image are NaN, so a read that
+    leaves the image shows in the result.  Every output must be finite, and
+    at least K1_BORDER_INSIDE of the tracked points inside the image (next
+    to a border the clamped tiles extrapolate, and a few points walk out:
+    lk.track masks those)."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.ops import lk_cuda
+
+    H, W = img.shape
+    S, n = params.window, 64
+    rng = np.random.default_rng(2)
+    d = rng.uniform(2.0, S, 4 * n)  # distance to the border
+    along_w, along_h = rng.uniform(2.0, W - 3.0, 4 * n), rng.uniform(2.0, H - 3.0, 4 * n)
+    x = np.concatenate([d[:n], W - 1 - d[n:2 * n], along_w[2 * n:]])
+    y = np.concatenate([along_h[:2 * n], d[2 * n:3 * n], H - 1 - d[3 * n:]])
+    pts = torch.from_numpy(np.stack([x, y], 1).astype(np.float32)).to(img.device)
+    guess = pts + torch.from_numpy(rng.uniform(-1.0, 1.0, (4 * n, 2)).astype(np.float32)).to(
+        img.device)
+    pad = S + 4
+    guarded = torch.full(((H + 2 * pad) * W,), float("nan"), device=img.device)
+    inner = guarded[pad * W:(pad + H) * W].view(H, W)
+    inner.copy_(img)
+    kg, kr, kok = lk_cuda.track_level(inner, inner, pts, guess, params)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(kg).all() and torch.isfinite(kr).all())
+    inside = ((kg[:, 0] >= 0) & (kg[:, 0] <= W - 1) & (kg[:, 1] >= 0) & (kg[:, 1] <= H - 1))
+    moved = float((kg - pts).abs().max())
+    log(f"K1 border case: {4 * n} points 2..{S} px from a border of {W}x{H}, ok={int(kok.sum())}"
+        f", finite {finite}, inside the image {int(inside.sum())}/{4 * n}, max |result - point| "
+        f"{moved:.3f} px")
+    check(finite, "K1 border case: non-finite output (a read outside the image?)")
+    check(int(inside.sum()) >= K1_BORDER_INSIDE * 4 * n,
+          f"K1 border case: only {int(inside.sum())}/{4 * n} tracked points stay in the image")
 
 
 def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
@@ -553,8 +602,8 @@ def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
     n_ok_diff = int((kok != pok).sum())
     err = float((kg - pg)[inner].abs().max())
     rerr = float((kr - pr)[inner].abs().max())
-    same = all(torch.equal(kg[b], s[0]) and torch.equal(kr[b], s[1]) for b, s in
-               enumerate(singles))
+    same = all(torch.equal(kg[b], s[0]) and torch.equal(kr[b], s[1])
+               and torch.equal(kok[b], s[2]) for b, s in enumerate(singles))
     ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch(ref, cur, P, G, params))
     plain_ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch_plain(ref, cur, P, G, params))
     dev_ms = device_ms(torch, lk_cuda.bare_launch(ref, cur, P, G, params))
@@ -573,61 +622,6 @@ def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
     log(f"K1b bound: {work['image_sectors']} image sectors, {evals} GN steps over "
         f"{LANES} x {K1_N} points: {work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **work}
-
-
-def k2b_phase(torch, imgs, cfg) -> dict:
-    """K2b (``orb_desc_batch_f32``) against its plain version (a loop of
-    orb._descriptors_plain over lanes) on the card at the four ORB levels of
-    two lanes (a jittered frame of world A and one of world B), on the
-    corners FAST + ANMS pick there; K2's bounds.  Each lane must equal the
-    single-lane kernel's result bitwise (one kernel body)."""
-    from ros_stereo_slam_tpu_torch.ops import orb, orb_cuda
-
-    lcc = cfg.loop
-    budgets = orb._level_budgets(lcc.orb_features, lcc.orb_levels, 1.25)
-    levels = orb.level_images(imgs, lcc.orb_levels, 1.25)
-    worst, n_bits, n_diff, rows = 0.0, 0, 0, []
-    for l, (lvl, budget) in enumerate(zip(levels, budgets)):
-        pts, valid = orb._level_corners(lvl, budget, cfg.frontend.fast_thresh / 255.0)
-        ks, km = orb_cuda.orb_descriptors_batch(lvl, pts)
-        ps, pm = orb_cuda.orb_descriptors_batch_plain(lvl, pts)
-        singles = [orb_cuda.orb_descriptors(lvl[b], pts[b]) for b in range(LANES)]
-        torch.cuda.synchronize()
-        per_corner = (ks != ps)[valid].sum(dim=-1)
-        diff = int(per_corner.sum())
-        corner_max = int(per_corner.max()) if per_corner.numel() else 0
-        nv = int(valid.sum())
-        merr = float((km - pm).abs().max())
-        m_ok = bool(((km - pm).abs() <= K2_MOMENT_ATOL + K2_MOMENT_RTOL * pm.abs()).all())
-        same = all(torch.equal(ks[b], s[0]) and torch.equal(km[b], s[1])
-                   for b, s in enumerate(singles))
-        ms = cuda_ms(torch, lambda: orb_cuda.orb_descriptors_batch(lvl, pts))
-        plain_ms = cuda_ms(torch, lambda: orb_cuda.orb_descriptors_batch_plain(lvl, pts))
-        dev_ms = device_ms(torch, orb_cuda.bare_launch(lvl, pts))
-        H, W = lvl.shape[1:]
-        log(f"K2b level {l} {LANES}x{W}x{H}: N={budget} per lane, valid={nv} bits differing "
-            f"{diff}/{nv * 256} (at most {corner_max} in one corner) max|dm|={merr:.3e}; "
-            f"lanes equal the single-lane kernel: {same}; wrapper {ms:.4f} ms, kernel alone "
-            f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms")
-        check(nv > LANES * budget // 2, f"K2b level {l}: only {nv} valid corners")
-        check(m_ok, f"K2b level {l}: moments differ by {merr}")
-        check(corner_max <= K2_MAX_CORNER_BITS,
-              f"K2b level {l}: a corner differs in {corner_max} bits > {K2_MAX_CORNER_BITS}")
-        check(same, f"K2b level {l}: a lane differs from the single-lane kernel")
-        worst = max(worst, merr)
-        n_bits += nv * 256
-        n_diff += diff
-        rows.append((ms, plain_ms, dev_ms))
-        if l == 0:
-            work = orb_work(torch, lvl, pts, km)
-    agree = 1.0 - n_diff / n_bits
-    log(f"K2b: bit agreement {agree:.5f} over {n_bits} bits of valid features "
-        f"(bound {K2_MIN_AGREE})")
-    check(agree >= K2_MIN_AGREE, f"K2b bit agreement {agree} < {K2_MIN_AGREE}")
-    log(f"K2b bound: {work['image_sectors']} image sectors at level 0: "
-        f"{work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
-    return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
-            "plain_ms": rows[0][1], "device_ms": rows[0][2], **work}
 
 
 def phase_vocab(torch, left, cfg, dev):
@@ -662,53 +656,117 @@ def phase_vocab(torch, left, cfg, dev):
     return voc
 
 
-def k2_phase(torch, img, cfg) -> dict:
-    """K2 against orb._descriptors_plain at the four ORB levels of one
-    revisit frame, on the corners FAST + ANMS pick there (the main path's
-    shapes: 1241x376 .. 635x193, 173 .. 89 corners)."""
+def k2_border_case(torch, lvl, tag: str) -> tuple[int, int]:
+    """K2 on corners 17..21 px from each border of one level image (17 is the
+    nearest a valid corner comes), sides and the four image corners: the
+    patch hangs over the border there, and the samples must still be
+    bilinear_at's.  Held to K2's per-corner bit bound against the plain
+    version; returns (bits compared, bits differing)."""
     from ros_stereo_slam_tpu_torch.ops import orb, orb_cuda
 
+    H, W = lvl.shape
+    xs, ys = [], []
+    for d in range(17, 22):
+        along_w = [W // 5, W // 2, W - W // 5]
+        along_h = [H // 4, H // 2, H - H // 4]
+        xs += [d] * 3 + [W - 1 - d] * 3 + along_w * 2 + [d, d, W - 1 - d, W - 1 - d]
+        ys += along_h * 2 + [d] * 3 + [H - 1 - d] * 3 + [d, H - 1 - d, d, H - 1 - d]
+    pts = torch.tensor(list(zip(xs, ys)), dtype=torch.float32, device=lvl.device)
+    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=lvl.device)
+    ks, km, kw = orb_cuda.level_describe(lvl, pts, valid)
+    ps, pm = orb._descriptors_plain(lvl, pts)
+    torch.cuda.synchronize()
+    per_corner = (ks != ps).sum(dim=1)
+    m_ok = bool(((km - pm).abs() <= K2_MOMENT_ATOL + K2_MOMENT_RTOL * pm.abs()).all())
+    log(f"{tag} border case {W}x{H}: {pts.shape[0]} corners 17..21 px from the borders, bits "
+        f"differing {int(per_corner.sum())}/{pts.shape[0] * 256} (at most "
+        f"{int(per_corner.max())} in one corner), max|dm|={float((km - pm).abs().max()):.3e}")
+    check(m_ok, f"{tag} border case {W}x{H}: moments differ")
+    check(int(per_corner.max()) <= K2_MAX_CORNER_BITS,
+          f"{tag} border case {W}x{H}: a corner differs in {int(per_corner.max())} bits")
+    check(torch.equal(kw, orb.pack_bits(ks > 0)), f"{tag} border case: packed words")
+    return pts.shape[0] * 256, int(per_corner.sum())
+
+
+def k2_phase(torch, img, cfg) -> dict:
+    """K2 (an (H, W) image) or K2b (a (B, H, W) stack of lanes, the batched
+    entry point) against its plain version, orb._level_describe_plain, at
+    the four ORB levels of a jittered revisit frame per lane, on the corners
+    FAST + ANMS pick there (the main path's shapes: 1241x376 .. 635x193,
+    173 .. 89 corners per lane), through ``level_describe``, the call the
+    main path makes.  Besides the bit and moment bounds: the packed words
+    must be pack_bits of the kernel's own signs, invalid rows zero, valid
+    rows +-1 and equal to the two-output entry point's, two runs bitwise
+    equal, each lane bitwise equal to the single-lane entry point, and (one
+    image only) the border case at the largest and the smallest level."""
+    from ros_stereo_slam_tpu_torch.ops import orb, orb_cuda
+
+    lanes = img.dim() == 3
+    tag, nl = ("K2b", img.shape[0]) if lanes else ("K2", 1)
+    two_outputs = orb_cuda.orb_descriptors_batch if lanes else orb_cuda.orb_descriptors
     lcc = cfg.loop
     budgets = orb._level_budgets(lcc.orb_features, lcc.orb_levels, 1.25)
     levels = orb.level_images(img, lcc.orb_levels, 1.25)
     worst, n_bits, n_diff, rows = 0.0, 0, 0, []
     for l, (lvl, budget) in enumerate(zip(levels, budgets)):
         pts, valid = orb._level_corners(lvl, budget, cfg.frontend.fast_thresh / 255.0)
-        ks, km = orb_cuda.orb_descriptors(lvl, pts)
-        ps, pm = orb._descriptors_plain(lvl, pts)
+        ks, km, kw = orb_cuda.level_describe(lvl, pts, valid)
+        again = orb_cuda.level_describe(lvl, pts, valid)
+        ps, pm, pw = orb._level_describe_plain(lvl, pts, valid)
+        raw_s, raw_m = two_outputs(lvl, pts)
+        singles = ([orb_cuda.level_describe(lvl[b], pts[b], valid[b]) for b in range(nl)]
+                   if lanes else [])
         torch.cuda.synchronize()
-        per_corner = (ks != ps)[valid].sum(dim=1)
+        per_corner = (ks != ps)[valid].sum(dim=-1)
         diff = int(per_corner.sum())
         corner_max = int(per_corner.max()) if per_corner.numel() else 0
         nv = int(valid.sum())
         merr = float((km - pm).abs().max())
         m_ok = bool(((km - pm).abs() <= K2_MOMENT_ATOL + K2_MOMENT_RTOL * pm.abs()).all())
-        ms = cuda_ms(torch, lambda: orb_cuda.orb_descriptors(lvl, pts))
-        plain_ms = cuda_ms(torch, lambda: orb._descriptors_plain(lvl, pts))
-        dev_ms = device_ms(torch, orb_cuda.bare_launch(lvl, pts))
-        H, W = lvl.shape
-        log(f"K2 level {l} {W}x{H}: N={budget} valid={nv} bits differing {diff}/{nv * 256} "
-            f"(at most {corner_max} in one corner) "
-            f"max|dm|={merr:.3e} wrapper {ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
-        check(nv > budget // 2, f"K2 level {l}: only {nv} valid corners")
-        check(m_ok, f"K2 level {l}: moments differ by {merr}")
+        same = all(torch.equal(x[b], y) for b, s in enumerate(singles)
+                   for x, y in zip((ks, km, kw), s))
+        ms = cuda_ms(torch, lambda: orb_cuda.level_describe(lvl, pts, valid))
+        plain_ms = cuda_ms(torch, lambda: orb._level_describe_plain(lvl, pts, valid))
+        two_ms = cuda_ms(torch, lambda: two_outputs(lvl, pts))
+        dev_ms = device_ms(torch, orb_cuda.bare_launch(lvl, pts, valid))
+        H, W = lvl.shape[-2:]
+        log(f"{tag} level {l} {nl}x{W}x{H}: N={budget} per lane, valid={nv} bits differing "
+            f"{diff}/{nv * 256} (at most {corner_max} in one corner) max|dm|={merr:.3e}"
+            + (f"; lanes equal the single-lane kernel: {same}" if lanes else "")
+            + f"; wrapper {ms:.4f} ms (two outputs only: {two_ms:.4f} ms), kernel alone "
+            f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms")
+        check(nv > nl * budget // 2, f"{tag} level {l}: only {nv} valid corners")
+        check(m_ok, f"{tag} level {l}: moments differ by {merr}")
         check(corner_max <= K2_MAX_CORNER_BITS,
-              f"K2 level {l}: a corner differs in {corner_max} bits > {K2_MAX_CORNER_BITS}")
-        check(bool(torch.isin(ks, torch.tensor([-1.0, 1.0], device=ks.device)).all()),
-              f"K2 level {l}: signs not +-1")
+              f"{tag} level {l}: a corner differs in {corner_max} bits > {K2_MAX_CORNER_BITS}")
+        check(bool(torch.isin(raw_s, torch.tensor([-1.0, 1.0], device=ks.device)).all()),
+              f"{tag} level {l}: signs not +-1")
+        check(torch.equal(ks[valid], raw_s[valid]) and not bool(ks[~valid].any())
+              and torch.equal(km, raw_m),
+              f"{tag} level {l}: masked signs are not the two-output signs times valid")
+        check(torch.equal(kw, orb.pack_bits(ks > 0)),
+              f"{tag} level {l}: packed words are not pack_bits of the kernel's signs")
+        check(all(torch.equal(x, y) for x, y in zip((ks, km, kw), again)),
+              f"{tag} level {l}: two runs of the same call differ")
+        check(same, f"{tag} level {l}: a lane differs from the single-lane kernel")
         worst = max(worst, merr)
         n_bits += nv * 256
         n_diff += diff
         rows.append((ms, plain_ms, dev_ms))
         if l == 0:
-            work = orb_work(torch, lvl[None], pts[None], km[None])
+            work = orb_work(torch, lvl.reshape(nl, H, W), pts.reshape(nl, -1, 2),
+                            km.reshape(nl, -1, 2))
+    if not lanes:
+        for lvl in (levels[0], levels[-1]):
+            nb, nd = k2_border_case(torch, lvl, tag)
+            n_bits += nb
+            n_diff += nd
     agree = 1.0 - n_diff / n_bits
-    log(f"K2: bit agreement {agree:.5f} over {n_bits} bits of valid features "
+    log(f"{tag}: bit agreement {agree:.5f} over {n_bits} bits of valid features "
         f"(bound {K2_MIN_AGREE})")
-    check(agree >= K2_MIN_AGREE, f"K2 bit agreement {agree} < {K2_MIN_AGREE}")
+    check(agree >= K2_MIN_AGREE, f"{tag} bit agreement {agree} < {K2_MIN_AGREE}")
     # The headline time is level 0 (the largest call of a detection frame).
-    log(f"K2 bound: {work['image_sectors']} image sectors at level 0: "
+    log(f"{tag} bound: {work['image_sectors']} image sectors at level 0: "
         f"{work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
     return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
             "plain_ms": rows[0][1], "device_ms": rows[0][2], **work}
@@ -1074,7 +1132,7 @@ def main() -> int:
         k3 = timed("kernels_k3", k3_phase, torch, probe, voc, slam_cfg)
         k1b = timed("kernels_k1b", k1b_phase, torch, left, depths, poses, cam, dev)
         probes = torch.from_numpy(np.stack([worlds[n][0][LAP + 2] for n in REVISIT_SEEDS]))
-        k2b = timed("kernels_k2b", k2b_phase, torch, probes.to(dev), slam_cfg)
+        k2b = timed("kernels_k2b", k2_phase, torch, probes.to(dev), slam_cfg)
         sl = timed("slice", phase_slice, torch, left, right, poses, cam, dev)
         sm = timed("slam", phase_slam, torch, voc, rl, rr, rgt, slam_cfg, dev)
         bo = timed("batched_odo", phase_batched_odo, torch, left, right, poses, cam, dev)

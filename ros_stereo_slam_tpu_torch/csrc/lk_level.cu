@@ -8,31 +8,46 @@
 //   2. the 2x2 structure tensor (a, b, c); min_eig / S^2 is the `ok` gate;
 //   3. `iters` Gauss-Newton steps, each resampling an S x S patch of the
 //      current image at the guess; a step of 0 once |delta| < eps;
-//   4. residual = mean |cur - tmpl| / (std(tmpl) + 1e-3).
+//   4. residual = mean |cur - tmpl| / (std(tmpl) + 1e-3);
+// and what the caller did after it: ok = min_eig > min_eig_thresh, and a point
+// that is not ok gets its input guess back.
 // Tile starts are clamped into the image and the sub-pixel fraction is taken
 // against the clamped start (the reference's _select_tile), so reads never
 // leave the image.  All arithmetic is f32.
 //
 // Lanes (the batched entry point lk_level_batch_f32, replacing the TPU entry
 // point track_level_batch): blockIdx.y is the lane; lane b reads images at
-// offset b * H * W and points and outputs at offset b * n_pts * 2.  The
-// single-lane entry point lk_level_f32 is the same kernel with one lane.
+// offset b * H * W and points at offset b * n_pts * 2, and writes its n_pts
+// output rows after those of lane b - 1.  The single-lane entry point
+// lk_level_f32 is the same kernel with one lane.
 //
-// What bounds it on an H100: per call about 0.05 GFLOP and a few tens of MB
-// of bilinear loads that hit L2 (a 1241x376 f32 level is 1.87 MB; L2 is
-// 50 MB), plus one warp reduction per GN iteration.  At N = 768 points there
-// are only ~6 warps per SM, so the kernel is bound by the latency of those
-// dependent loads and reductions, not by FLOPs or DRAM bandwidth.
+// What bounds it on an H100: bytes.  A call touches the sectors under the
+// (S+3)^2 template tiles and the (S+1)^2 sample tiles (tens of thousands of
+// 32-byte sectors, L2-resident: a 1241x376 f32 level is 1.87 MB, L2 50 MB)
+// and does about 0.05 GFLOP, so the least time is well under a microsecond
+// and what the kernel really pays is latency: the chain of tile load, sample,
+// reduce, step, once per Gauss-Newton iteration.
 //
-// Design: one warp per point, kWarpsPerBlock warps per block.  Each lane owns
-// pixels lane, lane + 32, ... of the S x S window and keeps their template
-// values and gradients in registers; the (S+2)^2 template tile passes through
-// shared memory once to form the gradients.  Samples load straight from
-// global memory (L2-resident).  Warp shuffles reduce a, b, c once and bx, by
-// every iteration; the reduced value is broadcast from lane 0 so every lane
-// holds bit-identical sums and takes the same branch.  A warp leaves its loop
-// once |delta| < eps: the reference then repeats the same zero step, so the
-// early exit changes no result.
+// Design: one thread block per point, kThreads threads, one window pixel per
+// thread for S <= 15 (PPT pixels per thread above that), so N = 768 points
+// give 768 blocks of 8 warps: every SM holds its full 64 warps.  The raw
+// (S+3)^2 reference footprint is staged in shared memory once with row-wise
+// (coalesced) loads and the (S+2)^2 template is sampled from it; each
+// Gauss-Newton step stages the raw (S+1)^2 footprint of the current image the
+// same way, and all four taps of every bilinear sample come from shared
+// memory: each pixel is read from L2 once per step, not ~3.5 times.  Each
+// thread's window row and column, and its offsets into the staged tile, are
+// computed once, outside the iteration loop.  Reductions are deterministic:
+// warp shuffles, then every thread adds the per-warp partials from shared
+// memory in warp order, so all threads of the block hold bit-identical sums,
+// take the same |delta| < eps exit, and two runs give the same bits (no
+// atomics).  The block leaves its loop once |delta| < eps: the reference then
+// repeats the same zero step, so the early exit changes no result, and the
+// patch sampled for that step is the residual's.
+//
+// TMA tiled copies are not used: a tensor map needs a row pitch that is a
+// multiple of 16 bytes, and a level row is 1241 * 4 = 4,964 bytes (620, 310
+// and 155 columns above it are no better); the pyramid is not re-pitched.
 //
 // What the TPU kernel does and this one does not: (40, 256) aligned
 // superblock loads, one-hot selection matmuls, pltpu.roll, SMEM point arrays,
@@ -43,13 +58,36 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxSums = 5;  // values reduced together at most
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFullMask, v, off);
-  return __shfl_sync(kFullMask, v, 0);
+  return v;  // lane 0 holds the warp's sum
+}
+
+// Sum v[0..K) over the block; every thread returns with the same bits in v.
+// `red` holds kWarps * kMaxSums floats.  The caller keeps a __syncthreads()
+// between the reads here and the next call's writes (every call is followed
+// by a tile load between two barriers before the next one).
+template <int K>
+__device__ __forceinline__ void block_sum(float (&v)[K], float* red, int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const float s = warp_sum(v[i]);
+    if (lane == 0) red[warp * kMaxSums + i] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    float s = red[i];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += red[w * kMaxSums + i];  // fixed order
+    v[i] = s;
+  }
 }
 
 // Integer start of an (n+1) x (n+1) tile whose top-left sample sits at real
@@ -61,62 +99,74 @@ __device__ __forceinline__ void tile_start(float pos, int n, int dim, int* i0, f
   *frac = pos - s;
 }
 
-// Bilinear sample between integer pixels (y, x) .. (y + 1, x + 1).
-__device__ __forceinline__ float bilerp(const float* __restrict__ img, int W, int y, int x,
-                                        float fx, float fy) {
-  const float* p = img + static_cast<size_t>(y) * W + x;
-  const float top = __ldg(p) * (1.f - fx) + __ldg(p + 1) * fx;
-  const float bot = __ldg(p + W) * (1.f - fx) + __ldg(p + W + 1) * fx;
+// Bilinear sample between the staged pixels t[0], t[1], t[pitch], t[pitch+1].
+__device__ __forceinline__ float bilerp(const float* t, int pitch, float fx, float fy) {
+  const float top = t[0] * (1.f - fx) + t[1] * fx;
+  const float bot = t[pitch] * (1.f - fx) + t[pitch + 1] * fx;
   return top * (1.f - fy) + bot * fy;
 }
 
-// PPL: window pixels per lane, ceil(S * S / 32) rounded up to an instance.
-template <int PPL>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+// PPT: window pixels per thread, ceil(S * S / kThreads) rounded up to an
+// instance; PPR: pixels of the (S+1)^2 footprint that a thread stages.
+template <int PPT, int PPR>
+__global__ void __launch_bounds__(kThreads)
 lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, int H, int W,
                 const float* __restrict__ ref_pts, const float* __restrict__ guesses,
-                int n_pts, int S, int iters, float eps,
-                float* __restrict__ out_pts, float* __restrict__ out_meta) {
+                int n_pts, int S, int iters, float eps, float min_eig_thresh,
+                float* __restrict__ out_pts, float* __restrict__ out_resid,
+                unsigned char* __restrict__ out_ok) {
   extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarpsPerBlock + warp;
-  if (p >= n_pts) return;  // warp-uniform
-  // This block's sequence lane: its images and point rows.
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  // This block's point, and its sequence lane's images and point rows.
   const size_t img_off = static_cast<size_t>(blockIdx.y) * H * W;
-  const size_t pt_off = static_cast<size_t>(blockIdx.y) * n_pts * 2;
+  const size_t row = static_cast<size_t>(blockIdx.y) * n_pts + blockIdx.x;
   ref += img_off;
   cur += img_off;
-  ref_pts += pt_off;
-  guesses += pt_off;
-  out_pts += pt_off;
-  out_meta += pt_off;
 
-  const int T = S + 2;
+  const int T = S + 2;  // template side
+  const int R = S + 1;  // side of the raw footprint of an S x S sample patch
   const int SS = S * S;
-  float* tile = smem + warp * T * T;
+  float* raw = smem;                      // (S+3)^2: raw footprints, reference then current
+  float* tmpl = raw + (S + 3) * (S + 3);  // (S+2)^2: the sampled template
+  float* red = tmpl + T * T;              // kWarps * kMaxSums partial sums
   const float half = (S - 1) * 0.5f;
 
-  // Template tile: (S+2)^2 samples from (py - half - 1, px - half - 1).
+  // Template: (S+2)^2 samples from (py - half - 1, px - half - 1), out of the
+  // raw (S+3)^2 footprint; consecutive threads stage consecutive pixels of a row.
   int ty0, tx0;
   float tfy, tfx;
-  tile_start(ref_pts[2 * p + 1] - half - 1.f, T, H, &ty0, &tfy);
-  tile_start(ref_pts[2 * p] - half - 1.f, T, W, &tx0, &tfx);
-  for (int k = lane; k < T * T; k += 32) {
-    const int r = k / T, c = k - (k / T) * T;
-    tile[k] = bilerp(ref, W, ty0 + r, tx0 + c, tfx, tfy);
+  tile_start(ref_pts[2 * row + 1] - half - 1.f, T, H, &ty0, &tfy);
+  tile_start(ref_pts[2 * row] - half - 1.f, T, W, &tx0, &tfx);
+  {
+    const float* src = ref + static_cast<size_t>(ty0) * W + tx0;
+    for (int k = tid; k < (T + 1) * (T + 1); k += kThreads) {
+      const int r = k / (T + 1);
+      raw[k] = __ldg(src + r * W + (k - r * (T + 1)));
+    }
   }
-  __syncwarp();
+  __syncthreads();
+  for (int k = tid; k < T * T; k += kThreads) {
+    const int r = k / T;
+    tmpl[k] = bilerp(raw + r * (T + 1) + (k - r * T), T + 1, tfx, tfy);
+  }
+  __syncthreads();
 
-  float tm[PPL], gx[PPL], gy[PPL];
-  float a = 0.f, b = 0.f, c = 0.f, st = 0.f, st2 = 0.f;
+  // This thread's window pixels: template value, gradients, and the offset
+  // of the pixel's top-left tap in a staged (S+1)^2 footprint.
+  float tm[PPT], gx[PPT], gy[PPT];
+  int tap[PPT];
+  float sums[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // a, b, c, sum t, sum t^2
 #pragma unroll
-  for (int j = 0; j < PPL; ++j) {
-    const int k = lane + 32 * j;
+  for (int j = 0; j < PPT; ++j) {
+    const int k = tid + kThreads * j;
     tm[j] = gx[j] = gy[j] = 0.f;
+    tap[j] = -1;
     if (k < SS) {
       const int r = k / S, cc = k - (k / S) * S;
-      const float* t = tile + r * T + cc;  // top-left of the 3x3 neighbourhood
+      tap[j] = r * R + cc;
+      const float* t = tmpl + r * T + cc;  // top-left of the 3x3 neighbourhood
       const float dx0 = 0.5f * (t[2] - t[0]);
       const float dx1 = 0.5f * (t[T + 2] - t[T]);
       const float dx2 = 0.5f * (t[2 * T + 2] - t[2 * T]);
@@ -127,17 +177,23 @@ lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, in
       gy[j] = (3.f * dy0 + 10.f * dy1 + 3.f * dy2) / 16.f;
       tm[j] = t[T + 1];
     }
-    a += gx[j] * gx[j];
-    b += gx[j] * gy[j];
-    c += gy[j] * gy[j];
-    st += tm[j];
-    st2 += tm[j] * tm[j];
+    sums[0] += gx[j] * gx[j];
+    sums[1] += gx[j] * gy[j];
+    sums[2] += gy[j] * gy[j];
+    sums[3] += tm[j];
+    sums[4] += tm[j] * tm[j];
   }
-  a = warp_sum(a);
-  b = warp_sum(b);
-  c = warp_sum(c);
-  st = warp_sum(st);
-  st2 = warp_sum(st2);
+  // Offsets (into the image, from the tile start) of the footprint pixels
+  // this thread stages every step; -1 past the footprint's end.
+  int stage[PPR];
+#pragma unroll
+  for (int j = 0; j < PPR; ++j) {
+    const int k = tid + kThreads * j;
+    const int r = k / R;
+    stage[j] = k < R * R ? r * W + (k - r * R) : -1;
+  }
+  block_sum(sums, red, warp, lane);
+  const float a = sums[0], b = sums[1], c = sums[2], st = sums[3], st2 = sums[4];
 
   const float det = a * c - b * b;
   const float trace = a + c;
@@ -145,93 +201,105 @@ lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, in
       (trace - sqrtf(fmaxf(trace * trace - 4.f * det, 0.f))) * 0.5f / static_cast<float>(SS);
   const float inv_det = det > 1e-12f ? 1.f / fmaxf(det, 1e-12f) : 0.f;
 
-  float gxp = guesses[2 * p];
-  float gyp = guesses[2 * p + 1];
-  for (int it = 0; it < iters; ++it) {
+  const float guess_x = guesses[2 * row];
+  const float guess_y = guesses[2 * row + 1];
+  float gxp = guess_x, gyp = guess_y;
+  // One pass per Gauss-Newton step, and a last one (it == iters) for the
+  // residual at the final guess.  Every value that steers the loop comes from
+  // block_sum, so it is the same in all threads and the barriers line up.
+  float sad = 0.f;
+  for (int it = 0;; ++it) {
     int cy0, cx0;
     float cfy, cfx;
     tile_start(gyp - half, S, H, &cy0, &cfy);
     tile_start(gxp - half, S, W, &cx0, &cfx);
-    float bx = 0.f, by = 0.f;
+    const float* src = cur + static_cast<size_t>(cy0) * W + cx0;
+    __syncthreads();  // the last pass's reads of raw and red are done
 #pragma unroll
-    for (int j = 0; j < PPL; ++j) {
-      const int k = lane + 32 * j;
-      if (k < SS) {
-        const int r = k / S, cc = k - (k / S) * S;
-        const float d = bilerp(cur, W, cy0 + r, cx0 + cc, cfx, cfy) - tm[j];
-        bx += gx[j] * d;
-        by += gy[j] * d;
+    for (int j = 0; j < PPR; ++j) {
+      if (stage[j] >= 0) raw[tid + kThreads * j] = __ldg(src + stage[j]);
+    }
+    __syncthreads();
+    float part[3] = {0.f, 0.f, 0.f};  // bx, by, sum |d|
+#pragma unroll
+    for (int j = 0; j < PPT; ++j) {
+      if (tap[j] >= 0) {
+        const float d = bilerp(raw + tap[j], R, cfx, cfy) - tm[j];
+        part[0] += gx[j] * d;
+        part[1] += gy[j] * d;
+        part[2] += fabsf(d);
       }
     }
-    bx = warp_sum(bx);
-    by = warp_sum(by);
-    const float ddx = (c * bx - b * by) * inv_det;
-    const float ddy = (a * by - b * bx) * inv_det;
-    if (ddx * ddx + ddy * ddy < eps * eps) break;  // warp-uniform
+    block_sum(part, red, warp, lane);
+    sad = part[2];
+    if (it >= iters) break;  // block-uniform
+    const float ddx = (c * part[0] - b * part[1]) * inv_det;
+    const float ddy = (a * part[1] - b * part[0]) * inv_det;
+    // Converged: the guess stays, so the patch just sampled is the final one
+    // and its |d| sum is the residual's.
+    if (ddx * ddx + ddy * ddy < eps * eps) break;  // block-uniform
     gxp -= ddx;
     gyp -= ddy;
   }
 
-  // Residual at the final guess.
-  int cy0, cx0;
-  float cfy, cfx;
-  tile_start(gyp - half, S, H, &cy0, &cfy);
-  tile_start(gxp - half, S, W, &cx0, &cfx);
-  float sad = 0.f;
-#pragma unroll
-  for (int j = 0; j < PPL; ++j) {
-    const int k = lane + 32 * j;
-    if (k < SS) {
-      const int r = k / S, cc = k - (k / S) * S;
-      sad += fabsf(bilerp(cur, W, cy0 + r, cx0 + cc, cfx, cfy) - tm[j]);
-    }
-  }
-  sad = warp_sum(sad);
-  if (lane == 0) {
+  if (tid == 0) {
     const float inv_n = 1.f / static_cast<float>(SS);
     const float mean_t = st * inv_n;
     const float var_t = st2 * inv_n - mean_t * mean_t;
     const float contrast = sqrtf(fmaxf(var_t, 0.f)) + 1e-3f;
-    out_pts[2 * p] = gxp;
-    out_pts[2 * p + 1] = gyp;
-    out_meta[2 * p] = min_eig;
-    out_meta[2 * p + 1] = sad * inv_n / contrast;
+    const bool ok = min_eig > min_eig_thresh;  // false for NaN, as the plain version
+    out_pts[2 * row] = ok ? gxp : guess_x;
+    out_pts[2 * row + 1] = ok ? gyp : guess_y;
+    out_resid[row] = sad * inv_n / contrast;
+    out_ok[row] = ok ? 1 : 0;
   }
 }
 
-template <int PPL>
+// The cost of a launch alone on this card and driver: the floor under every
+// kernel time measured from the host.
+__global__ void empty_kernel() {}
+
+template <int PPT, int PPR>
 cudaError_t launch(const float* ref, const float* cur, int n_lanes, int H, int W,
                    const float* ref_pts, const float* guesses, int n_pts, int S, int iters,
-                   float eps, float* out_pts, float* out_meta, cudaStream_t stream) {
-  const dim3 grid((n_pts + kWarpsPerBlock - 1) / kWarpsPerBlock, n_lanes);
-  const size_t smem = static_cast<size_t>(kWarpsPerBlock) * (S + 2) * (S + 2) * sizeof(float);
-  lk_level_kernel<PPL><<<grid, kWarpsPerBlock * 32, smem, stream>>>(
-      ref, cur, H, W, ref_pts, guesses, n_pts, S, iters, eps, out_pts, out_meta);
+                   float eps, float min_eig_thresh, float* out_pts, float* out_resid,
+                   unsigned char* out_ok, cudaStream_t stream) {
+  const dim3 grid(n_pts, n_lanes);
+  const size_t smem =
+      static_cast<size_t>((S + 3) * (S + 3) + (S + 2) * (S + 2) + kWarps * kMaxSums) *
+      sizeof(float);
+  lk_level_kernel<PPT, PPR><<<grid, kThreads, smem, stream>>>(
+      ref, cur, H, W, ref_pts, guesses, n_pts, S, iters, eps, min_eig_thresh, out_pts,
+      out_resid, out_ok);
   return cudaGetLastError();
 }
 
 // Both entry points: n_lanes lanes of (H, W) images and (n_pts, 2) points.
 int lk_level_lanes(const void* ref, const void* cur, int n_lanes, int H, int W,
                    const void* ref_pts, const void* guesses, int n_pts, int S, int iters,
-                   float eps, void* out_pts, void* out_meta, void* stream) {
+                   float eps, float min_eig_thresh, void* out_pts, void* out_resid,
+                   void* out_ok, void* stream) {
   if (n_pts <= 0 || n_lanes <= 0) return static_cast<int>(cudaSuccess);
-  if (S < 1 || S > 32 || H < S + 3 || W < S + 3 || n_lanes > 65535)
+  if (S < 1 || S > 32 || H < S + 3 || W < S + 3 || n_lanes > 65535 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* r = static_cast<const float*>(ref);
   const auto* cu = static_cast<const float*>(cur);
   const auto* rp = static_cast<const float*>(ref_pts);
   const auto* g = static_cast<const float*>(guesses);
   auto* op = static_cast<float*>(out_pts);
-  auto* om = static_cast<float*>(out_meta);
+  auto* ores = static_cast<float*>(out_resid);
+  auto* ok = static_cast<unsigned char*>(out_ok);
   auto st = static_cast<cudaStream_t>(stream);
-  const int ppl = (S * S + 31) / 32;
   cudaError_t err;
-  if (ppl <= 8) {
-    err = launch<8>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, op, om, st);
-  } else if (ppl <= 16) {
-    err = launch<16>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, op, om, st);
-  } else {
-    err = launch<32>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, op, om, st);
+  if (S <= 15) {  // <= 225 window pixels, a 16 x 16 footprint: one of each per thread
+    err = launch<1, 1>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op,
+                       ores, ok, st);
+  } else if (S <= 22) {  // <= 484 window pixels, a 23 x 23 footprint
+    err = launch<2, 3>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op,
+                       ores, ok, st);
+  } else {  // <= 1,024 window pixels, a 33 x 33 footprint
+    err = launch<4, 5>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op,
+                       ores, ok, st);
   }
   return static_cast<int>(err);
 }
@@ -239,31 +307,31 @@ int lk_level_lanes(const void* ref, const void* cur, int n_lanes, int H, int W,
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  Images (H, W) f32 row-major;
-// ref_pts, guesses, out_pts, out_meta (n_pts, 2) f32 row-major; out_meta
-// holds (min_eig, resid).  Requires 1 <= S <= 32, H >= S + 3, W >= S + 3
-// (the caller checks).  Launch on `stream` and return cudaGetLastError().
+// ref_pts, guesses, out_pts (n_pts, 2) f32 row-major; out_resid (n_pts,) f32;
+// out_ok (n_pts,) bytes, 1 where min_eig > min_eig_thresh; where it is 0,
+// out_pts holds the input guess.  Requires 1 <= S <= 32, H >= S + 3,
+// W >= S + 3 (the caller checks).  Launch on `stream` and return
+// cudaGetLastError().
 extern "C" int lk_level_f32(const void* ref, const void* cur, int H, int W, const void* ref_pts,
                             const void* guesses, int n_pts, int S, int iters, float eps,
-                            void* out_pts, void* out_meta, void* stream) {
-  return lk_level_lanes(ref, cur, 1, H, W, ref_pts, guesses, n_pts, S, iters, eps, out_pts,
-                        out_meta, stream);
+                            float min_eig_thresh, void* out_pts, void* out_resid, void* out_ok,
+                            void* stream) {
+  return lk_level_lanes(ref, cur, 1, H, W, ref_pts, guesses, n_pts, S, iters, eps,
+                        min_eig_thresh, out_pts, out_resid, out_ok, stream);
 }
 
 // The same for n_lanes independent lanes stacked on a leading axis: images
-// (n_lanes, H, W), points and outputs (n_lanes, n_pts, 2); one launch, lanes
-// on blockIdx.y (1 <= n_lanes <= 65535).
+// (n_lanes, H, W), points (n_lanes, n_pts, 2), outputs (n_lanes, n_pts, ...);
+// one launch, lanes on blockIdx.y (1 <= n_lanes <= 65535).
 extern "C" int lk_level_batch_f32(const void* ref, const void* cur, int n_lanes, int H, int W,
                                   const void* ref_pts, const void* guesses, int n_pts, int S,
-                                  int iters, float eps, void* out_pts, void* out_meta,
-                                  void* stream) {
+                                  int iters, float eps, float min_eig_thresh, void* out_pts,
+                                  void* out_resid, void* out_ok, void* stream) {
   return lk_level_lanes(ref, cur, n_lanes, H, W, ref_pts, guesses, n_pts, S, iters, eps,
-                        out_pts, out_meta, stream);
+                        min_eig_thresh, out_pts, out_resid, out_ok, stream);
 }
 
-// An empty kernel on `stream`: the cost of a launch alone on this card and
-// driver, the floor under every kernel time measured from the host.
-__global__ void empty_kernel() {}
-
+// One empty kernel (one thread, no work) on `stream`.
 extern "C" int empty_launch(void* stream) {
   empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());

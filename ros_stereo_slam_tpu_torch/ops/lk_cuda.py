@@ -10,7 +10,9 @@ contract of :func:`lk._track_level` and :func:`track_level_batch` that of
 lanes:
 
 - CUDA tensors launch the kernel (built at first use by
-  :mod:`ros_stereo_slam_tpu_torch.kernels.build`);
+  :mod:`ros_stereo_slam_tpu_torch.kernels.build`), one launch per call:
+  the ``min_eig`` gate and the "a point that fails it keeps its guess"
+  select run inside the kernel;
 - CPU tensors take the plain version, :func:`lk._track_level`;
 - anything else raises.  There is no fallback from the kernel.
 
@@ -36,42 +38,50 @@ LAUNCHES = 0
 BATCH_LAUNCHES = 0
 
 _MAX_WINDOW = 32
+_MAX_LANES = 65535  # the grid's second axis
+
+# Entry point name -> its bound ctypes function (bound once per process).
+_FNS: dict = {}
 
 
-def _bind(batch: bool = False):
-    from ros_stereo_slam_tpu_torch.kernels import build
+def _fn(name: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        from ros_stereo_slam_tpu_torch.kernels import build
 
-    lib = build.load("lk_level")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.lk_level_batch_f32 if batch else lib.lk_level_f32
-    lanes = [i] if batch else []
-    fn.argtypes = [p, p, *lanes, i, i, p, p, i, i, i, ctypes.c_float, p, p, p]
-    fn.restype = ctypes.c_int
+        fn = getattr(build.load("lk_level"), name)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = {
+            "lk_level_f32": [p, p, i, i, p, p, i, i, i, f, f, p, p, p, p],
+            "lk_level_batch_f32": [p, p, i, i, i, p, p, i, i, i, f, f, p, p, p, p],
+            "empty_launch": [p],
+        }[name]
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
     return fn
 
 
-def _check(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, lanes: int = 0) -> None:
-    """Device, type, contiguity and shapes; `lanes` > 0 asks for (B, H, W)
-    images and (B, N, 2) points with B = lanes, else (H, W) and (N, 2)."""
+def _check(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, lanes: bool) -> None:
+    """Device, type, contiguity and shapes: (B, H, W) images and (B, N, 2)
+    points with `lanes`, else (H, W) and (N, 2)."""
     dev = ref_img.device
-    for name, t in (("ref_img", ref_img), ("cur_img", cur_img),
-                    ("ref_pts", ref_pts), ("guesses", guesses)):
+    for name, t in (("cur_img", cur_img), ("ref_pts", ref_pts), ("guesses", guesses)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, ref_img on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    lead = (lanes,) if lanes else ()
-    form = "(B, H, W)" if lanes else "(H, W)"
-    if (ref_img.dim() != 2 + len(lead) or ref_img.shape[:-2] != lead
-            or cur_img.shape != ref_img.shape):
+    if not (ref_img.dtype == cur_img.dtype == ref_pts.dtype == guesses.dtype == torch.float32):
+        raise TypeError("images and points must be float32, got "
+                        f"{[t.dtype for t in (ref_img, cur_img, ref_pts, guesses)]}")
+    if not (ref_img.is_contiguous() and cur_img.is_contiguous() and ref_pts.is_contiguous()
+            and guesses.is_contiguous()):
+        raise ValueError("images and points must be contiguous")
+    nd = 3 if lanes else 2
+    if ref_img.dim() != nd or cur_img.shape != ref_img.shape:
         raise ValueError(
-            f"images must be equal {form}: {tuple(ref_img.shape)} vs "
-            f"{tuple(cur_img.shape)}"
+            f"images must be equal {'(B, H, W)' if lanes else '(H, W)'}: "
+            f"{tuple(ref_img.shape)} vs {tuple(cur_img.shape)}"
         )
-    n = ref_pts.shape[-2] if ref_pts.dim() >= 2 else -1
-    if ref_pts.shape != (*lead, n, 2) or guesses.shape != (*lead, n, 2):
+    if (ref_pts.dim() != nd or ref_pts.shape[-1] != 2 or guesses.shape != ref_pts.shape
+            or ref_pts.shape[:-2] != ref_img.shape[:-2]):
         raise ValueError(
             f"ref_pts and guesses must be {'(B, N, 2)' if lanes else '(N, 2)'}: "
             f"{tuple(ref_pts.shape)}, {tuple(guesses.shape)}"
@@ -82,7 +92,57 @@ def _check(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, lanes: int =
         raise ValueError(f"window {S} outside [1, {_MAX_WINDOW}]")
     if H < S + 3 or W < S + 3:
         raise ValueError(f"image {H}x{W} smaller than window + 3 = {S + 3}")
+    if lanes and ref_img.shape[0] > _MAX_LANES:
+        raise ValueError(f"{ref_img.shape[0]} lanes > {_MAX_LANES} (the grid's second axis)")
     lk.check_params(params)
+
+
+def _outputs(ref_pts: torch.Tensor):
+    """(points, resid, ok) for `ref_pts`' rows, views of one allocation: the
+    float32 points, the float32 residuals, then the flags as bytes."""
+    lead = ref_pts.shape[:-1]
+    m = lead.numel()
+    buf = torch.empty((13 * m,), dtype=torch.uint8, device=ref_pts.device)
+    return (buf[:8 * m].view(torch.float32).view(*lead, 2),
+            buf[8 * m:12 * m].view(torch.float32).view(lead),
+            buf[12 * m:].view(torch.bool).view(lead))
+
+
+def _launcher(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, outs):
+    """A zero-argument callable that launches the kernel once into `outs` on
+    the current stream (the batched entry point for (B, H, W) images) and
+    returns its cudaError."""
+    batch = ref_img.dim() == 3
+    fn = _fn("lk_level_batch_f32" if batch else "lk_level_f32")
+    H, W = ref_img.shape[-2:]
+    args = (ref_img.data_ptr(), cur_img.data_ptr(), *ref_img.shape[:-2], H, W,
+            ref_pts.data_ptr(), guesses.data_ptr(), ref_pts.shape[-2], params.window,
+            params.iters, float(params.eps), float(params.min_eig), outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[2].data_ptr(),
+            torch.cuda.current_stream(ref_img.device).cuda_stream)
+
+    def launch() -> int:
+        return fn(*args)
+
+    launch.outputs = outs  # kept alive with the callable
+    return launch
+
+
+def _run(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, lanes: bool):
+    """Check, allocate, launch once: ((points, resid, ok), launched)."""
+    _check(ref_img, cur_img, ref_pts, guesses, params, lanes)
+    outs = _outputs(ref_pts)
+    if ref_pts.numel() == 0:  # no points (or no lanes): nothing to launch
+        return outs, False
+    launch = _launcher(ref_img, cur_img, ref_pts, guesses, params, outs)
+    if ref_img.device.index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(ref_img.device):
+            err = launch()
+    if err != 0:
+        raise RuntimeError(f"lk_level launch failed: cudaError {err}")
+    return outs, True
 
 
 def track_level(
@@ -98,61 +158,9 @@ def track_level(
         return lk._track_level(ref_img, cur_img, ref_pts, guesses, params)
     if ref_img.device.type != "cuda":
         raise ValueError(f"lk_cuda.track_level: unsupported device {ref_img.device}")
-    _check(ref_img, cur_img, ref_pts, guesses, params)
-    n = ref_pts.shape[0]
-    H, W = ref_img.shape
-    out_pts = torch.empty((n, 2), dtype=torch.float32, device=ref_img.device)
-    out_meta = torch.empty((n, 2), dtype=torch.float32, device=ref_img.device)
-    if n == 0:  # nothing to launch
-        return out_pts, out_meta[:, 1], out_meta[:, 0] > params.min_eig
-    fn = _bind()
-    with torch.cuda.device(ref_img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ref_img.data_ptr(), cur_img.data_ptr(), H, W,
-                 ref_pts.data_ptr(), guesses.data_ptr(), n, params.window,
-                 params.iters, float(params.eps), out_pts.data_ptr(),
-                 out_meta.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"lk_level_f32 launch failed: cudaError {err}")
-    LAUNCHES += 1
-    ok = out_meta[:, 0] > params.min_eig
-    return torch.where(ok[:, None], out_pts, guesses), out_meta[:, 1], ok
-
-
-def bare_launch(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams):
-    """A zero-argument callable that launches the kernel once on outputs
-    allocated here (the batched entry point for (B, H, W) images, else the
-    single-lane one) and returns its cudaError: the kernel alone, without
-    the wrapper's checks, allocations and trailing ops, for timing.  It
-    counts no launch."""
-    batch = ref_img.dim() == 3
-    _check(ref_img, cur_img, ref_pts, guesses, params, lanes=ref_img.shape[0] if batch else 0)
-    outs = (torch.empty_like(ref_pts), torch.empty_like(ref_pts))
-    H, W = ref_img.shape[-2:]
-    args = (ref_img.data_ptr(), cur_img.data_ptr(), *ref_img.shape[:-2], H, W,
-            ref_pts.data_ptr(), guesses.data_ptr(), ref_pts.shape[-2], params.window,
-            params.iters, float(params.eps), outs[0].data_ptr(), outs[1].data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    fn = _bind(batch)
-
-    def launch() -> int:
-        return fn(*args)
-
-    launch.outputs = outs  # kept alive with the callable
-    return launch
-
-
-def empty_launch():
-    """A zero-argument callable that launches the source's empty kernel (one
-    thread, no work) on the current stream: the launch floor of this card
-    and driver, timed the way :func:`bare_launch` callables are."""
-    from ros_stereo_slam_tpu_torch.kernels import build
-
-    fn = build.load("lk_level").empty_launch
-    fn.argtypes = [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream().cuda_stream
-    return lambda: fn(stream)
+    outs, launched = _run(ref_img, cur_img, ref_pts, guesses, params, lanes=False)
+    LAUNCHES += launched
+    return outs
 
 
 def track_level_batch_plain(
@@ -183,26 +191,24 @@ def track_level_batch(
         return track_level_batch_plain(ref_imgs, cur_imgs, ref_pts, guesses, params)
     if ref_imgs.device.type != "cuda":
         raise ValueError(f"lk_cuda.track_level_batch: unsupported device {ref_imgs.device}")
-    if ref_imgs.dim() != 3:
-        raise ValueError(f"ref_imgs must be (B, H, W): {tuple(ref_imgs.shape)}")
-    B = ref_imgs.shape[0]
-    _check(ref_imgs, cur_imgs, ref_pts, guesses, params, lanes=B)
-    n = ref_pts.shape[1]
-    H, W = ref_imgs.shape[1:]
-    out_pts = torch.empty((B, n, 2), dtype=torch.float32, device=ref_imgs.device)
-    out_meta = torch.empty((B, n, 2), dtype=torch.float32, device=ref_imgs.device)
-    if n == 0 or B == 0:  # nothing to launch
-        return out_pts, out_meta[..., 1], out_meta[..., 0] > params.min_eig
-    if B > 65535:
-        raise ValueError(f"{B} lanes > 65535 (the grid's second axis)")
-    fn = _bind(batch=True)
-    with torch.cuda.device(ref_imgs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(ref_imgs.data_ptr(), cur_imgs.data_ptr(), B, H, W, ref_pts.data_ptr(),
-                 guesses.data_ptr(), n, params.window, params.iters, float(params.eps),
-                 out_pts.data_ptr(), out_meta.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"lk_level_batch_f32 launch failed: cudaError {err}")
-    BATCH_LAUNCHES += 1
-    ok = out_meta[..., 0] > params.min_eig
-    return torch.where(ok[..., None], out_pts, guesses), out_meta[..., 1], ok
+    outs, launched = _run(ref_imgs, cur_imgs, ref_pts, guesses, params, lanes=True)
+    BATCH_LAUNCHES += launched
+    return outs
+
+
+def bare_launch(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams):
+    """A zero-argument callable that launches the kernel once on outputs
+    allocated here (the batched entry point for (B, H, W) images, else the
+    single-lane one) and returns its cudaError: the kernel alone, without
+    the wrapper's checks and allocation, for timing.  It counts no launch."""
+    _check(ref_img, cur_img, ref_pts, guesses, params, lanes=ref_img.dim() == 3)
+    return _launcher(ref_img, cur_img, ref_pts, guesses, params, _outputs(ref_pts))
+
+
+def empty_launch():
+    """A zero-argument callable that launches the source's empty kernel (one
+    thread, no work) on the current stream: the launch floor of this card
+    and driver, timed the way :func:`bare_launch` callables are."""
+    fn = _fn("empty_launch")
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: fn(stream)

@@ -5,9 +5,11 @@ ANMS (:mod:`.anms`) pick the corners; the intensity-centroid moments over
 a radius-15 circular patch give each corner's orientation; 256 rotated
 BRIEF pairs from the reference's fixed Gaussian pattern give its bits.
 
-The descriptor stage goes through :func:`.orb_cuda.orb_descriptors`,
-which routes by device: the hand-written kernel K2 for CUDA tensors,
-:func:`_descriptors_plain` (the reference's jnp route) for CPU tensors.
+The descriptor stage goes through :func:`.orb_cuda.level_describe`,
+which routes by device: the hand-written kernel K2 for CUDA tensors (the
+masking of invalid corners and the bit packing folded into its launch),
+:func:`_level_describe_plain` (the reference's jnp route,
+:func:`_descriptors_plain`, and that epilogue) for CPU tensors.
 The pyramid levels are resized with the reference's bilinear resize
 matrices, as two matmuls.
 
@@ -17,8 +19,8 @@ descriptor bit 32 w + j.
 
 Lane form (the batched-lane drivers): :func:`detect_and_compute` also
 takes a (B, H, W) stack of lane images and returns (B, N, ...) features;
-each ORB level's descriptors then go through
-:func:`.orb_cuda.orb_descriptors_batch`, one kernel launch for all lanes.
+each ORB level's descriptors then go through the batched entry point of
+the same kernel, one launch for all lanes.
 """
 
 from __future__ import annotations
@@ -126,6 +128,22 @@ def _descriptors_plain(img: torch.Tensor, pts: torch.Tensor) -> tuple[torch.Tens
     return sign, torch.stack([m10, m01], dim=1)
 
 
+def _level_describe_plain(img: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor):
+    """The plain version of kernel K2 with its folded epilogue
+    (``orb_cuda.level_describe``): :func:`_descriptors_plain`, then the signs
+    of invalid corners set to 0 and the bits packed (0 where invalid).  (N, 2)
+    corners with (N,) `valid` on an (H, W) image, or lane by lane for
+    (B, N, 2), (B, N) on a (B, H, W) stack.  Returns ((..., 256) signs,
+    (..., 2) moments, (..., 8) int32 packed bits)."""
+    if img.dim() == 3:
+        outs = [_level_describe_plain(img[b], pts[b], valid[b]) for b in range(img.shape[0])]
+        return tuple(torch.stack(o) for o in zip(*outs))
+    sign_k, m = _descriptors_plain(img, pts)
+    bits = (sign_k > 0.0) & valid[..., None]
+    sign = sign_k * valid[..., None]  # invalid rows -> zero vectors
+    return sign, m, pack_bits(bits)
+
+
 def _level_corners(img: torch.Tensor, budget: int, fast_thresh: float):
     """FAST-9 + exact top corners + ANMS on one level: (budget, 2) integer
     corners and their validity (>= PATCH // 2 + 2 px inside the image)."""
@@ -145,12 +163,9 @@ def _level_features(img: torch.Tensor, budget: int, fast_thresh: float):
     from ros_stereo_slam_tpu_torch.ops import orb_cuda
 
     pts, valid = _level_corners(img, budget, fast_thresh)
-    describe = orb_cuda.orb_descriptors_batch if img.dim() == 3 else orb_cuda.orb_descriptors
-    sign_k, m = describe(img, pts)
+    sign, m, packed = orb_cuda.level_describe(img, pts, valid)
     angle = torch.atan2(m[..., 1], m[..., 0])
-    bits = (sign_k > 0.0) & valid[..., None]
-    sign = sign_k * valid[..., None]  # invalid rows -> zero vectors
-    return pts, angle, pack_bits(bits), sign, valid
+    return pts, angle, packed, sign, valid
 
 
 def _level_budgets(n_features: int, n_levels: int, s: float) -> list[int]:

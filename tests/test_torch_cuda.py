@@ -16,6 +16,13 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
   of its 256 bits (bits flip where the two samples of a pair nearly tie,
   ROADMAP H8); moments within 2e-3 + 1e-5 relative (f32 sums
   of 709 terms in another order).
+  The folded outputs of ``level_describe`` are exact: the packed words are
+  ``pack_bits`` of the kernel's own signs, invalid rows are zero, valid rows
+  equal the two-output entry point's; corners 17..21 px from a border (the
+  staged patch hangs over it) keep the bit bound.  K1's folded gate: a
+  point whose ``ok`` is false returns its guess, bit for bit; points within
+  a window of a border read nothing outside the image (NaN guard rows).
+  Two runs of one call are bitwise equal (no atomics).
 - K3 (``csrc/vocab_descend.cu``): word ids equal on every row (exact).
 - K1b and K2b (the batched entry points of the same sources): K1's and
   K2's bounds against the lane loops of the plain versions, and bitwise
@@ -64,6 +71,50 @@ def test_kernel_matches_plain_version(cuda_device, window, iters):
     np.testing.assert_allclose(kr.cpu().numpy(), pr.cpu().numpy(), atol=1e-2)
     flow = (kg.cpu() - args[2].cpu()).numpy()
     assert np.median(np.abs(flow - np.array([3.0, -2.0]))) < 0.05
+
+
+def test_kernel_folds_the_gate_and_repeats_bitwise(cuda_device):
+    """Half of the image is flat: points there fail the min-eigenvalue gate
+    and come back as their guesses, bit for bit; one allocation carries the
+    three outputs; a second run gives the same bits."""
+    img, cur, pts, guess = _setup(3, 200)
+    img[:, :128] = 0.5
+    cur[:, :128] = 0.5
+    args = [t.to(cuda_device) for t in (img, cur, pts, guess)]
+    params = lk.LKParams(window=15, iters=6)
+    kg, kr, kok = lk_cuda.track_level(*args, params)
+    pg, pr, pok = lk._track_level(*args, params)
+    again = lk_cuda.track_level(*args, params)
+    torch.cuda.synchronize()
+    assert kok.dtype == torch.bool and torch.equal(kok, pok)
+    assert 20 < int(kok.sum()) < 180
+    assert torch.equal(kg[~kok], args[3][~kok])
+    assert torch.isfinite(kr).all()
+    assert all(torch.equal(x, y) for x, y in zip((kg, kr, kok), again))
+    assert kg.untyped_storage().data_ptr() == kok.untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("window", [15, 21])
+def test_kernel_border_points_read_inside_the_image(cuda_device, window):
+    """Points within a window of a border, where every tile start clamps:
+    the image lies between NaN rows, so a read above or below it shows."""
+    rng = np.random.default_rng(window)
+    H, W = 96, 128
+    img = torch.from_numpy(_smooth_noise_2d((H, W), rng, octaves=4, base_period=16))
+    d = rng.uniform(0.0, window, 64)
+    x = np.concatenate([d[:16], W - 1 - d[16:32], rng.uniform(0, W - 1, 32)])
+    y = np.concatenate([rng.uniform(0, H - 1, 32), d[32:48], H - 1 - d[48:]])
+    pts = torch.from_numpy(np.stack([x, y], 1).astype(np.float32)).to(cuda_device)
+    pad = window + 4
+    guarded = torch.full(((H + 2 * pad) * W,), float("nan"), device=cuda_device)
+    inner = guarded[pad * W:(pad + H) * W].view(H, W)
+    inner.copy_(img)
+    params = lk.LKParams(window=window, iters=6)
+    kg, kr, kok = lk_cuda.track_level(inner, inner, pts, pts.clone(), params)
+    torch.cuda.synchronize()
+    assert torch.isfinite(kg).all() and torch.isfinite(kr).all()
+    # the image against itself from the true position: nothing runs away
+    assert float((kg - pts).abs().max()) < window
 
 
 def test_kernel_wrapper_checks_inputs(cuda_device):
@@ -115,6 +166,80 @@ def test_orb_kernel_border_corners_stay_in_bounds(cuda_device):
     assert torch.isfinite(km).all()
     np.testing.assert_allclose(km[:4].cpu().numpy(), pm[:4].cpu().numpy(), atol=2e-3,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(376, 1241), (193, 635), (64, 96)])
+def test_orb_kernel_corners_17_to_21_px_from_borders(cuda_device, shape):
+    """The nearest valid corners: the staged 44 x 44 patch hangs over the
+    border (its origin is not clamped, fault F3), the samples are still
+    bilinear_at's."""
+    rng = np.random.default_rng(shape[1])
+    img = torch.from_numpy(_smooth_noise_2d(shape, rng, octaves=5, base_period=24))
+    img = img.to(cuda_device)
+    H, W = shape
+    xy = []
+    for d in range(17, 22):
+        xy += [(d, H // 2), (W - 1 - d, H // 3), (W // 2, d), (W // 3, H - 1 - d),
+               (d, d), (W - 1 - d, d), (d, H - 1 - d), (W - 1 - d, H - 1 - d)]
+    pts = torch.tensor(xy, dtype=torch.float32, device=cuda_device)
+    valid = torch.ones(len(xy), dtype=torch.bool, device=cuda_device)
+    ks, km, kw = orb_cuda.level_describe(img, pts, valid)
+    ps, pm = orb._descriptors_plain(img, pts)
+    torch.cuda.synchronize()
+    assert int((ks != ps).sum(dim=1).max()) <= 4
+    assert (ks == ps).float().mean().item() >= 0.995
+    np.testing.assert_allclose(km.cpu().numpy(), pm.cpu().numpy(), atol=2e-3, rtol=1e-5)
+    assert torch.equal(kw, orb.pack_bits(ks > 0))
+
+
+def test_orb_kernel_non_integer_corners(cuda_device):
+    """Corners with a fraction take the kernel's general centroid route."""
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy(_smooth_noise_2d((96, 128), rng, octaves=4, base_period=16))
+    img = img.to(cuda_device)
+    pts = torch.from_numpy(np.stack([rng.uniform(17, 110, 40), rng.uniform(17, 78, 40)],
+                                    1).astype(np.float32)).to(cuda_device)
+    ks, km = orb_cuda.orb_descriptors(img, pts)
+    ps, pm = orb._descriptors_plain(img, pts)
+    assert int((ks != ps).sum(dim=1).max()) <= 4
+    np.testing.assert_allclose(km.cpu().numpy(), pm.cpu().numpy(), atol=2e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("lanes", [0, 2])
+def test_level_describe_folds_the_epilogue(cuda_device, lanes):
+    """level_describe: one launch; the packed words are pack_bits of the
+    kernel's own signs, invalid rows are zero, valid rows and the moments are
+    the two-output entry point's, and a second run gives the same bits."""
+    rng = np.random.default_rng(21 + lanes)
+    shape, budget = (241, 794), 111
+    imgs = torch.from_numpy(np.stack([_smooth_noise_2d(shape, rng, octaves=5, base_period=24)
+                                      for _ in range(max(lanes, 1))])).to(cuda_device)
+    img = imgs if lanes else imgs[0]
+    pts, valid = orb._level_corners(img, budget, 12.0 / 255.0)
+    valid = valid.clone()
+    valid[..., ::4] = False
+    before = (orb_cuda.LAUNCHES, orb_cuda.BATCH_LAUNCHES)
+    ks, km, kw = orb_cuda.level_describe(img, pts, valid)
+    assert (orb_cuda.LAUNCHES, orb_cuda.BATCH_LAUNCHES) == (
+        before[0] + (lanes == 0), before[1] + (lanes > 0))
+    again = orb_cuda.level_describe(img, pts, valid)
+    raw_s, raw_m = (orb_cuda.orb_descriptors_batch if lanes else orb_cuda.orb_descriptors)(
+        img, pts)
+    ps, pm, pw = orb._level_describe_plain(img, pts, valid)
+    torch.cuda.synchronize()
+    assert kw.dtype == torch.int32 and kw.shape == (*pts.shape[:-1], 8)
+    assert torch.equal(kw, orb.pack_bits(ks > 0))
+    assert not ks[~valid].any() and not kw[~valid].any()
+    assert torch.equal(ks[valid], raw_s[valid]) and torch.equal(km, raw_m)
+    assert all(torch.equal(x, y) for x, y in zip((ks, km, kw), again))
+    assert int((ks != ps)[valid].sum(dim=-1).max()) <= 4
+    same_rows = (ks == ps).all(dim=-1)
+    assert torch.equal(kw[same_rows], pw[same_rows])
+    for b in range(lanes):  # each lane: the single-lane entry point, bitwise
+        for x, y in zip((ks, km, kw), orb_cuda.level_describe(img[b], pts[b], valid[b])):
+            assert torch.equal(x[b], y)
+    with pytest.raises(ValueError, match="valid"):
+        orb_cuda.level_describe(img, pts, valid.float())
 
 
 def test_orb_kernel_wrapper_checks_inputs(cuda_device):

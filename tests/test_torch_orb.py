@@ -14,6 +14,12 @@ Same seeded numpy images go through both packages on the CPU.  Bounds:
   point equal on this frame (124 and 187 valid features).
 - The descriptors' plain version against the jnp route on given corners:
   moments within 1e-3 + 1e-5 relative, >= 99.5 % bits equal.
+- The folded plain version (``_level_describe_plain``: signs zeroed and
+  bits packed where a corner is invalid) equals masking and ``pack_bits``
+  of ``_descriptors_plain`` exactly, one image or lanes; through
+  ``_level_features`` the port still gives the JAX package's
+  ``_level_features``: corners and validity equal, >= 99.5 % of bits equal,
+  the packed words equal on every row whose bits are, angles within 1e-4.
 - Fault F3 of the JAX package (ROADMAP queue 3): the Pallas kernel's tile
   clamp describes a corner 18 px from the left border from a shifted
   patch, so its moments differ from the jnp route's by far more than
@@ -30,7 +36,7 @@ from ros_stereo_slam_tpu.ops import anms as janms
 from ros_stereo_slam_tpu.ops import fast as jfast
 from ros_stereo_slam_tpu.ops import interp as jinterp
 from ros_stereo_slam_tpu.ops import orb as jorb
-from ros_stereo_slam_tpu_torch.ops import anms, fast, orb, topk
+from ros_stereo_slam_tpu_torch.ops import anms, fast, orb, orb_cuda, topk
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -169,6 +175,50 @@ def test_descriptors_plain_matches_jnp_route(images):
     vq = np.asarray(jinterp.bilinear_at(imgj, rq.reshape(-1, 2))).reshape(64, 256)
     ref = np.where(vp < vq, 1.0, -1.0)
     assert (sign.numpy() == ref).mean() >= 0.995
+
+
+@pytest.mark.parametrize("name,budget", [("frame", 96), ("noise", 64)])
+def test_level_describe_plain_folds_the_epilogue(images, name, budget):
+    img = torch.from_numpy(images[name])
+    pts, valid = orb._level_corners(img, budget, 12.0 / 255.0)
+    valid = valid.clone()
+    valid[::5] = False  # invalid corners whatever the detector found
+    sign, m, packed = orb._level_describe_plain(img, pts, valid)
+    s0, m0 = orb._descriptors_plain(img, pts)
+    assert torch.equal(sign, s0 * valid[:, None]) and torch.equal(m, m0)
+    assert torch.equal(packed, orb.pack_bits((s0 > 0) & valid[:, None]))
+    assert not sign[~valid].any() and not packed[~valid].any()
+    assert torch.equal(orb.sign_of_packed(packed)[valid], sign[valid])
+    # the wrapper on CPU tensors takes this plain version, launching nothing
+    before = (orb_cuda.LAUNCHES, orb_cuda.BATCH_LAUNCHES)
+    for x, y in zip(orb_cuda.level_describe(img, pts, valid), (sign, m, packed)):
+        assert torch.equal(x, y)
+    # lanes: lane b is the single-image result
+    img2 = torch.stack([img, img.flip(1).contiguous()])
+    pts2 = torch.stack([pts, pts])
+    valid2 = torch.stack([valid, ~valid])
+    lanes = orb_cuda.level_describe(img2, pts2, valid2)
+    assert (orb_cuda.LAUNCHES, orb_cuda.BATCH_LAUNCHES) == before
+    for b in range(2):
+        for x, y in zip(lanes, orb._level_describe_plain(img2[b], pts2[b], valid2[b])):
+            assert torch.equal(x[b], y)
+
+
+@pytest.mark.parametrize("name,budget", [("frame", 96), ("noise", 64)])
+def test_level_features_matches_jnp_route(images, name, budget):
+    img = images[name]
+    pj, aj, bj, sj, vj = (np.asarray(a) for a in jorb._level_features(
+        jnp.asarray(img), budget, 12.0 / 255.0, "jnp"))
+    pt, at, bt, st, vt = (a.numpy() for a in orb._level_features(
+        torch.from_numpy(img), budget, 12.0 / 255.0))
+    np.testing.assert_array_equal(pt, pj)
+    np.testing.assert_array_equal(vt, vj)
+    assert vj.sum() > budget // 2
+    assert (st[vj] == sj[vj]).mean() >= 0.995
+    assert not st[~vj].any() and not bt[~vj].any()
+    same_rows = (st == sj).all(axis=1)
+    np.testing.assert_array_equal(bt.view(np.uint32)[same_rows], bj[same_rows])
+    np.testing.assert_allclose(at[vj & same_rows], aj[vj & same_rows], atol=1e-4)
 
 
 def test_pack_unpack_and_hamming_match_reference():

@@ -18,11 +18,12 @@ Phases (any failure exits non-zero and prints no result line):
 5. kernels: each kernel (K1, K2, K3 and the lane-gridded K1b, K2b)
    against its plain PyTorch version on the card, at the main path's
    shapes and at image borders (K1: points within a window of a border;
-   K2: corners 17..21 px from each border), with the median time of a wrapper call (CUDA events around
-   it: ``ms``), the kernel's own time (200 bare launches of the C entry
-   point back to back between two events: ``device_ms``), an empty
-   kernel's time taken the same way (the launch floor) and the bound of
-   each call's work on the card;
+   K2: corners 17..21 px from each border), with the median time of a
+   wrapper call (CUDA events around it: ``ms``), the kernel's own time
+   (200 bare launches of the C entry point back to back between two
+   events, the least of 7 rounds: ``device_ms``), an empty kernel's time
+   taken the same way (the launch floor) and the bound of each call's
+   work on the card;
 6. slice: the stereo-odometry path (``run_offline`` on ``cuda:0``) over the
    corridor, checked against ground truth, with K1's launch count from that
    run; then the streaming driver (``StereoOdometry``) against ``run_offline``;
@@ -99,8 +100,8 @@ SLAM_WARM_RUNS_BATCHED = 2
 # starts a third lap with a fresh jitter and brightness, a jump that some
 # seed pairs leave with under 10 PnP inliers; B's pair keeps >= 44 there.
 REVISIT_SEEDS = {"A": (17, 11), "B": (53, 59)}
-# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet): HBM bytes/s, float32 FLOP/s outside the tensor
-# cores, int8 OP/s.
+# The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet): HBM
+# bytes/s, float32 FLOP/s outside the tensor cores, int8 OP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_INT8_S = 1979e12
@@ -302,13 +303,14 @@ def cuda_ms(torch, fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, launch, reps: int = 200, rounds: int = 5) -> float:
+def device_ms(torch, launch, reps: int = 200, rounds: int = 7) -> float:
     """The kernel's own milliseconds: `launch` (a bare call of the C entry
     point on pre-allocated outputs, the wrappers' ``bare_launch``) made
     `reps` times back to back on one stream between two CUDA events, over
-    `reps`; the median of `rounds`.  Once the queue is ahead of the card
-    this reads the kernel and not the host; for a kernel shorter than a
-    launch it reads the launch rate (see ``empty_launch``)."""
+    `reps`; the least of `rounds` (the host can only add to a round).  Once
+    the queue is ahead of the card this reads the kernel and not the host;
+    for a kernel shorter than a launch it reads the launch rate (see
+    ``empty_launch``)."""
     for _ in range(20):
         launch()
     torch.cuda.synchronize()
@@ -324,7 +326,7 @@ def device_ms(torch, launch, reps: int = 200, rounds: int = 5) -> float:
         end.synchronize()
         check(err == 0, f"a bare kernel launch failed: cudaError {err}")
         times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+    return min(times)
 
 
 K1_N, K1_S = 768, 15

@@ -28,14 +28,21 @@
 // and what the kernel really pays is latency: the chain of tile load, sample,
 // reduce, step, once per Gauss-Newton iteration.
 //
-// Design: one thread block per point, kThreads threads, one window pixel per
-// thread for S <= 15 (PPT pixels per thread above that), so N = 768 points
-// give 768 blocks of 8 warps: every SM holds its full 64 warps.  The raw
-// (S+3)^2 reference footprint is staged in shared memory once with row-wise
-// (coalesced) loads and the (S+2)^2 template is sampled from it; each
-// Gauss-Newton step stages the raw (S+1)^2 footprint of the current image the
-// same way, and all four taps of every bilinear sample come from shared
-// memory: each pixel is read from L2 once per step, not ~3.5 times.  Each
+// Design: one thread block per point, kThreads = 64 threads, PPT window
+// pixels per thread (4 for S <= 15), at most 64 registers a thread, so an SM
+// holds 16 blocks and the card 2,112: the 768 points of a call, or the 1,536
+// of two lanes, are resident at once.  Measured on an H100 (768 points, S =
+// 15, 6 iterations; one lane, two lanes): 256 threads and one pixel per
+// thread (61 registers, 4 blocks an SM, so two and three waves) 12.2 and
+// 20.0 us; 128 threads 8.3 and 12.4 us; 64 threads 7.5 and 10.3 us; 32
+// threads 10.9 and 11.9 us; the one-warp-per-point body without tiles 14.0
+// and 15.1 us.  What a block waits for is the chain of barriers and L2 round
+// trips of each step, not its arithmetic, so more and smaller blocks win.
+// The raw (S+3)^2 reference footprint is staged in shared memory once with
+// row-wise (coalesced) loads and the (S+2)^2 template is sampled from it;
+// each Gauss-Newton step stages the raw (S+1)^2 footprint of the current
+// image the same way, and all four taps of every bilinear sample come from
+// shared memory: each pixel is read from L2 once per step, not ~3.5 times.  Each
 // thread's window row and column, and its offsets into the staged tile, are
 // computed once, outside the iteration loop.  Reductions are deterministic:
 // warp shuffles, then every thread adds the per-warp partials from shared
@@ -58,7 +65,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 64;        // threads of a block, which serves one point
+constexpr int kBlocksPerSM = 16;    // resident blocks asked of the compiler (register cap)
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMaxSums = 5;  // values reduced together at most
@@ -72,7 +80,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Sum v[0..K) over the block; every thread returns with the same bits in v.
 // `red` holds kWarps * kMaxSums floats.  The caller keeps a __syncthreads()
 // between the reads here and the next call's writes (every call is followed
-// by a tile load between two barriers before the next one).
+// by a tile load and its barrier before the next one).
 template <int K>
 __device__ __forceinline__ void block_sum(float (&v)[K], float* red, int warp, int lane) {
 #pragma unroll
@@ -106,10 +114,12 @@ __device__ __forceinline__ float bilerp(const float* t, int pitch, float fx, flo
   return top * (1.f - fy) + bot * fy;
 }
 
-// PPT: window pixels per thread, ceil(S * S / kThreads) rounded up to an
+constexpr int per_thread(int n) { return (n + kThreads - 1) / kThreads; }
+
+// PPT: window pixels per thread, per_thread(S * S) rounded up to an
 // instance; PPR: pixels of the (S+1)^2 footprint that a thread stages.
 template <int PPT, int PPR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, int H, int W,
                 const float* __restrict__ ref_pts, const float* __restrict__ guesses,
                 int n_pts, int S, int iters, float eps, float min_eig_thresh,
@@ -214,7 +224,8 @@ lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, in
     tile_start(gyp - half, S, H, &cy0, &cfy);
     tile_start(gxp - half, S, W, &cx0, &cfx);
     const float* src = cur + static_cast<size_t>(cy0) * W + cx0;
-    __syncthreads();  // the last pass's reads of raw and red are done
+    // No barrier is needed here: every thread read raw before the barrier
+    // inside the last block_sum, and red is next written after the one below.
 #pragma unroll
     for (int j = 0; j < PPR; ++j) {
       if (stage[j] >= 0) raw[tid + kThreads * j] = __ldg(src + stage[j]);
@@ -290,16 +301,18 @@ int lk_level_lanes(const void* ref, const void* cur, int n_lanes, int H, int W,
   auto* ores = static_cast<float*>(out_resid);
   auto* ok = static_cast<unsigned char*>(out_ok);
   auto st = static_cast<cudaStream_t>(stream);
+  // Three instances: windows up to 15 (225 window pixels, a 16 x 16
+  // footprint), up to 22 and up to 32 px (the larger ones spill registers).
   cudaError_t err;
-  if (S <= 15) {  // <= 225 window pixels, a 16 x 16 footprint: one of each per thread
-    err = launch<1, 1>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op,
-                       ores, ok, st);
-  } else if (S <= 22) {  // <= 484 window pixels, a 23 x 23 footprint
-    err = launch<2, 3>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op,
-                       ores, ok, st);
-  } else {  // <= 1,024 window pixels, a 33 x 33 footprint
-    err = launch<4, 5>(r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op,
-                       ores, ok, st);
+  if (S <= 15) {
+    err = launch<per_thread(15 * 15), per_thread(16 * 16)>(
+        r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op, ores, ok, st);
+  } else if (S <= 22) {
+    err = launch<per_thread(22 * 22), per_thread(23 * 23)>(
+        r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op, ores, ok, st);
+  } else {
+    err = launch<per_thread(32 * 32), per_thread(33 * 33)>(
+        r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op, ores, ok, st);
   }
   return static_cast<int>(err);
 }

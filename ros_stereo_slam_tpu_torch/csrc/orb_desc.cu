@@ -151,6 +151,11 @@ orb_desc_kernel(const float* __restrict__ img, int H, int W, const float* __rest
   // bounded so the integer stays small (its taps then read the image).
   P.ox = static_cast<int>(floorf(fminf(fmaxf(px, -1e6f), 1e6f))) - kCentre;
   P.oy = static_cast<int>(floorf(fminf(fmaxf(py, -1e6f), 1e6f))) - kCentre;
+  // This thread's pattern pair, asked for before the patch so that one L2
+  // round trip covers both.
+  const int b = tid;
+  const float2 pp = __ldg(reinterpret_cast<const float2*>(pat_p) + b);
+  const float2 pq = __ldg(reinterpret_cast<const float2*>(pat_q) + b);
   for (int k = tid; k < kPatch * kPatch; k += kThreads) {
     const int r = k / kPatch;
     const int gy = P.oy + r;
@@ -166,8 +171,8 @@ orb_desc_kernel(const float* __restrict__ img, int H, int W, const float* __rest
                       py <= static_cast<float>(H - 2 - kRadius);
   float m10 = 0.f, m01 = 0.f;
   for (int i = tid; i < n_cent; i += kThreads) {
-    const float dx = __ldg(cent + 2 * i);
-    const float dy = __ldg(cent + 2 * i + 1);
+    const float2 off = __ldg(reinterpret_cast<const float2*>(cent) + i);
+    const float dx = off.x, dy = off.y;
     float v;
     if (direct) {
       // v00 * 1 * 1 + v01 * 1 * 0 + v10 * 0 * 1 + v11 * 0 * 0
@@ -196,9 +201,7 @@ orb_desc_kernel(const float* __restrict__ img, int H, int W, const float* __rest
   const float ca = __fdiv_rn(m10, r);
   const float sa = __fdiv_rn(m01, r);
 
-  const int b = tid;
-  const float ppx = __ldg(pat_p + 2 * b), ppy = __ldg(pat_p + 2 * b + 1);
-  const float pqx = __ldg(pat_q + 2 * b), pqy = __ldg(pat_q + 2 * b + 1);
+  const float ppx = pp.x, ppy = pp.y, pqx = pq.x, pqy = pq.y;
   // rot @ pattern + point: x = ca * ox + (-sa) * oy, y = sa * ox + ca * oy.
   const float xp = __fadd_rn(__fadd_rn(__fmul_rn(ca, ppx), __fmul_rn(-sa, ppy)), px);
   const float yp = __fadd_rn(__fadd_rn(__fmul_rn(sa, ppx), __fmul_rn(ca, ppy)), py);
@@ -238,10 +241,10 @@ int orb_desc_lanes(const void* img, int n_lanes, int H, int W, const void* pts,
 // Plain C entry points (loaded with ctypes).  img (H, W) f32 row-major with
 // H, W >= 2; pts (n_pts, 2) f32 xy; valid (n_pts,) bytes, or null for "all
 // valid"; cent (n_cent, 2) integer-valued f32 offsets within the radius-15
-// mask, pat_p and pat_q (256, 2) f32 offsets; out_sign (n_pts, 256) f32 (+-1,
-// 0 where not valid); out_moments (n_pts, 2) f32 (m10, m01); out_bits
-// (n_pts, 8) int32 packed bits (0 where not valid).  Launch on `stream` and
-// return cudaGetLastError().
+// mask, pat_p and pat_q (256, 2) f32 offsets, all three 8-byte aligned;
+// out_sign (n_pts, 256) f32 (+-1, 0 where not valid); out_moments (n_pts, 2)
+// f32 (m10, m01); out_bits (n_pts, 8) int32 packed bits (0 where not valid).
+// Launch on `stream` and return cudaGetLastError().
 extern "C" int orb_desc_f32(const void* img, int H, int W, const void* pts, const void* valid,
                             int n_pts, const void* cent, int n_cent, const void* pat_p,
                             const void* pat_q, void* out_sign, void* out_moments,

@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Times of the port's CUDA kernels alone and behind their wrappers, on
+seeded noise images at the main path's shapes, for this checkout or for
+another unpacked commit of the port.
+
+    python3 tools/torch_kernel_times.py [--root TREE] [--label NAME]
+
+It is the quick way to compare two commits' kernels on one card inside
+one call: unpack the other commit with ``git archive`` into a git-ignored
+directory and run the tool in turns (parent, change, change, parent); each
+run takes a few seconds after the build.  Per kernel it prints one JSON
+line: ``device_ms`` (200 bare launches of the C entry point back to back
+between two CUDA events, the least of 7 rounds: the kernel alone), ``ms``
+(median of 25 event windows around the wrapper call: checks, allocation
+and the host's launch work included) and, once, an empty kernel's time
+taken as ``device_ms`` is (the launch floor).  The timing functions are
+``chip_smoke.py``'s; TREE must offer ``bare_launch`` in its wrappers.
+
+Shapes: K1 768 points, window 15, 6 iterations on a 1241x376 level (the
+seeded temporal track), K1b the same on 2 lanes; K2 the corners FAST + ANMS
+pick on a 1241x376 noise image (budget 173) through the two-output entry
+point, K2b on 2 lanes; K3 512 random sign descriptors through random
+59,049- and 531,441-row tables (k = 9).  The images are smooth noise, not
+rendered frames, so the times are comparable between trees, not with
+``chip_smoke.py``'s.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parents[1]
+SHAPE, N_PTS, BUDGET, LANES, K = (376, 1241), 768, 173, 2, 9
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--label", default="this")
+    args = ap.parse_args()
+    sys.path.insert(0, str(HERE))
+    import chip_smoke  # this checkout's timing functions, whatever TREE holds
+
+    sys.path.insert(0, str(Path(args.root).resolve()))  # the package under test
+    import torch
+
+    import ros_stereo_slam_tpu_torch  # noqa: F401  (sets the float policy)
+    from ros_stereo_slam_tpu_torch.data.synthetic import _smooth_noise_2d
+    from ros_stereo_slam_tpu_torch.ops import lk, lk_cuda, orb, orb_cuda, vocab_cuda
+
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: kernel times come from a card only")
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(0)
+    H, W = SHAPE
+    ref = np.stack([_smooth_noise_2d(SHAPE, rng, octaves=5, base_period=24)
+                    for _ in range(LANES)]).astype(np.float32)
+    cur = np.roll(ref, (-2, 3), axis=(1, 2))
+    pts = np.stack([rng.uniform(40, W - 40, (LANES, N_PTS)),
+                    rng.uniform(40, H - 40, (LANES, N_PTS))], -1).astype(np.float32)
+    guess = (pts + np.array([3.0, -2.0]) + rng.uniform(-1, 1, pts.shape)).astype(np.float32)
+    ref, cur, pts, guess = (torch.from_numpy(a).to(dev) for a in (ref, cur, pts, guess))
+    params = lk.LKParams(window=15, levels=4, iters=6)
+    corners, _ = orb._level_corners(ref, BUDGET, 12.0 / 255.0)
+    tables = [torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), size=(K ** l, 256)))
+              .to(dev) for l in (5, 6)]
+    q = torch.from_numpy(rng.choice(np.array([-1.0, 1.0], np.float32), size=(512, 256))).to(dev)
+    node = torch.from_numpy(rng.integers(0, K ** 4, size=512)).to(dev)
+
+    cases = {
+        "lk_level": (lambda: lk_cuda.bare_launch(ref[0], cur[0], pts[0], guess[0], params),
+                     lambda: lk_cuda.track_level(ref[0], cur[0], pts[0], guess[0], params)),
+        "lk_level_batch": (lambda: lk_cuda.bare_launch(ref, cur, pts, guess, params),
+                           lambda: lk_cuda.track_level_batch(ref, cur, pts, guess, params)),
+        "orb_desc": (lambda: orb_cuda.bare_launch(ref[0], corners[0]),
+                     lambda: orb_cuda.orb_descriptors(ref[0], corners[0])),
+        "orb_desc_batch": (lambda: orb_cuda.bare_launch(ref, corners),
+                           lambda: orb_cuda.orb_descriptors_batch(ref, corners)),
+        "vocab_descend": (lambda: vocab_cuda.bare_launch(q, node, tables, K),
+                          lambda: vocab_cuda.deep_descend(q, node, tables, K)),
+    }
+    card = chip_smoke.run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"]).splitlines()[0].strip()
+    floor = chip_smoke.device_ms(torch, lk_cuda.empty_launch())
+    print(json.dumps({"label": args.label, "card": card, "launch_floor_ms": floor}), flush=True)
+    for name, (bare, wrapper) in cases.items():
+        wrapper()
+        torch.cuda.synchronize()
+        row = {"label": args.label, "name": name,
+               "device_ms": chip_smoke.device_ms(torch, bare()),
+               "ms": chip_smoke.cuda_ms(torch, wrapper)}
+        print(json.dumps(row), flush=True)
+
+
+if __name__ == "__main__":
+    main()

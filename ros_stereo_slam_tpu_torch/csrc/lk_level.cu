@@ -42,9 +42,9 @@
 // row-wise (coalesced) loads and the (S+2)^2 template is sampled from it;
 // each Gauss-Newton step stages the raw (S+1)^2 footprint of the current
 // image the same way, and all four taps of every bilinear sample come from
-// shared memory: each pixel is read from L2 once per step, not ~3.5 times.  Each
-// thread's window row and column, and its offsets into the staged tile, are
-// computed once, outside the iteration loop.  Reductions are deterministic:
+// shared memory: each pixel is read from L2 once per step, not ~3.5 times.
+// Each thread's window row and column, and its offsets into the staged tile,
+// are computed once, outside the iteration loop.  Reductions are deterministic:
 // warp shuffles, then every thread adds the per-warp partials from shared
 // memory in warp order, so all threads of the block hold bit-identical sums,
 // take the same |delta| < eps exit, and two runs give the same bits (no
@@ -266,7 +266,7 @@ lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, in
   }
 }
 
-// The cost of a launch alone on this card and driver: the floor under every
+// The cost of a launch alone on this card and its runtime: the floor under every
 // kernel time measured from the host.
 __global__ void empty_kernel() {}
 

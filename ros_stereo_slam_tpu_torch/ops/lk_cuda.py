@@ -208,7 +208,7 @@ def bare_launch(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams):
 def empty_launch():
     """A zero-argument callable that launches the source's empty kernel (one
     thread, no work) on the current stream: the launch floor of this card
-    and driver, timed the way :func:`bare_launch` callables are."""
+    and its runtime, timed the way :func:`bare_launch` callables are."""
     fn = _fn("empty_launch")
     stream = torch.cuda.current_stream().cuda_stream
     return lambda: fn(stream)

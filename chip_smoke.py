@@ -18,7 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
 5. kernels: each kernel (K1, K2, K3 and the lane-gridded K1b, K2b)
    against its plain PyTorch version on the card, at the main path's
    shapes and at image borders (K1: points within a window of a border;
-   K2: corners 17..21 px from each border), with the median time of a
+   K2: corners 17..21 px from each border; K3: one and two lanes'
+   descriptors and a tree with tied siblings, L2-hot and L2-cold, and no
+   dense descent product left in the detection step), with the median time of a
    wrapper call (CUDA events around it: ``ms``), the kernel's own time
    (200 bare launches of the C entry point back to back between two
    events, the least of 7 rounds: ``device_ms``), an empty kernel's time
@@ -29,12 +31,14 @@ Phases (any failure exits non-zero and prints no result line):
    run; then the streaming driver (``StereoOdometry``) against ``run_offline``;
 7. slam: full SLAM with loop closure (``run_offline_slam`` on ``cuda:0``,
    ``preset_loop_closure()`` at its defaults) over 257 revisit frames,
-   checked against ground truth, with K1/K2/K3 launch counts from that run;
+   checked against ground truth, with K1/K2/K3 launch counts from that run
+   (K3: one per detection frame);
 8. batched_odo: the corridor split into 2 lanes of 24 frames through
    ``step_batched.run_sequence_batched`` (bench.py's batched row), each
    lane held against its single-lane run, with K1b's launch count;
 9. batched_slam: ``run_offline_slam_batched`` over worlds A and B as two
-   lanes, checked per lane against ground truth, with K1b/K2b/K3 counts.
+   lanes, checked per lane against ground truth, with K1b/K2b/K3 counts
+   (K3: one per detection frame for all lanes).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -648,10 +652,11 @@ def phase_vocab(torch, left, cfg, dev):
     torch.cuda.synchronize()
     words = vocab.transform_words(voc, X)
     n_used = int(torch.unique(words).numel())
+    tree = voc.packed()
     log(f"vocab: k={voc.k} L={voc.levels} ({voc.n_words} words) trained on the card from "
         f"{X.shape[0]} descriptors of {len(docs)} frames in {time.perf_counter() - t0:.2f} s; "
-        f"{n_used} words used; tables "
-        f"{[tuple(c.shape) for c in voc.centers[-2:]]} int8")
+        f"{n_used} words used; int8 tables {sum(c.numel() for c in voc.centers)} bytes, "
+        f"packed tree {tuple(tree.words.shape)} int32 = {tree.words.numel() * 4} bytes")
     check(voc.n_words == lcc.vocab_k ** lcc.vocab_levels, "vocabulary size")
     check(n_used > min(X.shape[0], voc.n_words) // 4,
           f"only {n_used} words used by {X.shape[0]} descriptors")
@@ -774,44 +779,156 @@ def k2_phase(torch, img, cfg) -> dict:
             "plain_ms": rows[0][1], "device_ms": rows[0][2], **work}
 
 
-def k3_phase(torch, img, voc, cfg) -> dict:
-    """K3 against vocab._deep_descend_plain: one frame's 512 descriptors
-    (invalid ones all zero) through the deep levels of the trained
-    vocabulary; the word ids must be equal on every row."""
+def device_ms_each(torch, launch, flush=None, reps: int = 50) -> float:
+    """Median milliseconds of one `launch` between two CUDA events, over
+    `reps` launches; with `flush`, that callable runs on the stream before
+    each launch (outside the window), so the kernel finds a cold L2."""
+    for _ in range(5):
+        launch()
+    torch.cuda.synchronize()
+    pairs, err = [], 0
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err |= launch()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    check(err == 0, f"a bare kernel launch failed: cudaError {err}")
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _duplicate_siblings(torch, tree, k: int):
+    """`tree` with siblings 2 and 3 of every group copies of siblings 1 and
+    0, at every level: exact ties that the first max must break to 0 or 1."""
+    from ros_stereo_slam_tpu_torch.models import vocab
+
+    words = tree.words.clone()
+    for l in range(tree.levels):
+        g = words[tree.offsets[l]:tree.offsets[l + 1]].view(-1, k, 8)
+        g[:, 2] = g[:, 1]
+        g[:, 3] = g[:, 0]
+    return vocab.PackedTree(words=words, offsets=tree.offsets)
+
+
+def descent_products(torch, tree, idf, img, cfg, n_desc: int) -> list:
+    """The matrix products of one full-SLAM detection (``_lc_scan_step``)
+    that take an (n_desc, 256) operand, i.e. a dense descent level, from
+    ``torch.profiler`` with shapes recorded: (name, input shapes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ros_stereo_slam_tpu_torch.models import slam_scan
+
+    lc = slam_scan.init_lc_state(cfg, img.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        slam_scan._lc_scan_step(lc, img, 0, tree, idf, cfg, cfg.loop.vocab_k)
+        torch.cuda.synchronize()
+    products = ("aten::mm", "aten::matmul", "aten::addmm", "aten::bmm", "aten::einsum",
+                "aten::linear")
+    return [(e.name, e.input_shapes) for e in prof.events() if e.name in products
+            and any(list(sh) == [n_desc, 256] for sh in e.input_shapes)]
+
+
+def k3_phase(torch, img, imgs, voc, cfg) -> dict:
+    """K3 against vocab._descend_packed_plain on the trained full-width tree
+    (k = 9, L = 6, 597,870 packed rows), descending ORB's packed words as
+    the main path does: one frame's 512 descriptors (invalid rows
+    included), two lanes' 1,024, and the 512 again through the tree with
+    duplicate sibling rows (ties at every level).  Word ids must be equal
+    on every row and two runs bitwise equal.  Times: the wrapper call
+    (``ms``), the kernel alone back to back (``device_ms``, L2-hot), one
+    launch at a time hot and after a 64 MB scratch write (L2-cold), the
+    plain version, and ``_descend`` on the sign rows (checks and packing
+    included)."""
     from ros_stereo_slam_tpu_torch.models import vocab
     from ros_stereo_slam_tpu_torch.ops import orb, vocab_cuda
 
     lcc = cfg.loop
-    q = orb.detect_and_compute(img, lcc.orb_features, cfg.frontend.fast_thresh / 255.0,
-                               n_levels=lcc.orb_levels).desc_sign
-    first = next(l for l, c in enumerate(voc.centers)
-                 if c.shape[0] > vocab._DESCEND_MASKED_ARGMAX_MAX_NODES)
-    node = vocab._descend(voc.centers, q, voc.k, first)  # the dense levels
-    deep = voc.centers[first:]
-    out = vocab_cuda.deep_descend(q, node, deep, voc.k)
-    ref = vocab._deep_descend_plain(q, node, deep, voc.k)
-    torch.cuda.synchronize()
-    mismatches = int((out != ref).sum())
-    ms = cuda_ms(torch, lambda: vocab_cuda.deep_descend(q, node, deep, voc.k))
-    plain_ms = cuda_ms(torch, lambda: vocab._deep_descend_plain(q, node, deep, voc.k))
-    dev_ms = device_ms(torch, vocab_cuda.bare_launch(q.contiguous(), node, deep, voc.k))
-    log(f"K3 {q.shape[0]} descriptors ({int((q != 0).any(1).sum())} valid) through levels "
-        f"{first}..{len(voc.centers) - 1} {[tuple(c.shape) for c in deep]}: word ids "
-        f"differing {mismatches}; wrapper {ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain "
+    k, L = voc.k, voc.levels
+    tree = voc.packed()
+
+    def features(x):
+        f = orb.detect_and_compute(x, lcc.orb_features, cfg.frontend.fast_thresh / 255.0,
+                                   n_levels=lcc.orb_levels)
+        return (f.desc_bits.reshape(-1, 8), f.valid.reshape(-1),
+                f.desc_sign.reshape(-1, orb.N_BITS))
+
+    one, two = features(img), features(imgs)
+    dup = _duplicate_siblings(torch, tree, k)
+    cases = [("one frame", one, tree), ("two lanes", two, tree),
+             ("duplicate siblings", one, dup)]
+    worst = 0
+    for name, (bits, valid, _), t in cases:
+        out = vocab_cuda.descend(bits, valid, t, k, L)
+        again = vocab_cuda.descend(bits, valid, t, k, L)
+        ref = vocab._descend_packed_plain(bits, valid, t, k, L)
+        torch.cuda.synchronize()
+        mismatches = int((out != ref).sum())
+        same = torch.equal(out, again)
+        log(f"K3 {name}: {bits.shape[0]} descriptors ({int(valid.sum())} valid) through "
+            f"{L} levels of {t.words.shape[0]} packed rows: word ids differing {mismatches}, "
+            f"two runs equal {same}, {int(torch.unique(out).numel())} distinct words")
+        check(mismatches == 0, f"K3 {name}: {mismatches} word ids differ from the plain version")
+        check(same, f"K3 {name}: two runs of the same call differ")
+        check(not bool(out[~valid].any()), f"K3 {name}: an invalid row is not word 0")
+        if t is dup:
+            digits = {int(d) for m in range(L) for d in torch.unique(out[valid] // k ** m % k)}
+            check(not digits & {2, 3}, f"K3 {name}: children {sorted(digits)} taken where "
+                  f"siblings 2, 3 tie 1, 0")
+        worst = max(worst, mismatches)
+    bits, valid, sign = one
+    # the whole descent of sign rows, and its dense products: none may remain
+    words_sign = vocab._descend(tree, sign, k, L)
+    check(torch.equal(words_sign, vocab_cuda.descend(bits, valid, tree, k, L)),
+          "K3: _descend on the sign rows differs from the descent of the packed words")
+    dense = descent_products(torch, tree, voc.idf, img, cfg, bits.shape[0])
+    log(f"K3: matrix products with a ({bits.shape[0]}, 256) operand in one _lc_scan_step "
+        f"(torch.profiler): {dense}")
+    check(not dense, f"K3: the detection step still runs dense descent products {dense}")
+
+    ms = cuda_ms(torch, lambda: vocab_cuda.descend(bits, valid, tree, k, L))
+    plain_ms = cuda_ms(torch, lambda: vocab._descend_packed_plain(bits, valid, tree, k, L))
+    whole_ms = cuda_ms(torch, lambda: vocab._descend(tree, sign, k, L))
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=img.device)
+    times = {}
+    for entry in vocab_cuda.DESIGNS:
+        launch = vocab_cuda.bare_launch(bits, valid, tree, k, L, entry=entry)
+        times[entry] = (device_ms(torch, launch), device_ms_each(torch, launch),
+                        device_ms_each(torch, launch, flush=lambda: scratch.fill_(1)))
+        torch.cuda.synchronize()
+        check(torch.equal(launch.outputs[0], vocab_cuda.descend(bits, valid, tree, k, L)),
+              f"K3 {entry}: word ids differ from the wrapper's")
+    del scratch
+    for entry, (hot, each, cold) in times.items():
+        log(f"K3 {entry}{' (the wrapper launches it)' if entry == vocab_cuda.DESIGNS[0] else ''}"
+            f": kernel alone {hot:.4f} ms back to back (L2-hot), one launch at a time "
+            f"{each:.4f} ms hot, {cold:.4f} ms after a 64 MB scratch write (L2-cold)")
+    dev_ms, _, cold_ms = times[vocab_cuda.DESIGNS[0]]
+    log(f"K3 512 descriptors -> word ids: wrapper {ms:.4f} ms (the main path's call), "
+        f"_descend of the sign rows {whole_ms:.4f} ms (checks and packing included), plain "
         f"{plain_ms:.4f} ms")
-    check(mismatches == 0, f"K3: {mismatches} word ids differ from the plain version")
-    # Bound: the descriptors and node ids read, the word ids written, and the
-    # k sibling rows of every node this run's descriptors visit, read once
-    # per level; k int8 dot products of 256 per descriptor and level.
-    rows_read, nodes = 0, node
-    for tbl in deep:
-        rows_read += int(torch.unique(nodes).numel()) * voc.k
-        nodes = vocab._deep_descend_plain(q, nodes, [tbl], voc.k)
-    n = q.shape[0]
-    work = _bound(n * 256 * 4 + 2 * n * 8 + rows_read * 256,
-                  n * len(deep) * voc.k * 256 * 2, PEAK_INT8_S)
-    return {"max_abs_err": float((out - ref).abs().max()), "mismatches": mismatches,
-            "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **work}
+    # Bound: the descriptors' words and flags read, the word ids written, and
+    # the k sibling rows of every node this run's valid descriptors visit,
+    # read once per level; per visited row 8 XORs, 8 popcounts and 8 adds.
+    # Beside it, the same rows as int8 (the tables the old K3 read).
+    rows_read, node = 0, torch.zeros_like(valid, dtype=torch.int64)
+    for l in range(L):
+        rows_read += int(torch.unique(node[valid]).numel()) * k
+        node = vocab._descend_packed_plain(bits, valid, tree, k, l + 1)
+    n, nv = bits.shape[0], int(valid.sum())
+    io = n * (32 + 1 + 8) + (L + 1) * 4
+    work = _bound(io + rows_read * 32, nv * L * k * 24)
+    old = _bound(io + rows_read * 256, nv * L * k * 256 * 2, PEAK_INT8_S)
+    log(f"K3 bound: {rows_read} sibling rows visited over {L} levels: packed "
+        f"{rows_read * 32} bytes -> {work['bound_ms'] * 1e3:.3f} us ({work['bound_by']}); as "
+        f"int8 rows {rows_read * 256} bytes -> {old['bound_ms'] * 1e3:.3f} us")
+    return {"max_abs_err": float(worst), "mismatches": worst, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev_ms, "device_ms_cold": cold_ms, "whole_descent_ms": whole_ms,
+            "int8_bound_ms": old["bound_ms"], **work}
 
 
 def phase_slice(torch, left, right, poses, cam, dev) -> dict:
@@ -933,6 +1050,9 @@ def phase_slam(torch, voc, left, right, gt, cfg, dev) -> dict:
     check(ate < ate_odo, f"post-PGO ATE {ate} m is not below odometry-only {ate_odo} m")
     for name in KERNELS:
         check(counts[name] > 0, f"the full-SLAM path launched no {name} kernel")
+    n_detect = 1 + F // max(cfg.loop.detect_every, 1)
+    check(counts["vocab_descend"] == n_detect,
+          f"K3 launched {counts['vocab_descend']} times over {n_detect} detection frames")
     return {"counts": counts, "fps": F / med, "ate": ate, "ate_odo": ate_odo,
             "events": events}
 
@@ -1081,6 +1201,9 @@ def phase_batched_slam(torch, voc, worlds, cfg, dev) -> dict:
         out.append({"lane": name, "ate": ate, "ate_odo": ate_odo, "events": events})
     for k in ("k1b", "k2b", "k3"):
         check(counts[k] > 0, f"the batched full-SLAM path launched no {k} kernel")
+    n_detect = 1 + F // max(cfg.loop.detect_every, 1)
+    check(counts["k3"] == n_detect,
+          f"K3 launched {counts['k3']} times over {n_detect} detection frames of all lanes")
     check(counts["host_reads"] == 2 * F,
           f"{counts['host_reads']} host reads over {F} frames, not 2 per frame")
     return {"counts": counts, "fps": LANES * F / med, "lanes": out}
@@ -1130,11 +1253,12 @@ def main() -> int:
         k1 = timed("kernels_k1", phase_kernels, torch,
                    k1_cases(torch, left, depths, poses, cam, dev))
         probe = torch.from_numpy(rl[LAP + 2]).to(dev)  # a jittered revisit frame
-        k2 = timed("kernels_k2", k2_phase, torch, probe, slam_cfg)
-        k3 = timed("kernels_k3", k3_phase, torch, probe, voc, slam_cfg)
-        k1b = timed("kernels_k1b", k1b_phase, torch, left, depths, poses, cam, dev)
         probes = torch.from_numpy(np.stack([worlds[n][0][LAP + 2] for n in REVISIT_SEEDS]))
-        k2b = timed("kernels_k2b", k2_phase, torch, probes.to(dev), slam_cfg)
+        probes = probes.to(dev)
+        k2 = timed("kernels_k2", k2_phase, torch, probe, slam_cfg)
+        k3 = timed("kernels_k3", k3_phase, torch, probe, probes, voc, slam_cfg)
+        k1b = timed("kernels_k1b", k1b_phase, torch, left, depths, poses, cam, dev)
+        k2b = timed("kernels_k2b", k2_phase, torch, probes, slam_cfg)
         sl = timed("slice", phase_slice, torch, left, right, poses, cam, dev)
         sm = timed("slam", phase_slam, torch, voc, rl, rr, rgt, slam_cfg, dev)
         bo = timed("batched_odo", phase_batched_odo, torch, left, right, poses, cam, dev)
@@ -1170,8 +1294,9 @@ def main() -> int:
                "plain_ms": meas["plain_ms"], "bound_ms": meas["bound_ms"],
                "bound_by": meas["bound_by"], "library_ms": None,
                "device_ms": meas["device_ms"], "launch_floor_ms": floor_ms}
-        if "mismatches" in meas:
-            row["mismatches"] = meas["mismatches"]
+        for key in ("mismatches", "device_ms_cold", "whole_descent_ms", "int8_bound_ms"):
+            if key in meas:
+                row[key] = meas[key]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

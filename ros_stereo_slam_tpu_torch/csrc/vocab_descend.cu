@@ -1,35 +1,49 @@
-// Vocabulary-tree descent through the deep levels, sm_90a.
+// Vocabulary-tree descent over a bit-packed tree, sm_90a: every level in one launch.
 //
 // Replaces the TPU kernel ros_stereo_slam_tpu/ops/vocab_pallas.py::_deep_descend_kernel
-// (entry point deep_descend).  Per descriptor q (256 components in {-1, 0, +1})
-// and per level l, starting from its entry node:
-//   dot_j = q . T_l[node * k + j]   for the k sibling rows j = 0..k-1,
-//   best  = the first max (highest dot; among equal dots the lowest j),
+// (entry point deep_descend) and the dense masked-argmax levels before it in
+// ros_stereo_slam_tpu/models/vocab.py::_descend: the whole descent, from the root.
+//
+// The tree: every level's sign centers (+-1) packed at one bit per component
+// into one (R, 8) table of 32-bit words, levels one after another (level l is
+// rows offset[l] .. offset[l + 1] - 1); bit j of word w is component 32 w + j
+// being +1, the layout of ops/orb.py::pack_bits.  A query is ORB's packed
+// (8,) words and a valid flag.  Per valid query and per level l:
+//   ham_j = popc(q ^ c_j) over the 8 words, c_j the sibling row node * k + j,
+//   dot_j = 256 - 2 ham_j  (exact: both vectors are +-1),
+//   best  = the first max of dot_j = the first min of ham_j (lowest j on ties),
 //   node  = node * k + best.
-// Every dot is an integer |dot| <= 256, summed here in int32, so the result is
-// bit-identical to the gather route of vocab._descend (torch.argmax takes the
-// first max too).  An all-zero (invalid) descriptor ties every sibling at 0
-// and takes child 0 at every level, as the gather route does.
+// An invalid query takes child 0 at every level (word 0), as an all-zero sign
+// row does in the reference (every dot ties at 0).  The word ids are therefore
+// bit-identical to the reference's argmax-dot descent.
 //
-// What bounds it on an H100: at k = 9 a sibling group is 9 x 256 = 2,304
-// bytes of int8 rows, read once per descriptor and level from tables of
-// 15 MB and 136 MB (the larger does not fit the 50 MB L2).  512 descriptors
-// over 2 levels read ~2.4 MB at random row offsets, a chain of two dependent
-// loads per descriptor, so the kernel is bound by DRAM latency, not by
-// bandwidth or arithmetic.
+// What bounds it on an H100: at k = 9, L = 6 the packed tree is 597,870 rows x
+// 32 bytes = 19.1 MB (the int8 tables were 153 MB), so it stays in the 50 MB
+// L2.  A query reads one 288-byte sibling group per level, 6 dependent loads;
+// 512 queries visit well under 1 MB.  The byte bound (~0.3 us) lies far under
+// a launch, so the kernel is bound by the latency of its chain of L2 loads.
+// So: no shared memory, every sibling load of a level issued before any
+// reduction, few instructions between one level's loads and the next's.
 //
-// Design: one warp per descriptor, kWarpsPerBlock warps per block.  Lane l
-// holds components 8 l .. 8 l + 7 as integers and reads the matching 8 bytes
-// of each sibling row as one 64-bit load, so a row is one coalesced 256-byte
-// warp read.  A butterfly of integer shuffles gives every lane the same exact
-// dot; the first-max compare is strict, so lower siblings win ties.  The
-// tables are read as they are: no packing, no tail pad and no DMA windows.
-// A node whose sibling group would lie outside its table writes -1 and stops
-// (the caller hands in valid nodes; the guard keeps every read in bounds).
+// Two designs, both here, held to the same plain version; the wrapper launches
+// vocab_descend_sibling_lanes (PERF.md gives both designs' times):
+//   sibling lanes: a warp per query; lanes 2 j and 2 j + 1 read the two
+//     16-byte halves of sibling row j (one 32-byte sector, requested once),
+//     popcount 4 words each, add the halves in one xor-shuffle, and the warp
+//     takes the min of (ham << 22 | j) in 4 more, which is the first min
+//     (16 siblings a pass).  A first version with 16 lanes per query, each
+//     reading a whole row as two 16-byte loads, was faster L2-hot and much
+//     slower L2-cold (PERF.md);
+//   word lanes: 8 lanes per query (4 per warp); lane w holds query word w and
+//     reads word w of every sibling row, the group sums each sibling's
+//     popcount in 3 xor-shuffles, every lane keeps the first min.
+// Shuffles name only their group's lanes, so groups of one warp may diverge.
+// No atomics: two runs agree bit for bit.  A sibling group that would lie
+// outside its level (offsets that do not match k) writes -1 and stops.
 //
 // What the TPU kernel does and this one does not: 8-aligned 16-row DMA windows
-// over tail-padded tables, the NBUF-deep semaphore pipeline, SMEM node arrays,
-// the masked (16, 256) f32 multiply and the custom_vmap lane flattening.
+// over tail-padded int8 tables, the semaphore pipeline, the masked (16, 256)
+// f32 multiply, and the MXU masked argmax over whole shallow levels.
 
 #include <cuda_runtime.h>
 
@@ -37,89 +51,162 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kDim = 256;
 constexpr int kMaxLevels = 8;
+constexpr int kThreads = 128;
+constexpr int kSiblingLanes = 32;     // a warp per query
+constexpr int kSiblingsPerPass = 16;  // two lanes per sibling row
+constexpr int kWordLanes = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWordChunk = 16;  // sibling loads a word lane issues before reducing
+constexpr int kIdxBits = 22;    // ham (<= 256) above, the sibling index below
+constexpr int kIdxMask = (1 << kIdxBits) - 1;
 
-struct Tables {
-  const int8_t* rows[kMaxLevels];  // level l: (n_rows[l], 256) int8, row-major
-  int n_rows[kMaxLevels];
+struct Levels {
+  int offset[kMaxLevels + 1];  // level l: tree rows offset[l] .. offset[l + 1] - 1
 };
 
-__device__ __forceinline__ int warp_sum_int(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
-}
-
-__device__ __forceinline__ int dot8(const int (&q)[8], uint2 packed) {
-  int s = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s += q[i] * static_cast<int>(static_cast<int8_t>((packed.x >> (8 * i)) & 0xffu));
-    s += q[4 + i] * static_cast<int>(static_cast<int8_t>((packed.y >> (8 * i)) & 0xffu));
-  }
-  return s;
-}
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-vocab_descend_kernel(const float* __restrict__ q_sign, const int* __restrict__ node_in,
-                     int n, const __grid_constant__ Tables tables, int n_levels, int k,
-                     int* __restrict__ node_out) {
-  const int p = blockIdx.x * kWarpsPerBlock + static_cast<int>(threadIdx.x >> 5);
+// The lanes of this thread's group of `width` (< 32) lanes.
+__device__ __forceinline__ unsigned group_mask(int width) {
   const int lane = static_cast<int>(threadIdx.x & 31);
+  return ((1u << width) - 1u) << (lane / width * width);
+}
+
+__device__ __forceinline__ int ham4(const uint4& q, const uint4& c) {
+  return __popc(q.x ^ c.x) + __popc(q.y ^ c.y) + __popc(q.z ^ c.z) + __popc(q.w ^ c.w);
+}
+
+__global__ void __launch_bounds__(kThreads)
+descend_sibling_lanes(const uint4* __restrict__ q_bits, const uint8_t* __restrict__ valid, int n,
+                      const uint4* __restrict__ tree, const __grid_constant__ Levels lv,
+                      int n_levels, int k, long long* __restrict__ word_out) {
+  const int t = static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x);
+  const int p = t / 32;  // one query per warp
+  const int lane = t % 32;
+  const int half = lane & 1;  // which 16 bytes of a row this lane reads
+  const int jl = lane >> 1;   // its sibling within a pass of kSiblingsPerPass
   if (p >= n) return;  // uniform per warp
-  const float4* qrow = reinterpret_cast<const float4*>(q_sign + static_cast<size_t>(p) * kDim);
-  const float4 a = qrow[2 * lane];
-  const float4 b = qrow[2 * lane + 1];
-  const int q[8] = {__float2int_rn(a.x), __float2int_rn(a.y), __float2int_rn(a.z),
-                    __float2int_rn(a.w), __float2int_rn(b.x), __float2int_rn(b.y),
-                    __float2int_rn(b.z), __float2int_rn(b.w)};
-  int node = node_in[p];
+  const uint4 qh = __ldg(q_bits + 2 * p + half);
+  const bool ok = valid[p] != 0;
+  long long node = 0;
   for (int l = 0; l < n_levels; ++l) {
-    const long long first = static_cast<long long>(node) * k;
-    if (node < 0 || first + k > tables.n_rows[l]) {
+    const long long first = node * k;
+    if (first + k > lv.offset[l + 1] - lv.offset[l]) {
       node = -1;
       break;
     }
-    const int8_t* group = tables.rows[l] + first * kDim + 8 * lane;
-    int best_dot = -(kDim + 1);
+    if (!ok) {  // child 0
+      node = first;
+      continue;
+    }
+    const uint4* group = tree + 2 * (lv.offset[l] + first) + half;
+    int best = 0x7fffffff;
+    for (int j0 = 0; j0 < k; j0 += kSiblingsPerPass) {
+      const int j = j0 + jl;
+      int ham = 0;
+      if (j < k) ham = ham4(qh, __ldg(group + 2 * j));
+      ham += __shfl_xor_sync(kFullMask, ham, 1);  // the row's other half
+      int key = j < k ? (ham << kIdxBits) | j : 0x7fffffff;
+#pragma unroll
+      for (int off = 2; off < 32; off <<= 1) key = min(key, __shfl_xor_sync(kFullMask, key, off));
+      best = min(best, key);  // an earlier pass holds lower j: first min kept
+    }
+    node = first + (best & kIdxMask);
+  }
+  if (lane == 0) word_out[p] = node;
+}
+
+__global__ void __launch_bounds__(kThreads)
+descend_word_lanes(const unsigned* __restrict__ q_bits, const uint8_t* __restrict__ valid, int n,
+                   const unsigned* __restrict__ tree, const __grid_constant__ Levels lv,
+                   int n_levels, int k, long long* __restrict__ word_out) {
+  const int t = static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x);
+  const int p = t / kWordLanes;
+  const int w = t % kWordLanes;
+  if (p >= n) return;  // uniform per group
+  const unsigned mask = group_mask(kWordLanes);
+  const unsigned qw = __ldg(q_bits + 8 * p + w);
+  const bool ok = valid[p] != 0;
+  long long node = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    const long long first = node * k;
+    if (first + k > lv.offset[l + 1] - lv.offset[l]) {
+      node = -1;
+      break;
+    }
+    if (!ok) {  // child 0
+      node = first;
+      continue;
+    }
+    const unsigned* group = tree + 8 * (lv.offset[l] + first) + w;
+    int best_ham = 257;
     int best = 0;
-    for (int j = 0; j < k; ++j) {
-      const uint2 packed = __ldg(reinterpret_cast<const uint2*>(group + j * kDim));
-      const int dot = warp_sum_int(dot8(q, packed));
-      if (dot > best_dot) {  // strict: the first max wins ties
-        best_dot = dot;
-        best = j;
+    for (int j0 = 0; j0 < k; j0 += kWordChunk) {
+      unsigned c[kWordChunk];
+#pragma unroll
+      for (int jj = 0; jj < kWordChunk; ++jj) {
+        c[jj] = j0 + jj < k ? __ldg(group + 8 * (j0 + jj)) : 0u;
+      }
+#pragma unroll
+      for (int jj = 0; jj < kWordChunk; ++jj) {
+        if (j0 + jj >= k) break;  // uniform: k is
+        int h = __popc(qw ^ c[jj]);
+        h += __shfl_xor_sync(mask, h, 1);
+        h += __shfl_xor_sync(mask, h, 2);
+        h += __shfl_xor_sync(mask, h, 4);
+        if (h < best_ham) {  // strict: the first min wins ties
+          best_ham = h;
+          best = j0 + jj;
+        }
       }
     }
-    node = static_cast<int>(first) + best;
+    node = first + best;
   }
-  if (lane == 0) node_out[p] = node;
+  if (w == 0) word_out[p] = node;
+}
+
+// Checks the arguments and fills `lv` and `blocks` (0 when there is nothing to do).
+cudaError_t prepare(int n, const int* offsets, int n_levels, int k, int lanes, Levels& lv,
+                    int& blocks) {
+  blocks = 0;
+  if (n <= 0) return cudaSuccess;
+  if (n_levels < 1 || n_levels > kMaxLevels || k < 1 || k > kIdxMask) {
+    return cudaErrorInvalidValue;
+  }
+  for (int l = 0; l <= n_levels; ++l) lv.offset[l] = offsets[l];
+  blocks = static_cast<int>((static_cast<long long>(n) * lanes + kThreads - 1) / kThreads);
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  q_sign (n, 256) f32 with entries
-// in {-1, 0, +1}, 16-byte aligned; node_in, node_out (n,) int32; tables[l]
-// (n_rows[l], 256) int8 row-major, 8-byte aligned, for l < n_levels <= 8;
-// k >= 1.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int vocab_descend_f32(const void* q_sign, const void* node_in, int n,
-                                 const void* const* tables, const int* n_rows, int n_levels,
-                                 int k, void* node_out, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  if (n_levels < 1 || n_levels > kMaxLevels || k < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Tables t{};
-  for (int l = 0; l < n_levels; ++l) {
-    t.rows[l] = static_cast<const int8_t*>(tables[l]);
-    t.n_rows[l] = n_rows[l];
-  }
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  vocab_descend_kernel<<<blocks, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q_sign), static_cast<const int*>(node_in), n, t, n_levels, k,
-      static_cast<int*>(node_out));
+// Plain C entry points (loaded with ctypes), one per design, same arguments:
+// q_bits (n, 8) 32-bit words, 16-byte aligned; valid (n,) bytes (0 = invalid);
+// tree (R, 8) 32-bit words, 16-byte aligned; offsets (n_levels + 1,) host ints,
+// level l = tree rows offsets[l] .. offsets[l + 1] - 1; 1 <= n_levels <= 8;
+// 1 <= k < 2^22; word_out (n,) int64.  Launch on `stream`, return
+// cudaGetLastError().
+extern "C" int vocab_descend_sibling_lanes(const void* q_bits, const void* valid, int n,
+                                           const void* tree, const int* offsets, int n_levels,
+                                           int k, void* word_out, void* stream) {
+  Levels lv{};
+  int blocks;
+  const cudaError_t err = prepare(n, offsets, n_levels, k, kSiblingLanes, lv, blocks);
+  if (err != cudaSuccess || blocks == 0) return static_cast<int>(err);
+  descend_sibling_lanes<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(q_bits), static_cast<const uint8_t*>(valid), n,
+      static_cast<const uint4*>(tree), lv, n_levels, k, static_cast<long long*>(word_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int vocab_descend_word_lanes(const void* q_bits, const void* valid, int n,
+                                        const void* tree, const int* offsets, int n_levels,
+                                        int k, void* word_out, void* stream) {
+  Levels lv{};
+  int blocks;
+  const cudaError_t err = prepare(n, offsets, n_levels, k, kWordLanes, lv, blocks);
+  if (err != cudaSuccess || blocks == 0) return static_cast<int>(err);
+  descend_word_lanes<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned*>(q_bits), static_cast<const uint8_t*>(valid), n,
+      static_cast<const unsigned*>(tree), lv, n_levels, k, static_cast<long long*>(word_out));
   return static_cast<int>(cudaGetLastError());
 }

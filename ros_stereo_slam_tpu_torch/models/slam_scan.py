@@ -7,8 +7,10 @@ frames staged on the device, as :func:`.pipeline.run_offline` is:
 
 - each frame runs :func:`.step.slam_frame_step`, then, on every
   ``detect_every``-th frame, :func:`_lc_scan_step`: ORB (kernel K2), the
-  vocabulary descent (kernel K3 for the deep levels), the sparse BoW,
-  the binned shortlist and its exact rescore, and the database insert.
+  vocabulary descent of ORB's packed words (kernel K3, every level in one
+  launch, over the tree packed once per run by
+  :meth:`.vocab.Vocabulary.packed`), the sparse BoW, the binned
+  shortlist and its exact rescore, and the database insert.
   ``lax.cond`` on the cadence becomes a host branch on the frame id, which
   the host knows, so it reads nothing from the device;
 - the sparse database (:class:`LCScanState`, ~130 MB at the reference
@@ -43,6 +45,7 @@ from ros_stereo_slam_tpu_torch.models import step as step_mod
 from ros_stereo_slam_tpu_torch.models import step_batched
 from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
 from ros_stereo_slam_tpu_torch.ops import lk, orb as orb_mod, pnp, pyramid, triangulate
+from ros_stereo_slam_tpu_torch.ops import vocab_cuda
 from ros_stereo_slam_tpu_torch.ops.topk import top_k
 from ros_stereo_slam_tpu_torch.utils import lie
 
@@ -113,12 +116,16 @@ def _lc_scan_step(
     lc: LCScanState,
     left_img: torch.Tensor,
     frame_id: int,
-    centers: list,
+    tree: vocab_mod.PackedTree,
     idf: torch.Tensor,
     cfg: PipelineConfig,
     vocab_k: int,
 ) -> tuple[LCScanState, LCScanStats]:
     """One detection frame: ORB -> sparse BoW -> query -> database insert.
+
+    `tree` is the vocabulary packed by :func:`.vocab.pack_centers`, the
+    counterpart of the reference's int8 `centers`: the descent reads ORB's
+    packed words and validity, which give the reference's word ids.
 
     The database rows of ring slot ``frame_id % db_capacity`` are written
     in place; the returned state shares the input's tensors.
@@ -135,8 +142,9 @@ def _lc_scan_step(
         n_levels=lcc.orb_levels,
     )
     # all lanes' descriptors descend the tree as one batch
-    words = vocab_mod._descend(centers, feats.desc_sign.reshape(-1, orb_mod.N_BITS), vocab_k,
-                               len(centers)).reshape(feats.valid.shape)
+    words = vocab_cuda.descend(feats.desc_bits.reshape(-1, orb_mod.N_BITS // 32),
+                               feats.valid.reshape(-1), tree, vocab_k,
+                               tree.levels).reshape(feats.valid.shape)
     uw, uv = vocab_mod.bow_sparse(words, feats.valid, idf, n_words)
     q_bins = vocab_mod.bin_of_sparse(uw, uv, lcc.n_bins)
     ns = vocab_mod.score_pair_min(uw, uv, lc.last_words, lc.last_wvals)
@@ -183,21 +191,22 @@ def run_sequence_slam(
     lc: LCScanState,
     grid_pts: torch.Tensor,
     grid_mask: torch.Tensor,
-    centers: list,
+    tree: vocab_mod.PackedTree,
     idf: torch.Tensor,
     cfg: PipelineConfig,
     vocab_k: int,
 ):
-    """Odometry + detection over a staged sequence.
+    """Odometry + detection over a staged sequence (`tree`: the packed
+    vocabulary, :meth:`.vocab.Vocabulary.packed`).
 
     Returns ((carry, lc), (frame stats, detection stats)), each stats
     tuple stacked along frames and left on the device.
     """
-    return _run_frames(left_seq, right_seq, carry, lc, grid_pts, grid_mask, centers, idf, cfg,
+    return _run_frames(left_seq, right_seq, carry, lc, grid_pts, grid_mask, tree, idf, cfg,
                        vocab_k, step_mod.slam_frame_step, _null_stats(cfg, left_seq.device))
 
 
-def _run_frames(frames_l, frames_r, carry, lc, grid_pts, grid_mask, centers, idf,
+def _run_frames(frames_l, frames_r, carry, lc, grid_pts, grid_mask, tree, idf,
                 cfg: PipelineConfig, vocab_k: int, frame_step, null: LCScanStats):
     """The frame loop of both drivers: `frame_step` on every frame, then,
     on every ``detect_every``-th frame, :func:`_lc_scan_step` (`null` stats
@@ -208,7 +217,7 @@ def _run_frames(frames_l, frames_r, carry, lc, grid_pts, grid_mask, centers, idf
         fid = 1 + i
         carry, fs = frame_step(carry, frames_l[i], frames_r[i], grid_pts, grid_mask, cfg)
         if fid % every == 0:
-            lc, ls = _lc_scan_step(lc, frames_l[i], fid, centers, idf, cfg, vocab_k)
+            lc, ls = _lc_scan_step(lc, frames_l[i], fid, tree, idf, cfg, vocab_k)
         else:
             ls = null
         fstats.append(fs)
@@ -234,7 +243,7 @@ def run_sequence_slam_batched(
     lc: LCScanState,
     grid_pts: torch.Tensor,
     grid_mask: torch.Tensor,
-    centers: list,
+    tree: vocab_mod.PackedTree,
     idf: torch.Tensor,
     cfg: PipelineConfig,
     vocab_k: int,
@@ -253,7 +262,7 @@ def run_sequence_slam_batched(
     _refuse_unported_lanes(rgb_seq, interleave)
     null = _null_stats(cfg, left_seq.device, (left_seq.shape[0],))
     return _run_frames(left_seq.transpose(0, 1), right_seq.transpose(0, 1), carry, lc,
-                       grid_pts, grid_mask, centers, idf, cfg, vocab_k,
+                       grid_pts, grid_mask, tree, idf, cfg, vocab_k,
                        step_batched.slam_frame_step_batched, null)
 
 
@@ -478,14 +487,13 @@ def run_offline_slam_batched(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, l
     grid_pts, grid_mask = _grid_for(cfg, device)
     left, right = _stage(left_seqs, device), _stage(right_seqs, device)
     B = left.shape[0]
-    voc = vocab.to(device)
+    tree, idf = vocab.packed().to(device), vocab.idf.to(device)
     carry = step_mod.init_carry_batched(left[:, 0], right[:, 0], grid_pts, grid_mask,
                                         step_batched.lane_keys(cfg.seed, B), cfg)
-    lc, _ = _lc_scan_step(init_lc_state(cfg, device, lanes=B), left[:, 0], 0, voc.centers,
-                          voc.idf, cfg, voc.k)
+    lc, _ = _lc_scan_step(init_lc_state(cfg, device, lanes=B), left[:, 0], 0, tree, idf, cfg,
+                          vocab.k)
     (carry, lc), (fstats, lstats) = run_sequence_slam_batched(
-        left[:, 1:], right[:, 1:], carry, lc, grid_pts, grid_mask, voc.centers, voc.idf, cfg,
-        voc.k)
+        left[:, 1:], right[:, 1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k)
     fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
     top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
     return [
@@ -502,20 +510,19 @@ def run_offline_slam(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, left_seq,
     """Full SLAM over a sequence: bootstrap, the frame loop, the epilogue.
 
     left_seq/right_seq: (F, H, W) float32 or uint8 stacks (frame 0
-    included), numpy arrays or tensors, staged on `device` once; `vocab`
-    is moved there too.
+    included), numpy arrays or tensors, staged on `device` once; `vocab`'s
+    packed tree (built once per vocabulary) and weights are moved there.
     """
     from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage
 
     grid_pts, grid_mask = _grid_for(cfg, device)
     left, right = _stage(left_seq, device), _stage(right_seq, device)
-    voc = vocab.to(device)
+    tree, idf = vocab.packed().to(device), vocab.idf.to(device)
     carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg)
     # frame 0 enters the database too (0 % detect_every == 0)
-    lc, _ = _lc_scan_step(init_lc_state(cfg, device), left[0], 0, voc.centers, voc.idf,
-                          cfg, voc.k)
+    lc, _ = _lc_scan_step(init_lc_state(cfg, device), left[0], 0, tree, idf, cfg, vocab.k)
     (carry, lc), (fstats, lstats) = run_sequence_slam(
-        left[1:], right[1:], carry, lc, grid_pts, grid_mask, voc.centers, voc.idf, cfg, voc.k)
+        left[1:], right[1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k)
     fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
     top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
     return _epilogue_one(cfg, lc, top_ids, top_scores, ns, fstats_h, carry.keyframes,

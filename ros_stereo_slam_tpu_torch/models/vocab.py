@@ -3,15 +3,22 @@
 Port of ``ros_stereo_slam_tpu/models/vocab.py``.  The tree is a dense
 per-level table of int8 sign centers (``centers[l]``: (k^(l+1), 256));
 node n's children are rows [n k, (n + 1) k).  At the reference scale
-(k = 9, L = 6: 531,441 words) the tables hold ~153 MB.
+(k = 9, L = 6: 531,441 words) the tables hold ~153 MB.  They stay the
+persistent form (save, load, :mod:`.convert`).
 
-- :func:`_descend` walks descriptors down the tree by argmax of the sign
-  dot product.  Levels of at most ``_DESCEND_MASKED_ARGMAX_MAX_NODES``
-  rows are scored densely with a masked argmax; the deeper levels go
-  through :func:`.vocab_cuda.deep_descend` (kernel K3 on CUDA tensors,
-  :func:`_deep_descend_plain`, the gather route, on CPU tensors).  All
-  dots are exact integers and every argmax takes the first max, so every
-  route gives the reference's word ids bit for bit.
+- :func:`pack_centers` packs every level at one bit per component into
+  one (R, 8) int32 table, :class:`PackedTree` (19.1 MB at the reference
+  scale), the port's counterpart of the reference's
+  ``prepare_centers_for_scan``: a one-time preparation before any frame
+  loop.  :meth:`Vocabulary.packed` builds it once per vocabulary.
+- The descent walks descriptors from the root down the packed tree by
+  the first min of the Hamming distance, which for +-1 vectors is the
+  first max of the sign dot product (dot = 256 - 2 ham), so the word
+  ids are the reference's bit for bit.  :func:`.vocab_cuda.descend`
+  launches kernel K3 for all levels on CUDA tensors and takes
+  :func:`_descend_packed_plain` on CPU tensors.  :func:`_descend` is the
+  counterpart of the reference's ``_descend`` on sign rows; the full-SLAM
+  path descends ORB's packed words directly.
 - :func:`train_batched` is the level-synchronous trainer.  Its random
   draws come from a CPU ``torch.Generator`` and are moved to the device;
   everything after them is exact integer work, so a seed gives the same
@@ -20,27 +27,68 @@ node n's children are rows [n k, (n + 1) k).  At the reference scale
   are the reference's formulas (see its module docstring).  Each also
   takes a leading lane axis (the batched-lane drivers), every lane
   sorted, merged and scored on its own; lanes descend the tree as one
-  flattened (B N, 256) batch.
+  flattened (B N, 8) batch.
 
-The reference's deep-table tail pad (``prepare_centers_for_scan``,
-``vocab_pallas.pad_table``) is a TPU mechanic and is not ported.
+The reference's dense masked-argmax levels and its deep-table tail pad
+(``vocab_pallas.pad_table``) are TPU mechanics and are not ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ros_stereo_slam_tpu_torch.ops import orb
 from ros_stereo_slam_tpu_torch.ops.orb import N_BITS
 
-# Levels whose table has at most this many rows are scored with one dense
-# matmul against the whole level and a masked argmax; deeper levels read
-# only each descriptor's k sibling rows.
-_DESCEND_MASKED_ARGMAX_MAX_NODES = 8192
-# Descriptors per dense block in transform_words and the trainer.
+# Descriptors (or table rows) per block in transform_words, pack_centers
+# and the trainer.
 _CHUNK = 8192
+# Set bits of every byte value.
+_POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
+
+
+@dataclass(frozen=True)
+class PackedTree:
+    """Every level's sign centers at one bit per component, levels one
+    after another (:func:`pack_centers`)."""
+
+    words: torch.Tensor  # (R, 8) int32: bit j of word w = component 32 w + j is +1
+    offsets: tuple  # (L + 1,) ints: level l is rows offsets[l] .. offsets[l + 1] - 1
+
+    @property
+    def levels(self) -> int:
+        return len(self.offsets) - 1
+
+    def to(self, device) -> "PackedTree":
+        return PackedTree(words=self.words.to(device), offsets=self.offsets)
+
+
+def pack_centers(centers, k: int) -> PackedTree:
+    """Pack the int8 sign tables (level l: (k^(l+1), 256)) into one
+    :class:`PackedTree`, in ``orb.pack_bits``'s layout.
+
+    Raises ValueError, naming the level and row, on a table of another
+    shape or on any entry outside {-1, +1}: the packed descent is exact
+    only for sign vectors (both trainers give nothing else).
+    """
+    words, offsets = [], [0]
+    for l, c in enumerate(centers):
+        if c.dim() != 2 or tuple(c.shape) != (k ** (l + 1), N_BITS):
+            raise ValueError(f"level {l}: table of shape {tuple(c.shape)}, expected "
+                             f"({k ** (l + 1)}, {N_BITS})")
+        bad = (c != 1) & (c != -1)
+        if bool(bad.any()):
+            row, col = (int(i) for i in bad.nonzero()[0])
+            raise ValueError(f"level {l} row {row}: entry {int(c[row, col])} at component "
+                             f"{col}; centers must be -1 or +1")
+        words += [orb.pack_bits(c[s:s + _CHUNK] > 0) for s in range(0, c.shape[0], _CHUNK)]
+        offsets.append(offsets[-1] + c.shape[0])
+    if not words:
+        raise ValueError("no levels to pack")
+    return PackedTree(words=torch.cat(words).contiguous(), offsets=tuple(offsets))
 
 
 @dataclass
@@ -49,15 +97,25 @@ class Vocabulary:
     levels: int  # tree depth (leaves = k**levels words)
     centers: list  # per level l: (k**(l+1), 256) int8 sign vectors (tensors)
     idf: torch.Tensor  # (k**levels,) float32 word weights
+    # The packed tree, built by packed() on first use; centers are not to
+    # be changed after that.
+    _tree: PackedTree | None = field(default=None, repr=False, compare=False)
 
     @property
     def n_words(self) -> int:
         return self.k**self.levels
 
+    def packed(self) -> PackedTree:
+        """The tree packed for the descent, built once per vocabulary."""
+        if self._tree is None:
+            self._tree = pack_centers(self.centers, self.k)
+        return self._tree
+
     def to(self, device) -> "Vocabulary":
         return Vocabulary(k=self.k, levels=self.levels,
                           centers=[c.to(device) for c in self.centers],
-                          idf=self.idf.to(device))
+                          idf=self.idf.to(device),
+                          _tree=None if self._tree is None else self._tree.to(device))
 
     # -- persistence: the reference's npz layout ---------------------------
 
@@ -191,47 +249,61 @@ def train_batched(
 # -- transform ---------------------------------------------------------------
 
 
-def _deep_descend_plain(q: torch.Tensor, node: torch.Tensor, tables, k: int) -> torch.Tensor:
-    """The plain version of kernel K3: the gather route of the descent.
+def _descend_packed_plain(q_bits: torch.Tensor, valid: torch.Tensor, tree: PackedTree, k: int,
+                          n_levels: int) -> torch.Tensor:
+    """The plain version of kernel K3: (N, 8) packed words and (N,)
+    validity -> (N,) int64 node ids at level `n_levels`.
 
-    Per level, gather the k contiguous sibling rows of each descriptor's
-    node, dot, take the first max (``torch.argmax``).  Exact: every dot is
-    an integer.  Returns (N,) int64 node ids after the last table.
+    Per level, gather each descriptor's k packed sibling rows, XOR,
+    count the set bits (a byte table), take the first min
+    (``torch.argmin``); invalid rows take child 0.  Exact.
     """
-    q = q.to(torch.float32)
-    for tbl in tables:
-        cand = tbl.reshape(-1, k, N_BITS)[node].to(torch.float32)  # (N, k, 256)
-        dots = torch.einsum("nd,nkd->nk", q, cand)
-        node = node * k + torch.argmax(dots, dim=1)
+    node = torch.zeros((q_bits.shape[0],), dtype=torch.int64, device=q_bits.device)
+    table = _POPCOUNT8.to(q_bits.device)
+    kk = torch.arange(k, device=q_bits.device)
+    for l in range(n_levels):
+        first = node * k
+        cand = tree.words[tree.offsets[l] + first[:, None] + kk]  # (N, k, 8)
+        x = (q_bits[:, None, :] ^ cand).contiguous().view(torch.uint8)  # (N, k, 32)
+        ham = table[x.to(torch.int64)].sum(-1)  # (N, k)
+        node = torch.where(valid, first + torch.argmin(ham, dim=1), first)
     return node
 
 
-def _descend(centers: list, desc_sign: torch.Tensor, k: int, upto: int) -> torch.Tensor:
-    """Argmax descent: (N, 256) sign descriptors -> (N,) int64 node ids at
-    level `upto`."""
+def _pack_signs(desc_sign: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, 256) sign rows -> ((N, 8) packed words, (N,) valid = any nonzero).
+
+    Raises ValueError unless every row is all +-1 or all 0 (a feature or
+    an invalid feature's zero row)."""
+    valid = (desc_sign != 0).any(1)
+    signs = (desc_sign == 1) | (desc_sign == -1)
+    bad = valid & ~signs.all(1)
+    if bool(bad.any()):
+        row = int(bad.nonzero()[0, 0])
+        raise ValueError(f"descriptor row {row} is neither all +-1 nor all 0")
+    return orb.pack_bits(desc_sign > 0), valid
+
+
+def _descend(centers, desc_sign: torch.Tensor, k: int, upto: int) -> torch.Tensor:
+    """Argmax descent: (N, 256) sign descriptors (invalid rows all zero) ->
+    (N,) int64 node ids at level `upto`.
+
+    `centers`: the int8 tables, or their :class:`PackedTree` (packed once
+    by the caller).  Packs the rows and descends through
+    :func:`.vocab_cuda.descend`.
+    """
     from ros_stereo_slam_tpu_torch.ops import vocab_cuda
 
-    q = desc_sign.to(torch.float32)
-    node = torch.zeros((q.shape[0],), dtype=torch.int64, device=q.device)
-    for l in range(upto):
-        G = centers[l].shape[0]
-        if G > _DESCEND_MASKED_ARGMAX_MAX_NODES:
-            # every remaining level is deep
-            return vocab_cuda.deep_descend(q, node, centers[l:upto], k)
-        dots_all = q @ centers[l].to(torch.float32).T  # (N, G), exact integers
-        owner = torch.arange(G, device=q.device) // k  # parent of column g
-        masked = torch.where(owner[None, :] == node[:, None], dots_all,
-                             torch.full_like(dots_all, -torch.inf))
-        node = torch.argmax(masked, dim=1)  # first max
-    return node
+    tree = centers if isinstance(centers, PackedTree) else pack_centers(centers[:upto], k)
+    q_bits, valid = _pack_signs(desc_sign)
+    return vocab_cuda.descend(q_bits, valid, tree, k, upto)
 
 
 def transform_words(voc: Vocabulary, desc_sign: torch.Tensor) -> torch.Tensor:
     """(N, 256) sign descriptors -> (N,) int64 word ids (leaf indices)."""
-    if desc_sign.shape[0] <= _CHUNK:
-        return _descend(voc.centers, desc_sign, voc.k, voc.levels)
-    return torch.cat([_descend(voc.centers, desc_sign[s:s + _CHUNK], voc.k, voc.levels)
-                      for s in range(0, desc_sign.shape[0], _CHUNK)])
+    tree = voc.packed()
+    return torch.cat([_descend(tree, desc_sign[s:s + _CHUNK], voc.k, voc.levels)
+                      for s in range(0, max(desc_sign.shape[0], 1), _CHUNK)])
 
 
 # -- sparse BoW -------------------------------------------------------------

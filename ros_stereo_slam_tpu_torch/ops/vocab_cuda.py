@@ -1,18 +1,19 @@
-"""The deep levels of the vocabulary descent through the hand-written CUDA kernel.
+"""The vocabulary descent through the hand-written CUDA kernel.
 
 ``csrc/vocab_descend.cu`` (kernel K3) replaces the TPU kernel
 ``ros_stereo_slam_tpu/ops/vocab_pallas.py::_deep_descend_kernel`` (entry
-point ``deep_descend``).  :func:`deep_descend` has the contract of
-:func:`vocab._deep_descend_plain`, the gather route of ``vocab._descend``:
+point ``deep_descend``) and the dense levels before it: the whole descent,
+from the root, in one launch, over the bit-packed tree of
+:func:`.vocab.pack_centers` and ORB's packed descriptor words.
+:func:`descend` has the contract of :func:`.vocab._descend_packed_plain`:
 
 - CUDA tensors launch the kernel (built at first use by
   :mod:`ros_stereo_slam_tpu_torch.kernels.build`);
 - CPU tensors take the plain version;
 - anything else raises.  There is no fallback from the kernel.
 
-Both are exact (integer dots, first-max ties), so their word ids are
-bit-identical.  The tables are read as they are: nothing is padded or
-packed, in or out of the frame loop.
+Both are exact (integer Hamming distances, first-min ties), so their word
+ids are bit-identical.
 """
 
 from __future__ import annotations
@@ -21,100 +22,106 @@ import ctypes
 
 import torch
 
-# Kernel launches made by deep_descend in this process (only where the
-# kernel itself is launched).
+# Kernel launches made by descend in this process (only where the kernel
+# itself is launched).
 LAUNCHES = 0
 
 _MAX_LEVELS = 8
+_MAX_K = (1 << 22) - 1  # the sibling index field of the kernel's min key
+# The C entry points, one per design; descend launches the first (PERF.md
+# gives both designs' times).
+DESIGNS = ("vocab_descend_sibling_lanes", "vocab_descend_word_lanes")
+_FNS: dict = {}
 
 
-def _bind():
-    from ros_stereo_slam_tpu_torch.kernels import build
+def _bind(entry: str):
+    if entry not in _FNS:
+        from ros_stereo_slam_tpu_torch.kernels import build
 
-    lib = build.load("vocab_descend")
-    fn = lib.vocab_descend_f32
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, ctypes.POINTER(p), ctypes.POINTER(i), i, i, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+        fn = getattr(build.load("vocab_descend"), entry)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, i, p, ctypes.POINTER(i), i, i, p, p]
+        fn.restype = ctypes.c_int
+        _FNS[entry] = fn
+    return _FNS[entry]
 
 
-def _check(q: torch.Tensor, node: torch.Tensor, tables, k: int) -> None:
-    dev = q.device
-    if q.dtype != torch.float32 or q.dim() != 2 or q.shape[1] != 256:
-        raise ValueError(f"q must be (N, 256) float32, got {tuple(q.shape)} {q.dtype}")
-    if node.shape != (q.shape[0],):
-        raise ValueError(f"node must be (N,), got {tuple(node.shape)}")
-    if not 1 <= len(tables) <= _MAX_LEVELS:
-        raise ValueError(f"{len(tables)} deep levels; the kernel takes 1..{_MAX_LEVELS}")
-    if k < 1:
+def _check(q_bits: torch.Tensor, valid: torch.Tensor, tree, k: int, n_levels: int) -> None:
+    if q_bits.dtype != torch.int32 or q_bits.dim() != 2 or q_bits.shape[1] != 8:
+        raise ValueError(f"q_bits must be (N, 8) int32, got {tuple(q_bits.shape)} {q_bits.dtype}")
+    if valid.dtype != torch.bool or valid.shape != (q_bits.shape[0],):
+        raise ValueError(f"valid must be (N,) bool, got {tuple(valid.shape)} {valid.dtype}")
+    if not 1 <= n_levels <= min(tree.levels, _MAX_LEVELS):
+        raise ValueError(f"n_levels={n_levels}: the tree has {tree.levels} levels and the "
+                         f"kernel takes 1..{_MAX_LEVELS}")
+    if not 1 <= k <= _MAX_K:
         raise ValueError(f"branching factor k={k}")
-    for t in tables:
-        if t.device != dev:
-            raise ValueError(f"a table is on {t.device}, q on {dev}")
-        if t.dtype != torch.int8 or t.dim() != 2 or t.shape[1] != 256:
-            raise ValueError(f"tables must be (G, 256) int8, got {tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 8:
-            raise ValueError("tables must be contiguous and 8-byte aligned")
-        if t.shape[0] >= 2**31:
-            raise ValueError(f"table of {t.shape[0]} rows exceeds int32 node ids")
+    for l in range(n_levels):
+        rows = tree.offsets[l + 1] - tree.offsets[l]
+        if rows != k ** (l + 1):
+            raise ValueError(f"tree level {l} has {rows} rows, not k^{l + 1} = {k ** (l + 1)}")
+    w = tree.words
+    if w.dtype != torch.int32 or w.dim() != 2 or w.shape[1] != 8 or w.shape[0] < tree.offsets[-1]:
+        raise ValueError(f"tree words must be (R, 8) int32 with R >= {tree.offsets[-1]}, got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    if tree.offsets[-1] >= 2**31:
+        raise ValueError(f"a tree of {tree.offsets[-1]} rows exceeds int32 row offsets")
+    for name, t in (("valid", valid), ("tree", w)):
+        if t.device != q_bits.device:
+            raise ValueError(f"{name} is on {t.device}, q_bits on {q_bits.device}")
 
 
-def bare_launch(q: torch.Tensor, node: torch.Tensor, tables, k: int):
-    """A zero-argument callable that launches the kernel once on an output
-    allocated here and returns its cudaError: the kernel alone, without the
-    wrapper's checks, conversions and allocations, for timing.  `q` must be
-    contiguous float32 and 16-byte aligned.  It counts no launch."""
-    tables = tuple(tables)
-    _check(q, node, tables, k)
-    if not q.is_contiguous() or q.data_ptr() % 16:
-        raise ValueError("q must be contiguous and 16-byte aligned")
-    node32 = node.to(torch.int32).contiguous()
-    out = torch.empty((q.shape[0],), dtype=torch.int32, device=q.device)
-    ptrs = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
-    rows = (ctypes.c_int * len(tables))(*(t.shape[0] for t in tables))
-    args = (q.data_ptr(), node32.data_ptr(), q.shape[0], ptrs, rows, len(tables), k,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    fn = _bind()
+def _kernel_args(q_bits, valid, tree, k: int, n_levels: int, out: torch.Tensor) -> tuple:
+    """The C entry point's arguments; the tensors must be contiguous and the
+    words 16-byte aligned (the kernel reads rows as 16-byte vectors)."""
+    for name, t in (("q_bits", q_bits), ("tree words", tree.words)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    offsets = (ctypes.c_int * (n_levels + 1))(*tree.offsets[:n_levels + 1])
+    return (q_bits.data_ptr(), valid.data_ptr(), q_bits.shape[0], tree.words.data_ptr(),
+            offsets, n_levels, k, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+
+
+def bare_launch(q_bits: torch.Tensor, valid: torch.Tensor, tree, k: int, n_levels: int,
+                entry: str = DESIGNS[0]):
+    """A zero-argument callable that launches the kernel (`entry`, one of
+    ``DESIGNS``) once on an output allocated here and returns its
+    cudaError: the kernel alone, without the wrapper's checks and
+    allocation, for timing.  It counts no launch."""
+    _check(q_bits, valid, tree, k, n_levels)
+    out = torch.empty((q_bits.shape[0],), dtype=torch.int64, device=q_bits.device)
+    args = _kernel_args(q_bits, valid, tree, k, n_levels, out)
+    fn = _bind(entry)
 
     def launch() -> int:
         return fn(*args)
 
-    launch.outputs = (out, node32, tables)  # kept alive with the callable
+    launch.outputs = (out, q_bits, valid, tree)  # kept alive with the callable
     return launch
 
 
-def deep_descend(q: torch.Tensor, node: torch.Tensor, tables, k: int) -> torch.Tensor:
-    """Descend (N,) entry `node` ids through the deep `tables`; (N,) int64 out.
-
-    q (N, 256) float32 sign vectors (invalid rows all zero); tables[l]
-    (k^(l0+l+1), 256) int8, row g = node g.
-    """
+def descend(q_bits: torch.Tensor, valid: torch.Tensor, tree, k: int,
+            n_levels: int) -> torch.Tensor:
+    """(N, 8) packed descriptor words and (N,) validity -> (N,) int64 node
+    ids at level `n_levels` of `tree` (a :class:`.vocab.PackedTree`);
+    invalid rows take child 0 at every level."""
     global LAUNCHES
-    if q.device.type == "cpu":
+    if q_bits.device.type == "cpu":
         from ros_stereo_slam_tpu_torch.models import vocab
 
-        return vocab._deep_descend_plain(q, node, tables, k)
-    if q.device.type != "cuda":
-        raise ValueError(f"vocab_cuda.deep_descend: unsupported device {q.device}")
-    q = q.to(torch.float32).contiguous()
-    if q.data_ptr() % 16:  # the kernel reads q as float4
-        q = q.clone()
-    tables = tuple(tables)
-    _check(q, node, tables, k)
-    n = q.shape[0]
-    out = torch.empty((n,), dtype=torch.int32, device=q.device)
-    if n == 0:
-        return out.to(torch.int64)
-    node32 = node.to(torch.int32).contiguous()
-    ptrs = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
-    rows = (ctypes.c_int * len(tables))(*(t.shape[0] for t in tables))
-    fn = _bind()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), node32.data_ptr(), n, ptrs, rows, len(tables), k,
-                 out.data_ptr(), stream)
+        return vocab._descend_packed_plain(q_bits, valid, tree, k, n_levels)
+    if q_bits.device.type != "cuda":
+        raise ValueError(f"vocab_cuda.descend: unsupported device {q_bits.device}")
+    _check(q_bits, valid, tree, k, n_levels)
+    q_bits = q_bits.contiguous()
+    if q_bits.data_ptr() % 16:
+        q_bits = q_bits.clone()
+    out = torch.empty((q_bits.shape[0],), dtype=torch.int64, device=q_bits.device)
+    if q_bits.shape[0] == 0:
+        return out
+    with torch.cuda.device(q_bits.device):
+        err = _bind(DESIGNS[0])(*_kernel_args(q_bits, valid.contiguous(), tree, k, n_levels, out))
     if err != 0:
-        raise RuntimeError(f"vocab_descend_f32 launch failed: cudaError {err}")
+        raise RuntimeError(f"{DESIGNS[0]} launch failed: cudaError {err}")
     LAUNCHES += 1
-    return out.to(torch.int64)
+    return out

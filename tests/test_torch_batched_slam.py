@@ -102,7 +102,7 @@ def test_batched_detection_matches_jax_vmap(worlds_and_vocab):
     n_candidates = 0
     for fid in range(0, 20, tcfg.loop.detect_every):
         lcj, sj = step_j(lcj, jnp.asarray(L[:, fid]), jnp.int32(fid))
-        lct, st = slam_scan._lc_scan_step(lct, torch.from_numpy(L[:, fid]), fid, tvoc.centers,
+        lct, st = slam_scan._lc_scan_step(lct, torch.from_numpy(L[:, fid]), fid, tvoc.packed(),
                                           tvoc.idf, tcfg, tvoc.k)
         sj = jax.device_get(sj)
         assert st.top_ids.shape == (B, slam_scan._top_k_count(tcfg.loop))
@@ -128,10 +128,10 @@ def _single_lane_slam(cfg, voc, L, R, key):
     gp, gm = pipeline._grid_for(cfg, "cpu")
     Lt, Rt = torch.from_numpy(L), torch.from_numpy(R)
     carry = step.init_carry(Lt[0], Rt[0], gp, gm, key, cfg)
-    lc, _ = slam_scan._lc_scan_step(slam_scan.init_lc_state(cfg, "cpu"), Lt[0], 0, voc.centers,
+    lc, _ = slam_scan._lc_scan_step(slam_scan.init_lc_state(cfg, "cpu"), Lt[0], 0, voc.packed(),
                                     voc.idf, cfg, voc.k)
     (carry, lc), (fs, ls) = slam_scan.run_sequence_slam(
-        Lt[1:], Rt[1:], carry, lc, gp, gm, voc.centers, voc.idf, cfg, voc.k)
+        Lt[1:], Rt[1:], carry, lc, gp, gm, voc.packed(), voc.idf, cfg, voc.k)
     return slam_scan._epilogue_one(cfg, lc, *(x.numpy() for x in ls),
                                    step.FrameStats(*(f.numpy() for f in fs)), carry.keyframes,
                                    lambda fid: (Lt[fid], Rt[fid]))

@@ -23,7 +23,9 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
   point whose ``ok`` is false returns its guess, bit for bit; points within
   a window of a border read nothing outside the image (NaN guard rows).
   Two runs of one call are bitwise equal (no atomics).
-- K3 (``csrc/vocab_descend.cu``): word ids equal on every row (exact).
+- K3 (``csrc/vocab_descend.cu``): word ids equal to the plain version on
+  every row (exact), both designs, full width, ties, invalid rows, two
+  runs bitwise equal.
 - K1b and K2b (the batched entry points of the same sources): K1's and
   K2's bounds against the lane loops of the plain versions, and bitwise
   equal, lane by lane, to the single-lane entry points (one kernel body).
@@ -261,48 +263,86 @@ def _sign_tables(rng, k, first, last):
             for l in range(first, last + 1)]
 
 
+def _queries(rng, n, dev, invalid_every=7):
+    """n random packed descriptors, every `invalid_every`-th invalid (its
+    words zero, as ORB leaves them)."""
+    q = torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, 8), dtype=np.int64)
+                         .astype(np.int32))
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[::invalid_every] = False
+    q[~valid] = 0
+    return q.to(dev), valid.to(dev)
+
+
 def test_vocab_kernel_matches_plain_version(cuda_device):
+    """The full-width tree (k = 9, L = 6: 597,870 packed rows), 512 and
+    1,024 descriptors: word ids equal on every row, one launch a call."""
     rng = np.random.default_rng(3)
-    k, n = 9, 512
-    tables = [t.to(cuda_device) for t in _sign_tables(rng, k, 3, 4)]  # 6,561 and 59,049 rows
-    q = torch.from_numpy(rng.choice(np.array([-1.0, 1.0], np.float32), size=(n, 256)))
-    q[::7] = 0.0  # invalid features: all-zero rows
-    q = q.to(cuda_device)
-    node = torch.from_numpy(rng.integers(0, k**3, size=n)).to(cuda_device)
-    before = vocab_cuda.LAUNCHES
-    out = vocab_cuda.deep_descend(q, node, tables, k)
-    ref = vocab._deep_descend_plain(q, node, tables, k)
-    torch.cuda.synchronize()
-    assert vocab_cuda.LAUNCHES == before + 1
-    assert torch.equal(out, ref)
-    # zero rows tie at every level and take child 0 each time
-    assert torch.equal(out[::7], node[::7] * k * k)
+    k, L = 9, 6
+    tree = vocab.pack_centers(_sign_tables(rng, k, 0, L - 1), k).to(cuda_device)
+    for n in (512, 1024):
+        q, valid = _queries(rng, n, cuda_device)
+        before = vocab_cuda.LAUNCHES
+        out = vocab_cuda.descend(q, valid, tree, k, L)
+        ref = vocab._descend_packed_plain(q, valid, tree, k, L)
+        torch.cuda.synchronize()
+        assert vocab_cuda.LAUNCHES == before + 1
+        assert out.dtype == torch.int64 and torch.equal(out, ref)
+        assert int(out.max()) < k ** L
+        # the other design gives the same words
+        alt = vocab_cuda.bare_launch(q, valid, tree, k, L, entry=vocab_cuda.DESIGNS[1])
+        assert alt() == 0
+        torch.cuda.synchronize()
+        assert torch.equal(alt.outputs[0], ref)
 
 
 def test_vocab_kernel_first_max_on_ties(cuda_device):
-    """Duplicate sibling rows force exact ties: the lowest sibling wins."""
+    """Duplicate sibling rows at every level force exact ties: the lowest
+    sibling wins, in both designs."""
     rng = np.random.default_rng(7)
-    k, n = 4, 256
-    t = rng.choice(np.array([-1, 1], np.int8), size=(k**3, 256)).reshape(-1, k, 256)
-    t[:, 2] = t[:, 1]
-    t[:, 3] = t[:, 0]
-    tables = [torch.from_numpy(t.reshape(-1, 256)).to(cuda_device)]
-    q = torch.from_numpy(rng.choice(np.array([-1.0, 1.0], np.float32), size=(n, 256)))
-    q = q.to(cuda_device)
-    node = torch.from_numpy(rng.integers(0, k**2, size=n)).to(cuda_device)
-    out = vocab_cuda.deep_descend(q, node, tables, k)
-    ref = vocab._deep_descend_plain(q, node, tables, k)
-    assert torch.equal(out, ref)
-    assert set(torch.unique(out % k).tolist()) <= {0, 1}
+    k, L, n = 4, 3, 256
+    tabs = []
+    for t in _sign_tables(rng, k, 0, L - 1):
+        t = t.reshape(-1, k, 256).clone()
+        t[:, 2] = t[:, 1]
+        t[:, 3] = t[:, 0]
+        tabs.append(t.reshape(-1, 256))
+    tree = vocab.pack_centers(tabs, k).to(cuda_device)
+    q, valid = _queries(rng, n, cuda_device, invalid_every=n + 1)
+    ref = vocab._descend_packed_plain(q, valid, tree, k, L)
+    for entry in vocab_cuda.DESIGNS:
+        launch = vocab_cuda.bare_launch(q, valid, tree, k, L, entry=entry)
+        assert launch() == 0
+        torch.cuda.synchronize()
+        assert torch.equal(launch.outputs[0], ref), entry
+    assert torch.equal(vocab_cuda.descend(q, valid, tree, k, L), ref)
+    for m in range(L):
+        assert set(torch.unique(ref // k ** m % k).tolist()) <= {0, 1}
+
+
+def test_vocab_kernel_invalid_rows_and_runs_equal(cuda_device):
+    """Invalid rows take word 0 whatever their words hold; two runs of one
+    call agree bit for bit; k = 20 takes two sibling chunks."""
+    rng = np.random.default_rng(5)
+    for k, L in ((9, 4), (20, 3)):
+        tree = vocab.pack_centers(_sign_tables(rng, k, 0, L - 1), k).to(cuda_device)
+        q, valid = _queries(rng, 700, cuda_device, invalid_every=3)
+        q[~valid] = -1  # garbage words on invalid rows are not read
+        out = vocab_cuda.descend(q, valid, tree, k, L)
+        again = vocab_cuda.descend(q, valid, tree, k, L)
+        ref = vocab._descend_packed_plain(q, valid, tree, k, L)
+        assert torch.equal(out, again) and torch.equal(out, ref)
+        assert not out[~valid].any() and bool(out[valid].any())
 
 
 def test_descend_routes_deep_levels_through_kernel(cuda_device):
-    """k = 9, L = 5: levels 0-3 dense, level 4 (59,049 rows) through K3;
-    the word ids equal the CPU route's."""
+    """_descend on sign rows (k = 9, L = 5): every level through one K3
+    launch; the word ids equal the CPU route's."""
     rng = np.random.default_rng(11)
     k = 9
     centers = _sign_tables(rng, k, 0, 4)
     q = torch.from_numpy(rng.choice(np.array([-1.0, 1.0], np.float32), size=(300, 256)))
+    q[::9] = 0.0
     cpu = vocab._descend(centers, q, k, 5)
     before = vocab_cuda.LAUNCHES
     gpu = vocab._descend([c.to(cuda_device) for c in centers], q.to(cuda_device), k, 5)
@@ -312,18 +352,27 @@ def test_descend_routes_deep_levels_through_kernel(cuda_device):
 
 def test_vocab_kernel_wrapper_checks_inputs(cuda_device):
     k = 3
-    t = torch.ones((27, 256), dtype=torch.int8, device=cuda_device)
-    q = torch.ones((4, 256), device=cuda_device)
-    node = torch.zeros((4,), dtype=torch.int64, device=cuda_device)
-    with pytest.raises(ValueError, match="int8"):
-        vocab_cuda.deep_descend(q, node, [t.float()], k)
+    tabs = [torch.ones((3, 256), dtype=torch.int8), torch.ones((9, 256), dtype=torch.int8)]
+    tree = vocab.pack_centers(tabs, k).to(cuda_device)
+    q = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)
+    valid = torch.ones((4,), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        vocab_cuda.descend(q.float(), valid, tree, k, 2)
+    with pytest.raises(ValueError, match=r"\(N,\) bool"):
+        vocab_cuda.descend(q, valid[:2], tree, k, 2)
     with pytest.raises(ValueError, match="is on"):
-        vocab_cuda.deep_descend(q, node, [t.cpu()], k)
-    with pytest.raises(ValueError, match=r"\(N,\)"):
-        vocab_cuda.deep_descend(q, node[:2], [t], k)
-    # a node outside its table comes back as -1 instead of reading past it
-    out = vocab_cuda.deep_descend(q, torch.tensor([0, 8, 9, 100], device=cuda_device), [t], k)
-    assert out.tolist()[:2] == [0, 24] and out.tolist()[2:] == [-1, -1]
+        vocab_cuda.descend(q, valid, tree.to("cpu"), k, 2)
+    with pytest.raises(ValueError, match="levels"):
+        vocab_cuda.descend(q, valid, tree, k, 3)
+    with pytest.raises(ValueError, match="rows, not"):
+        vocab_cuda.descend(q, valid, tree, 2, 2)
+    # the +-1 contract: a 0 or a 2 entry is refused before anything is packed
+    for entry in (0, 2):
+        bad = [t.clone() for t in tabs]
+        bad[1][4, 9] = entry
+        with pytest.raises(ValueError, match="level 1 row 4"):
+            vocab.pack_centers([t.to(cuda_device) for t in bad], k)
+    assert vocab_cuda.descend(q[:0], valid[:0], tree, k, 2).shape == (0,)
 
 
 def _lanes(seeds, n, shape=(192, 256)):

@@ -20,6 +20,8 @@ Same seeded numpy images go through both packages on the CPU.  Bounds:
   ``_level_features`` the port still gives the JAX package's
   ``_level_features``: corners and validity equal, >= 99.5 % of bits equal,
   the packed words equal on every row whose bits are, angles within 1e-4.
+- ``desc_bits``, which the vocabulary descent reads, is exactly
+  ``pack_bits(desc_sign > 0)`` on valid rows and zero on invalid rows.
 - Fault F3 of the JAX package (ROADMAP queue 3): the Pallas kernel's tile
   clamp describes a corner 18 px from the left border from a shifted
   patch, so its moments differ from the jnp route's by far more than
@@ -219,6 +221,20 @@ def test_level_features_matches_jnp_route(images, name, budget):
     same_rows = (st == sj).all(axis=1)
     np.testing.assert_array_equal(bt.view(np.uint32)[same_rows], bj[same_rows])
     np.testing.assert_allclose(at[vj & same_rows], aj[vj & same_rows], atol=1e-4)
+
+
+@pytest.mark.parametrize("name,n_features", [("frame", 128), ("noise", 96)])
+def test_desc_bits_are_the_packed_signs(images, name, n_features):
+    """What the vocabulary descent reads: ``desc_bits`` is ``pack_bits(desc_sign
+    > 0)`` on valid rows and 0 on invalid ones, so descending the words with
+    ``valid`` gives the words of the sign rows (plain route, CPU)."""
+    ft = orb.detect_and_compute(torch.from_numpy(images[name]), n_features, 12.0 / 255.0,
+                                n_levels=4)
+    v = ft.valid
+    assert 0 < int(v.sum()) < v.numel()  # both kinds of rows
+    assert torch.equal(ft.desc_bits[v], orb.pack_bits(ft.desc_sign[v] > 0))
+    assert not ft.desc_bits[~v].any() and not ft.desc_sign[~v].any()
+    assert bool(((ft.desc_sign[v] == 1) | (ft.desc_sign[v] == -1)).all())
 
 
 def test_pack_unpack_and_hamming_match_reference():

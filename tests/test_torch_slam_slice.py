@@ -106,7 +106,7 @@ def detection(world_and_vocab):
     for fid in range(0, N_FRAMES, tcfg.loop.detect_every):
         lcj, sj = jscan._lc_scan_step_jit(lcj, jnp.asarray(L[fid]), jnp.int32(fid), centers,
                                           idf, jcfg, voc.k)
-        lct, st = slam_scan._lc_scan_step(lct, torch.from_numpy(L[fid]), fid, tvoc.centers,
+        lct, st = slam_scan._lc_scan_step(lct, torch.from_numpy(L[fid]), fid, tvoc.packed(),
                                           tvoc.idf, tcfg, tvoc.k)
         sj = jax.device_get(sj)
         st = tuple(x.numpy() for x in st)
@@ -159,7 +159,7 @@ def test_state_carried_across_continues_identically(detection, world_and_vocab):
                                           getattr(back, name).dtype), name)
     _, sj = jscan._lc_scan_step_jit(jax.device_put(mid), jnp.asarray(L[42]), jnp.int32(42),
                                     tuple(voc.centers), jnp.asarray(voc.idf), jcfg, voc.k)
-    _, st = slam_scan._lc_scan_step(lct, torch.from_numpy(L[42]), 42, tvoc.centers, tvoc.idf,
+    _, st = slam_scan._lc_scan_step(lct, torch.from_numpy(L[42]), 42, tvoc.packed(), tvoc.idf,
                                     tcfg, tvoc.k)
     np.testing.assert_array_equal(st.top_ids.numpy(), np.asarray(sj.top_ids))
     np.testing.assert_allclose(st.top_scores.numpy(), np.asarray(sj.top_scores), atol=1e-5)

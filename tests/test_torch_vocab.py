@@ -2,10 +2,16 @@
 
 Same seeded numpy inputs through both packages on the CPU.  Bounds:
 
-- word ids (``_descend``) exactly equal, on random +-1 tables at k = 9,
-  L = 5 (level 4, 59,049 rows, takes the deep gather route in both), and
-  on constructed ties (duplicate sibling rows, all-zero descriptors)
-  through both the dense masked-argmax and the deep route;
+- the packed tree (``pack_centers``): ``orb.pack_bits``'s layout (and the
+  JAX package's), level by level at its offsets, unpacking to the tables
+  again; a 0 or a 2 entry refused with its level and row;
+- word ids exactly equal: the port's single route (``_descend``, and its
+  kernel's plain version ``_descend_packed_plain`` on packed words)
+  against the JAX ``_descend`` on random +-1 tables at k = 9, L = 5 (level
+  4, 59,049 rows, the JAX deep gather route) with every ninth descriptor
+  invalid, at ``upto`` = L and below; on constructed ties (duplicate
+  sibling rows, all-zero descriptors) against the JAX dense masked-argmax
+  and deep routes in turn; and in the lane-flattened form;
 - ``train_batched``: centers exactly equal to the JAX trainer's when both
   start from the same initial centers (the draws differ: torch cannot
   reproduce JAX keys), and the same TF-IDF weights within 1e-6;
@@ -23,7 +29,9 @@ import pytest
 import torch
 
 from ros_stereo_slam_tpu.models import vocab as jvocab
+from ros_stereo_slam_tpu.ops import orb as jorb
 from ros_stereo_slam_tpu_torch.models import convert, vocab
+from ros_stereo_slam_tpu_torch.ops import orb
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -43,6 +51,59 @@ def _tables(rng, k, levels):
     return [_signs(rng, (k ** (l + 1), 256), np.int8) for l in range(levels)]
 
 
+def _packed_query(q):
+    """Sign rows -> (packed words, valid) as ORB hands them over."""
+    qt = torch.from_numpy(q)
+    return orb.pack_bits(qt > 0), (qt != 0).any(1)
+
+
+def test_pack_centers_layout_and_round_trip():
+    rng = np.random.default_rng(4)
+    k, L = 3, 4
+    tabs = _tables(rng, k, L)
+    tree = vocab.pack_centers([torch.from_numpy(t) for t in tabs], k)
+    assert tree.offsets == (0, 3, 12, 39, 120) and tree.levels == L
+    assert tree.words.shape == (120, 8) and tree.words.dtype == torch.int32
+    for l, t in enumerate(tabs):
+        rows = tree.words[tree.offsets[l]:tree.offsets[l + 1]]
+        assert torch.equal(rows, orb.pack_bits(torch.from_numpy(t) > 0))
+        np.testing.assert_array_equal(rows.numpy().view(np.uint32),
+                                      np.asarray(jorb.pack_bits(jnp.asarray(t > 0))))
+        back = torch.where(orb.unpack_bits(rows), 1, -1).to(torch.int8)
+        np.testing.assert_array_equal(back.numpy(), t)
+    # bit j of word w is component 32 w + j
+    one = np.full((k, 256), -1, np.int8)
+    one[1, 32 * 5 + 7] = 1
+    w = vocab.pack_centers([torch.from_numpy(one)], k).words
+    assert w[1, 5].item() == 1 << 7 and int(w.abs().sum()) == 1 << 7
+
+
+@pytest.mark.parametrize("entry", [0, 2])
+def test_pack_centers_refuses_non_signs(entry):
+    rng = np.random.default_rng(5)
+    k = 3
+    tabs = _tables(rng, k, 3)
+    tabs[2][17, 200] = entry
+    with pytest.raises(ValueError, match=rf"level 2 row 17: entry {entry} "):
+        vocab.pack_centers([torch.from_numpy(t) for t in tabs], k)
+    voc = vocab.Vocabulary(k=k, levels=3, centers=[torch.from_numpy(t) for t in tabs],
+                           idf=torch.ones(k ** 3))
+    with pytest.raises(ValueError, match="level 2 row 17"):
+        vocab.transform_words(voc, torch.from_numpy(_signs(rng, (4, 256))))
+
+
+def test_descend_refuses_mixed_rows():
+    rng = np.random.default_rng(6)
+    k = 3
+    tabs = [torch.from_numpy(t) for t in _tables(rng, k, 2)]
+    q = _signs(rng, (8, 256))
+    q[3] = 0.0  # an invalid feature: fine
+    assert vocab._descend(tabs, torch.from_numpy(q), k, 2)[3].item() == 0
+    q[5, 10] = 0.0  # a feature with one zero component is not a sign row
+    with pytest.raises(ValueError, match="row 5"):
+        vocab._descend(tabs, torch.from_numpy(q), k, 2)
+
+
 def test_descend_word_ids_equal_k9_l5():
     rng = np.random.default_rng(0)
     k, L = 9, 5
@@ -52,17 +113,71 @@ def test_descend_word_ids_equal_k9_l5():
     wj = np.asarray(jvocab._descend([jnp.asarray(t) for t in tabs], jnp.asarray(q), k, L))
     wt = vocab._descend([torch.from_numpy(t) for t in tabs], torch.from_numpy(q), k, L)
     np.testing.assert_array_equal(wt.numpy(), wj)
+    tree = vocab.pack_centers([torch.from_numpy(t) for t in tabs], k)
+    wp = vocab._descend_packed_plain(*_packed_query(q), tree, k, L)
+    np.testing.assert_array_equal(wp.numpy(), wj)
     assert wj.max() >= k ** 4  # the deep level was reached
     np.testing.assert_array_equal(wt.numpy()[::9], 0)  # zero rows: child 0 every level
+
+
+@pytest.mark.parametrize("upto", [1, 3])
+def test_descend_upto_below_depth(upto):
+    """Node ids at a level above the leaves, from the int8 tables (only the
+    first `upto` are packed) and from the whole packed tree."""
+    rng = np.random.default_rng(10 + upto)
+    k, L = 9, 5
+    tabs = _tables(rng, k, L)
+    q = _signs(rng, (200, 256))
+    q[::9] = 0.0
+    wj = np.asarray(jvocab._descend([jnp.asarray(t) for t in tabs], jnp.asarray(q), k, upto))
+    wt = vocab._descend([torch.from_numpy(t) for t in tabs], torch.from_numpy(q), k, upto)
+    np.testing.assert_array_equal(wt.numpy(), wj)
+    tree = vocab.pack_centers([torch.from_numpy(t) for t in tabs], k)
+    np.testing.assert_array_equal(vocab._descend(tree, torch.from_numpy(q), k, upto).numpy(), wj)
+    wp = vocab._descend_packed_plain(*_packed_query(q), tree, k, upto)
+    np.testing.assert_array_equal(wp.numpy(), wj)
+    assert wj.max() < k ** upto
+
+
+def test_descend_lane_flattened():
+    """Two lanes of descriptors descend as one (B N, 8) batch: each lane's
+    words are its own descent's, and the JAX package's."""
+    rng = np.random.default_rng(12)
+    k, L, B, n = 4, 4, 2, 96
+    tabs = _tables(rng, k, L)
+    tree = vocab.pack_centers([torch.from_numpy(t) for t in tabs], k)
+    q = _signs(rng, (B, n, 256))
+    q[0, ::7] = 0.0
+    q[1, 3::5] = 0.0
+    bits, valid = _packed_query(q.reshape(-1, 256))
+    flat = vocab._descend_packed_plain(bits, valid, tree, k, L).reshape(B, n)
+    for b in range(B):
+        wj = np.asarray(jvocab._descend([jnp.asarray(t) for t in tabs], jnp.asarray(q[b]), k, L))
+        np.testing.assert_array_equal(flat[b].numpy(), wj)
+        lane = vocab._descend_packed_plain(*_packed_query(q[b]), tree, k, L)
+        assert torch.equal(flat[b], lane)
+
+
+def test_vocabulary_packs_once():
+    rng = np.random.default_rng(13)
+    k = 3
+    voc = vocab.Vocabulary(k=k, levels=2, centers=[torch.from_numpy(t) for t in
+                                                   _tables(rng, k, 2)], idf=torch.ones(9))
+    tree = voc.packed()
+    assert voc.packed() is tree
+    moved = voc.to("cpu")
+    assert moved.packed().words is tree.words  # carried, not packed again
+    q = torch.from_numpy(_signs(rng, (5, 256)))
+    assert torch.equal(vocab.transform_words(voc, q), vocab.transform_words(moved, q))
 
 
 @pytest.mark.parametrize("max_dense", [8192, 16])
 def test_descend_ties_first_max(monkeypatch, max_dense):
     """Duplicate sibling rows and all-zero descriptors: exact ties at every
-    level, on the dense route (all levels <= 8192 rows) and on the deep
-    route (threshold lowered to 16 rows in both packages)."""
+    level.  The port has one route; it meets the JAX package's dense route
+    (all levels <= 8192 rows) and its deep gather route (the JAX
+    threshold lowered to 16 rows) in turn."""
     monkeypatch.setattr(jvocab, "_DESCEND_MASKED_ARGMAX_MAX_NODES", max_dense)
-    monkeypatch.setattr(vocab, "_DESCEND_MASKED_ARGMAX_MAX_NODES", max_dense)
     rng = np.random.default_rng(7)
     k, L = 4, 3
     tabs = []
@@ -76,7 +191,11 @@ def test_descend_ties_first_max(monkeypatch, max_dense):
     wj = np.asarray(jvocab._descend([jnp.asarray(t) for t in tabs], jnp.asarray(q), k, L))
     wt = vocab._descend([torch.from_numpy(t) for t in tabs], torch.from_numpy(q), k, L)
     np.testing.assert_array_equal(wt.numpy(), wj)
-    assert set(np.unique(wj % k)) <= {0, 1}
+    tree = vocab.pack_centers([torch.from_numpy(t) for t in tabs], k)
+    wp = vocab._descend_packed_plain(*_packed_query(q), tree, k, L)
+    np.testing.assert_array_equal(wp.numpy(), wj)
+    for m in range(L):  # no level took a duplicate (sibling 2 or 3)
+        assert set(np.unique(wj // k ** m % k)) <= {0, 1}
 
 
 def _corpus(rng, n=600, n_clusters=12):

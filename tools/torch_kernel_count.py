@@ -16,7 +16,8 @@ makes one cold run, one timed warm run, one warm run under
 ``torch.profiler`` (every device-side event: kernels, memcpy, memset; the
 device busy share is their summed time over the run's wall time) and one
 warm run under a dispatch mode that counts every PyTorch op that is not a
-view.  It prints one JSON line per path and writes the per-name counts to
+view.  It prints one JSON line per path and writes the per-name counts
+(and, on the card, each kernel name's summed device microseconds) to
 ``--out-dir``.  Full SLAM uses ``preset_loop_closure()`` with a vocabulary
 trained on the card from every 2nd frame.
 
@@ -138,6 +139,10 @@ def _measure(torch, fn, n_frames: int, cuda: bool) -> tuple[dict, dict]:
                    copies=len(copies), wall_profiled_s=wall_p,
                    device_busy=busy_us * 1e-6 / wall_p)
         names["kernels"] = dict(collections.Counter(e.name for e in dev).most_common())
+        us = collections.Counter()
+        for e in dev:
+            us[e.name] += e.time_range.elapsed_us()
+        names["kernel_us"] = dict(us.most_common())
     return row, names
 
 

@@ -779,26 +779,30 @@ def k2_phase(torch, img, cfg) -> dict:
             "plain_ms": rows[0][1], "device_ms": rows[0][2], **work}
 
 
-def device_ms_each(torch, launch, flush=None, reps: int = 50) -> float:
-    """Median milliseconds of one `launch` between two CUDA events, over
-    `reps` launches; with `flush`, that callable runs on the stream before
-    each launch (outside the window), so the kernel finds a cold L2."""
-    for _ in range(5):
-        launch()
-    torch.cuda.synchronize()
-    pairs, err = [], 0
-    for _ in range(reps):
-        if flush is not None:
-            flush()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        err |= launch()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    check(err == 0, f"a bare kernel launch failed: cudaError {err}")
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+def device_ms_cold(torch, launch, flush, reps: int = 50, rounds: int = 5) -> float:
+    """The kernel's own milliseconds when it finds a cold L2: `flush` (a
+    device write larger than the L2) and `launch` made `reps` times back to
+    back between two events, less `flush` alone made the same way, over
+    `reps`; each the least of `rounds`.  The flushes keep the queue ahead
+    of the card, so no host time enters either window."""
+    def window(fn) -> float:
+        best = float("inf")
+        for _ in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / reps)
+        return best
+
+    errs = []
+    window(lambda: (flush(), errs.append(launch())))  # warm-up
+    both = window(lambda: (flush(), errs.append(launch())))
+    check(not any(errs), f"a bare kernel launch failed: cudaError {max(errs)}")
+    return both - window(flush)
 
 
 def _duplicate_siblings(torch, tree, k: int):
@@ -840,9 +844,9 @@ def k3_phase(torch, img, imgs, voc, cfg) -> dict:
     included), two lanes' 1,024, and the 512 again through the tree with
     duplicate sibling rows (ties at every level).  Word ids must be equal
     on every row and two runs bitwise equal.  Times: the wrapper call
-    (``ms``), the kernel alone back to back (``device_ms``, L2-hot), one
-    launch at a time hot and after a 64 MB scratch write (L2-cold), the
-    plain version, and ``_descend`` on the sign rows (checks and packing
+    (``ms``), the kernel alone back to back (``device_ms``, L2-hot) and
+    after a 64 MB scratch write each (``device_ms_cold``), the plain
+    version, and ``_descend`` on the sign rows (checks and packing
     included)."""
     from ros_stereo_slam_tpu_torch.models import vocab
     from ros_stereo_slam_tpu_torch.ops import orb, vocab_cuda
@@ -893,21 +897,16 @@ def k3_phase(torch, img, imgs, voc, cfg) -> dict:
     ms = cuda_ms(torch, lambda: vocab_cuda.descend(bits, valid, tree, k, L))
     plain_ms = cuda_ms(torch, lambda: vocab._descend_packed_plain(bits, valid, tree, k, L))
     whole_ms = cuda_ms(torch, lambda: vocab._descend(tree, sign, k, L))
+    launch = vocab_cuda.bare_launch(bits, valid, tree, k, L)
+    dev_ms = device_ms(torch, launch)
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device=img.device)
-    times = {}
-    for entry in vocab_cuda.DESIGNS:
-        launch = vocab_cuda.bare_launch(bits, valid, tree, k, L, entry=entry)
-        times[entry] = (device_ms(torch, launch), device_ms_each(torch, launch),
-                        device_ms_each(torch, launch, flush=lambda: scratch.fill_(1)))
-        torch.cuda.synchronize()
-        check(torch.equal(launch.outputs[0], vocab_cuda.descend(bits, valid, tree, k, L)),
-              f"K3 {entry}: word ids differ from the wrapper's")
+    cold_ms = device_ms_cold(torch, launch, lambda: scratch.fill_(1))
     del scratch
-    for entry, (hot, each, cold) in times.items():
-        log(f"K3 {entry}{' (the wrapper launches it)' if entry == vocab_cuda.DESIGNS[0] else ''}"
-            f": kernel alone {hot:.4f} ms back to back (L2-hot), one launch at a time "
-            f"{each:.4f} ms hot, {cold:.4f} ms after a 64 MB scratch write (L2-cold)")
-    dev_ms, _, cold_ms = times[vocab_cuda.DESIGNS[0]]
+    torch.cuda.synchronize()
+    check(torch.equal(launch.outputs[0], vocab_cuda.descend(bits, valid, tree, k, L)),
+          "K3: the bare launch's word ids differ from the wrapper's")
+    log(f"K3 kernel alone: {dev_ms:.4f} ms back to back (L2-hot), {cold_ms:.4f} ms after a "
+        f"64 MB scratch write each (L2-cold)")
     log(f"K3 512 descriptors -> word ids: wrapper {ms:.4f} ms (the main path's call), "
         f"_descend of the sign rows {whole_ms:.4f} ms (checks and packing included), plain "
         f"{plain_ms:.4f} ms")

@@ -25,20 +25,14 @@
 // So: no shared memory, every sibling load of a level issued before any
 // reduction, few instructions between one level's loads and the next's.
 //
-// Two designs, both here, held to the same plain version; the wrapper launches
-// vocab_descend_sibling_lanes (PERF.md gives both designs' times):
-//   sibling lanes: a warp per query; lanes 2 j and 2 j + 1 read the two
-//     16-byte halves of sibling row j (one 32-byte sector, requested once),
-//     popcount 4 words each, add the halves in one xor-shuffle, and the warp
-//     takes the min of (ham << 22 | j) in 4 more, which is the first min
-//     (16 siblings a pass).  A first version with 16 lanes per query, each
-//     reading a whole row as two 16-byte loads, was faster L2-hot and much
-//     slower L2-cold (PERF.md);
-//   word lanes: 8 lanes per query (4 per warp); lane w holds query word w and
-//     reads word w of every sibling row, the group sums each sibling's
-//     popcount in 3 xor-shuffles, every lane keeps the first min.
-// Shuffles name only their group's lanes, so groups of one warp may diverge.
-// No atomics: two runs agree bit for bit.  A sibling group that would lie
+// Design: a warp per query.  Lanes 2 j and 2 j + 1 read the two 16-byte halves
+// of sibling row j (one 32-byte sector, requested once), popcount 4 words each,
+// add the halves in one xor-shuffle, and the warp takes the min of
+// (ham << 22 | j) in 4 more, which is the first min; 16 siblings a pass.  Two
+// other designs were measured and dropped (PERF.md): 16 lanes per query, each
+// reading a whole row as two 16-byte loads (slower L2-cold), and 8 lanes per
+// query, lane w reading word w of every sibling (slower hot and cold).  No
+// atomics: two runs agree bit for bit.  A sibling group that would lie
 // outside its level (offsets that do not match k) writes -1 and stops.
 //
 // What the TPU kernel does and this one does not: 8-aligned 16-row DMA windows
@@ -53,35 +47,27 @@ namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kThreads = 128;
-constexpr int kSiblingLanes = 32;     // a warp per query
+constexpr int kLanes = 32;            // a warp per query
 constexpr int kSiblingsPerPass = 16;  // two lanes per sibling row
-constexpr int kWordLanes = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kWordChunk = 16;  // sibling loads a word lane issues before reducing
-constexpr int kIdxBits = 22;    // ham (<= 256) above, the sibling index below
+constexpr int kIdxBits = 22;          // ham (<= 256) above, the sibling index below
 constexpr int kIdxMask = (1 << kIdxBits) - 1;
 
 struct Levels {
   int offset[kMaxLevels + 1];  // level l: tree rows offset[l] .. offset[l + 1] - 1
 };
 
-// The lanes of this thread's group of `width` (< 32) lanes.
-__device__ __forceinline__ unsigned group_mask(int width) {
-  const int lane = static_cast<int>(threadIdx.x & 31);
-  return ((1u << width) - 1u) << (lane / width * width);
-}
-
 __device__ __forceinline__ int ham4(const uint4& q, const uint4& c) {
   return __popc(q.x ^ c.x) + __popc(q.y ^ c.y) + __popc(q.z ^ c.z) + __popc(q.w ^ c.w);
 }
 
 __global__ void __launch_bounds__(kThreads)
-descend_sibling_lanes(const uint4* __restrict__ q_bits, const uint8_t* __restrict__ valid, int n,
-                      const uint4* __restrict__ tree, const __grid_constant__ Levels lv,
-                      int n_levels, int k, long long* __restrict__ word_out) {
+descend_packed(const uint4* __restrict__ q_bits, const uint8_t* __restrict__ valid, int n,
+               const uint4* __restrict__ tree, const __grid_constant__ Levels lv, int n_levels,
+               int k, long long* __restrict__ word_out) {
   const int t = static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x);
-  const int p = t / 32;  // one query per warp
-  const int lane = t % 32;
+  const int p = t / kLanes;  // one query per warp
+  const int lane = t % kLanes;
   const int half = lane & 1;  // which 16 bytes of a row this lane reads
   const int jl = lane >> 1;   // its sibling within a pass of kSiblingsPerPass
   if (p >= n) return;  // uniform per warp
@@ -115,98 +101,27 @@ descend_sibling_lanes(const uint4* __restrict__ q_bits, const uint8_t* __restric
   if (lane == 0) word_out[p] = node;
 }
 
-__global__ void __launch_bounds__(kThreads)
-descend_word_lanes(const unsigned* __restrict__ q_bits, const uint8_t* __restrict__ valid, int n,
-                   const unsigned* __restrict__ tree, const __grid_constant__ Levels lv,
-                   int n_levels, int k, long long* __restrict__ word_out) {
-  const int t = static_cast<int>(blockIdx.x) * kThreads + static_cast<int>(threadIdx.x);
-  const int p = t / kWordLanes;
-  const int w = t % kWordLanes;
-  if (p >= n) return;  // uniform per group
-  const unsigned mask = group_mask(kWordLanes);
-  const unsigned qw = __ldg(q_bits + 8 * p + w);
-  const bool ok = valid[p] != 0;
-  long long node = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    const long long first = node * k;
-    if (first + k > lv.offset[l + 1] - lv.offset[l]) {
-      node = -1;
-      break;
-    }
-    if (!ok) {  // child 0
-      node = first;
-      continue;
-    }
-    const unsigned* group = tree + 8 * (lv.offset[l] + first) + w;
-    int best_ham = 257;
-    int best = 0;
-    for (int j0 = 0; j0 < k; j0 += kWordChunk) {
-      unsigned c[kWordChunk];
-#pragma unroll
-      for (int jj = 0; jj < kWordChunk; ++jj) {
-        c[jj] = j0 + jj < k ? __ldg(group + 8 * (j0 + jj)) : 0u;
-      }
-#pragma unroll
-      for (int jj = 0; jj < kWordChunk; ++jj) {
-        if (j0 + jj >= k) break;  // uniform: k is
-        int h = __popc(qw ^ c[jj]);
-        h += __shfl_xor_sync(mask, h, 1);
-        h += __shfl_xor_sync(mask, h, 2);
-        h += __shfl_xor_sync(mask, h, 4);
-        if (h < best_ham) {  // strict: the first min wins ties
-          best_ham = h;
-          best = j0 + jj;
-        }
-      }
-    }
-    node = first + best;
-  }
-  if (w == 0) word_out[p] = node;
-}
-
-// Checks the arguments and fills `lv` and `blocks` (0 when there is nothing to do).
-cudaError_t prepare(int n, const int* offsets, int n_levels, int k, int lanes, Levels& lv,
-                    int& blocks) {
-  blocks = 0;
-  if (n <= 0) return cudaSuccess;
-  if (n_levels < 1 || n_levels > kMaxLevels || k < 1 || k > kIdxMask) {
-    return cudaErrorInvalidValue;
-  }
-  for (int l = 0; l <= n_levels; ++l) lv.offset[l] = offsets[l];
-  blocks = static_cast<int>((static_cast<long long>(n) * lanes + kThreads - 1) / kThreads);
-  return cudaSuccess;
-}
-
 }  // namespace
 
-// Plain C entry points (loaded with ctypes), one per design, same arguments:
+// Plain C entry point (loaded with ctypes):
 // q_bits (n, 8) 32-bit words, 16-byte aligned; valid (n,) bytes (0 = invalid);
 // tree (R, 8) 32-bit words, 16-byte aligned; offsets (n_levels + 1,) host ints,
 // level l = tree rows offsets[l] .. offsets[l + 1] - 1; 1 <= n_levels <= 8;
 // 1 <= k < 2^22; word_out (n,) int64.  Launch on `stream`, return
 // cudaGetLastError().
-extern "C" int vocab_descend_sibling_lanes(const void* q_bits, const void* valid, int n,
-                                           const void* tree, const int* offsets, int n_levels,
-                                           int k, void* word_out, void* stream) {
+extern "C" int vocab_descend_packed(const void* q_bits, const void* valid, int n, const void* tree,
+                                    const int* offsets, int n_levels, int k, void* word_out,
+                                    void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (n_levels < 1 || n_levels > kMaxLevels || k < 1 || k > kIdxMask) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Levels lv{};
-  int blocks;
-  const cudaError_t err = prepare(n, offsets, n_levels, k, kSiblingLanes, lv, blocks);
-  if (err != cudaSuccess || blocks == 0) return static_cast<int>(err);
-  descend_sibling_lanes<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  for (int l = 0; l <= n_levels; ++l) lv.offset[l] = offsets[l];
+  const long long threads = static_cast<long long>(n) * kLanes;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  descend_packed<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(q_bits), static_cast<const uint8_t*>(valid), n,
       static_cast<const uint4*>(tree), lv, n_levels, k, static_cast<long long*>(word_out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int vocab_descend_word_lanes(const void* q_bits, const void* valid, int n,
-                                        const void* tree, const int* offsets, int n_levels,
-                                        int k, void* word_out, void* stream) {
-  Levels lv{};
-  int blocks;
-  const cudaError_t err = prepare(n, offsets, n_levels, k, kWordLanes, lv, blocks);
-  if (err != cudaSuccess || blocks == 0) return static_cast<int>(err);
-  descend_word_lanes<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned*>(q_bits), static_cast<const uint8_t*>(valid), n,
-      static_cast<const unsigned*>(tree), lv, n_levels, k, static_cast<long long*>(word_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,22 +28,20 @@ LAUNCHES = 0
 
 _MAX_LEVELS = 8
 _MAX_K = (1 << 22) - 1  # the sibling index field of the kernel's min key
-# The C entry points, one per design; descend launches the first (PERF.md
-# gives both designs' times).
-DESIGNS = ("vocab_descend_sibling_lanes", "vocab_descend_word_lanes")
-_FNS: dict = {}
+_FN = None
 
 
-def _bind(entry: str):
-    if entry not in _FNS:
+def _bind():
+    global _FN
+    if _FN is None:
         from ros_stereo_slam_tpu_torch.kernels import build
 
-        fn = getattr(build.load("vocab_descend"), entry)
+        fn = build.load("vocab_descend").vocab_descend_packed
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, i, p, ctypes.POINTER(i), i, i, p, p]
         fn.restype = ctypes.c_int
-        _FNS[entry] = fn
-    return _FNS[entry]
+        _FN = fn
+    return _FN
 
 
 def _check(q_bits: torch.Tensor, valid: torch.Tensor, tree, k: int, n_levels: int) -> None:
@@ -82,16 +80,14 @@ def _kernel_args(q_bits, valid, tree, k: int, n_levels: int, out: torch.Tensor) 
             offsets, n_levels, k, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
 
 
-def bare_launch(q_bits: torch.Tensor, valid: torch.Tensor, tree, k: int, n_levels: int,
-                entry: str = DESIGNS[0]):
-    """A zero-argument callable that launches the kernel (`entry`, one of
-    ``DESIGNS``) once on an output allocated here and returns its
-    cudaError: the kernel alone, without the wrapper's checks and
-    allocation, for timing.  It counts no launch."""
+def bare_launch(q_bits: torch.Tensor, valid: torch.Tensor, tree, k: int, n_levels: int):
+    """A zero-argument callable that launches the kernel once on an output
+    allocated here and returns its cudaError: the kernel alone, without the
+    wrapper's checks and allocation, for timing.  It counts no launch."""
     _check(q_bits, valid, tree, k, n_levels)
     out = torch.empty((q_bits.shape[0],), dtype=torch.int64, device=q_bits.device)
     args = _kernel_args(q_bits, valid, tree, k, n_levels, out)
-    fn = _bind(entry)
+    fn = _bind()
 
     def launch() -> int:
         return fn(*args)
@@ -120,8 +116,8 @@ def descend(q_bits: torch.Tensor, valid: torch.Tensor, tree, k: int,
     if q_bits.shape[0] == 0:
         return out
     with torch.cuda.device(q_bits.device):
-        err = _bind(DESIGNS[0])(*_kernel_args(q_bits, valid.contiguous(), tree, k, n_levels, out))
+        err = _bind()(*_kernel_args(q_bits, valid.contiguous(), tree, k, n_levels, out))
     if err != 0:
-        raise RuntimeError(f"{DESIGNS[0]} launch failed: cudaError {err}")
+        raise RuntimeError(f"vocab_descend_packed launch failed: cudaError {err}")
     LAUNCHES += 1
     return out

@@ -24,8 +24,8 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
   a window of a border read nothing outside the image (NaN guard rows).
   Two runs of one call are bitwise equal (no atomics).
 - K3 (``csrc/vocab_descend.cu``): word ids equal to the plain version on
-  every row (exact), both designs, full width, ties, invalid rows, two
-  runs bitwise equal.
+  every row (exact): full width, ties, invalid rows, two sibling passes
+  (k = 20), two runs bitwise equal.
 - K1b and K2b (the batched entry points of the same sources): K1's and
   K2's bounds against the lane loops of the plain versions, and bitwise
   equal, lane by lane, to the single-lane entry points (one kernel body).
@@ -289,16 +289,11 @@ def test_vocab_kernel_matches_plain_version(cuda_device):
         assert vocab_cuda.LAUNCHES == before + 1
         assert out.dtype == torch.int64 and torch.equal(out, ref)
         assert int(out.max()) < k ** L
-        # the other design gives the same words
-        alt = vocab_cuda.bare_launch(q, valid, tree, k, L, entry=vocab_cuda.DESIGNS[1])
-        assert alt() == 0
-        torch.cuda.synchronize()
-        assert torch.equal(alt.outputs[0], ref)
 
 
 def test_vocab_kernel_first_max_on_ties(cuda_device):
     """Duplicate sibling rows at every level force exact ties: the lowest
-    sibling wins, in both designs."""
+    sibling wins, through the wrapper and the bare launch."""
     rng = np.random.default_rng(7)
     k, L, n = 4, 3, 256
     tabs = []
@@ -310,11 +305,10 @@ def test_vocab_kernel_first_max_on_ties(cuda_device):
     tree = vocab.pack_centers(tabs, k).to(cuda_device)
     q, valid = _queries(rng, n, cuda_device, invalid_every=n + 1)
     ref = vocab._descend_packed_plain(q, valid, tree, k, L)
-    for entry in vocab_cuda.DESIGNS:
-        launch = vocab_cuda.bare_launch(q, valid, tree, k, L, entry=entry)
-        assert launch() == 0
-        torch.cuda.synchronize()
-        assert torch.equal(launch.outputs[0], ref), entry
+    launch = vocab_cuda.bare_launch(q, valid, tree, k, L)
+    assert launch() == 0
+    torch.cuda.synchronize()
+    assert torch.equal(launch.outputs[0], ref)
     assert torch.equal(vocab_cuda.descend(q, valid, tree, k, L), ref)
     for m in range(L):
         assert set(torch.unique(ref // k ** m % k).tolist()) <= {0, 1}

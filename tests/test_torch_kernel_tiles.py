@@ -22,11 +22,11 @@ line as ``csrc/orb_desc.cu`` and ``csrc/lk_level.cu`` do it:
   away from the borders the patch must be bitwise
   ``interp.extract_patches``'s.
 
-- K3: the packed-tree addressing of ``csrc/vocab_descend.cu``, both
-  designs: the sibling-lane kernel reads the tree and the queries as
-  16-byte vectors (lane 2 j + h: index 2 (offset[l] + node k + j) + h), the word-lane
-  kernel reads 32-bit words (index 8 (offset[l] + node k + j) + w), over a
-  random packed tree at the reference scale (k = 9, L = 6: 597,870 rows).
+- K3: the packed-tree addressing of ``csrc/vocab_descend.cu``: lane 2 j + h
+  of a query's warp reads the tree as 16-byte vectors at index
+  2 (offset[l] + node k + j) + h, 16 siblings a pass, over a random packed
+  tree at the reference scale (k = 9, L = 6: 597,870 rows) and at k = 20
+  (two passes).
   The emulated descent must give ``vocab._descend_packed_plain``'s node ids
   exactly, invalid rows included, and reach a planted word: the first
   (word 0), one in the middle, and the last group of the 531,441-row level.
@@ -193,16 +193,20 @@ K3_K, K3_L = 9, 6
 K3_SIBLINGS_PER_PASS, K3_IDX_BITS = 16, 22  # kSiblingsPerPass, kIdxBits of vocab_descend.cu
 
 
-@pytest.fixture(scope="module")
-def k3_tree():
-    """Random packed words at the reference scale (19.1 MB)."""
+def _random_tree(k, levels, seed):
     offsets = [0]
-    for l in range(K3_L):
-        offsets.append(offsets[-1] + K3_K ** (l + 1))
-    rng = np.random.default_rng(21)
+    for l in range(levels):
+        offsets.append(offsets[-1] + k ** (l + 1))
+    rng = np.random.default_rng(seed)
     words = rng.integers(-2**31, 2**31, size=(offsets[-1], 8), dtype=np.int64)
     return vocab.PackedTree(words=torch.from_numpy(words.astype(np.int32)),
                             offsets=tuple(offsets))
+
+
+@pytest.fixture(scope="module")
+def k3_tree():
+    """Random packed words at the reference scale (19.1 MB)."""
+    return _random_tree(K3_K, K3_L, seed=21)
 
 
 def _popc(x):
@@ -211,8 +215,8 @@ def _popc(x):
     return b.reshape(x.shape + (4,)).sum(-1)
 
 
-def _k3_sibling_lanes(q_bits, valid, tree, k, n_levels):
-    """vocab_descend.cu's descend_sibling_lanes: a warp per query, lanes 2 j
+def _k3_emulated(q_bits, valid, tree, k, n_levels):
+    """vocab_descend.cu's descend_packed: a warp per query, lanes 2 j
     and 2 j + 1 read the two 16-byte halves of sibling row j (16 siblings a
     pass); the halves add, and the warp's min of (ham << 22 | j) is the
     first min."""
@@ -238,47 +242,25 @@ def _k3_sibling_lanes(q_bits, valid, tree, k, n_levels):
     return node
 
 
-def _k3_word_lanes(q_bits, valid, tree, k, n_levels):
-    """vocab_descend.cu's descend_word_lanes: 8 lanes per query, lane w reads
-    word w of every sibling row; the 3 xor-shuffles sum over the lanes."""
-    flat = tree.words.reshape(-1)
-    w = torch.arange(8)
-    p = torch.arange(q_bits.shape[0])
-    qw = q_bits.reshape(-1)[8 * p[:, None] + w]
-    node = torch.zeros_like(p)
-    for l in range(n_levels):
-        first = node * k
-        group = 8 * (tree.offsets[l] + first)[:, None] + w  # lane w's word of sibling 0
-        best_ham = torch.full_like(p, 257)
-        best = torch.zeros_like(p)
-        for j in range(k):
-            h = _popc(qw ^ flat[group + 8 * j]).sum(-1)
-            take = h < best_ham  # strict: the first min
-            best_ham = torch.where(take, h, best_ham)
-            best = torch.where(take, torch.full_like(best, j), best)
-        node = torch.where(valid, first + best, first)
-    return node
-
-
-@pytest.mark.parametrize("design", ["sibling_lanes", "word_lanes"])
 @pytest.mark.parametrize("target", ["first", "middle", "last"])
-def test_k3_packed_tree_addressing(k3_tree, design, target):
-    k, L = K3_K, K3_L
-    word = {"first": 0, "middle": 271_828, "last": k ** L - 1}[target]
+@pytest.mark.parametrize("k,levels", [(K3_K, K3_L), (20, 3)])
+def test_k3_packed_tree_addressing(k3_tree, k, levels, target):
+    """The reference-scale tree, and k = 20 (two passes of 16 siblings)."""
+    tree = k3_tree if (k, levels) == (K3_K, K3_L) else _random_tree(k, levels, seed=22)
+    word = {"first": 0, "middle": k ** levels // 2 + 7, "last": k ** levels - 1}[target]
     rng = np.random.default_rng(word)
     q = torch.from_numpy(rng.integers(-2**31, 2**31, size=(97, 8), dtype=np.int64)
                          .astype(np.int32))
     valid = torch.ones(97, dtype=torch.bool)
     valid[1::7] = False
-    words = k3_tree.words.clone()
-    for l in range(L):  # plant query 0 on the path to `word`: distance 0 at every level
-        words[k3_tree.offsets[l] + word // k ** (L - 1 - l)] = q[0]
-    tree = vocab.PackedTree(words=words, offsets=k3_tree.offsets)
-    emulate = {"sibling_lanes": _k3_sibling_lanes, "word_lanes": _k3_word_lanes}[design]
-    got = emulate(q, valid, tree, k, L)
-    want = vocab._descend_packed_plain(q, valid, tree, k, L)
+    words = tree.words.clone()
+    for l in range(levels):  # plant query 0 on the path to `word`: distance 0 at every level
+        words[tree.offsets[l] + word // k ** (levels - 1 - l)] = q[0]
+    tree = vocab.PackedTree(words=words, offsets=tree.offsets)
+    got = _k3_emulated(q, valid, tree, k, levels)
+    want = vocab._descend_packed_plain(q, valid, tree, k, levels)
     assert torch.equal(got, want)
     assert got[0].item() == word
     assert not got[1::7].any()  # invalid rows: child 0 at every level
     if target == "last":
-        assert tree.offsets[L] - 1 == tree.offsets[L - 1] + word  # the level's last row
+        assert tree.offsets[levels] - 1 == tree.offsets[levels - 1] + word  # the level's last row

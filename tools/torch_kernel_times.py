@@ -14,13 +14,13 @@ between two CUDA events, the least of 7 rounds: the kernel alone), ``ms``
 (median of 25 event windows around the wrapper call: checks, allocation
 and the host's launch work included) and, once, an empty kernel's time
 taken as ``device_ms`` is (the launch floor).  K3 also gets
-``device_ms_cold`` (one launch at a time after a 64 MB scratch write, so
-the tables are not in L2), and one more row, ``descent``: the wrapper
-window of the whole descent, 512 sign descriptors -> word ids through
-``vocab._descend`` (whatever the tree does inside: dense levels plus the
-deep kernel, or packing plus one kernel), and, where the tree has the
-packed descent, the main path's call on packed words and the other K3
-design's kernel times.  The timing functions are ``chip_smoke.py``'s;
+``device_ms_cold`` (each launch after a 64 MB scratch write, so the tables
+are not in L2: ``chip_smoke.device_ms_cold``), and one more row,
+``descent``: the wrapper window of the whole descent, 512 sign
+descriptors -> word ids through ``vocab._descend`` (whatever the tree
+does inside: dense levels plus the deep kernel, or packing plus one
+kernel), and, where the tree has the packed descent, the main path's
+call on packed words (``main_path_ms``).  The timing functions are ``chip_smoke.py``'s;
 TREE must offer ``bare_launch`` in its wrappers.
 
 Shapes: K1 768 points, window 15, 6 iterations on a 1241x376 level (the
@@ -115,7 +115,7 @@ def main() -> None:
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     def cold(launch):
-        return chip_smoke.device_ms_each(torch, launch, flush=lambda: scratch.fill_(1))
+        return chip_smoke.device_ms_cold(torch, launch, lambda: scratch.fill_(1))
 
     for name, (bare, wrapper) in cases.items():
         wrapper()
@@ -130,10 +130,6 @@ def main() -> None:
     row = {"label": args.label, "name": "descent", "ms": chip_smoke.cuda_ms(torch, descent)}
     if packed:
         row["main_path_ms"] = chip_smoke.cuda_ms(torch, k3[1])
-        for entry in vocab_cuda.DESIGNS[1:]:
-            launch = vocab_cuda.bare_launch(bits, valid, tree, K, LEVELS, entry=entry)
-            row[entry] = {"device_ms": chip_smoke.device_ms(torch, launch),
-                          "device_ms_cold": cold(launch)}
     print(json.dumps(row), flush=True)
 
 

@@ -43,8 +43,7 @@ import torch
 from ros_stereo_slam_tpu_torch.ops import orb
 from ros_stereo_slam_tpu_torch.ops.orb import N_BITS
 
-# Descriptors (or table rows) per block in transform_words, pack_centers
-# and the trainer.
+# Descriptors (or table rows) per block in the trainer and pack_centers.
 _CHUNK = 8192
 # Set bits of every byte value.
 _POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
@@ -301,9 +300,7 @@ def _descend(centers, desc_sign: torch.Tensor, k: int, upto: int) -> torch.Tenso
 
 def transform_words(voc: Vocabulary, desc_sign: torch.Tensor) -> torch.Tensor:
     """(N, 256) sign descriptors -> (N,) int64 word ids (leaf indices)."""
-    tree = voc.packed()
-    return torch.cat([_descend(tree, desc_sign[s:s + _CHUNK], voc.k, voc.levels)
-                      for s in range(0, max(desc_sign.shape[0], 1), _CHUNK)])
+    return _descend(voc.packed(), desc_sign, voc.k, voc.levels)
 
 
 # -- sparse BoW -------------------------------------------------------------

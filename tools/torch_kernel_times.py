@@ -13,9 +13,11 @@ line: ``device_ms`` (200 bare launches of the C entry point back to back
 between two CUDA events, the least of 7 rounds: the kernel alone), ``ms``
 (median of 25 event windows around the wrapper call: checks, allocation
 and the host's launch work included) and, once, an empty kernel's time
-taken as ``device_ms`` is (the launch floor).  K3 also gets
-``device_ms_cold`` (each launch after a 64 MB scratch write, so the tables
-are not in L2: ``chip_smoke.device_ms_cold``), and one more row,
+taken as ``device_ms`` is (the launch floor).  K3 also gets each launch
+timed behind a spacer that keeps the queue ahead of the card
+(``chip_smoke.device_ms_spaced``): a spin (``device_ms_spaced_hot``) and
+a 64 MB scratch write, so the tables are not in L2 (``device_ms_cold``);
+and one more row,
 ``descent``: the wrapper window of the whole descent, 512 sign
 descriptors -> word ids through ``vocab._descend`` (whatever the tree
 does inside: dense levels plus the deep kernel, or packing plus one
@@ -114,8 +116,6 @@ def main() -> None:
     print(json.dumps({"label": args.label, "card": card, "launch_floor_ms": floor}), flush=True)
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
-    def cold(launch):
-        return chip_smoke.device_ms_cold(torch, launch, lambda: scratch.fill_(1))
 
     for name, (bare, wrapper) in cases.items():
         wrapper()
@@ -125,7 +125,10 @@ def main() -> None:
                "device_ms": chip_smoke.device_ms(torch, launch),
                "ms": chip_smoke.cuda_ms(torch, wrapper)}
         if name == "vocab_descend":
-            row["device_ms_cold"] = cold(launch)
+            row["device_ms_spaced_hot"] = chip_smoke.device_ms_spaced(
+                torch, launch, lambda: torch.cuda._sleep(chip_smoke.SPIN_CYCLES))
+            row["device_ms_cold"] = chip_smoke.device_ms_spaced(
+                torch, launch, lambda: scratch.fill_(1))
         print(json.dumps(row), flush=True)
     row = {"label": args.label, "name": "descent", "ms": chip_smoke.cuda_ms(torch, descent)}
     if packed:

@@ -38,7 +38,12 @@ Phases (any failure exits non-zero and prints no result line):
    lane held against its single-lane run, with K1b's launch count;
 9. batched_slam: ``run_offline_slam_batched`` over worlds A and B as two
    lanes, checked per lane against ground truth, with K1b/K2b/K3 counts
-   (K3: one per detection frame for all lanes).
+   (K3: one per detection frame for all lanes);
+10. online: the online postures over world A at the same configuration:
+    ``StereoSLAM`` frame by frame (a checkpoint after frame 128 resumed in a
+    fresh object, the graph and the map written and read back) and
+    ``run_online_slam(chunk=32)``, speculative and sequential; both accept
+    phase slam's closures, with K1/K2/K3 counts per path.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -104,6 +109,13 @@ SLAM_WARM_RUNS_BATCHED = 2
 # starts a third lap with a fresh jitter and brightness, a jump that some
 # seed pairs leave with under 10 PnP inliers; B's pair keeps >= 44 there.
 REVISIT_SEEDS = {"A": (17, 11), "B": (53, 59)}
+# The online postures (phase online): warm runs per driver, the chunk, the
+# frame after which the streaming run is checkpointed, and how far a
+# keyframe's pose may lie from the live trajectory (test_chunked_online_driver).
+ONLINE_WARM_RUNS = 2
+ONLINE_CHUNK = 32
+CKPT_FRAME = LAP
+KF_POSE_TOL_M = 1e-4
 # The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet): HBM
 # bytes/s, float32 FLOP/s outside the tensor cores, int8 OP/s.
 PEAK_BYTES_S = 3.35e12
@@ -133,7 +145,8 @@ def run_cmd(cmd: list[str]) -> str:
     return proc.stdout.strip()
 
 
-def phase_toolchain(torch) -> None:
+def phase_toolchain(torch) -> str:
+    """Prints the card's name and power limit and returns them."""
     smi = run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                    "--format=csv,noheader"]).splitlines()[0].strip()
     print(smi, flush=True)
@@ -150,6 +163,7 @@ def phase_toolchain(torch) -> None:
         log(f"triton {triton.__version__} imports")
     except ImportError as e:
         log(f"triton does not import ({e})")
+    return smi
 
 
 def phase_build() -> None:
@@ -1218,6 +1232,197 @@ def phase_batched_slam(torch, voc, worlds, cfg, dev) -> dict:
     return {"counts": counts, "fps": LANES * F / med, "lanes": out}
 
 
+def _kernel_counts(reset: bool = False) -> dict:
+    """K1/K2/K3 launches so far (all three set to 0 first with `reset`)."""
+    from ros_stereo_slam_tpu_torch.ops import lk_cuda, orb_cuda, vocab_cuda
+
+    if reset:
+        lk_cuda.LAUNCHES = orb_cuda.LAUNCHES = vocab_cuda.LAUNCHES = 0
+    return dict(k1=lk_cuda.LAUNCHES, k2=orb_cuda.LAUNCHES, k3=vocab_cuda.LAUNCHES)
+
+
+def _redispatched_detections(events, F: int, chunk: int, every: int) -> int:
+    """Detection frames of the chunks that run_online_slam dispatches twice:
+    the chunk after each chunk that accepted a closure."""
+    n = 0
+    for c in sorted({(q - 1) // chunk for q, _, _ in events}):
+        lo = 1 + (c + 1) * chunk
+        n += sum(1 for fid in range(lo, min(lo + chunk, F + 1)) if fid % every == 0)
+    return n
+
+
+def phase_online(torch, voc, left, right, gt, cfg, dev, scan: dict, smi: str) -> dict:
+    """The online postures on the card over phase slam's world and
+    configuration: StereoSLAM frame by frame (cold run with a checkpoint
+    after CKPT_FRAME, warm runs, the checkpoint resumed in a fresh object,
+    the graph and map files read back), then run_online_slam speculative
+    and ChunkedSLAM.process_chunk in a loop (sequential): a cold run, then
+    warm runs in turns.  Counts from the first warm run of each form; each
+    run is checked against phase slam (`scan`) and ground truth."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.models import slam, slam_chunked
+    from ros_stereo_slam_tpu_torch.models.pose_graph import PoseGraph
+    from ros_stereo_slam_tpu_torch.utils import metrics, ply
+
+    L = torch.from_numpy(left).to(dev)
+    R = torch.from_numpy(right).to(dev)
+    F = L.shape[0] - 1
+    every = max(cfg.loop.detect_every, 1)
+    n_detect = 1 + F // every
+    scan_set = [(q, m) for q, m, _ in scan["events"]]
+    out_dir = ROOT / "build" / "online"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpt = str(out_dir / "stream.npz")
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def check_run(name, traj, events, kf):
+        check(traj.shape == (F + 1, 4, 4), f"{name}: trajectory shape {traj.shape}")
+        check(bool(np.isfinite(traj).all()), f"{name}: non-finite poses")
+        check([(q, m) for q, m, _ in events] == scan_set,
+              f"{name}: closures {events} differ from phase slam's {scan_set}")
+        for q, m, _ in events:
+            d = (q - m) % LAP
+            check(min(d, LAP - d) <= REVISIT_TOL,
+                  f"{name}: closure ({q}, {m}) is not within {REVISIT_TOL} frames of a true "
+                  f"revisit")
+        ate = metrics.ate_rmse(traj, gt)
+        check(ate < scan["ate_odo"], f"{name}: ATE {ate} m is not below odometry-only "
+                                     f"{scan['ate_odo']} m")
+        valid = kf.valid.cpu().numpy()
+        kf_dev = float(np.abs(kf.poses.cpu().numpy()[valid]
+                              - traj[kf.frame_idx.cpu().numpy()[valid]]).max())
+        check(kf_dev <= KF_POSE_TOL_M, f"{name}: keyframe poses {kf_dev} m off the trajectory")
+        return ate, kf_dev
+
+    # -- streaming ------------------------------------------------------
+    io_s = {}
+
+    def stream(save_at=None):
+        s = slam.StereoSLAM(cfg, voc, device=dev)
+        s.initialize(L[0], R[0])
+        for i in range(1, F + 1):
+            s.process_frame(L[i], R[i])
+            if i == save_at:
+                t0 = time.perf_counter()
+                s.save_checkpoint(ckpt)
+                io_s["save"] = time.perf_counter() - t0
+        return s
+
+    cold, cold_s = timed_run(lambda: stream(save_at=CKPT_FRAME))
+    times, counts = [], None
+    for rep in range(ONLINE_WARM_RUNS):
+        _kernel_counts(reset=rep == 0)
+        s, t = timed_run(stream)
+        times.append(t)
+        if rep == 0:
+            counts = _kernel_counts()
+    traj = s.trajectory_array()
+    events = [(e.query, e.match, e.n_inliers) for e in s.loop_events]
+    ate, kf_dev = check_run("StereoSLAM", traj, events, s.keyframes)
+    check(not s.tracking_failed, "StereoSLAM lost tracking")
+    cold_diff = float(np.abs(cold.trajectory_array() - traj).max())
+    s.save_graph(str(out_dir / "pose_graph.g2o"))
+    g, _ = PoseGraph.load(str(out_dir / "pose_graph.g2o"), cfg.pgo, device=dev)
+    n_pts = s.save_map(str(out_dir / "map.ply"))
+    pts, _ = ply.load_ply(str(out_dir / "map.ply"))
+    check((g.count, g.n_loops) == (F + 1, len(events)),
+          f"g2o read back {g.count} poses, {g.n_loops} loops")
+    check(len(pts) == n_pts > 0, f"map.ply read back {len(pts)} of {n_pts} points")
+    resumed = slam.StereoSLAM(cfg, voc, device=dev)
+    resumed.initialize(L[0], R[0])
+    t0 = time.perf_counter()
+    resumed.load_checkpoint(ckpt)
+    io_s["load"] = time.perf_counter() - t0
+    for i in range(CKPT_FRAME + 1, F + 1):
+        resumed.process_frame(L[i], R[i])
+    check(np.array_equal(resumed.trajectory_array(), cold.trajectory_array())
+          and resumed.loop_events == cold.loop_events,
+          "the run resumed from the checkpoint differs from the uninterrupted run")
+    med = statistics.median(times)
+    log(f"[{smi}] online StereoSLAM: {F + 1} frames, cold {cold_s:.3f} s, warm "
+        f"{[round(t, 4) for t in times]} s, median {med:.4f} s -> {F / med:.2f} fps (the cold "
+        f"run includes saving the checkpoint: {io_s['save']:.3f} s; loading it took "
+        f"{io_s['load']:.3f} s; cold vs warm max |dT| {cold_diff:.3e}); ATE "
+        f"{ate:.4f} m (odometry only {scan['ate_odo']:.4f} m); closures {events}; launches "
+        f"K1 {counts['k1']}, K2 {counts['k2']}, K3 {counts['k3']} ({n_detect} detection "
+        f"frames); keyframe poses within {kf_dev:.2e} m of the trajectory; resumed after frame "
+        f"{CKPT_FRAME}: bitwise equal; g2o {g.count} poses {g.n_loops} loops; map {n_pts} "
+        f"points")
+    for k in ("k1", "k2", "k3"):
+        check(counts[k] > 0, f"StereoSLAM launched no {k} kernel")
+    check(counts["k3"] == n_detect,
+          f"StereoSLAM launched K3 {counts['k3']} times over {n_detect} detection frames")
+    stream_out = {"fps": F / med, "cold_s": cold_s, "counts": counts, "ate": ate}
+
+    # -- chunked --------------------------------------------------------
+    chunk = ONLINE_CHUNK
+
+    def speculative():
+        return slam_chunked.run_online_slam(cfg, voc, L, R, chunk=chunk, device=dev)
+
+    def sequential():
+        c = slam_chunked.ChunkedSLAM(cfg, voc, device=dev)
+        c.initialize(L[0], R[0])
+        n = 0
+        for pos in range(1, F + 1, chunk):
+            c.process_chunk(L[pos:pos + chunk], R[pos:pos + chunk],
+                            query_frames=lambda fid: (L[fid], R[fid]))
+            n += 1
+        return c.result(n_chunks=n)
+
+    _, cold_s = timed_run(speculative)
+    runs = {"speculative": [], "sequential": []}
+    counts = {}
+    for name in ("sequential", "speculative", "speculative", "sequential"):
+        first = name not in counts
+        _kernel_counts(reset=first)
+        res, t = timed_run(speculative if name == "speculative" else sequential)
+        runs[name].append((res, t))
+        if first:
+            counts[name] = _kernel_counts()
+    spec, seq = runs["speculative"][0][0], runs["sequential"][0][0]
+    events = [(int(q), int(m), int(n)) for q, m, n in spec.loop_events]
+    ate_c, kf_dev_c = check_run("run_online_slam", spec.trajectory, events, spec.keyframes)
+    check(spec.n_corrections >= 1, "run_online_slam applied no correction")
+    check(bool(spec.tracking_ok.all()), "run_online_slam lost tracking")
+    same = (np.array_equal(spec.trajectory, seq.trajectory)
+            and all(torch.equal(a, b) for a, b in zip(spec.keyframes, seq.keyframes))
+            and spec.loop_events == seq.loop_events)
+    check(same, "the speculative and the sequential chunked runs differ")
+    extra = _redispatched_detections(events, F, chunk, every)
+    med_spec = statistics.median(t for _, t in runs["speculative"])
+    med_seq = statistics.median(t for _, t in runs["sequential"])
+    cs, cq = counts["speculative"], counts["sequential"]
+    log(f"[{smi}] online run_online_slam(chunk={chunk}): cold {cold_s:.3f} s; speculative "
+        f"warm {[round(t, 4) for _, t in runs['speculative']]} s, median {med_spec:.4f} s -> "
+        f"{F / med_spec:.2f} fps; sequential warm "
+        f"{[round(t, 4) for _, t in runs['sequential']]} s, median {med_seq:.4f} s -> "
+        f"{F / med_seq:.2f} fps; speculative / sequential {med_spec / med_seq:.4f}")
+    log(f"[{smi}] online run_online_slam: {spec.n_chunks} chunks, {spec.n_corrections} "
+        f"corrections, closures {events}; ATE {ate_c:.4f} m (odometry only "
+        f"{scan['ate_odo']:.4f} m); keyframe poses within {kf_dev_c:.2e} m of the trajectory; "
+        f"launches speculative K1 {cs['k1']}, K2 {cs['k2']}, K3 {cs['k3']} ({n_detect} "
+        f"detection frames + {extra} in re-dispatched chunks), sequential K1 {cq['k1']}, K2 "
+        f"{cq['k2']}, K3 {cq['k3']}; speculative = sequential bitwise (trajectory, keyframes)")
+    for form, c in counts.items():
+        for k in ("k1", "k2", "k3"):
+            check(c[k] > 0, f"the {form} chunked run launched no {k} kernel")
+    check(cs["k3"] == n_detect + extra,
+          f"run_online_slam launched K3 {cs['k3']} times, not {n_detect} + {extra}")
+    check(cq["k3"] == n_detect,
+          f"the sequential chunked run launched K3 {cq['k3']} times over {n_detect} frames")
+    return {"stream": stream_out,
+            "chunked": {"fps": F / med_spec, "fps_sequential": F / med_seq, "cold_s": cold_s,
+                        "counts": counts, "ate": ate_c, "corrections": spec.n_corrections}}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         log(f"FAIL: package {PKG}/ not found beside chip_smoke.py")
@@ -1246,7 +1451,7 @@ def main() -> int:
         return out
 
     try:
-        timed("toolchain", phase_toolchain, torch)
+        smi = timed("toolchain", phase_toolchain, torch)
         timed("build", phase_build)
         (left, right, depths, poses, cam), worlds, workers = timed("render", phase_render)
         rl, rr, rgt = worlds["A"]
@@ -1272,6 +1477,7 @@ def main() -> int:
         sm = timed("slam", phase_slam, torch, voc, rl, rr, rgt, slam_cfg, dev)
         bo = timed("batched_odo", phase_batched_odo, torch, left, right, poses, cam, dev)
         bs = timed("batched_slam", phase_batched_slam, torch, voc, worlds, slam_cfg, dev)
+        on = timed("online", phase_online, torch, voc, rl, rr, rgt, slam_cfg, dev, sm, smi)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -1280,6 +1486,9 @@ def main() -> int:
     log(f"single-lane vs batched on this card: odometry {sl['fps']:.2f} fps vs "
         f"{bo['fps']:.2f} fps aggregate over {LANES} lanes; full SLAM {sm['fps']:.2f} fps vs "
         f"{bs['fps']:.2f} fps aggregate")
+    log(f"[{smi}] full SLAM per posture on this card: scan {sm['fps']:.2f} fps, streaming "
+        f"{on['stream']['fps']:.2f} fps, chunked {on['chunked']['fps']:.2f} fps speculative "
+        f"and {on['chunked']['fps_sequential']:.2f} fps sequential")
     # (name, source, TPU kernel it replaces, launches on its own path, measures).
     # K1's launches are counted on the corridor slice, K2's and K3's on full
     # SLAM, K1b's on the batched odometry and K2b's on batched full SLAM.

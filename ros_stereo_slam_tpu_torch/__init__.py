@@ -6,13 +6,15 @@ by side.  This package imports ``torch`` and never ``jax``.
 
 Subpackages
 -----------
-- ``utils``   : Lie groups (SO3/SE3), pinhole camera, trajectory metrics.
+- ``utils``   : Lie groups (SO3/SE3), pinhole camera, trajectory metrics,
+                PLY export, checkpoints.
 - ``data``    : synthetic ground-truth sequence generator.
 - ``ops``     : LK, ORB and the vocabulary descent (each a plain version +
                 a hand-written CUDA kernel), FAST, ANMS, PnP, F-matrix
                 RANSAC, triangulation, SOR, pyramids, sampling, linalg.
 - ``models``  : SLAM state, the per-frame step, the odometry drivers, the
-                vocabulary, loop closure, pose graph, full-SLAM driver.
+                vocabulary, loop closure, pose graph, the full-SLAM drivers
+                (scan, frame by frame, chunked online).
 - ``kernels`` : builds ``csrc/*.cu`` with ``nvcc`` at first use.
 """
 

@@ -2,9 +2,10 @@
 
 The system has no weights; what it carries is the SLAM state: the JAX
 package's ``SlamCarry`` and ``LCScanState`` (after ``jax.device_get``:
-NamedTuples of numpy arrays) become this package's and back, and its
+NamedTuples of numpy arrays) become this package's and back, its
 ``Vocabulary`` (or the npz it saves) becomes a port vocabulary, so both
-packages can descend the same tree and query the same database.  Inputs
+packages can descend the same tree and query the same database, and its
+streaming ``LoopDetector`` and ``PoseGraph`` become the port's.  Inputs
 are read by field name only, so this module needs nothing of JAX.
 
 The random key maps to the port's integer ``key`` as the 64-bit number of
@@ -19,11 +20,16 @@ frame index one int, as :func:`.step.init_carry_batched` makes them.
 
 from __future__ import annotations
 
+import dataclasses
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from ros_stereo_slam_tpu_torch.config import LoopClosureConfig, PGOConfig
+from ros_stereo_slam_tpu_torch.models.loop_closure import LoopDetector
+from ros_stereo_slam_tpu_torch.models.pose_graph import PoseGraph
 from ros_stereo_slam_tpu_torch.models.slam_scan import LCScanState
 from ros_stereo_slam_tpu_torch.models.state import KeyframeStore, TrackState
 from ros_stereo_slam_tpu_torch.models.step import SlamCarry
@@ -133,3 +139,40 @@ def lc_state_to_numpy(lc: LCScanState) -> LCScanState:
         return t.cpu().numpy()
 
     return LCScanState(*(conv(f, getattr(lc, f)) for f in LCScanState._fields))
+
+
+def _config_of(cls, cfg):
+    """A config dataclass of the JAX package -> the port's copy of it."""
+    return cls(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cls)})
+
+
+def detector_from_numpy(det, vocab: Vocabulary, device: torch.device | str) -> LoopDetector:
+    """The JAX package's streaming ``LoopDetector`` -> port
+    :class:`~.loop_closure.LoopDetector` on `device`: its database through
+    :func:`lc_state_from_numpy`, its previous frame's BoW (``_last``, None
+    before the first add) and its gates' temporal window."""
+    nf = np.asarray(det.db_words).shape[-1]
+    last = det._last
+    db = {f: getattr(det, f) for f in LCScanState._fields if f.startswith("db_")}
+    db.update(
+        last_words=np.zeros(nf, np.int32) if last is None else np.asarray(last[0], np.int32),
+        last_wvals=np.zeros(nf, np.float32) if last is None else np.asarray(last[1]),
+        have_last=np.bool_(last is not None),
+    )
+    out = LoopDetector(vocab, _config_of(LoopClosureConfig, det.config), device,
+                       lc=lc_state_from_numpy(SimpleNamespace(**db), device))
+    out._gater._window = [tuple(int(x) for x in w) for w in det._gater._window]
+    return out
+
+
+def graph_from_numpy(g, device: torch.device | str) -> PoseGraph:
+    """The JAX package's ``PoseGraph`` (its arrays as they are, or numpy) ->
+    port :class:`~.pose_graph.PoseGraph` on `device`."""
+    out = PoseGraph(_config_of(PGOConfig, g.config), device)
+    out.odo_Z = _t(np.asarray(g.odo_Z, np.float32), device)
+    out.loop_i = _t(np.asarray(g.loop_i, np.int32), device)
+    out.loop_j = _t(np.asarray(g.loop_j, np.int32), device)
+    out.loop_Z = _t(np.asarray(g.loop_Z, np.float32), device)
+    out.loop_valid = _t(np.asarray(g.loop_valid, bool), device)
+    out.count, out.n_loops = int(g.count), int(g.n_loops)
+    return out

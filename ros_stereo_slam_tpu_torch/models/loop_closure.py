@@ -1,12 +1,17 @@
-"""BoW loop-closure gates and the geometric check.
+"""BoW loop closure: the sparse database, its query, the gates, the
+geometric check and the streaming detector.
 
-Port of the parts of ``ros_stereo_slam_tpu/models/loop_closure.py`` that
-the scan epilogue runs: the pair-derived random streams (:func:`geom_key`,
-:func:`edge_key`), the brute-force Hamming matching + ratio test +
-F-RANSAC check (:func:`_geom_match`, :func:`_geom_match_many`), island
+Port of ``ros_stereo_slam_tpu/models/loop_closure.py``: the pair-derived
+random streams (:func:`geom_key`, :func:`edge_key`), the database of
+:class:`LCScanState` (a ring of sparse BoW rows, binned histograms and
+packed descriptors on the device, written in place by :func:`_db_insert`)
+and its query (:func:`_query_scores`: binned shortlist, exact
+min-intersection rescore), the brute-force Hamming matching + ratio test
++ F-RANSAC check (:func:`_geom_match`, :func:`_geom_match_many`), island
 grouping and the nss / alpha / island / temporal gate chain
-(:class:`CandidateGater`, host logic copied as it is).  The streaming
-``LoopDetector`` is not ported yet.
+(:class:`CandidateGater`, host logic copied as it is), and the streaming
+:class:`LoopDetector`.  The scan step (``slam_scan._lc_scan_step``), the
+streaming detector and the chunked driver share one query and one insert.
 
 Pair keys (ROADMAP H1): each (query, match) pair gets its own
 ``torch.Generator``, seeded from (77, query, match) for the geometric
@@ -17,17 +22,110 @@ draws are not JAX's; tests inject JAX-drawn index sets instead.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ros_stereo_slam_tpu_torch.config import LoopClosureConfig
+from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
 from ros_stereo_slam_tpu_torch.models.step import _generator
 from ros_stereo_slam_tpu_torch.ops import orb as orb_mod
-from ros_stereo_slam_tpu_torch.ops import ransac
+from ros_stereo_slam_tpu_torch.ops import ransac, vocab_cuda
 from ros_stereo_slam_tpu_torch.ops.topk import top_k
 
 _GEOM_SEED = 77
 _EDGE_SEED = 4321
+
+
+class LCScanState(NamedTuple):
+    """Device-resident sparse BoW database (a ring of `db_capacity` frames);
+    batched lanes stack one database per lane on a leading axis."""
+
+    db_words: torch.Tensor  # (cap, nf) int32 merged word ids (0-padded)
+    db_wvals: torch.Tensor  # (cap, nf) f32 L1-normalized TF-IDF weights
+    db_bins: torch.Tensor  # (cap, n_bins) bf16 binned BoW (shortlist matvec)
+    db_bits: torch.Tensor  # (cap, nf, 8) int32 packed descriptors (uint32 bits)
+    db_pts: torch.Tensor  # (cap, nf, 2) f32
+    db_pt_valid: torch.Tensor  # (cap, nf) bool
+    db_valid: torch.Tensor  # (cap,) bool
+    db_ids: torch.Tensor  # (cap,) int32
+    last_words: torch.Tensor  # (nf,) int32 previous detected frame's BoW
+    last_wvals: torch.Tensor  # (nf,) f32
+    have_last: torch.Tensor  # () bool
+
+
+def empty_database(lcc: LoopClosureConfig, device, lanes: int | None = None) -> LCScanState:
+    """An empty database on `device` (one per lane with `lanes`)."""
+    cap, nf = lcc.db_capacity, lcc.orb_features
+    ln = () if lanes is None else (lanes,)
+
+    def z(shape, dtype):
+        return torch.zeros(ln + shape, dtype=dtype, device=device)
+
+    return LCScanState(
+        db_words=z((cap, nf), torch.int32),
+        db_wvals=z((cap, nf), torch.float32),
+        db_bins=z((cap, lcc.n_bins), torch.bfloat16),
+        db_bits=z((cap, nf, orb_mod.N_BITS // 32), torch.int32),
+        db_pts=z((cap, nf, 2), torch.float32),
+        db_pt_valid=z((cap, nf), torch.bool),
+        db_valid=z((cap,), torch.bool),
+        db_ids=torch.full(ln + (cap,), -1, dtype=torch.int32, device=device),
+        last_words=z((nf,), torch.int32),
+        last_wvals=z((nf,), torch.float32),
+        have_last=z((), torch.bool),
+    )
+
+
+def bow_of(feats: orb_mod.OrbFeatures, tree: vocab_mod.PackedTree, idf: torch.Tensor,
+           vocab_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """ORB features -> sparse BoW (uwords, uvals).  ORB's packed words and
+    validity descend the packed vocabulary in one launch of kernel K3 for
+    every descriptor (of every lane, for (B, N) features)."""
+    words = vocab_cuda.descend(feats.desc_bits.reshape(-1, orb_mod.N_BITS // 32),
+                               feats.valid.reshape(-1), tree, vocab_k,
+                               tree.levels).reshape(feats.valid.shape)
+    return vocab_mod.bow_sparse(words, feats.valid, idf, idf.shape[0])
+
+
+def _query_scores(uw, uv, q_bins, db_words, db_wvals, db_bins, db_valid, max_id: int,
+                  db_ids, top_k_n: int, shortlist: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The database query: the binned shortlist over entries dated
+    <= `max_id`, then the exact min-intersection rescore.  Returns (top ids
+    (-1 where no entry), top exact scores (-1e9 there)), top_k_n of them at
+    most; lane form with a leading lane axis on every input."""
+    sdot = vocab_mod.score_db_binned(q_bins, db_bins)
+    ok = db_valid & (db_ids <= max_id)
+    sdot = torch.where(ok, sdot, torch.full_like(sdot, -1e9))
+    C = min(shortlist, db_words.shape[-2])
+    sl_scores, sl_idx = top_k(sdot, C)
+    rows = sl_idx[..., None]  # each lane's shortlisted database rows
+    s_ex = vocab_mod.rescore_min(uw, uv, torch.take_along_dim(db_words, rows, dim=-2),
+                                 torch.take_along_dim(db_wvals, rows, dim=-2))
+    s_ex = torch.where(sl_scores > -1e8, s_ex, torch.full_like(s_ex, -1e9))
+    scores, ti = top_k(s_ex, min(top_k_n, C))
+    ids = torch.where(scores > -1e8, db_ids.gather(-1, sl_idx.gather(-1, ti)),
+                      torch.full_like(scores, -1, dtype=torch.int32))
+    return ids, scores
+
+
+def _db_insert(lc: LCScanState, frame_id: int, feats: orb_mod.OrbFeatures, uw, uv,
+               q_bins) -> LCScanState:
+    """Write the frame into ring slot ``frame_id % capacity`` IN PLACE (every
+    lane its own row under a lane axis) and make it the previous frame.
+    The returned state shares the input's database tensors."""
+    slot = frame_id % lc.db_ids.shape[-1]
+    ring = lc.db_ids.dim() - 1  # the ring axis: 0, or 1 under a lane axis
+    for field, row in ((lc.db_words, uw), (lc.db_wvals, uv), (lc.db_bins, q_bins),
+                       (lc.db_bits, feats.desc_bits), (lc.db_pts, feats.pts),
+                       (lc.db_pt_valid, feats.valid)):
+        field.select(ring, slot).copy_(row)
+    lc.db_valid.select(ring, slot).fill_(True)
+    lc.db_ids.select(ring, slot).fill_(frame_id)
+    return lc._replace(last_words=uw.to(torch.int32), last_wvals=uv,
+                       have_last=torch.ones_like(lc.have_last))
 
 
 def geom_key(query: int, match: int, device) -> torch.Generator:
@@ -170,3 +268,80 @@ class CandidateGater:
         if consistent >= cfg.k_consistency:
             return int(best_id), float(best_score), consistent
         return None
+
+
+@dataclass
+class LoopCandidate:
+    query: int
+    match: int
+    score: float
+    n_inliers: int
+    consistent: int  # temporal-consistency count at acceptance
+    # Geometric-check correspondences (query feature -> match feature) for
+    # the PnP loop edge.
+    match_idx: np.ndarray | None = None  # (N,) int
+    match_inliers: np.ndarray | None = None  # (N,) bool
+
+
+@dataclass
+class LoopDetector:
+    """Streaming detector over the scan posture's database (:class:`LCScanState`
+    on `device`, written in place).  `lc` starts a detector from an existing
+    database (``convert.detector_from_numpy``)."""
+
+    vocab: vocab_mod.Vocabulary
+    config: LoopClosureConfig
+    device: torch.device | str = "cuda"
+    lc: LCScanState | None = None
+
+    def __post_init__(self):
+        self._tree = self.vocab.packed().to(self.device)
+        self._idf = self.vocab.idf.to(self.device)
+        if self.lc is None:
+            self.lc = empty_database(self.config, self.device)
+        # the host's copy of lc.have_last: the query needs a previous frame
+        self.has_last = bool(self.lc.have_last)
+        # the stride widens the island / temporal tolerances when detection
+        # runs every Nth frame, as in the scan epilogue
+        self._gater = CandidateGater(self.config, stride=max(self.config.detect_every, 1))
+
+    def _bow_of(self, feats: orb_mod.OrbFeatures):
+        return bow_of(feats, self._tree, self._idf, self.vocab.k)
+
+    def add(self, frame_id: int, feats: orb_mod.OrbFeatures, bow=None) -> None:
+        """Insert the frame's BoW and features into the database."""
+        uw, uv = self._bow_of(feats) if bow is None else bow
+        self.lc = _db_insert(self.lc, frame_id, feats, uw, uv,
+                             vocab_mod.bin_of_sparse(uw, uv, self.config.n_bins))
+        self.has_last = True
+
+    def detect(self, frame_id: int, feats: orb_mod.OrbFeatures) -> LoopCandidate | None:
+        """Query the database with the frame, gate, verify the geometry of a
+        survivor, then add the frame to the database."""
+        cfg, lc = self.config, self.lc
+        uw, uv = self._bow_of(feats)
+        result = None
+        if self.has_last and frame_id > cfg.dislocal:
+            ns = float(vocab_mod.score_pair_min(uw, uv, lc.last_words, lc.last_wvals))
+            ids, scores = _query_scores(
+                uw, uv, vocab_mod.bin_of_sparse(uw, uv, cfg.n_bins), lc.db_words, lc.db_wvals,
+                lc.db_bins, lc.db_valid, frame_id - cfg.dislocal - 1, lc.db_ids,
+                cfg.max_db_results, cfg.shortlist)
+            gated = self._gater.gate(frame_id, ids.cpu().numpy(), scores.cpu().numpy(), ns)
+            # the separation rule: a candidate failing it is never accepted,
+            # so it gets no geometric check
+            if gated is not None and gated[0] < frame_id - cfg.min_separation:
+                best_id, best_score, consistent = gated
+                slot = best_id % cfg.db_capacity
+                n_inl, best, meas = _geom_match(
+                    feats.desc_bits, feats.pts, feats.valid, lc.db_bits[slot], lc.db_pts[slot],
+                    lc.db_pt_valid[slot], geom_key(frame_id, best_id, lc.db_bits.device),
+                    cfg.geom_thresh_px, cfg.neigh_ratio, iters=cfg.geom_ransac_iters)
+                n_inl = int(n_inl)
+                if n_inl >= cfg.geom_min_points:
+                    result = LoopCandidate(
+                        query=frame_id, match=best_id, score=best_score, n_inliers=n_inl,
+                        consistent=consistent, match_idx=best.cpu().numpy(),
+                        match_inliers=meas.cpu().numpy())
+        self.add(frame_id, feats, (uw, uv))
+        return result

@@ -1,17 +1,22 @@
 """SE(3) pose-graph optimization over the odometry chain and loop edges.
 
-Port of ``optimize``, ``chain_measurements`` and ``rewrite_points`` from
-``ros_stereo_slam_tpu/models/pose_graph.py``: Gauss-Newton with
-right-perturbation Jacobians (second-order inverse right Jacobian),
-vertex 0 fixed, identity information, and the normal equations solved
-by block-Jacobi-preconditioned conjugate gradient whose matvec is an
-edge-wise gather and scatter.  The ``PoseGraph`` class, g2o I/O and the
-edge-sharded layout are not ported yet.
+Port of ``ros_stereo_slam_tpu/models/pose_graph.py``: :func:`optimize`
+runs Gauss-Newton with right-perturbation Jacobians (second-order inverse
+right Jacobian), vertex 0 fixed, identity information, and the normal
+equations solved by block-Jacobi-preconditioned conjugate gradient whose
+matvec is an edge-wise gather and scatter; :class:`PoseGraph` is the
+incremental graph of the online drivers, with g2o text I/O.  The sharded
+layouts (``PoseGraph.optimize(mesh=...)``) are not ported yet.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
+
+from ros_stereo_slam_tpu_torch.config import PGOConfig
 
 from ros_stereo_slam_tpu_torch.ops import linalg
 from ros_stereo_slam_tpu_torch.utils import lie
@@ -153,3 +158,140 @@ def rewrite_points(
     delta = new_poses[fi] @ lie.inv_se3(old_poses[fi])
     return (torch.einsum("kij,kpj->kpi", delta[:, :3, :3], points)
             + delta[:, None, :3, 3])
+
+
+_G2O_INFO = " ".join(["1 0 0 0 0 0", "1 0 0 0 0", "1 0 0 0", "1 0 0", "1 0", "1"])
+
+
+def _g2o_fields(T: np.ndarray) -> list[str]:
+    """(n, 4, 4) transforms -> "tx ty tz qx qy qz qw" per transform, each
+    number printed as a float32."""
+    T = np.asarray(T, dtype=np.float32)
+    q = lie.quat_from_rot(torch.from_numpy(np.ascontiguousarray(T[:, :3, :3]))).numpy()
+    t = T[:, :3, 3]
+    return [f"{a[0]} {a[1]} {a[2]} {b[1]} {b[2]} {b[3]} {b[0]}" for a, b in zip(t, q)]
+
+
+def _transforms_of(vals: list[list[float]]) -> np.ndarray:
+    """Rows "tx ty tz qx qy qz qw" -> (n, 4, 4) float32 transforms."""
+    v = np.asarray(vals, dtype=np.float32).reshape(-1, 7)
+    q = torch.from_numpy(np.ascontiguousarray(v[:, [6, 3, 4, 5]]))
+    T = np.tile(np.eye(4, dtype=np.float32), (v.shape[0], 1, 1))
+    T[:, :3, :3] = lie.rot_from_quat(q).numpy()
+    T[:, :3, 3] = v[:, :3]
+    return T
+
+
+@dataclass
+class PoseGraph:
+    """The incremental pose graph (the reference's ``globalPoseGraph``:
+    initializeGraph / augmentNode / addLoopClosure / globalOptimize) with
+    fixed-capacity tensors on `device`, written in place."""
+
+    config: PGOConfig
+    device: torch.device | str = "cuda"
+    count: int = 0
+    n_loops: int = 0
+
+    def __post_init__(self):
+        F, L = self.config.max_poses, self.config.max_loop_edges
+        eye = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.odo_Z = eye.repeat(F, 1, 1)  # odo_Z[i]: edge (i - 1 -> i)
+        self.loop_i = torch.zeros((L,), dtype=torch.int32, device=self.device)
+        self.loop_j = torch.zeros((L,), dtype=torch.int32, device=self.device)
+        self.loop_Z = eye.repeat(L, 1, 1)
+        self.loop_valid = torch.zeros((L,), dtype=torch.bool, device=self.device)
+
+    def _as_z(self, Z) -> torch.Tensor:
+        return torch.as_tensor(Z, dtype=torch.float32).to(self.device)
+
+    def initialize(self) -> None:
+        self.count = 1  # vertex 0 at identity
+
+    def add_odometry(self, Z) -> None:
+        """Append vertex `count` with edge (count - 1 -> count); raises when
+        the graph holds ``max_poses`` vertices."""
+        self.add_odometry_batch(self._as_z(Z)[None])
+
+    def add_odometry_batch(self, Z) -> None:
+        """Append ``Z.shape[0]`` vertices, one edge each, in one write."""
+        Z = self._as_z(Z)
+        n = Z.shape[0]
+        if self.count + n > self.config.max_poses:
+            raise RuntimeError(f"pose-graph capacity exhausted ({self.config.max_poses} poses); "
+                               "raise PGOConfig.max_poses")
+        self.odo_Z[self.count:self.count + n] = Z
+        self.count += n
+
+    def add_loop(self, i: int, j: int, Z=None) -> None:
+        """Loop edge i -> j; Z defaults to the identity (the reference's
+        closure).  Raises when the edge store is full."""
+        if self.n_loops >= self.loop_i.shape[0]:
+            raise RuntimeError(f"loop-edge capacity exhausted ({self.loop_i.shape[0]}); "
+                               "raise PGOConfig.max_loop_edges")
+        s = self.n_loops
+        self.loop_i[s] = int(i)
+        self.loop_j[s] = int(j)
+        if Z is not None:
+            self.loop_Z[s] = self._as_z(Z)
+        self.loop_valid[s] = True
+        self.n_loops += 1
+
+    def optimize(self, poses: torch.Tensor, mesh=None) -> torch.Tensor:
+        """Global optimization of the (max_poses, 4, 4) `poses` (the
+        reference's ``globalOptimize``); returns new poses."""
+        if mesh is not None:
+            raise NotImplementedError("PoseGraph.optimize(mesh=...) is not ported (the "
+                                      "multi-device slice)")
+        c = self.config
+        return optimize(poses, self.count, self.odo_Z, self.loop_i, self.loop_j, self.loop_Z,
+                        self.loop_valid, iters=c.iters, cg_iters=c.cg_iters, damping=c.damping)
+
+    # -- g2o text I/O (the reference's saveStructure, poseGraph.h:140-179) --
+
+    def save(self, path: str, poses: np.ndarray) -> None:
+        """g2o dump: VERTEX_SE3:QUAT for vertices 0..count-1 of `poses`, then
+        EDGE_SE3:QUAT for the odometry chain and the valid loop edges."""
+        Zs = self.odo_Z[1:self.count].cpu().numpy()
+        n = min(self.n_loops, self.loop_i.shape[0])
+        lv = self.loop_valid[:n].cpu().numpy()
+        li, lj = self.loop_i[:n].cpu().numpy()[lv], self.loop_j[:n].cpu().numpy()[lv]
+        lz = self.loop_Z[:n].cpu().numpy()[lv]
+        with open(path, "w") as f:
+            for i, row in enumerate(_g2o_fields(poses[:self.count])):
+                f.write(f"VERTEX_SE3:QUAT {i} {row}\n")
+            for i, row in enumerate(_g2o_fields(Zs), start=1):
+                f.write(f"EDGE_SE3:QUAT {i - 1} {i} {row} {_G2O_INFO}\n")
+            for a, b, row in zip(li, lj, _g2o_fields(lz)):
+                f.write(f"EDGE_SE3:QUAT {a} {b} {row} {_G2O_INFO}\n")
+
+    @classmethod
+    def load(cls, path: str, config: PGOConfig,
+             device: torch.device | str = "cuda") -> tuple["PoseGraph", np.ndarray]:
+        """Parse a g2o file written by :meth:`save`.  Returns (graph, poses):
+        poses is (max_poses, 4, 4), vertices 0..count-1 filled and identity
+        beyond; an edge between consecutive vertices is odometry, any other
+        a loop edge."""
+        vid, vvals, edges, evals = [], [], [], []
+        with open(path) as f:
+            for line in f:
+                tok = line.split()
+                if tok and tok[0] == "VERTEX_SE3:QUAT":
+                    vid.append(int(tok[1]))
+                    vvals.append([float(x) for x in tok[2:9]])
+                elif tok and tok[0] == "EDGE_SE3:QUAT":
+                    edges.append((int(tok[1]), int(tok[2])))
+                    evals.append([float(x) for x in tok[3:10]])
+        g = cls(config, device)
+        g.initialize()
+        poses = np.tile(np.eye(4, dtype=np.float32), (config.max_poses, 1, 1))
+        poses[vid] = _transforms_of(vvals)
+        odo = np.tile(np.eye(4, dtype=np.float32), (config.max_poses, 1, 1))
+        for (i, j), Z in zip(edges, _transforms_of(evals)):
+            if j == i + 1:
+                odo[j] = Z
+            else:
+                g.add_loop(i, j, Z)
+        g.odo_Z = torch.from_numpy(odo).to(device)
+        g.count = max(vid) + 1 if vid else 1
+        return g, poses

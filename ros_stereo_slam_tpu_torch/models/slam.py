@@ -1,0 +1,288 @@
+"""Full stereo SLAM, frame by frame: odometry + loop closure + pose graph.
+
+Port of ``ros_stereo_slam_tpu/models/slam.py``.  Each
+:meth:`StereoSLAM.process_frame` mirrors the reference's frame flow
+(``reference/src/VisualSLAM.cpp:54-200``, SURVEY.md §3.1/§3.4):
+
+1. the odometry step (:func:`.step.slam_frame_step`), whose relative
+   motion becomes the pose graph's odometry edge;
+2. on every ``detect_every``-th frame, loop detection on the left image
+   (:class:`.loop_closure.LoopDetector`: ORB with kernel K2, the descent
+   with kernel K3, the database query, the gates, the geometric check);
+3. on an accepted closure: the loop edge (measured by PnP exactly as the
+   scan epilogue measures it, :func:`.slam_scan.measure_loop_edges`),
+   global optimization of the whole ``max_poses`` graph, and
+   :func:`corrected_carry`: the keyframe map follows the corrected
+   trajectory and tracking restarts from the optimized pose.
+
+Driver-level accept rule: ``query - match > min_separation`` and a
+cooldown that counts down once per FRAME; detection runs during the
+cooldown, so the database and the gates' temporal window stay those of
+the scan posture, which accepts the same closures.
+
+As the JAX package's driver does, the frames are cast to float32 and NOT
+scaled: uint8 frames reach the step as 0..255 (ROADMAP F2).  The mesh
+(multi-device map) and the RGB map path are not ported and raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ros_stereo_slam_tpu_torch.config import PipelineConfig
+from ros_stereo_slam_tpu_torch.models import loop_closure, slam_scan, step as step_mod
+from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
+from ros_stereo_slam_tpu_torch.models.pipeline import FrameInfo, _grid_for, map_points_of
+from ros_stereo_slam_tpu_torch.models.pose_graph import PoseGraph, rewrite_points
+from ros_stereo_slam_tpu_torch.models.state import TrackState
+from ros_stereo_slam_tpu_torch.ops import orb, pyramid
+from ros_stereo_slam_tpu_torch.utils import lie
+
+
+def corrected_carry(carry: step_mod.SlamCarry, new_poses: torch.Tensor,
+                    old_poses: torch.Tensor, right_img: torch.Tensor, grid_pts: torch.Tensor,
+                    grid_mask: torch.Tensor, cfg: PipelineConfig) -> step_mod.SlamCarry:
+    """Apply a pose-graph result to the carry after frame
+    f = ``carry.frame_idx - 1`` (the reference's ``VisualSLAM.cpp:120-146``,
+    as both online drivers apply it).
+
+    Every keyframe cloud and pose follows the corrected trajectory; the
+    live feature set is re-triangulated at frame f's optimized pose from
+    the full pyramids of frame f's left image (the carry's ``ref_pyr[0]``)
+    and `right_img` (uint8 is scaled); frame f enters the keyframe ring,
+    whose arrays are written in place.
+    """
+    fe = cfg.frontend
+    f = carry.frame_idx - 1
+    kf = carry.keyframes
+    kf = kf._replace(
+        points=rewrite_points(kf.points, kf.frame_idx, old_poses, new_poses),
+        poses=new_poses[kf.frame_idx.to(torch.int64)],
+        retrack=kf.retrack | kf.valid,
+    )
+    T_opt = new_poses[f].clone()
+    left_pyr = pyramid.build_pyramid(carry.ref_pyr[0], fe.lk_levels)
+    right_pyr = pyramid.build_pyramid(step_mod._to_unit(right_img).contiguous(), fe.lk_levels)
+    track, _, _ = step_mod._bootstrap_track(  # one lane
+        tuple(p[None] for p in left_pyr), tuple(p[None] for p in right_pyr), grid_pts[None],
+        grid_mask[None], T_opt[None], cfg)
+    track = TrackState(*(x[0] for x in track))
+    kf = step_mod._insert_keyframe(kf, track, T_opt, f)
+    return carry._replace(track=track, T_wc=T_opt, keyframes=kf)
+
+
+@dataclass
+class LoopEvent:
+    query: int
+    match: int
+    n_inliers: int
+
+
+@dataclass
+class StereoSLAM:
+    """Streaming SLAM: one :meth:`process_frame` per stereo pair on `device`."""
+
+    config: PipelineConfig
+    vocab: vocab_mod.Vocabulary | None = None
+    mesh: object | None = None
+    device: torch.device | str = "cuda"
+    frame_count: int = field(init=False, default=0)
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError("StereoSLAM(mesh=...) is not ported (the multi-device "
+                                      "slice)")
+        cfg = self.config
+        step_mod._check_supported(cfg)
+        self.grid_pts, self.grid_mask = _grid_for(cfg, self.device)
+        self._carry = None
+        self.trajectory_dev = None  # (max_poses, 4, 4) on the device
+        self.graph = PoseGraph(cfg.pgo, self.device)
+        self.detector = (loop_closure.LoopDetector(self.vocab, cfg.loop, self.device)
+                         if self.vocab is not None and cfg.loop.enabled else None)
+        self.cooldown = 0
+        self.loop_events: list[LoopEvent] = []
+        self.keyframe_frames: list[int] = []
+        self.tracking_failed = False
+
+    # -- helpers -----------------------------------------------------------
+
+    def _frame(self, img) -> torch.Tensor:
+        """float32 on the device, NOT scaled (F2)."""
+        return torch.as_tensor(img, dtype=torch.float32).to(self.device).contiguous()
+
+    def _orb(self, left: torch.Tensor) -> orb.OrbFeatures:
+        lcc = self.config.loop
+        return orb.detect_and_compute(left, lcc.orb_features,
+                                      self.config.frontend.fast_thresh / 255.0,
+                                      n_levels=lcc.orb_levels)
+
+    def _append_pose(self, T_wc: torch.Tensor) -> None:
+        f = self.frame_count
+        if f >= self.config.pgo.max_poses:
+            raise RuntimeError(f"trajectory capacity exhausted ({self.config.pgo.max_poses} "
+                               "poses); raise PGOConfig.max_poses")
+        self.trajectory_dev[f] = T_wc
+
+    def _detect_loop(self, left: torch.Tensor,
+                     suppressed: bool) -> loop_closure.LoopCandidate | None:
+        """Detection and the accept rule for the current frame; `suppressed`
+        while the cooldown runs (detection still runs, so the database and
+        the temporal window stay those of the scan posture).  The detector
+        already drops candidates within ``min_separation`` frames."""
+        if self.detector is None:
+            return None
+        cand = self.detector.detect(self.frame_count, self._orb(left))
+        if suppressed or cand is None:
+            return None
+        self.cooldown = self.config.loop.cooldown
+        return cand
+
+    def _measure_loop_edge(self, cand: loop_closure.LoopCandidate, left: torch.Tensor,
+                           right: torch.Tensor) -> tuple:
+        """The closure's pose-graph edge (i, j, Z): PnP-measured to vertex
+        ``match`` or the identity edge to ``match - 1``, computed by the
+        scan epilogue's own :func:`.slam_scan.measure_loop_edges`."""
+        accepted = [(cand.query, cand.match, cand.match_idx, cand.match_inliers,
+                     cand.n_inliers)]
+        _, edges = slam_scan.measure_loop_edges(accepted, self.detector.lc,
+                                                lambda fid: (left, right), self.config)
+        return edges[0]
+
+    # -- public API --------------------------------------------------------
+
+    def initialize(self, left, right, left_rgb=None) -> FrameInfo:
+        """Frame 0: triangulate the initial feature set; frame 0 enters the
+        loop database."""
+        if left_rgb is not None:
+            raise NotImplementedError("left_rgb (the RGB map path) is not ported")
+        cfg = self.config
+        left, right = self._frame(left), self._frame(right)
+        self._carry = step_mod.init_carry(left, right, self.grid_pts, self.grid_mask,
+                                          cfg.seed, cfg)
+        self.trajectory_dev = torch.eye(4, dtype=torch.float32,
+                                        device=self.device).repeat(cfg.pgo.max_poses, 1, 1)
+        self.graph.initialize()
+        if self.detector is not None:
+            self.detector.add(0, self._orb(left))
+        n = int(self._carry.track.mask.sum())
+        self.keyframe_frames.append(0)
+        self.frame_count = 1
+        return FrameInfo(frame=0, T_wc=np.eye(4, dtype=np.float32), n_tracked=n, n_inliers=n,
+                         is_keyframe=True, tracking_ok=True, used_retry=False)
+
+    def process_frame(self, left, right, left_rgb=None) -> FrameInfo:
+        if left_rgb is not None:
+            raise NotImplementedError("left_rgb (the RGB map path) is not ported")
+        cfg = self.config
+        left, right = self._frame(left), self._frame(right)
+        prev_T = self._carry.T_wc
+        self._carry, stats = step_mod.slam_frame_step(self._carry, left, right, self.grid_pts,
+                                                      self.grid_mask, cfg)
+        T_wc = self._carry.T_wc
+        self.graph.add_odometry(lie.inv_se3(prev_T) @ T_wc)
+        self._append_pose(T_wc)
+
+        # the cooldown counts down once per frame, detection frames or not
+        suppressed = self.cooldown > 0
+        if suppressed:
+            self.cooldown -= 1
+        cand = (self._detect_loop(left, suppressed)
+                if self.frame_count % max(cfg.loop.detect_every, 1) == 0 else None)
+        if cand is not None:
+            self.graph.add_loop(*self._measure_loop_edge(cand, left, right))
+            old_poses = self.trajectory_dev
+            self.trajectory_dev = self.graph.optimize(old_poses)
+            self._carry = corrected_carry(self._carry, self.trajectory_dev, old_poses, right,
+                                          self.grid_pts, self.grid_mask, cfg)
+            self.loop_events.append(LoopEvent(cand.query, cand.match, cand.n_inliers))
+
+        frame_idx = self.frame_count
+        self.frame_count += 1
+        n_trk, n_inl, is_kf, ok, retry = torch.stack(
+            [s.long() for s in (stats.n_tracked, stats.n_inliers, stats.is_keyframe,
+                                stats.tracking_ok, stats.used_retry)]).tolist()
+        info = FrameInfo(frame=frame_idx, T_wc=self._carry.T_wc.cpu().numpy(), n_tracked=n_trk,
+                         n_inliers=n_inl, is_keyframe=bool(is_kf) or cand is not None,
+                         tracking_ok=bool(ok), used_retry=bool(retry))
+        if info.is_keyframe:
+            self.keyframe_frames.append(frame_idx)
+        if not info.tracking_ok:
+            self.tracking_failed = True
+        return info
+
+    # -- outputs -----------------------------------------------------------
+
+    def trajectory_array(self) -> np.ndarray:
+        return self.trajectory_dev[: self.frame_count].cpu().numpy()
+
+    @property
+    def keyframes(self):
+        return self._carry.keyframes
+
+    def map_points(self) -> tuple[np.ndarray, np.ndarray]:
+        return map_points_of(self._carry.keyframes)
+
+    def save_graph(self, path: str) -> None:
+        self.graph.save(path, self.trajectory_array())
+
+    def save_map(self, path: str) -> int:
+        from ros_stereo_slam_tpu_torch.utils import ply
+
+        return ply.save_ply(path, *self.map_points())
+
+    # -- checkpoint / resume (the reference saves artifacts, never resumes) --
+
+    def _state_tree(self) -> dict:
+        g = self.graph
+        tree = {
+            "carry": self._carry,
+            "traj": self.trajectory_dev,
+            "graph": {"odo_Z": g.odo_Z, "loop_i": g.loop_i, "loop_j": g.loop_j,
+                      "loop_Z": g.loop_Z, "loop_valid": g.loop_valid},
+        }
+        if self.detector is not None:
+            tree["det"] = self.detector.lc
+        return tree
+
+    def save_checkpoint(self, path: str) -> None:
+        from ros_stereo_slam_tpu_torch.utils import checkpoint
+
+        d = self.detector
+        meta = {
+            "frame_count": self.frame_count,
+            "cooldown": self.cooldown,
+            "graph_count": self.graph.count,
+            "n_loops": self.graph.n_loops,
+            "keyframe_frames": self.keyframe_frames,
+            "loop_events": [[e.query, e.match, e.n_inliers] for e in self.loop_events],
+            "window": [[int(x) for x in w] for w in (d._gater._window if d else [])],
+            "has_last": bool(d and d.has_last),
+            "tracking_failed": self.tracking_failed,
+        }
+        checkpoint.save_pytree(path, self._state_tree(), meta)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore into an object built with the SAME config and vocabulary
+        and ``initialize``d once (which gives the tensors' shapes)."""
+        from ros_stereo_slam_tpu_torch.utils import checkpoint
+
+        tree, meta = checkpoint.load_pytree(path, self._state_tree())
+        self._carry = tree["carry"]
+        self.trajectory_dev = tree["traj"]
+        g = self.graph
+        for name, t in tree["graph"].items():
+            setattr(g, name, t)
+        g.count, g.n_loops = meta["graph_count"], meta["n_loops"]
+        if self.detector is not None:
+            self.detector.lc = tree["det"]
+            self.detector.has_last = meta["has_last"]
+            self.detector._gater._window = [tuple(w) for w in meta["window"]]
+        self.frame_count = meta["frame_count"]
+        self.cooldown = meta["cooldown"]
+        self.keyframe_frames = list(meta["keyframe_frames"])
+        self.loop_events = [LoopEvent(*e) for e in meta["loop_events"]]
+        self.tracking_failed = meta["tracking_failed"]

@@ -26,7 +26,9 @@ lockstep through :mod:`.step_batched`, and every detection frame runs
 :func:`_lc_scan_step` once for all lanes (ORB's K2 and the descent's K3
 launched once for every lane), each lane writing its own database row in
 place.  The interleaved lane cadence (a measured refutation in the
-reference) and the chunked online driver are not ported.
+reference) is not ported.  The online postures, per frame
+(:mod:`.slam`) and in chunks (:mod:`.slam_chunked`), run the same
+detection and the same epilogue pieces.
 """
 
 from __future__ import annotations
@@ -45,26 +47,10 @@ from ros_stereo_slam_tpu_torch.models import step as step_mod
 from ros_stereo_slam_tpu_torch.models import step_batched
 from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
 from ros_stereo_slam_tpu_torch.ops import lk, orb as orb_mod, pnp, pyramid, triangulate
-from ros_stereo_slam_tpu_torch.ops import vocab_cuda
-from ros_stereo_slam_tpu_torch.ops.topk import top_k
 from ros_stereo_slam_tpu_torch.utils import lie
 
 
-class LCScanState(NamedTuple):
-    """Device-resident sparse BoW database (a ring of `db_capacity` frames);
-    batched lanes stack one database per lane on a leading axis."""
-
-    db_words: torch.Tensor  # (cap, nf) int32 merged word ids (0-padded)
-    db_wvals: torch.Tensor  # (cap, nf) f32 L1-normalized TF-IDF weights
-    db_bins: torch.Tensor  # (cap, n_bins) bf16 binned BoW (shortlist matvec)
-    db_bits: torch.Tensor  # (cap, nf, 8) int32 packed descriptors (uint32 bits)
-    db_pts: torch.Tensor  # (cap, nf, 2) f32
-    db_pt_valid: torch.Tensor  # (cap, nf) bool
-    db_valid: torch.Tensor  # (cap,) bool
-    db_ids: torch.Tensor  # (cap,) int32
-    last_words: torch.Tensor  # (nf,) int32 previous detected frame's BoW
-    last_wvals: torch.Tensor  # (nf,) f32
-    have_last: torch.Tensor  # () bool
+LCScanState = lc_mod.LCScanState
 
 
 class LCScanStats(NamedTuple):
@@ -77,25 +63,7 @@ class LCScanStats(NamedTuple):
 
 def init_lc_state(cfg: PipelineConfig, device, lanes: int | None = None) -> LCScanState:
     """An empty database on `device` (one per lane with `lanes`)."""
-    cap, nf = cfg.loop.db_capacity, cfg.loop.orb_features
-    ln = () if lanes is None else (lanes,)
-
-    def z(shape, dtype):
-        return torch.zeros(ln + shape, dtype=dtype, device=device)
-
-    return LCScanState(
-        db_words=z((cap, nf), torch.int32),
-        db_wvals=z((cap, nf), torch.float32),
-        db_bins=z((cap, cfg.loop.n_bins), torch.bfloat16),
-        db_bits=z((cap, nf, orb_mod.N_BITS // 32), torch.int32),
-        db_pts=z((cap, nf, 2), torch.float32),
-        db_pt_valid=z((cap, nf), torch.bool),
-        db_valid=z((cap,), torch.bool),
-        db_ids=torch.full(ln + (cap,), -1, dtype=torch.int32, device=device),
-        last_words=z((nf,), torch.int32),
-        last_wvals=z((nf,), torch.float32),
-        have_last=z((), torch.bool),
-    )
+    return lc_mod.empty_database(cfg.loop, device, lanes)
 
 
 def _top_k_count(lcc) -> int:
@@ -136,48 +104,21 @@ def _lc_scan_step(
     """
     left_img = step_mod._to_unit(left_img).contiguous()
     lcc = cfg.loop
-    n_words = idf.shape[0]
     feats = orb_mod.detect_and_compute(
         left_img, lcc.orb_features, cfg.frontend.fast_thresh / 255.0,
         n_levels=lcc.orb_levels,
     )
-    # all lanes' descriptors descend the tree as one batch
-    words = vocab_cuda.descend(feats.desc_bits.reshape(-1, orb_mod.N_BITS // 32),
-                               feats.valid.reshape(-1), tree, vocab_k,
-                               tree.levels).reshape(feats.valid.shape)
-    uw, uv = vocab_mod.bow_sparse(words, feats.valid, idf, n_words)
+    uw, uv = lc_mod.bow_of(feats, tree, idf, vocab_k)
     q_bins = vocab_mod.bin_of_sparse(uw, uv, lcc.n_bins)
     ns = vocab_mod.score_pair_min(uw, uv, lc.last_words, lc.last_wvals)
-
-    # Binned shortlist over entries dated <= frame_id - dislocal - 1, then
-    # the exact min-intersection rescore: the gates see exact scores.
-    sdot = vocab_mod.score_db_binned(q_bins, lc.db_bins)
-    ok = lc.db_valid & (lc.db_ids <= frame_id - lcc.dislocal - 1)
-    sdot = torch.where(ok, sdot, torch.full_like(sdot, -1e9))
-    sl_scores, sl_idx = top_k(sdot, min(lcc.shortlist, lcc.db_capacity))
-    rows = sl_idx[..., None]  # each lane's shortlisted database rows
-    s_ex = vocab_mod.rescore_min(uw, uv, torch.take_along_dim(lc.db_words, rows, dim=-2),
-                                 torch.take_along_dim(lc.db_wvals, rows, dim=-2))
-    s_ex = torch.where(sl_scores > -1e8, s_ex, torch.full_like(s_ex, -1e9))
-    top_scores, ti = top_k(s_ex, _top_k_count(lcc))
-    top_ids = torch.where(top_scores > -1e8, lc.db_ids.gather(-1, sl_idx.gather(-1, ti)),
-                          torch.full_like(top_scores, -1, dtype=torch.int32))
+    top_ids, top_scores = lc_mod._query_scores(
+        uw, uv, q_bins, lc.db_words, lc.db_wvals, lc.db_bins, lc.db_valid,
+        frame_id - lcc.dislocal - 1, lc.db_ids, _top_k_count(lcc), lcc.shortlist)
     # The reference masks ns with `have_last` AFTER setting it, so a
     # detection frame always reports the raw score (0 on the first frame);
     # only skipped frames carry ns = -1 (_null_stats).
     stats = LCScanStats(top_ids=top_ids, top_scores=top_scores, ns=ns)
-
-    slot = frame_id % lcc.db_capacity
-    ring = left_img.dim() - 2  # the ring axis: 0, or 1 under a lane axis
-    for field, row in ((lc.db_words, uw), (lc.db_wvals, uv), (lc.db_bins, q_bins),
-                       (lc.db_bits, feats.desc_bits), (lc.db_pts, feats.pts),
-                       (lc.db_pt_valid, feats.valid)):
-        field.select(ring, slot).copy_(row)
-    lc.db_valid.select(ring, slot).fill_(True)
-    lc.db_ids.select(ring, slot).fill_(frame_id)
-    lc = lc._replace(last_words=uw.to(torch.int32), last_wvals=uv,
-                     have_last=torch.ones_like(lc.have_last))
-    return lc, stats
+    return lc_mod._db_insert(lc, frame_id, feats, uw, uv, q_bins), stats
 
 
 def _stack(rows: list):
@@ -195,26 +136,30 @@ def run_sequence_slam(
     idf: torch.Tensor,
     cfg: PipelineConfig,
     vocab_k: int,
+    fid_start: int = 1,
 ):
     """Odometry + detection over a staged sequence (`tree`: the packed
-    vocabulary, :meth:`.vocab.Vocabulary.packed`).
+    vocabulary, :meth:`.vocab.Vocabulary.packed`); `fid_start` is the frame
+    id of row 0 (the chunked driver runs a sequence in blocks).
 
     Returns ((carry, lc), (frame stats, detection stats)), each stats
     tuple stacked along frames and left on the device.
     """
     return _run_frames(left_seq, right_seq, carry, lc, grid_pts, grid_mask, tree, idf, cfg,
-                       vocab_k, step_mod.slam_frame_step, _null_stats(cfg, left_seq.device))
+                       vocab_k, step_mod.slam_frame_step, _null_stats(cfg, left_seq.device),
+                       fid_start)
 
 
 def _run_frames(frames_l, frames_r, carry, lc, grid_pts, grid_mask, tree, idf,
-                cfg: PipelineConfig, vocab_k: int, frame_step, null: LCScanStats):
-    """The frame loop of both drivers: `frame_step` on every frame, then,
+                cfg: PipelineConfig, vocab_k: int, frame_step, null: LCScanStats,
+                fid_start: int = 1):
+    """The frame loop of the drivers: `frame_step` on every frame, then,
     on every ``detect_every``-th frame, :func:`_lc_scan_step` (`null` stats
-    on the others).  frames_l[i] is frame i + 1 (of every lane)."""
+    on the others).  frames_l[i] is frame fid_start + i (of every lane)."""
     every = max(cfg.loop.detect_every, 1)
     fstats, lstats = [], []
     for i in range(frames_l.shape[0]):
-        fid = 1 + i
+        fid = fid_start + i
         carry, fs = frame_step(carry, frames_l[i], frames_r[i], grid_pts, grid_mask, cfg)
         if fid % every == 0:
             lc, ls = _lc_scan_step(lc, frames_l[i], fid, tree, idf, cfg, vocab_k)

@@ -28,7 +28,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize(
-    "rel", ["config.py", "ops/grid.py", "data/synthetic.py", "utils/metrics.py"]
+    "rel", ["config.py", "ops/grid.py", "data/synthetic.py", "utils/metrics.py", "utils/ply.py"]
 )
 def test_copy_source_matches_original(rel):
     """Verbatim copies: only the package name in imports differs, and the
@@ -79,10 +79,11 @@ def test_port_import_pulls_in_no_jax():
         "import ros_stereo_slam_tpu_torch\n"
         "from ros_stereo_slam_tpu_torch.models import convert, pipeline, step\n"
         "from ros_stereo_slam_tpu_torch.models import loop_closure, pose_graph, slam_scan, vocab\n"
+        "from ros_stereo_slam_tpu_torch.models import slam, slam_chunked\n"
         "from ros_stereo_slam_tpu_torch.ops import lk_cuda, pnp, sor, triangulate\n"
         "from ros_stereo_slam_tpu_torch.ops import anms, fast, orb, orb_cuda, ransac, vocab_cuda\n"
         "from ros_stereo_slam_tpu_torch.kernels import build\n"
-        "from ros_stereo_slam_tpu_torch.utils import metrics\n"
+        "from ros_stereo_slam_tpu_torch.utils import checkpoint, metrics, ply\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

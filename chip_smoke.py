@@ -43,7 +43,18 @@ Phases (any failure exits non-zero and prints no result line):
     ``StereoSLAM`` frame by frame (a checkpoint after frame 128 resumed in a
     fresh object, the graph and the map written and read back) and
     ``run_online_slam(chunk=32)``, speculative and sequential; both accept
-    phase slam's closures, with K1/K2/K3 counts per path.
+    phase slam's closures, with K1/K2/K3 counts per path;
+11. mapping: config 2, ``preset_mapping()`` through ``run_offline`` over the
+    corridor with its RGB frames staged as uint8 (~69 MB): the trajectory
+    bitwise equal to phase slice's, keyframe 0's colours equal to a host
+    bilinear sample of RGB frame 0, a chromatic map, the PLY read back;
+12. ba: config 4, ``preset_ba()`` (windowed Schur BA on every frame)
+    through ``run_offline`` over the corridor (ATE against phase slice's),
+    through ``step_batched.run_sequence_batched`` as 2 lanes (each lane
+    bitwise equal to its single-lane run) and through ``StereoSLAM`` over
+    world A's frames 0-255 (closures at true revisits, PGO below
+    odometry-only, a checkpoint after frame 128 resumed bitwise), with BA's
+    milliseconds per frame from CUDA events around ``step._ba_refine``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -97,14 +108,14 @@ K2_MIN_AGREE = 0.995
 K2_MAX_CORNER_BITS = 4
 K2_MOMENT_ATOL = 2e-3
 K2_MOMENT_RTOL = 1e-5
-WARM_RUNS = 3
+WARM_RUNS = 3  # phases slice and batched_odo
 # Batched lanes: the corridor splits into 2 lanes of FRAMES // 2 frames
 # (bench.py --lanes 2); full SLAM runs the revisit worlds A and B as 2
 # lanes.  A lane's poses must match its single-lane run with the same key
 # within LANE_TOL_M (the bound of tests/test_batched.py).
 LANES = 2
 LANE_TOL_M = 1e-4
-SLAM_WARM_RUNS_BATCHED = 2
+SLAM_WARM_RUNS = 2  # phases slam and batched_slam
 # Revisit worlds: (plan seed, world seed); A is bench.py's.  Frame 256
 # starts a third lap with a fresh jitter and brightness, a jump that some
 # seed pairs leave with under 10 PnP inliers; B's pair keeps >= 44 there.
@@ -116,6 +127,15 @@ ONLINE_WARM_RUNS = 2
 ONLINE_CHUNK = 32
 CKPT_FRAME = LAP
 KF_POSE_TOL_M = 1e-4
+# Configs 2 and 4 (phases mapping and ba): warm runs per path; keyframe 0's
+# colours against a host bilinear sample of RGB frame 0; the ATE bound of
+# BA against phase slice's (tests/test_ba_pipeline.py); StereoSLAM under
+# BA runs world A's frames 0-255 (frame 256 starts a third lap that some
+# runs lose, PERF.md section 7).
+MAPPING_WARM_RUNS = 2
+BA_WARM_RUNS = 2
+COLOUR_ATOL = 1e-5
+BA_SLAM_FRAMES = 255
 # The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet): HBM
 # bytes/s, float32 FLOP/s outside the tensor cores, int8 OP/s.
 PEAK_BYTES_S = 3.35e12
@@ -183,12 +203,17 @@ def phase_build() -> None:
                     log(f"  ptxas: {line.strip()}")
 
 
-def _render_job(world_kw: dict, indices: list) -> list:
-    """Worker process: render frames `indices` of one SyntheticWorld."""
+def _render_job(world_kw: dict, indices: list, rgb: bool = False) -> list:
+    """Worker process: render frames `indices` of one SyntheticWorld (with
+    `rgb`, their left RGB frames as uint8)."""
+    import numpy as np
+
     from ros_stereo_slam_tpu_torch.config import CameraConfig
     from ros_stereo_slam_tpu_torch.data.synthetic import SyntheticWorld
 
     world = SyntheticWorld(camera=CameraConfig(), **world_kw)
+    if rgb:
+        return [(world.render_rgb(i) * 255.0 + 0.5).astype(np.uint8) for i in indices]
     return [world.render(i) for i in indices]
 
 
@@ -265,11 +290,11 @@ def revisit_frames(seeds: tuple[int, int], frames: list, camera=None, noise_seed
 
 
 def phase_render():
-    """The corridor and both revisit worlds at full KITTI geometry, rendered
-    by worker processes.
+    """The corridor (with its RGB frames) and both revisit worlds at full
+    KITTI geometry, rendered by worker processes.
 
-    Returns ((corridor left, right, depths {0, 24}, poses, camera),
-    {"A": (revisit left, right, poses), "B": ...}, workers)."""
+    Returns ((corridor left, right, depths {0, 24}, poses, camera, RGB
+    uint8), {"A": (revisit left, right, poses), "B": ...}, workers)."""
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.config import CameraConfig
@@ -281,13 +306,17 @@ def phase_render():
     corridor_poses = SyntheticWorld(camera=cam, **corridor_kw).poses
     plans = {name: _revisit_plan(SLAM_FRAMES + 1, (cam.height, cam.width), *seeds)
              for name, seeds in REVISIT_SEEDS.items()}
-    chunks = []  # (world kwargs, frame indices), 8 frames each
+    chunks = []  # (world kwargs, frame indices, rgb), 8 frames each
     for kw, idx in [(corridor_kw, list(range(FRAMES + 1)))] + [
             job for jobs, _, _ in plans.values() for job in jobs]:
-        chunks += [(kw, idx[i:i + 8]) for i in range(0, len(idx), 8)]
+        chunks += [(kw, idx[i:i + 8], False) for i in range(0, len(idx), 8)]
+    rgb_chunks = [(corridor_kw, list(range(i, min(i + 8, FRAMES + 1))), True)
+                  for i in range(0, FRAMES + 1, 8)]
     workers = max(1, min(8, os.cpu_count() or 1))
     with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        frames = [f for part in pool.starmap(_render_job, chunks) for f in part]
+        parts = pool.starmap(_render_job, chunks + rgb_chunks)
+    frames = [f for part in parts[:len(chunks)] for f in part]
+    rgb = np.stack([f for part in parts[len(chunks):] for f in part])
     corridor, rest = frames[:FRAMES + 1], frames[FRAMES + 1:]
     worlds = {}
     for name, (_, post, gt) in plans.items():
@@ -303,7 +332,7 @@ def phase_render():
         worlds[name] = (np.stack(lefts), np.stack(rights), gt)
     per = FRAMES // LANES
     return ((np.stack([f[0] for f in corridor]), np.stack([f[1] for f in corridor]),
-             {0: corridor[0][2], per: corridor[per][2]}, corridor_poses, cam),
+             {0: corridor[0][2], per: corridor[per][2]}, corridor_poses, cam, rgb),
             worlds, workers)
 
 
@@ -1013,7 +1042,8 @@ def phase_slice(torch, left, right, poses, cam, dev) -> dict:
     diff = float(np.abs(odo.trajectory_array() - traj[:n_stream]).max())
     log(f"StereoOdometry vs run_offline over {n_stream} frames: max |dT| {diff:.3e}")
     check(diff <= 1e-5, f"StereoOdometry poses differ from run_offline by {diff}")
-    return {"launches": launches, "fps": F / med, "ate": ate}
+    return {"launches": launches, "fps": F / med, "ate": ate, "trajectory": traj,
+            "host_reads": host_reads}
 
 
 def phase_slam(torch, voc, left, right, gt, cfg, dev) -> dict:
@@ -1034,7 +1064,7 @@ def phase_slam(torch, voc, left, right, gt, cfg, dev) -> dict:
     first_s = time.perf_counter() - t0
 
     times, counts = [], None
-    for rep in range(WARM_RUNS):
+    for rep in range(SLAM_WARM_RUNS):
         if rep == 0:
             lk_cuda.LAUNCHES = orb_cuda.LAUNCHES = vocab_cuda.LAUNCHES = 0
             step.HOST_READS = step.RESCUES = 0
@@ -1175,7 +1205,7 @@ def phase_batched_slam(torch, voc, worlds, cfg, dev) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     times, counts = [], None
-    for rep in range(SLAM_WARM_RUNS_BATCHED):
+    for rep in range(SLAM_WARM_RUNS):
         if rep == 0:
             lk_cuda.LAUNCHES = lk_cuda.BATCH_LAUNCHES = 0
             orb_cuda.LAUNCHES = orb_cuda.BATCH_LAUNCHES = vocab_cuda.LAUNCHES = 0
@@ -1257,7 +1287,7 @@ def phase_online(torch, voc, left, right, gt, cfg, dev, scan: dict, smi: str) ->
     after CKPT_FRAME, warm runs, the checkpoint resumed in a fresh object,
     the graph and map files read back), then run_online_slam speculative
     and ChunkedSLAM.process_chunk in a loop (sequential): a cold run, then
-    warm runs in turns.  Counts from the first warm run of each form; each
+    one warm run of each (sequential first).  Counts from the warm runs; each
     run is checked against phase slam (`scan`) and ground truth."""
     import numpy as np
 
@@ -1380,7 +1410,7 @@ def phase_online(torch, voc, left, right, gt, cfg, dev, scan: dict, smi: str) ->
     _, cold_s = timed_run(speculative)
     runs = {"speculative": [], "sequential": []}
     counts = {}
-    for name in ("sequential", "speculative", "speculative", "sequential"):
+    for name in ("sequential", "speculative"):
         first = name not in counts
         _kernel_counts(reset=first)
         res, t = timed_run(speculative if name == "speculative" else sequential)
@@ -1423,6 +1453,282 @@ def phase_online(torch, voc, left, right, gt, cfg, dev, scan: dict, smi: str) ->
                         "counts": counts, "ate": ate_c, "corrections": spec.n_corrections}}
 
 
+def _bilinear_host(img, pts):
+    """Float64 bilinear samples of an (H, W, C) image at (N, 2) (x, y)
+    points, clamped as the step clamps them."""
+    import numpy as np
+
+    h, w = img.shape[:2]
+    x = np.clip(pts[:, 0].astype(np.float64), 0.0, w - 1.001)
+    y = np.clip(pts[:, 1].astype(np.float64), 0.0, h - 1.001)
+    x0, y0 = np.floor(x).astype(int), np.floor(y).astype(int)
+    fx, fy = (x - x0)[:, None], (y - y0)[:, None]
+    im = img.astype(np.float64)
+    return ((1 - fy) * ((1 - fx) * im[y0, x0] + fx * im[y0, x0 + 1])
+            + fy * ((1 - fx) * im[y0 + 1, x0] + fx * im[y0 + 1, x0 + 1]))
+
+
+def phase_mapping(torch, left, right, rgb8, cam, dev, sl: dict, smi: str) -> dict:
+    """Config 2 on the card: preset_mapping() through run_offline over the
+    corridor, its RGB frames staged as uint8; one cold run, then warm
+    runs, K1 counted over the first warm run."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.config import preset_mapping
+    from ros_stereo_slam_tpu_torch.models import pipeline, step
+    from ros_stereo_slam_tpu_torch.ops import lk_cuda
+    from ros_stereo_slam_tpu_torch.utils import ply
+
+    cfg = preset_mapping().replace(camera=cam)
+    L, R = (torch.from_numpy(a).to(dev) for a in (left, right))
+    RGB = torch.from_numpy(rgb8).to(dev)
+    F = L.shape[0] - 1
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline.run_offline(cfg, L, R, device=dev, rgb_seq=RGB)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, cold_s = run()
+    times, launches = [], None
+    for rep in range(MAPPING_WARM_RUNS):
+        if rep == 0:
+            lk_cuda.LAUNCHES = step.HOST_READS = 0
+        res, t = run()
+        times.append(t)
+        if rep == 0:
+            launches, host_reads = lk_cuda.LAUNCHES, step.HOST_READS
+    traj_diff = float(np.abs(res.trajectory - sl["trajectory"]).max())
+    kf = res.keyframes
+    m0 = kf.point_mask[0].cpu().numpy()
+    want = _bilinear_host(rgb8[0].astype(np.float64) / 255.0,
+                          pipeline._grid_for(cfg, "cpu")[0].numpy())
+    colour_err = float(np.abs(kf.colors[0].cpu().numpy()[m0] - want[m0]).max())
+    pts, cols = pipeline.map_points_of(kf)
+    spread = float(np.abs(cols[:, 0] - cols[:, 2]).mean())
+    out_dir = ROOT / "build" / "mapping"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    n_pts = ply.save_ply(str(out_dir / "map.ply"), pts, cols)
+    back, back_cols = ply.load_ply(str(out_dir / "map.ply"))
+    med = statistics.median(times)
+    log(f"[{smi}] mapping: preset_mapping(), {F + 1} corridor frames "
+        f"{left.shape[2]}x{left.shape[1]} + uint8 RGB ({RGB.numel() / 1e6:.1f} MB on the card), "
+        f"cold {cold_s:.3f} s, warm {[round(t, 4) for t in times]} s, median {med:.4f} s -> "
+        f"{F / med:.2f} fps ({F / med / sl['fps']:.3f}x phase slice's); K1 launches {launches}, "
+        f"host reads/frame {host_reads / F:.2f}; max |dT| vs phase slice {traj_diff:.3e}; "
+        f"keyframe 0 colours vs host bilinear {colour_err:.2e} (bound {COLOUR_ATOL}); mean "
+        f"|R - B| {spread:.4f}; map {n_pts} points, PLY read back {len(back)}")
+    check(bool(res.tracking_ok.all()), "mapping: tracking lost")
+    check(np.array_equal(res.trajectory, sl["trajectory"]),
+          f"mapping: the trajectory differs from phase slice's by {traj_diff}")
+    check(colour_err <= COLOUR_ATOL, f"mapping: keyframe 0 colours off by {colour_err}")
+    check(spread > 0.02, f"mapping: the map is effectively gray (mean |R - B| {spread})")
+    check(back_cols is not None and len(back) == n_pts == len(pts) > 0,
+          f"mapping: PLY read back {len(back)} of {n_pts} points")
+    check(launches > 0, "mapping: the path launched no K1 kernel")
+    return {"fps": F / med, "launches": launches, "n_points": n_pts}
+
+
+class _BATimer:
+    """CUDA events around every ``step._ba_refine`` call while active (the
+    window push, the solve of every lane, the refined pose read)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = []
+
+    def __enter__(self):
+        from ros_stereo_slam_tpu_torch.models import step
+
+        self._orig = step._ba_refine
+
+        def timed(*args):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(*args)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        step._ba_refine = timed
+        return self
+
+    def __exit__(self, *exc):
+        from ros_stereo_slam_tpu_torch.models import step
+
+        step._ba_refine = self._orig
+
+    def ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def phase_ba(torch, voc, left, right, poses, cam, dev, sl: dict, rl, rr, rgt, smi: str) -> dict:
+    """Config 4 on the card: preset_ba() through run_offline over the
+    corridor, through the batched step as 2 lanes, and through StereoSLAM
+    over world A's frames 0-BA_SLAM_FRAMES.  Each: one cold run, then warm
+    runs; counts over the first warm run; BA's ms per frame from CUDA
+    events around step._ba_refine on the warm runs."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.config import preset_ba
+    from ros_stereo_slam_tpu_torch.models import pipeline, slam, step, step_batched
+    from ros_stereo_slam_tpu_torch.ops import lk_cuda
+    from ros_stereo_slam_tpu_torch.utils import metrics
+
+    cfg = preset_ba().replace(camera=cam)
+    L, R = (torch.from_numpy(a).to(dev) for a in (left, right))
+    F = L.shape[0] - 1
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # -- run_offline over the corridor ---------------------------------
+    def offline():
+        return pipeline.run_offline(cfg, L, R, device=dev)
+
+    _, cold_s = timed_run(offline)
+    times, counts = [], None
+    with _BATimer(torch) as timer:
+        for rep in range(BA_WARM_RUNS):
+            if rep == 0:
+                _kernel_counts(reset=True)
+                step.HOST_READS = 0
+            res, t = timed_run(offline)
+            times.append(t)
+            if rep == 0:
+                counts = dict(_kernel_counts(), host_reads=step.HOST_READS)
+    ba_ms = timer.ms()
+    med = statistics.median(times)
+    ate = metrics.ate_rmse(res.trajectory, poses)
+    bound = max(1.5 * sl["ate"], 0.05)
+    pts, _ = pipeline.map_points_of(res.keyframes)
+    log(f"[{smi}] ba offline: preset_ba() (window {cfg.ba.window}, {cfg.ba.iters} GN "
+        f"iterations), {F + 1} corridor frames {left.shape[2]}x{left.shape[1]}, cold "
+        f"{cold_s:.3f} s, warm {[round(t, 4) for t in times]} s, median {med:.4f} s -> "
+        f"{F / med:.2f} fps ({F / med / sl['fps']:.3f}x phase slice's); ATE {ate:.4f} m "
+        f"(bound {bound:.4f}: max(1.5 x slice's {sl['ate']:.4f}, 0.05)); BA ms/frame median "
+        f"{statistics.median(ba_ms):.3f}, mean {statistics.fmean(ba_ms):.3f}, max "
+        f"{max(ba_ms):.3f} over {len(ba_ms)} frames; ba_rms {float(res.ba_rms.min()):.3f}-"
+        f"{float(res.ba_rms.max()):.3f} px; keyframes {1 + int(res.is_keyframe.sum())}; "
+        f"K1 launches {counts['k1']}; host reads/frame {counts['host_reads'] / F:.2f}")
+    check(bool(res.tracking_ok.all()),
+          f"ba offline: tracking lost on frames {np.nonzero(~res.tracking_ok)[0] + 1}")
+    check(ate < bound, f"ba offline: ATE {ate} m >= {bound} m")
+    check(bool(np.isfinite(res.ba_rms).all()), "ba offline: non-finite ba_rms")
+    check(bool(np.isfinite(pts).all()) and len(pts) > 0, "ba offline: non-finite map")
+    check(counts["host_reads"] == sl["host_reads"],
+          f"ba offline: {counts['host_reads']} host reads, phase slice {sl['host_reads']}")
+    check(counts["k1"] > 0, "ba offline: the path launched no K1 kernel")
+    offline_out = {"fps": F / med, "ate": ate, "ba_ms": statistics.median(ba_ms),
+                   "counts": counts}
+
+    # -- 2 lanes (bench.py's --lanes 2 split) ---------------------------
+    per = FRAMES // LANES
+    Ls = torch.stack([L[b * per:(b + 1) * per + 1] for b in range(LANES)])
+    Rs = torch.stack([R[b * per:(b + 1) * per + 1] for b in range(LANES)])
+    gp, gm = pipeline._grid_for(cfg, dev)
+    keys = step_batched.lane_keys(cfg.seed, LANES)
+
+    def lanes():
+        c0 = step.init_carry_batched(Ls[:, 0], Rs[:, 0], gp, gm, keys, cfg)
+        return step_batched.run_sequence_batched(Ls[:, 1:], Rs[:, 1:], c0, gp, gm, cfg)
+
+    _, cold_l = timed_run(lanes)
+    lk_cuda.LAUNCHES = lk_cuda.BATCH_LAUNCHES = 0
+    with _BATimer(torch) as timer:
+        (cN, st), t_l = timed_run(lanes)
+    ba_ms_l = timer.ms()
+    k1b, k1_l = lk_cuda.BATCH_LAUNCHES, lk_cuda.LAUNCHES
+    diffs, equal = [], True
+    for b in range(LANES):
+        c = step.init_carry(Ls[b, 0], Rs[b, 0], gp, gm, keys[b], cfg)
+        cs, ss = step.run_sequence(Ls[b, 1:], Rs[b, 1:], c, gp, gm, cfg)
+        diffs.append(max(float((st.T_wc[:, b] - ss.T_wc).abs().max()),
+                         float((st.ba_rms[:, b] - ss.ba_rms).abs().max())))
+        equal &= all(torch.equal(getattr(st, n)[:, b], getattr(ss, n)) for n in ss._fields)
+        equal &= all(torch.equal(x[b], y) for x, y in zip(cN.ba, cs.ba))
+    kf_lanes = (st.is_keyframe.sum(0) + 1).tolist()
+    log(f"[{smi}] ba lanes: {LANES} lanes x {per} frames, cold {cold_l:.3f} s, warm "
+        f"{t_l:.4f} s -> {LANES * per / t_l:.2f} fps aggregate; BA ms/frame (all lanes) median "
+        f"{statistics.median(ba_ms_l):.3f}; keyframes per lane {kf_lanes}; K1b launches {k1b}, "
+        f"K1 {k1_l}; max |difference| vs the single-lane runs per lane "
+        f"{[f'{d:.2e}' for d in diffs]} (T_wc, ba_rms); bitwise equal {equal}")
+    check(bool(st.tracking_ok.all()), "ba lanes: tracking lost")
+    check(equal, f"ba lanes: a lane differs from its single-lane run ({diffs})")
+    check(k1b > 0, "ba lanes: the batched path launched no K1b kernel")
+    lanes_out = {"fps": LANES * per / t_l, "k1b": k1b, "lane_diff": max(diffs)}
+
+    # -- StereoSLAM over world A's frames 0-BA_SLAM_FRAMES ---------------
+    n = BA_SLAM_FRAMES
+    SL, SR = (torch.from_numpy(a[:n + 1]).to(dev) for a in (rl, rr))
+    gt = rgt[:n + 1]
+    ckpt = str(ROOT / "build" / "online" / "stream_ba.npz")
+    (ROOT / "build" / "online").mkdir(parents=True, exist_ok=True)
+
+    def stream(save_at=None):
+        s = slam.StereoSLAM(cfg, voc, device=dev)
+        s.initialize(SL[0], SR[0])
+        for i in range(1, n + 1):
+            s.process_frame(SL[i], SR[i])
+            if i == save_at:
+                s.save_checkpoint(ckpt)
+        return s
+
+    cold, cold_st = timed_run(lambda: stream(save_at=CKPT_FRAME))
+    _kernel_counts(reset=True)
+    with _BATimer(torch) as timer:
+        s, t_s = timed_run(stream)
+    counts_s = _kernel_counts()
+    ba_ms_s = timer.ms()
+    traj = s.trajectory_array()
+    g = s.graph
+    Z = g.odo_Z[:g.count].double().cpu().numpy()
+    odo = np.empty_like(Z)
+    odo[0] = np.eye(4)
+    for i in range(1, len(Z)):
+        odo[i] = odo[i - 1] @ Z[i]
+    ate_s, ate_odo = metrics.ate_rmse(traj, gt), metrics.ate_rmse(odo, gt)
+    events = [(e.query, e.match, e.n_inliers) for e in s.loop_events]
+    resumed = slam.StereoSLAM(cfg, voc, device=dev)
+    resumed.initialize(SL[0], SR[0])
+    resumed.load_checkpoint(ckpt)
+    for i in range(CKPT_FRAME + 1, n + 1):
+        resumed.process_frame(SL[i], SR[i])
+    same = (np.array_equal(resumed.trajectory_array(), cold.trajectory_array())
+            and resumed.loop_events == cold.loop_events
+            and all(torch.equal(x, y) for x, y in zip(resumed._carry.ba, cold._carry.ba)))
+    cold_diff = float(np.abs(cold.trajectory_array() - traj).max())
+    log(f"[{smi}] ba StereoSLAM: preset_ba(), world A frames 0-{n}, cold {cold_st:.3f} s (with "
+        f"the checkpoint), warm {t_s:.4f} s -> {n / t_s:.2f} fps; ATE {ate_s:.4f} m, its "
+        f"odometry chain {ate_odo:.4f} m; closures {events}; BA ms/frame median "
+        f"{statistics.median(ba_ms_s):.3f}, mean {statistics.fmean(ba_ms_s):.3f}; launches K1 "
+        f"{counts_s['k1']}, K2 {counts_s['k2']}, K3 {counts_s['k3']}; cold vs warm max |dT| "
+        f"{cold_diff:.3e}; resumed after frame {CKPT_FRAME}: bitwise equal {same}")
+    check(not s.tracking_failed, "ba StereoSLAM lost tracking")
+    check(len(events) >= 1, "ba StereoSLAM: no loop closure accepted")
+    for q, m, _ in events:
+        d = (q - m) % LAP
+        check(min(d, LAP - d) <= REVISIT_TOL,
+              f"ba StereoSLAM: closure ({q}, {m}) is not within {REVISIT_TOL} frames of a true "
+              f"revisit")
+    check(ate_s < ate_odo, f"ba StereoSLAM: ATE {ate_s} m is not below its odometry chain's "
+                           f"{ate_odo} m")
+    check(same, "ba StereoSLAM: the run resumed from the checkpoint differs")
+    for k in ("k1", "k2", "k3"):
+        check(counts_s[k] > 0, f"ba StereoSLAM launched no {k} kernel")
+    return {"offline": offline_out, "lanes": lanes_out,
+            "stream": {"fps": n / t_s, "ate": ate_s, "ate_odo": ate_odo, "events": events,
+                       "ba_ms": statistics.median(ba_ms_s), "counts": counts_s}}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         log(f"FAIL: package {PKG}/ not found beside chip_smoke.py")
@@ -1453,7 +1759,7 @@ def main() -> int:
     try:
         smi = timed("toolchain", phase_toolchain, torch)
         timed("build", phase_build)
-        (left, right, depths, poses, cam), worlds, workers = timed("render", phase_render)
+        (left, right, depths, poses, cam, rgb8), worlds, workers = timed("render", phase_render)
         rl, rr, rgt = worlds["A"]
         log(f"rendered {left.shape[0]} corridor + {len(worlds)} x {rl.shape[0]} revisit "
             f"frames with {workers} worker processes (host)")
@@ -1478,6 +1784,8 @@ def main() -> int:
         bo = timed("batched_odo", phase_batched_odo, torch, left, right, poses, cam, dev)
         bs = timed("batched_slam", phase_batched_slam, torch, voc, worlds, slam_cfg, dev)
         on = timed("online", phase_online, torch, voc, rl, rr, rgt, slam_cfg, dev, sm, smi)
+        mp = timed("mapping", phase_mapping, torch, left, right, rgb8, cam, dev, sl, smi)
+        ba = timed("ba", phase_ba, torch, voc, left, right, poses, cam, dev, sl, rl, rr, rgt, smi)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -1489,29 +1797,47 @@ def main() -> int:
     log(f"[{smi}] full SLAM per posture on this card: scan {sm['fps']:.2f} fps, streaming "
         f"{on['stream']['fps']:.2f} fps, chunked {on['chunked']['fps']:.2f} fps speculative "
         f"and {on['chunked']['fps_sequential']:.2f} fps sequential")
+    log(f"[{smi}] configs 2 and 4 against odometry on this card: slice {sl['fps']:.2f} fps, "
+        f"mapping {mp['fps']:.2f} fps ({mp['fps'] / sl['fps']:.3f}x), BA "
+        f"{ba['offline']['fps']:.2f} fps ({ba['offline']['fps'] / sl['fps']:.3f}x, "
+        f"{ba['offline']['ba_ms']:.3f} ms of BA per frame), BA 2 lanes "
+        f"{ba['lanes']['fps']:.2f} fps aggregate; full SLAM with BA (StereoSLAM) "
+        f"{ba['stream']['fps']:.2f} fps vs streaming without {on['stream']['fps']:.2f} fps")
     # (name, source, TPU kernel it replaces, launches on its own path, measures).
     # K1's launches are counted on the corridor slice, K2's and K3's on full
     # SLAM, K1b's on the batched odometry and K2b's on batched full SLAM.
     # No single PyTorch call computes any of them, so library_ms is null.
+    # launches_by_path: each path's count, its counters set to 0 before it.
     # ms is the time of a wrapper call (CUDA events around it, host work
     # included), device_ms the kernel's own (bare launches back to back),
     # launch_floor_ms an empty kernel's, taken the same way.
     table = [
-        ("lk_level", "lk_level", "lk_pallas.py:120", sl["launches"], k1),
-        ("orb_desc", "orb_desc", "orb_pallas.py:84", sm["counts"]["orb_desc"], k2),
+        ("lk_level", "lk_level", "lk_pallas.py:120", sl["launches"], k1,
+         {"slice": sl["launches"], "slam": sm["counts"]["lk_level"],
+          "online_stream": on["stream"]["counts"]["k1"], "mapping": mp["launches"],
+          "ba": ba["offline"]["counts"]["k1"], "ba_stream": ba["stream"]["counts"]["k1"]}),
+        ("orb_desc", "orb_desc", "orb_pallas.py:84", sm["counts"]["orb_desc"], k2,
+         {"slam": sm["counts"]["orb_desc"], "online_stream": on["stream"]["counts"]["k2"],
+          "ba_stream": ba["stream"]["counts"]["k2"]}),
         ("vocab_descend", "vocab_descend", "vocab_pallas.py:72",
-         sm["counts"]["vocab_descend"], k3),
-        ("lk_level_batch", "lk_level", "lk_pallas.py:361", bo["launches"], k1b),
-        ("orb_desc_batch", "orb_desc", "orb_pallas.py:207", bs["counts"]["k2b"], k2b),
+         sm["counts"]["vocab_descend"], k3,
+         {"slam": sm["counts"]["vocab_descend"], "online_stream": on["stream"]["counts"]["k3"],
+          "ba_stream": ba["stream"]["counts"]["k3"]}),
+        ("lk_level_batch", "lk_level", "lk_pallas.py:361", bo["launches"], k1b,
+         {"batched_odo": bo["launches"], "batched_slam": bs["counts"]["k1b"],
+          "ba_lanes": ba["lanes"]["k1b"]}),
+        ("orb_desc_batch", "orb_desc", "orb_pallas.py:207", bs["counts"]["k2b"], k2b,
+         {"batched_slam": bs["counts"]["k2b"]}),
     ]
     rows = []
-    for name, src, replaces, launches, meas in table:
+    for name, src, replaces, launches, meas, by_path in table:
         row = {"name": name, "route": "cuda", "source": f"{PKG}/csrc/{src}.cu",
                "replaces": f"ros_stereo_slam_tpu/ops/{replaces}", "launches": launches,
                "max_abs_err": meas["max_abs_err"], "ms": meas["ms"],
                "plain_ms": meas["plain_ms"], "bound_ms": meas["bound_ms"],
                "bound_by": meas["bound_by"], "library_ms": None,
-               "device_ms": meas["device_ms"], "launch_floor_ms": floor_ms}
+               "device_ms": meas["device_ms"], "launch_floor_ms": floor_ms,
+               "launches_by_path": by_path}
         for key in ("mismatches", "device_ms_spaced_hot", "device_ms_cold", "whole_descent_ms",
                     "int8_bound_ms"):
             if key in meas:

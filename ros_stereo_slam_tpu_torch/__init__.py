@@ -13,8 +13,9 @@ Subpackages
                 a hand-written CUDA kernel), FAST, ANMS, PnP, F-matrix
                 RANSAC, triangulation, SOR, pyramids, sampling, linalg.
 - ``models``  : SLAM state, the per-frame step, the odometry drivers, the
-                vocabulary, loop closure, pose graph, the full-SLAM drivers
-                (scan, frame by frame, chunked online).
+                vocabulary, loop closure, pose graph, windowed bundle
+                adjustment, the full-SLAM drivers (scan, frame by frame,
+                chunked online).
 - ``kernels`` : builds ``csrc/*.cu`` with ``nvcc`` at first use.
 """
 

@@ -15,7 +15,9 @@ a converted carry continues the same trajectory up to the RANSAC draws.
 Lane-stacked trees (the reference's ``vmap(init_carry)`` and its batched
 database) carry over as they are: every field keeps its leading lane
 axis, the (B, 2) keys become a tuple of B ints and the lanes' common
-frame index one int, as :func:`.step.init_carry_batched` makes them.
+frame index one int, as :func:`.step.init_carry_batched` makes them.  A
+carry's BA window (``ba``, present under ``preset_ba()``) crosses field
+by field, its frame count an int32 tensor on both sides.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from ros_stereo_slam_tpu_torch.models.loop_closure import LoopDetector
 from ros_stereo_slam_tpu_torch.models.pose_graph import PoseGraph
 from ros_stereo_slam_tpu_torch.models.slam_scan import LCScanState
 from ros_stereo_slam_tpu_torch.models.state import KeyframeStore, TrackState
-from ros_stereo_slam_tpu_torch.models.step import SlamCarry
+from ros_stereo_slam_tpu_torch.models.step import BAState, SlamCarry
 from ros_stereo_slam_tpu_torch.models.vocab import Vocabulary
 
 
@@ -43,8 +45,6 @@ def _t(a, device) -> torch.Tensor:
 def carry_from_numpy(tree, device: torch.device | str) -> SlamCarry:
     """JAX ``SlamCarry`` of numpy arrays (one lane, or lane-stacked) -> port
     ``SlamCarry`` on `device`."""
-    if getattr(tree, "ba", None) is not None:
-        raise NotImplementedError("a carry with BA state is not ported")
     words = np.asarray(tree.key, dtype=np.uint64)
     if words.ndim not in (1, 2) or words.shape[-1] != 2:
         raise ValueError(f"expected uint32[2] PRNG keys, got shape {words.shape}")
@@ -64,6 +64,8 @@ def carry_from_numpy(tree, device: torch.device | str) -> SlamCarry:
         dT=_t(tree.dT, device),
         dT_valid=_t(tree.dT_valid, device),
         stereo_flow=_t(tree.stereo_flow, device),
+        ba=(None if getattr(tree, "ba", None) is None
+            else BAState(*(_t(getattr(tree.ba, f), device) for f in BAState._fields))),
     )
 
 
@@ -90,6 +92,7 @@ def carry_to_numpy(carry: SlamCarry) -> SlamCarry:
         dT=n(carry.dT),
         dT_valid=n(carry.dT_valid),
         stereo_flow=n(carry.stereo_flow),
+        ba=None if carry.ba is None else BAState(*(n(x) for x in carry.ba)),
     )
 
 

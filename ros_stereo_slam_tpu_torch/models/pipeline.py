@@ -45,6 +45,7 @@ class OfflineResult:
     tracking_ok: np.ndarray  # (F-1,) bool
     used_retry: np.ndarray  # (F-1,) bool
     keyframes: KeyframeStore  # final device-side store
+    ba_rms: np.ndarray | None = None  # (F-1,) post-BA reprojection RMS (0: BA off)
 
 
 def _grid_for(cfg: PipelineConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -73,11 +74,13 @@ class StereoOdometry:
 
     # -- public API --------------------------------------------------------
 
-    def initialize(self, left, right) -> FrameInfo:
-        """Frame 0: triangulate the initial feature set."""
+    def initialize(self, left, right, left_rgb=None) -> FrameInfo:
+        """Frame 0: triangulate the initial feature set (coloured from
+        `left_rgb` (H, W, 3) float32 or uint8, if given)."""
         self._carry = step_mod.init_carry(
             self._frame(left), self._frame(right), self.grid_pts,
             self.grid_mask, self.config.seed, self.config,
+            rgb_frame(left_rgb, self.device),
         )
         n = int(self._carry.track.mask.sum())
         self.trajectory.append(self._carry.T_wc.cpu().numpy())
@@ -88,11 +91,12 @@ class StereoOdometry:
             is_keyframe=True, tracking_ok=True, used_retry=False,
         )
 
-    def process_frame(self, left, right) -> FrameInfo:
-        """One odometry frame."""
+    def process_frame(self, left, right, left_rgb=None) -> FrameInfo:
+        """One odometry frame; `left_rgb` colours a keyframe's points."""
         self._carry, stats = step_mod.slam_frame_step(
             self._carry, self._frame(left), self._frame(right),
             self.grid_pts, self.grid_mask, self.config,
+            rgb_frame(left_rgb, self.device),
         )
         frame_idx = self.frame_count
         self.frame_count += 1
@@ -132,12 +136,19 @@ def map_points_of(kf: KeyframeStore) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _stage(seq, device) -> torch.Tensor:
-    """(F, H, W) numpy or tensor -> tensor on `device`; uint8 stays uint8
-    (cast per frame in the step), anything else becomes float32."""
+    """(F, H, W) (or RGB (F, H, W, 3)) numpy or tensor -> tensor on
+    `device`; uint8 stays uint8 (scaled per frame in the step), anything
+    else becomes float32."""
     t = torch.as_tensor(seq)
     if t.dtype != torch.uint8:
         t = t.to(torch.float32)
     return t.to(device).contiguous()
+
+
+def rgb_frame(img, device) -> torch.Tensor | None:
+    """An (H, W, 3) RGB frame for the step, or None: staged as
+    :func:`_stage` stages a sequence."""
+    return None if img is None else _stage(img, device)
 
 
 def run_offline(
@@ -145,18 +156,25 @@ def run_offline(
     left_seq,
     right_seq,
     device: torch.device | str = "cuda",
+    rgb_seq=None,
 ) -> OfflineResult:
     """Run a full sequence: frame-0 bootstrap, then every frame.
 
     left_seq/right_seq: (F, H, W) float32 OR uint8 stacks (frame 0
     included), numpy arrays or tensors; they are staged on `device` once.
+    rgb_seq: optional (F, H, W, 3) float32 or uint8 colour stack that
+    colours the keyframe map points (the RGB map path; uint8 is staged as
+    uint8 and scaled per keyframe).
     """
     grid_pts, grid_mask = _grid_for(cfg, device)
     left = _stage(left_seq, device)
     right = _stage(right_seq, device)
-    carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg)
+    rgb = rgb_frame(rgb_seq, device)
+    carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg,
+                                None if rgb is None else rgb[0])
     carry, stats = step_mod.run_sequence(
-        left[1:], right[1:], carry, grid_pts, grid_mask, cfg)
+        left[1:], right[1:], carry, grid_pts, grid_mask, cfg,
+        None if rgb is None else rgb[1:])
     host = [f.cpu().numpy() for f in stats]
     stats = step_mod.FrameStats(*host)
     traj = np.concatenate([np.eye(4, dtype=np.float32)[None], stats.T_wc], axis=0)
@@ -168,4 +186,5 @@ def run_offline(
         tracking_ok=stats.tracking_ok,
         used_retry=stats.used_retry,
         keyframes=carry.keyframes,
+        ba_rms=stats.ba_rms,
     )

@@ -20,9 +20,12 @@ cooldown that counts down once per FRAME; detection runs during the
 cooldown, so the database and the gates' temporal window stay those of
 the scan posture, which accepts the same closures.
 
-As the JAX package's driver does, the frames are cast to float32 and NOT
-scaled: uint8 frames reach the step as 0..255 (ROADMAP F2).  The mesh
-(multi-device map) and the RGB map path are not ported and raise.
+As the JAX package's driver does, the gray frames are cast to float32
+and NOT scaled: uint8 frames reach the step as 0..255 (ROADMAP F2).  RGB
+frames (``left_rgb``) keep their dtype and a uint8 one is scaled where the
+keyframe samples it, as in every driver.  BA runs inside the step when
+``cfg.ba_enabled``; a correction opens a fresh BA window.  The mesh
+(multi-device map) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ import torch
 from ros_stereo_slam_tpu_torch.config import PipelineConfig
 from ros_stereo_slam_tpu_torch.models import loop_closure, slam_scan, step as step_mod
 from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
-from ros_stereo_slam_tpu_torch.models.pipeline import FrameInfo, _grid_for, map_points_of
+from ros_stereo_slam_tpu_torch.models.pipeline import (FrameInfo, _grid_for, map_points_of,
+                                                       rgb_frame)
 from ros_stereo_slam_tpu_torch.models.pose_graph import PoseGraph, rewrite_points
 from ros_stereo_slam_tpu_torch.models.state import TrackState
 from ros_stereo_slam_tpu_torch.ops import orb, pyramid
@@ -44,7 +48,8 @@ from ros_stereo_slam_tpu_torch.utils import lie
 
 def corrected_carry(carry: step_mod.SlamCarry, new_poses: torch.Tensor,
                     old_poses: torch.Tensor, right_img: torch.Tensor, grid_pts: torch.Tensor,
-                    grid_mask: torch.Tensor, cfg: PipelineConfig) -> step_mod.SlamCarry:
+                    grid_mask: torch.Tensor, cfg: PipelineConfig,
+                    rgb_img: torch.Tensor | None = None) -> step_mod.SlamCarry:
     """Apply a pose-graph result to the carry after frame
     f = ``carry.frame_idx - 1`` (the reference's ``VisualSLAM.cpp:120-146``,
     as both online drivers apply it).
@@ -52,8 +57,9 @@ def corrected_carry(carry: step_mod.SlamCarry, new_poses: torch.Tensor,
     Every keyframe cloud and pose follows the corrected trajectory; the
     live feature set is re-triangulated at frame f's optimized pose from
     the full pyramids of frame f's left image (the carry's ``ref_pyr[0]``)
-    and `right_img` (uint8 is scaled); frame f enters the keyframe ring,
-    whose arrays are written in place.
+    and `right_img` (uint8 is scaled), coloured from frame f's `rgb_img`
+    if given; frame f enters the keyframe ring, whose arrays are written
+    in place; with BA on, the window restarts on the new track.
     """
     fe = cfg.frontend
     f = carry.frame_idx - 1
@@ -66,12 +72,16 @@ def corrected_carry(carry: step_mod.SlamCarry, new_poses: torch.Tensor,
     T_opt = new_poses[f].clone()
     left_pyr = pyramid.build_pyramid(carry.ref_pyr[0], fe.lk_levels)
     right_pyr = pyramid.build_pyramid(step_mod._to_unit(right_img).contiguous(), fe.lk_levels)
-    track, _, _ = step_mod._bootstrap_track(  # one lane
+    track, r_uv, r_mask = step_mod._bootstrap_track(  # one lane
         tuple(p[None] for p in left_pyr), tuple(p[None] for p in right_pyr), grid_pts[None],
-        grid_mask[None], T_opt[None], cfg)
+        grid_mask[None], T_opt[None], cfg, left_rgb=None if rgb_img is None else rgb_img[None])
+    ba = None
+    if cfg.ba_enabled:
+        ba = step_mod.BAState(*(x[0] for x in step_mod._ba_reset(track, r_uv, r_mask,
+                                                                   T_opt[None], cfg)))
     track = TrackState(*(x[0] for x in track))
     kf = step_mod._insert_keyframe(kf, track, T_opt, f)
-    return carry._replace(track=track, T_wc=T_opt, keyframes=kf)
+    return carry._replace(track=track, T_wc=T_opt, keyframes=kf, ba=ba)
 
 
 @dataclass
@@ -155,14 +165,13 @@ class StereoSLAM:
     # -- public API --------------------------------------------------------
 
     def initialize(self, left, right, left_rgb=None) -> FrameInfo:
-        """Frame 0: triangulate the initial feature set; frame 0 enters the
+        """Frame 0: triangulate the initial feature set (coloured from
+        `left_rgb` (H, W, 3) float32 or uint8, if given); frame 0 enters the
         loop database."""
-        if left_rgb is not None:
-            raise NotImplementedError("left_rgb (the RGB map path) is not ported")
         cfg = self.config
         left, right = self._frame(left), self._frame(right)
         self._carry = step_mod.init_carry(left, right, self.grid_pts, self.grid_mask,
-                                          cfg.seed, cfg)
+                                          cfg.seed, cfg, rgb_frame(left_rgb, self.device))
         self.trajectory_dev = torch.eye(4, dtype=torch.float32,
                                         device=self.device).repeat(cfg.pgo.max_poses, 1, 1)
         self.graph.initialize()
@@ -175,13 +184,14 @@ class StereoSLAM:
                          is_keyframe=True, tracking_ok=True, used_retry=False)
 
     def process_frame(self, left, right, left_rgb=None) -> FrameInfo:
-        if left_rgb is not None:
-            raise NotImplementedError("left_rgb (the RGB map path) is not ported")
+        """One frame: the step, detection, and on an accepted closure the
+        correction; `left_rgb` colours the points of a keyframe."""
         cfg = self.config
         left, right = self._frame(left), self._frame(right)
+        rgb = rgb_frame(left_rgb, self.device)
         prev_T = self._carry.T_wc
         self._carry, stats = step_mod.slam_frame_step(self._carry, left, right, self.grid_pts,
-                                                      self.grid_mask, cfg)
+                                                      self.grid_mask, cfg, rgb)
         T_wc = self._carry.T_wc
         self.graph.add_odometry(lie.inv_se3(prev_T) @ T_wc)
         self._append_pose(T_wc)
@@ -197,7 +207,7 @@ class StereoSLAM:
             old_poses = self.trajectory_dev
             self.trajectory_dev = self.graph.optimize(old_poses)
             self._carry = corrected_carry(self._carry, self.trajectory_dev, old_poses, right,
-                                          self.grid_pts, self.grid_mask, cfg)
+                                          self.grid_pts, self.grid_mask, cfg, rgb)
             self.loop_events.append(LoopEvent(cand.query, cand.match, cand.n_inliers))
 
         frame_idx = self.frame_count

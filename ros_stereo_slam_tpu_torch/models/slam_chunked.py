@@ -19,8 +19,12 @@ the database IN PLACE, so a dispatch made while an earlier chunk is still
 to be gated runs on copies of both (:meth:`ChunkedSLAM.begin_chunk`):
 chunk k's post-state stays what the sequential driver
 (:meth:`ChunkedSLAM.process_chunk` in a loop) would hold, and the two
-drivers are bitwise equal.  Each frame step reads the device twice, so the
-host cannot run ahead of the card: here speculation only reorders work.
+drivers are bitwise equal.  The BA window (``cfg.ba_enabled``) is never
+written in place, so it needs no copy.  Each frame step reads the device
+twice, so the host cannot run ahead of the card: here speculation only
+reorders work.  RGB frames (``rgb0``, ``rgbs``, ``rgb_seq``) colour the
+keyframes; a correction colours its re-bootstrap from the chunk's last
+RGB frame.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 from ros_stereo_slam_tpu_torch.config import PipelineConfig
 from ros_stereo_slam_tpu_torch.models import slam_scan, step as step_mod
 from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
-from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage, map_points_of
+from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage, map_points_of, rgb_frame
 from ros_stereo_slam_tpu_torch.models.pose_graph import PoseGraph
 from ros_stereo_slam_tpu_torch.models.slam import corrected_carry
 from ros_stereo_slam_tpu_torch.models.state import KeyframeStore
@@ -66,6 +70,7 @@ class PendingChunk(NamedTuple):
     lstats: slam_scan.LCScanStats
     lefts: torch.Tensor
     rights: torch.Tensor
+    rgbs: torch.Tensor | None  # (n, H, W, 3) or None
 
 
 @dataclass
@@ -117,11 +122,12 @@ class ChunkedSLAM:
         self._n_inl, self._is_kf, self._ok = [], [], []
 
     def initialize(self, left0, right0, rgb0=None) -> None:
-        if rgb0 is not None:
-            raise NotImplementedError("RGB colouring (rgb0, rgbs) is not ported")
+        """Frame 0: the bootstrap (coloured from `rgb0` (H, W, 3), if given)
+        and frame 0's database row."""
         cfg = self.config
         l0, r0 = _stage(left0, self.device), _stage(right0, self.device)
-        self._carry = step_mod.init_carry(l0, r0, self.grid_pts, self.grid_mask, cfg.seed, cfg)
+        self._carry = step_mod.init_carry(l0, r0, self.grid_pts, self.grid_mask, cfg.seed, cfg,
+                                          rgb_frame(rgb0, self.device))
         self._lc, _ = slam_scan._lc_scan_step(slam_scan.init_lc_state(cfg, self.device), l0, 0,
                                               self._tree, self._idf, cfg, self.vocab.k)
         self.graph.initialize()
@@ -137,13 +143,13 @@ class ChunkedSLAM:
         next chunk starts from this one's post-state.  A later
         ``finish_chunk`` that corrects invalidates every chunk begun after
         the corrected one; the frontier rolls back, and the caller must
-        begin them again (:func:`run_online_slam`).
+        begin them again (:func:`run_online_slam`).  `rgbs` (C, H, W, 3),
+        if given, colours the chunk's keyframes.
         """
-        if rgbs is not None:
-            raise NotImplementedError("RGB colouring (rgb0, rgbs) is not ported")
         cfg = self.config
         pos = self._disp_pos
         ls, rs = _stage(lefts, self.device), _stage(rights, self.device)
+        rgb = rgb_frame(rgbs, self.device)
         carry, lc = self._carry, self._lc
         if self._in_flight:
             # An earlier chunk may still roll back to this post-state: the
@@ -153,12 +159,12 @@ class ChunkedSLAM:
             lc = _copy(lc)
         (carry, lc), (fstats, lstats) = slam_scan.run_sequence_slam(
             ls, rs, carry, lc, self.grid_pts, self.grid_mask, self._tree, self._idf, cfg,
-            self.vocab.k, fid_start=pos)
+            self.vocab.k, fid_start=pos, rgb_seq=rgb)
         self._carry, self._lc = carry, lc
         self._disp_pos = pos + ls.shape[0]
         self._in_flight += 1
         return PendingChunk(pos=pos, n=ls.shape[0], carry_after=carry, lc_after=lc,
-                            fstats=fstats, lstats=lstats, lefts=ls, rights=rs)
+                            fstats=fstats, lstats=lstats, lefts=ls, rights=rs, rgbs=rgb)
 
     def finish_chunk(self, pending: PendingChunk, query_frames=None) -> ChunkInfo:
         """Gate and commit one dispatched chunk (in order).
@@ -199,8 +205,9 @@ class ChunkedSLAM:
                 self.graph.add_loop(i, j, Z)
             old_poses = self.trajectory_dev
             self.trajectory_dev = self.graph.optimize(old_poses)
-            self._carry = self._corrected_carry(pending.carry_after, self.trajectory_dev,
-                                                old_poses, pending.rights[-1])
+            self._carry = self._corrected_carry(
+                pending.carry_after, self.trajectory_dev, old_poses, pending.rights[-1],
+                None if pending.rgbs is None else pending.rgbs[-1])
             # roll the frontier back to this (corrected) chunk boundary
             self._lc = pending.lc_after
             self._disp_pos = pos + n
@@ -215,10 +222,10 @@ class ChunkedSLAM:
         return self.finish_chunk(self.begin_chunk(lefts, rights, rgbs=rgbs),
                                  query_frames=query_frames)
 
-    def _corrected_carry(self, carry, new_poses, old_poses, right_img):
+    def _corrected_carry(self, carry, new_poses, old_poses, right_img, rgb_img=None):
         """The PGO result applied to a post-chunk carry at its last frame."""
         return corrected_carry(carry, new_poses, old_poses, right_img, self.grid_pts,
-                               self.grid_mask, self.config)
+                               self.grid_mask, self.config, rgb_img)
 
     # -- outputs -----------------------------------------------------------
 
@@ -257,16 +264,18 @@ def run_online_slam(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, left_seq, 
     left_seq/right_seq: (F, H, W) float32 or uint8 stacks (frame 0
     included), numpy arrays or tensors, staged on `device` once; uint8
     stays uint8 and is scaled per frame.  The last chunk may be shorter.
+    `rgb_seq` ((F, H, W, 3) float32 or uint8, optional) colours the
+    keyframes.
     """
-    if rgb_seq is not None:
-        raise NotImplementedError("RGB colouring (rgb0, rgbs) is not ported")
     left, right = _stage(left_seq, device), _stage(right_seq, device)
+    rgb = rgb_frame(rgb_seq, device)
     F = left.shape[0]
     slam = ChunkedSLAM(cfg, vocab, device)
-    slam.initialize(left[0], right[0])
+    slam.initialize(left[0], right[0], None if rgb is None else rgb[0])
 
     def begin(pos):
-        return slam.begin_chunk(left[pos:pos + chunk], right[pos:pos + chunk])
+        return slam.begin_chunk(left[pos:pos + chunk], right[pos:pos + chunk],
+                                None if rgb is None else rgb[pos:pos + chunk])
 
     n_chunks = 0
     pending = begin(1) if F > 1 else None

@@ -26,7 +26,9 @@ lockstep through :mod:`.step_batched`, and every detection frame runs
 :func:`_lc_scan_step` once for all lanes (ORB's K2 and the descent's K3
 launched once for every lane), each lane writing its own database row in
 place.  The interleaved lane cadence (a measured refutation in the
-reference) is not ported.  The online postures, per frame
+reference) is not ported.  Every driver takes RGB frames (``rgb_seq``,
+``rgb_seqs``) that colour the keyframes, and runs BA when
+``cfg.ba_enabled`` (config 4), through the step.  The online postures, per frame
 (:mod:`.slam`) and in chunks (:mod:`.slam_chunked`), run the same
 detection and the same epilogue pieces.
 """
@@ -137,30 +139,34 @@ def run_sequence_slam(
     cfg: PipelineConfig,
     vocab_k: int,
     fid_start: int = 1,
+    rgb_seq: torch.Tensor | None = None,  # (F, H, W, 3) f32 or uint8
 ):
     """Odometry + detection over a staged sequence (`tree`: the packed
     vocabulary, :meth:`.vocab.Vocabulary.packed`); `fid_start` is the frame
-    id of row 0 (the chunked driver runs a sequence in blocks).
+    id of row 0 (the chunked driver runs a sequence in blocks); `rgb_seq`
+    colours the keyframes.
 
     Returns ((carry, lc), (frame stats, detection stats)), each stats
     tuple stacked along frames and left on the device.
     """
-    return _run_frames(left_seq, right_seq, carry, lc, grid_pts, grid_mask, tree, idf, cfg,
-                       vocab_k, step_mod.slam_frame_step, _null_stats(cfg, left_seq.device),
-                       fid_start)
+    return _run_frames(left_seq, right_seq, rgb_seq, carry, lc, grid_pts, grid_mask, tree, idf,
+                       cfg, vocab_k, step_mod.slam_frame_step,
+                       _null_stats(cfg, left_seq.device), fid_start)
 
 
-def _run_frames(frames_l, frames_r, carry, lc, grid_pts, grid_mask, tree, idf,
+def _run_frames(frames_l, frames_r, frames_rgb, carry, lc, grid_pts, grid_mask, tree, idf,
                 cfg: PipelineConfig, vocab_k: int, frame_step, null: LCScanStats,
                 fid_start: int = 1):
     """The frame loop of the drivers: `frame_step` on every frame, then,
     on every ``detect_every``-th frame, :func:`_lc_scan_step` (`null` stats
-    on the others).  frames_l[i] is frame fid_start + i (of every lane)."""
+    on the others).  frames_l[i] is frame fid_start + i (of every lane);
+    `frames_rgb` is None or its RGB frames."""
     every = max(cfg.loop.detect_every, 1)
     fstats, lstats = [], []
     for i in range(frames_l.shape[0]):
         fid = fid_start + i
-        carry, fs = frame_step(carry, frames_l[i], frames_r[i], grid_pts, grid_mask, cfg)
+        carry, fs = frame_step(carry, frames_l[i], frames_r[i], grid_pts, grid_mask, cfg,
+                               None if frames_rgb is None else frames_rgb[i])
         if fid % every == 0:
             lc, ls = _lc_scan_step(lc, frames_l[i], fid, tree, idf, cfg, vocab_k)
         else:
@@ -172,9 +178,7 @@ def _run_frames(frames_l, frames_r, carry, lc, grid_pts, grid_mask, tree, idf,
     return (carry, lc), (_stack(fstats), _stack(lstats))
 
 
-def _refuse_unported_lanes(rgb, interleave: bool) -> None:
-    if rgb is not None:
-        raise NotImplementedError("RGB colouring of the batched run is not ported")
+def _refuse_unported_lanes(interleave: bool) -> None:
     if interleave:
         raise NotImplementedError(
             "interleave=True is not ported (measured slower than the lockstep "
@@ -192,7 +196,7 @@ def run_sequence_slam_batched(
     idf: torch.Tensor,
     cfg: PipelineConfig,
     vocab_k: int,
-    rgb_seq=None,
+    rgb_seq: torch.Tensor | None = None,  # (B, F, H, W, 3) f32 or uint8
     interleave: bool = False,
 ):
     """B lanes of odometry + detection in lockstep: the batched step, and
@@ -204,9 +208,10 @@ def run_sequence_slam_batched(
     detection stats)), the stats frame-major, (F, B, ...), as the
     reference's scan gives them.
     """
-    _refuse_unported_lanes(rgb_seq, interleave)
+    _refuse_unported_lanes(interleave)
     null = _null_stats(cfg, left_seq.device, (left_seq.shape[0],))
-    return _run_frames(left_seq.transpose(0, 1), right_seq.transpose(0, 1), carry, lc,
+    return _run_frames(left_seq.transpose(0, 1), right_seq.transpose(0, 1),
+                       None if rgb_seq is None else rgb_seq.transpose(0, 1), carry, lc,
                        grid_pts, grid_mask, tree, idf, cfg, vocab_k,
                        step_batched.slam_frame_step_batched, null)
 
@@ -423,22 +428,26 @@ def run_offline_slam_batched(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, l
     included), numpy arrays or tensors, staged on `device` once.  Lane b
     starts from key ``step_batched.lane_keys(cfg.seed, B)[b]``.  The
     database is one per lane (about 135 MB each at the reference scale).
-    `rgb_seqs` and `interleave=True` are not ported and raise.
+    `rgb_seqs` ((B, F, H, W, 3) float32 or uint8, optional) colours each
+    lane's keyframes.  `interleave=True` is not ported and raises.
     """
-    from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage
+    from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage, rgb_frame
 
-    _refuse_unported_lanes(rgb_seqs, interleave)
+    _refuse_unported_lanes(interleave)
     step_batched.check_batched(cfg)
     grid_pts, grid_mask = _grid_for(cfg, device)
     left, right = _stage(left_seqs, device), _stage(right_seqs, device)
+    rgb = rgb_frame(rgb_seqs, device)
     B = left.shape[0]
     tree, idf = vocab.packed().to(device), vocab.idf.to(device)
     carry = step_mod.init_carry_batched(left[:, 0], right[:, 0], grid_pts, grid_mask,
-                                        step_batched.lane_keys(cfg.seed, B), cfg)
+                                        step_batched.lane_keys(cfg.seed, B), cfg,
+                                        None if rgb is None else rgb[:, 0])
     lc, _ = _lc_scan_step(init_lc_state(cfg, device, lanes=B), left[:, 0], 0, tree, idf, cfg,
                           vocab.k)
     (carry, lc), (fstats, lstats) = run_sequence_slam_batched(
-        left[:, 1:], right[:, 1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k)
+        left[:, 1:], right[:, 1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k,
+        None if rgb is None else rgb[:, 1:])
     fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
     top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
     return [
@@ -451,23 +460,28 @@ def run_offline_slam_batched(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, l
 
 
 def run_offline_slam(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, left_seq, right_seq,
-                     device: torch.device | str = "cuda") -> ScanSlamResult:
+                     device: torch.device | str = "cuda", rgb_seq=None) -> ScanSlamResult:
     """Full SLAM over a sequence: bootstrap, the frame loop, the epilogue.
 
     left_seq/right_seq: (F, H, W) float32 or uint8 stacks (frame 0
     included), numpy arrays or tensors, staged on `device` once; `vocab`'s
     packed tree (built once per vocabulary) and weights are moved there.
+    `rgb_seq` ((F, H, W, 3) float32 or uint8, optional) colours the
+    keyframe map points, as in :func:`.pipeline.run_offline`.
     """
-    from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage
+    from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage, rgb_frame
 
     grid_pts, grid_mask = _grid_for(cfg, device)
     left, right = _stage(left_seq, device), _stage(right_seq, device)
+    rgb = rgb_frame(rgb_seq, device)
     tree, idf = vocab.packed().to(device), vocab.idf.to(device)
-    carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg)
+    carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg,
+                                None if rgb is None else rgb[0])
     # frame 0 enters the database too (0 % detect_every == 0)
     lc, _ = _lc_scan_step(init_lc_state(cfg, device), left[0], 0, tree, idf, cfg, vocab.k)
     (carry, lc), (fstats, lstats) = run_sequence_slam(
-        left[1:], right[1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k)
+        left[1:], right[1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k,
+        rgb_seq=None if rgb is None else rgb[1:])
     fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
     top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
     return _epilogue_one(cfg, lc, top_ids, top_scores, ns, fstats_h, carry.keyframes,

@@ -14,10 +14,14 @@ PyTorch on the device that holds the frames:
   gives a bitwise-identical trajectory on one device.  The streams are not
   JAX's (the parity tests compare poses, not random draws).
 
-Only the default static choices are ported: the grid sampler, LK stereo
-matching with the epipolar gate, no temporal F-gate and no BA.  The others
-raise ``NotImplementedError``.  The RGB map path (``left_rgb``) is not
-ported yet.
+Only the default static choices of the frontend are ported: the grid
+sampler, LK stereo matching with the epipolar gate and no temporal
+F-gate.  The others raise ``NotImplementedError``.  The RGB map path
+(``left_rgb``: keyframe colours from an RGB frame, config 2) and windowed
+bundle adjustment (``cfg.ba_enabled``, config 4: :func:`_ba_refine` on
+every frame, :func:`_ba_reset` on every keyframe) are ported.  The BA
+state's ring slot, fixed poses and frame counts stay tensors on the
+device, so BA adds no host read.
 
 The step is written for lanes (:func:`_step_lanes`: a leading lane axis B
 on every tensor, one host read per branch for all lanes); the single-lane
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from ros_stereo_slam_tpu_torch.config import PipelineConfig
-from ros_stereo_slam_tpu_torch.models import frontend
+from ros_stereo_slam_tpu_torch.models import bundle_adjust, frontend
 from ros_stereo_slam_tpu_torch.models.state import KeyframeStore, TrackState
 from ros_stereo_slam_tpu_torch.ops import interp, lk, pnp, pyramid, sor, triangulate
 from ros_stereo_slam_tpu_torch.utils import lie
@@ -56,7 +60,41 @@ class FrameStats(NamedTuple):
     is_keyframe: torch.Tensor  # () bool
     tracking_ok: torch.Tensor  # () bool
     used_retry: torch.Tensor  # () bool
-    ba_rms: torch.Tensor  # () f32 — 0: BA is not ported
+    ba_rms: torch.Tensor  # () f32 — post-BA reprojection RMS (0 if disabled)
+
+
+class BAState(NamedTuple):
+    """Sliding observation window of local bundle adjustment.
+
+    Ring of the last W frames' tracked 2D observations of the CURRENT
+    landmark set, plus the stereo right-view observations captured at the
+    landmark set's keyframe: the scale anchor (monocular BA has a free
+    global-scale gauge; the right view pins it through the landmarks).
+    Lane form: a leading lane axis on every field.  Never written in place:
+    each frame makes new tensors, so a carry may share its BA state.
+    """
+
+    obs_uv: torch.Tensor  # (W, N, 2)
+    obs_mask: torch.Tensor  # (W, N) bool
+    T_cw: torch.Tensor  # (W, 4, 4) cam-from-world of the ring frames
+    right_uv: torch.Tensor  # (N, 2) right-view observations at the keyframe
+    right_mask: torch.Tensor  # (N,) bool
+    T_cw_right: torch.Tensor  # (4, 4) right-camera pose (fixed)
+    n_frames: torch.Tensor  # () int32 — frames pushed since the last keyframe
+
+    @staticmethod
+    def empty(window: int, n: int, device, lanes: int | None = None) -> "BAState":
+        f32 = dict(dtype=torch.float32, device=device)
+        ln = () if lanes is None else (lanes,)
+        return BAState(
+            obs_uv=torch.zeros((*ln, window, n, 2), **f32),
+            obs_mask=torch.zeros((*ln, window, n), dtype=torch.bool, device=device),
+            T_cw=torch.eye(4, **f32).repeat(*ln, window, 1, 1),
+            right_uv=torch.zeros((*ln, n, 2), **f32),
+            right_mask=torch.zeros((*ln, n), dtype=torch.bool, device=device),
+            T_cw_right=torch.eye(4, **f32).repeat(*ln, 1, 1),
+            n_frames=torch.zeros(ln, dtype=torch.int32, device=device),
+        )
 
 
 class SlamCarry(NamedTuple):
@@ -74,6 +112,7 @@ class SlamCarry(NamedTuple):
     # Last measured L->R flow per (static) grid slot: the disparity prior
     # of the keyframe branch's stereo re-match.
     stereo_flow: torch.Tensor  # (N, 2)
+    ba: BAState | None = None  # present iff cfg.ba_enabled
 
 
 def _check_supported(cfg: PipelineConfig) -> None:
@@ -86,8 +125,6 @@ def _check_supported(cfg: PipelineConfig) -> None:
     ):
         if got != want:
             raise NotImplementedError(f"{name}={got!r} is not ported (only {want!r})")
-    if cfg.ba_enabled:
-        raise NotImplementedError("ba_enabled=True is not ported")
 
 
 def _host_read(flag: torch.Tensor) -> bool:
@@ -122,13 +159,17 @@ def _to_unit(img: torch.Tensor) -> torch.Tensor:
 
 def _bootstrap_track(
     left_pyr, right_pyr, grid_pts, grid_mask, T_wc, cfg: PipelineConfig,
-    stereo_flow=None,
+    stereo_flow=None, left_rgb=None,
 ) -> tuple[TrackState, torch.Tensor, torch.Tensor]:
     """Stereo LK -> epipolar gate -> triangulate -> SOR -> world lift.
 
-    Returns (track, right_uv, right_mask).  `stereo_flow` (N, 2), if given,
-    seeds the L->R match from each grid slot's last measured disparity.
-    Lane form: (B, h, w) pyramids, (B, N, 2) grid points, (B, 4, 4) poses.
+    Returns (track, right_uv, right_mask); the right-view matches feed the
+    BA window's scale anchor.  `stereo_flow` (N, 2), if given, seeds the
+    L->R match from each grid slot's last measured disparity.  `left_rgb`
+    (H, W, 3; float32 in [0, 1] or uint8, scaled here), if given, colours
+    the points (the reference's ``getColors``); otherwise the grayscale
+    intensity is replicated.  Lane form: (B, h, w) pyramids, (B, N, 2)
+    grid points, (B, 4, 4) poses, (B, H, W, 3) RGB frames.
     """
     fe, kfc = cfg.frontend, cfg.keyframes
     res = lk.track(left_pyr, right_pyr, grid_pts, stereo_flow,
@@ -146,10 +187,14 @@ def _bootstrap_track(
         tri.points, tri.valid, mean_k=kfc.sor_mean_k,
         std_mul=kfc.sor_std_mul, max_depth=kfc.max_depth,
     )
-    gray = interp.bilinear_at(left_pyr[0], grid_pts)
+    if left_rgb is not None:
+        colors = interp.bilinear_at_rgb(left_rgb, grid_pts)
+    else:
+        gray = interp.bilinear_at(left_pyr[0], grid_pts)
+        colors = torch.stack([gray, gray, gray], dim=-1)
     track = TrackState(
         pts2d=grid_pts, pts3d=_lane_by_lane(lie.transform_points, T_wc, tri.points),
-        colors=torch.stack([gray, gray, gray], dim=-1), mask=clean,
+        colors=colors, mask=clean,
     )
     return track, res.points, clean
 
@@ -169,6 +214,73 @@ def _track_and_pnp(carry: SlamCarry, ref_pyr, c_pyr, init_flow, lk_params,
         min_inliers=pc.min_inliers, huber_px=pc.refine_huber_px,
     )
     return r.points, mm, pp
+
+
+def _right_cam_pose(T_wc: torch.Tensor, baseline: float) -> torch.Tensor:
+    """Cam-from-world of the RIGHT camera: shift by -baseline along cam x
+    (lane form: (B, 4, 4), lane by lane)."""
+    shift = torch.eye(4, dtype=T_wc.dtype, device=T_wc.device)
+    shift[0, 3] = -baseline
+    return _lane_by_lane(lambda T: shift @ lie.inv_se3(T), T_wc)
+
+
+def _ba_reset(track: TrackState, right_uv, right_mask, T_wc, cfg: PipelineConfig) -> BAState:
+    """A fresh window after a (re)bootstrap of B lanes: slot 0 holds the
+    keyframe's left observations (the track's points), the right-view
+    observations pin scale."""
+    B, N = track.mask.shape
+    st = BAState.empty(cfg.ba.window - 1, N, T_wc.device, lanes=B)
+    return BAState(
+        obs_uv=torch.cat([track.pts2d[:, None], st.obs_uv], dim=1),
+        obs_mask=torch.cat([track.mask[:, None], st.obs_mask], dim=1),
+        T_cw=torch.cat([_lane_by_lane(lie.inv_se3, T_wc)[:, None], st.T_cw], dim=1),
+        right_uv=right_uv,
+        right_mask=right_mask,
+        T_cw_right=_right_cam_pose(T_wc, cfg.camera.baseline),
+        n_frames=torch.ones((B,), dtype=torch.int32, device=T_wc.device),
+    )
+
+
+def _ba_refine(ba: BAState, track: TrackState, T_wc, obs_uv, obs_mask, cfg: PipelineConfig):
+    """Push this frame's observations into B lanes' windows and run the
+    windowed Schur BA of each lane (:func:`.bundle_adjust.ba_solve`, lane
+    by lane, so a lane rounds as its single-lane run does).
+
+    Returns (new_ba, refined T_wc, refined track, rms_after (B,)).  The
+    ring slot and the fixed poses follow from ``n_frames`` on the device.
+    """
+    W = cfg.ba.window
+    dev = T_wc.device
+    ring = torch.arange(W, device=dev)
+    slot = (ba.n_frames % W).long()
+    at_slot = ring == slot[:, None]  # (B, W)
+    n_frames = ba.n_frames + 1
+    ba = ba._replace(
+        obs_uv=torch.where(at_slot[..., None, None], obs_uv[:, None], ba.obs_uv),
+        obs_mask=torch.where(at_slot[..., None], obs_mask[:, None], ba.obs_mask),
+        T_cw=torch.where(at_slot[..., None, None], _lane_by_lane(lie.inv_se3, T_wc)[:, None],
+                         ba.T_cw),
+        n_frames=n_frames,
+    )
+    # Stack: pose 0 is the right view (always fixed), 1.. the ring frames.
+    poses = torch.cat([ba.T_cw_right[:, None], ba.T_cw], dim=1)
+    obs = torch.cat([ba.right_uv[:, None], ba.obs_uv], dim=1)
+    masks = torch.cat([ba.right_mask[:, None], ba.obs_mask], dim=1)
+    # Fix the right view and the oldest ring frame (gauge + scale anchor),
+    # and the slots never written.
+    oldest = torch.where(n_frames <= W, 0, n_frames % W)
+    fixed = torch.cat([torch.ones_like(at_slot[:, :1]),
+                       (ring == oldest[:, None]) | (ring >= n_frames[:, None])], dim=1)
+    bc = cfg.ba
+    outs = [bundle_adjust.ba_solve(_cam_of(cfg), poses[b], track.pts3d[b], obs[b], masks[b],
+                                   fixed[b], iters=bc.iters, damping=bc.damping,
+                                   huber_px=bc.huber_px)
+            for b in range(poses.shape[0])]
+    T_out, X_out, rms = (x[0][None] if len(outs) == 1 else torch.stack(x)
+                         for x in zip(*((r.T_cw, r.landmarks, r.rms_after) for r in outs)))
+    lanes = torch.arange(T_out.shape[0], device=dev)
+    T_wc_new = _lane_by_lane(lie.inv_se3, T_out[lanes, 1 + slot])
+    return ba._replace(T_cw=T_out[:, 1:]), T_wc_new, track._replace(pts3d=X_out), rms
 
 
 def _insert_keyframe(kf: KeyframeStore, track: TrackState, T_wc: torch.Tensor,
@@ -238,6 +350,7 @@ def _map_carry(carry: SlamCarry, fn, key) -> SlamCarry:
         keyframes=KeyframeStore(*map(fn, carry.keyframes)),
         ref_pyr=tuple(map(fn, carry.ref_pyr)), key=key, frame_idx=carry.frame_idx,
         dT=fn(carry.dT), dT_valid=fn(carry.dT_valid), stereo_flow=fn(carry.stereo_flow),
+        ba=None if carry.ba is None else BAState(*map(fn, carry.ba)),
     )
 
 
@@ -258,16 +371,19 @@ def slam_frame_step(
     grid_pts: torch.Tensor,
     grid_mask: torch.Tensor,
     cfg: PipelineConfig,
+    left_rgb: torch.Tensor | None = None,
 ) -> tuple[SlamCarry, FrameStats]:
     """One odometry frame on the frames' device.
 
     `left_img`/`right_img` (H, W) are float32 in [0, 1] or uint8 (cast
-    here, per frame).  It runs :func:`_step_lanes` with one lane, so a
-    lane of the batched step rounds exactly as this step does.
+    here, per frame); `left_rgb` (H, W, 3; float32 or uint8), if given,
+    colours the points a keyframe triangulates (the RGB map path).  It
+    runs :func:`_step_lanes` with one lane, so a lane of the batched step
+    rounds exactly as this step does.
     """
     _check_supported(cfg)
     new, stats = _step_lanes(_one_lane(carry), left_img[None], right_img[None], grid_pts,
-                             grid_mask, cfg)
+                             grid_mask, cfg, None if left_rgb is None else left_rgb[None])
     return _drop_lane(new), FrameStats(*(s[0] for s in stats))
 
 
@@ -278,10 +394,12 @@ def _step_lanes(
     grid_pts: torch.Tensor,
     grid_mask: torch.Tensor,
     cfg: PipelineConfig,
+    left_rgb: torch.Tensor | None = None,
 ) -> tuple[SlamCarry, FrameStats]:
     """The frame step of B lanes: `carry` with a leading lane axis on every
-    tensor and B keys, (B, H, W) frames, the (N, 2) grid shared by all
-    lanes.  Every branch costs one host read of "does any lane take it";
+    tensor and B keys, (B, H, W) frames (and (B, H, W, 3) RGB frames or
+    None), the (N, 2) grid shared by all lanes.  Every branch costs one
+    host read of "does any lane take it";
     when it runs, it runs for all lanes and a per-lane ``where`` keeps it
     only in the lanes that take it.  With one lane that is the reference's
     ``lax.cond``; with B it is the reference's batch-hoisted branch
@@ -345,7 +463,13 @@ def _step_lanes(
     tracking_ok = p.n_inliers >= pc.min_inliers
     T_wc = torch.where(tracking_ok[:, None, None], _lane_by_lane(lie.inv_se3, p.T_cw),
                        carry.T_wc)
-    track = carry.track._replace(pts2d=tracked_pts, mask=p.inliers & m)
+
+    # --- windowed Schur bundle adjustment (config 4) ---
+    track, ba = carry.track, carry.ba
+    ba_rms = torch.zeros((B,), dtype=torch.float32, device=dev)
+    if cfg.ba_enabled:
+        ba, T_wc, track, ba_rms = _ba_refine(ba, track, T_wc, tracked_pts, p.inliers & m, cfg)
+    track = track._replace(pts2d=tracked_pts, mask=p.inliers & m)
     flow = carry.stereo_flow
     keyframes = carry.keyframes
 
@@ -357,15 +481,18 @@ def _step_lanes(
         if seeded:
             n_lvl = min(fe.lk_stereo_seeded_levels, fe.lk_levels)
             right_pyr = tuple(pyramid.build_pyramid(right_img, n_lvl))
-            kf_track, r_uv, _ = _bootstrap_track(
+            kf_track, r_uv, r_mask = _bootstrap_track(
                 cur_pyr[:n_lvl], right_pyr, gp, gm, T_wc, cfg,
-                stereo_flow=carry.stereo_flow,
+                stereo_flow=carry.stereo_flow, left_rgb=left_rgb,
             )
             flow = _where_lanes(is_kf, torch.where(kf_track.mask[..., None], r_uv - gp,
                                                    carry.stereo_flow), flow)
         else:
             right_pyr = tuple(pyramid.build_pyramid(right_img, fe.lk_levels))
-            kf_track, _, _ = _bootstrap_track(cur_pyr, right_pyr, gp, gm, T_wc, cfg)
+            kf_track, r_uv, r_mask = _bootstrap_track(cur_pyr, right_pyr, gp, gm, T_wc, cfg,
+                                                      left_rgb=left_rgb)
+        if cfg.ba_enabled:
+            ba = _where_lanes(is_kf, _ba_reset(kf_track, r_uv, r_mask, T_wc, cfg), ba)
         track = _where_lanes(is_kf, kf_track, track)
         keyframes = _insert_keyframe(keyframes, track, T_wc, carry.frame_idx,
                                      is_kf if B > 1 else None)
@@ -384,6 +511,7 @@ def _step_lanes(
         dT=dT_new,
         dT_valid=carry.dT_valid | tracking_ok,
         stereo_flow=flow,
+        ba=ba,
     )
     stats = FrameStats(
         T_wc=T_wc,
@@ -392,7 +520,7 @@ def _step_lanes(
         is_keyframe=is_kf,
         tracking_ok=tracking_ok,
         used_retry=p.used_retry,
-        ba_rms=torch.zeros((B,), dtype=torch.float32, device=dev),
+        ba_rms=ba_rms,
     )
     return new_carry, stats
 
@@ -404,10 +532,13 @@ def init_carry(
     grid_mask: torch.Tensor,
     key: int,
     cfg: PipelineConfig,
+    left_rgb: torch.Tensor | None = None,
 ) -> SlamCarry:
-    """Frame-0 bootstrap: stereo-triangulate the grid, insert keyframe 0."""
+    """Frame-0 bootstrap: stereo-triangulate the grid, insert keyframe 0
+    (coloured from `left_rgb` (H, W, 3) if given), open the BA window."""
     return _drop_lane(init_carry_batched(left_img[None], right_img[None], grid_pts, grid_mask,
-                                         (int(key),), cfg))
+                                         (int(key),), cfg,
+                                         None if left_rgb is None else left_rgb[None]))
 
 
 def init_carry_batched(
@@ -417,10 +548,11 @@ def init_carry_batched(
     grid_mask: torch.Tensor,
     keys,
     cfg: PipelineConfig,
+    left_rgbs: torch.Tensor | None = None,
 ) -> SlamCarry:
     """Frame-0 bootstrap of B lanes at once (the reference's
-    ``vmap(init_carry)``): (B, H, W) images, one int key per lane, the
-    (N, 2) grid shared by all lanes.  Every tensor of the carry gains a
+    ``vmap(init_carry)``): (B, H, W) images (and (B, H, W, 3) RGB frames
+    or None), one int key per lane, the (N, 2) grid shared by all lanes.  Every tensor of the carry gains a
     leading lane axis, ``key`` becomes a tuple of B keys and ``frame_idx``
     stays one int (lanes step in lockstep).  Lane b equals
     ``init_carry(..., key=keys[b], ...)``.
@@ -438,7 +570,8 @@ def init_carry_batched(
     right_pyr = pyramid.build_pyramid(right_imgs, fe.lk_levels)
     T0 = torch.eye(4, dtype=torch.float32, device=dev).expand(B, 4, 4).contiguous()
     gp = grid_pts.expand(B, -1, -1).contiguous()
-    track, r_uv, _ = _bootstrap_track(left_pyr, right_pyr, gp, grid_mask.expand(B, -1), T0, cfg)
+    track, r_uv, r_mask = _bootstrap_track(left_pyr, right_pyr, gp, grid_mask.expand(B, -1), T0,
+                                           cfg, left_rgb=left_rgbs)
     kf = KeyframeStore.empty(cfg.keyframes.max_keyframes, fe.max_points, dev, lanes=B)
     kf = _insert_keyframe(kf, track, T0, 0)
     stereo_flow = torch.where(track.mask[..., None], r_uv - gp, torch.zeros_like(r_uv))
@@ -451,6 +584,7 @@ def init_carry_batched(
         dT=T0.clone(),
         dT_valid=torch.zeros((B,), dtype=torch.bool, device=dev),
         stereo_flow=stereo_flow,
+        ba=_ba_reset(track, r_uv, r_mask, T0, cfg) if cfg.ba_enabled else None,
     )
 
 
@@ -478,11 +612,12 @@ def run_sequence(
     grid_pts: torch.Tensor,
     grid_mask: torch.Tensor,
     cfg: PipelineConfig,
+    rgb_seq: torch.Tensor | None = None,  # (F, H, W, 3) float32 or uint8
 ) -> tuple[SlamCarry, FrameStats]:
     """Step every frame of a staged sequence; stats stacked along axis 0."""
     stats = []
     for i in range(left_seq.shape[0]):
-        carry, st = slam_frame_step(carry, left_seq[i], right_seq[i],
-                                    grid_pts, grid_mask, cfg)
+        carry, st = slam_frame_step(carry, left_seq[i], right_seq[i], grid_pts, grid_mask, cfg,
+                                    None if rgb_seq is None else rgb_seq[i])
         stats.append(st)
     return carry, _stack_stats(stats, left_seq.device)

@@ -25,10 +25,12 @@ Per-lane semantics equal :func:`.step.slam_frame_step`'s: lane b of a
 batched run is the single-lane run started with
 ``init_carry(..., key=lane_keys(seed, B)[b], ...)`` (each lane draws its
 RANSAC sets from its own generators, and every sum is taken per lane in
-an order that does not depend on B: on the CPU the two agree bitwise).  Only the const-velocity-seeded
-configuration is batched, as in the reference; RGB frames, BA, the
-mapping preset and the shared keyframe cadence (``batch_align_window``,
-a measured refutation in the reference) are not ported and raise.
+an order that does not depend on B: on the CPU the two agree bitwise;
+BA solves each lane's window on its own).  Only the const-velocity-seeded
+configuration is batched, as in the reference; RGB frames, BA and the
+mapping preset run as in the single-lane step, and the shared keyframe
+cadence (``batch_align_window``, a measured refutation in the reference)
+is not ported and raises.
 """
 
 from __future__ import annotations
@@ -67,8 +69,6 @@ def check_batched(cfg: PipelineConfig) -> None:
         raise NotImplementedError(
             "batch_align_window > 1 is not ported (measured slower and less "
             "accurate in the reference)")
-    if cfg.export_map and not cfg.loop.enabled:
-        raise NotImplementedError("the mapping preset (RGB map export) is not ported")
 
 
 def slam_frame_step_batched(
@@ -78,20 +78,22 @@ def slam_frame_step_batched(
     grid_pts: torch.Tensor,
     grid_mask: torch.Tensor,
     cfg: PipelineConfig,
+    left_rgb: torch.Tensor | None = None,
 ) -> tuple[SlamCarry, FrameStats]:
     """One odometry frame for B lanes (see the module docstring).
 
     `carry` from :func:`.step.init_carry_batched` (a leading lane axis on
     every tensor); `left_img`/`right_img` (B, H, W) float32 in [0, 1] or
-    uint8; `grid_pts` (N, 2) and `grid_mask` (N,) shared by all lanes.
-    Returns the new carry and (B, ...) stats.
+    uint8; `left_rgb` (B, H, W, 3) float32 or uint8, or None; `grid_pts`
+    (N, 2) and `grid_mask` (N,) shared by all lanes.  Returns the new
+    carry and (B, ...) stats.
     """
     check_batched(cfg)
     if left_img.dim() != 3 or right_img.shape != left_img.shape \
             or len(carry.key) != left_img.shape[0]:
         raise ValueError(f"expected (B, H, W) frames for {len(carry.key)} lanes, got "
                          f"{tuple(left_img.shape)} and {tuple(right_img.shape)}")
-    return step_mod._step_lanes(carry, left_img, right_img, grid_pts, grid_mask, cfg)
+    return step_mod._step_lanes(carry, left_img, right_img, grid_pts, grid_mask, cfg, left_rgb)
 
 
 def run_sequence_batched(
@@ -101,17 +103,16 @@ def run_sequence_batched(
     grid_pts: torch.Tensor,
     grid_mask: torch.Tensor,
     cfg: PipelineConfig,
-    rgb_seq=None,
+    rgb_seq: torch.Tensor | None = None,  # (B, F, H, W, 3) float32 or uint8
 ) -> tuple[SlamCarry, FrameStats]:
     """Step B staged sequences in lockstep; stats come back frame-major,
-    (F, B, ...), as the reference's scan gives them.  `rgb_seq` (colouring
-    the map from RGB frames) is not ported and raises."""
-    if rgb_seq is not None:
-        raise NotImplementedError("rgb_seq (the RGB map path) is not ported")
+    (F, B, ...), as the reference's scan gives them.  `rgb_seq` colours
+    each lane's keyframes."""
     check_batched(cfg)
     stats = []
     for i in range(left_seq.shape[1]):
         carry, st = slam_frame_step_batched(carry, left_seq[:, i], right_seq[:, i],
-                                            grid_pts, grid_mask, cfg)
+                                            grid_pts, grid_mask, cfg,
+                                            None if rgb_seq is None else rgb_seq[:, i])
         stats.append(st)
     return carry, step_mod._stack_stats(stats, left_seq.device, (left_seq.shape[0],))

@@ -87,6 +87,34 @@ def bilinear_at(img: torch.Tensor, pts_xy: torch.Tensor) -> torch.Tensor:
     )
 
 
+def bilinear_at_rgb(img: torch.Tensor, pts_xy: torch.Tensor) -> torch.Tensor:
+    """:func:`bilinear_at` of each channel of an (H, W, 3) image at (N, 2)
+    points, in one gather: (N, 3) (lane form: (B, H, W, 3), (B, N, 2) ->
+    (B, N, 3)).  A uint8 image is scaled to [0, 1]; scaling the four
+    corners gives what scaling the whole image first would, bit for bit."""
+    h, w, ch = img.shape[-3:]
+    x = torch.clamp(torch.nan_to_num(pts_xy[..., 0]), 0.0, w - 1.001)
+    y = torch.clamp(torch.nan_to_num(pts_xy[..., 1]), 0.0, h - 1.001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    base = y0 * w + x0
+    if img.dim() == 4:
+        base = base + (torch.arange(img.shape[0], device=img.device) * (h * w))[:, None]
+    base = base[..., None] * ch + torch.arange(ch, device=img.device)
+    flat = img.reshape(-1)
+    v00, v01, v10, v11 = (flat[i] for i in (base, base + ch, base + w * ch, base + (w + 1) * ch))
+    if img.dtype == torch.uint8:
+        v00, v01, v10, v11 = (v.to(torch.float32) * (1.0 / 255.0) for v in (v00, v01, v10, v11))
+    return (
+        v00 * (1 - fy) * (1 - fx)
+        + v01 * (1 - fy) * fx
+        + v10 * fy * (1 - fx)
+        + v11 * fy * fx
+    )
+
+
 def in_bounds(pts_xy: torch.Tensor, h: int, w: int, margin: float) -> torch.Tensor:
     """(..., N) bool mask: point at least `margin` px inside the image."""
     return (

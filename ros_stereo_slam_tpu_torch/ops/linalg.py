@@ -85,6 +85,22 @@ def det3x3(M: torch.Tensor) -> torch.Tensor:
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
 
 
+def inv3x3(M: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
+    """Adjugate inverse of (..., 3, 3), the determinant guarded as in the
+    reference: ``|det| <= eps`` divides by `eps`.
+
+    Row i of the cofactor matrix is the cross product of the two rows after
+    row i, so the adjugate is three cross products (one launch) instead of
+    the reference's 18 unrolled scalar expressions.
+    """
+    rows1 = torch.cat([M[..., 1:, :], M[..., :1, :]], dim=-2)  # rows 1, 2, 0
+    rows2 = torch.cat([M[..., 2:, :], M[..., :2, :]], dim=-2)  # rows 2, 0, 1
+    cof = torch.linalg.cross(rows1, rows2, dim=-1)
+    det = torch.linalg.vecdot(M[..., 0, :], cof[..., 0, :])
+    det.masked_fill_(det.abs() <= eps, eps)
+    return cof.transpose(-1, -2) / det[..., None, None]
+
+
 def eigh3x3(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Analytic eigendecomposition of batched symmetric (..., 3, 3).
 

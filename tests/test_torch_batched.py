@@ -220,27 +220,66 @@ def test_lanes_match_single_lane(lanes, case):
         assert n_rescue_frames == singles[0][2]
 
 
-@pytest.mark.parametrize("change", [
-    "lk_seed", "batch_align_window", "ba_enabled", "mapping_preset", "rgb_seq"])
+@pytest.mark.parametrize("change", ["lk_seed", "batch_align_window"])
 def test_unported_batched_options_raise(lanes, change):
     _, L, R, tcfg, _, gp, gm = lanes
     Lt, Rt = torch.from_numpy(L), torch.from_numpy(R)
     c0 = step.init_carry_batched(Lt[:, 0], Rt[:, 0], gp, gm, (1, 2), tcfg)
-    cfg, kw, err = tcfg, {}, NotImplementedError
     if change == "lk_seed":
         cfg = tcfg.replace(frontend=dataclasses.replace(tcfg.frontend, lk_seed="none"))
         err = ValueError
-    elif change == "batch_align_window":
+    else:
         cfg = tcfg.replace(keyframes=dataclasses.replace(tcfg.keyframes, batch_align_window=2))
-    elif change == "ba_enabled":
+        err = NotImplementedError
+    with pytest.raises(err):
+        step_batched.run_sequence_batched(Lt[:, 1:2], Rt[:, 1:2], c0, gp, gm, cfg)
+
+
+@pytest.mark.parametrize("change", ["ba_enabled", "mapping_preset", "rgb_seq"])
+def test_ported_batched_options_run(lanes, change):
+    """BA, the mapping preset and RGB frames run in the batched step, each
+    lane bitwise equal to its single-lane run: BA windows refined
+    (finite, non-zero RMS), RGB keyframes chromatic, the mapping preset's
+    gray map monochrome."""
+    worlds, L, R, tcfg, _, gp, gm = lanes
+    Lt, Rt = torch.from_numpy(L), torch.from_numpy(R)
+    cfg, rgb = tcfg, None
+    if change == "ba_enabled":
         cfg = tcfg.replace(ba_enabled=True)
     elif change == "mapping_preset":
         cfg = preset_mapping().replace(camera=tcfg.camera, frontend=tcfg.frontend,
                                        keyframes=tcfg.keyframes)
     else:
-        kw = dict(rgb_seq=np.zeros(L.shape[:2] + L.shape[2:] + (3,), np.uint8))
-    with pytest.raises(err):
-        step_batched.run_sequence_batched(Lt[:, 1:2], Rt[:, 1:2], c0, gp, gm, cfg, **kw)
+        rgb = torch.from_numpy(np.stack([np.stack([(w.render_rgb(i) * 255 + 0.5).astype(np.uint8)
+                                                   for i in range(F + 1)]) for w in worlds]))
+    keys = step_batched.lane_keys(cfg.seed, B)
+    c0 = step.init_carry_batched(Lt[:, 0], Rt[:, 0], gp, gm, keys, cfg,
+                                 None if rgb is None else rgb[:, 0])
+    cN, st = step_batched.run_sequence_batched(Lt[:, 1:], Rt[:, 1:], c0, gp, gm, cfg,
+                                               None if rgb is None else rgb[:, 1:])
+    assert st.tracking_ok.all() and st.is_keyframe.any()
+    assert (cN.ba is not None) == (change == "ba_enabled")
+    for b in range(B):
+        c = step.init_carry(Lt[b, 0], Rt[b, 0], gp, gm, keys[b], cfg,
+                            None if rgb is None else rgb[b, 0])
+        cs, ss = step.run_sequence(Lt[b, 1:], Rt[b, 1:], c, gp, gm, cfg,
+                                   None if rgb is None else rgb[b, 1:])
+        for name in ss._fields:
+            assert torch.equal(getattr(st, name)[:, b], getattr(ss, name)), (b, name)
+        for x, y in zip(cN.keyframes, cs.keyframes):
+            assert torch.equal(x[b], y)
+        if cs.ba is not None:
+            assert all(torch.equal(x[b], y) for x, y in zip(cN.ba, cs.ba))
+    cols = cN.keyframes.colors[cN.keyframes.point_mask & cN.keyframes.valid[..., None]]
+    rms = st.ba_rms.numpy()
+    if change == "ba_enabled":
+        assert np.isfinite(rms).all() and (rms > 0).all()
+    else:
+        assert (rms == 0).all()
+    if change == "rgb_seq":
+        assert (cols[:, 0] - cols[:, 2]).abs().mean() > 0.02
+    else:
+        assert torch.equal(cols[:, 0], cols[:, 1]) and torch.equal(cols[:, 0], cols[:, 2])
 
 
 def test_lane_keys_and_lane_shapes():

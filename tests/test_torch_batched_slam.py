@@ -161,8 +161,37 @@ def test_batched_slam_lanes_match_single_lane(worlds_and_vocab):
         assert ate < ate_odo and ate < 0.25, (b, ate, ate_odo)
 
 
-@pytest.mark.parametrize("kw", [dict(interleave=True), dict(rgb_seqs=np.zeros(1))])
+@pytest.mark.parametrize("kw", [dict(interleave=True)])
 def test_unported_batched_slam_options_raise(worlds_and_vocab, kw):
     _, L, R, _, tvoc, _, tcfg = worlds_and_vocab
     with pytest.raises(NotImplementedError):
         slam_scan.run_offline_slam_batched(tcfg, tvoc, L[:, :2], R[:, :2], device="cpu", **kw)
+
+
+def test_batched_slam_rgb_seqs_colour_lanes(worlds_and_vocab):
+    """``rgb_seqs`` (uint8) colours each lane's keyframes from its own RGB
+    frames and changes nothing else: keyframe 0 of lane b holds the JAX
+    package's bilinear samples of lane b's frame 0 (scaled to [0, 1]) at
+    its points, within 1e-6."""
+    from ros_stereo_slam_tpu.ops import interp as jinterp
+
+    worlds, L, R, _, tvoc, _, tcfg = worlds_and_vocab
+    n = 6
+    rgb = np.stack([np.stack([(w.render_rgb(i) * 255 + 0.5).astype(np.uint8) for i in range(n)])
+                    for w in worlds])
+    gray = slam_scan.run_offline_slam_batched(tcfg, tvoc, L[:, :n], R[:, :n], device="cpu")
+    col = slam_scan.run_offline_slam_batched(tcfg, tvoc, L[:, :n], R[:, :n], device="cpu",
+                                             rgb_seqs=rgb)
+    for b, (g, c) in enumerate(zip(gray, col)):
+        np.testing.assert_array_equal(g.trajectory, c.trajectory)
+        for name in ("points", "point_mask", "poses", "valid"):
+            assert torch.equal(getattr(g.keyframes, name), getattr(c.keyframes, name)), name
+        kf = c.keyframes
+        m0 = kf.point_mask[0]
+        pts = jnp.asarray(pipeline._grid_for(tcfg, "cpu")[0].numpy())
+        unit = rgb[b, 0].astype(np.float32) * np.float32(1.0 / 255.0)
+        want = np.stack([np.asarray(jinterp.bilinear_at(jnp.asarray(unit[..., c]), pts))
+                         for c in range(3)], axis=-1)
+        np.testing.assert_allclose(kf.colors[0][m0].numpy(), want[m0.numpy()], rtol=0, atol=1e-6)
+        cols = kf.colors[kf.point_mask & kf.valid[:, None]]
+        assert (cols[:, 0] - cols[:, 2]).abs().mean() > 0.02, b

@@ -301,36 +301,28 @@ def test_spd_inverse_small_matches_reference():
 
 def test_unported_parts_documented():
     """What the online slice still refuses raises NotImplementedError: the
-    multi-device mesh, the RGB paths and BA."""
+    multi-device mesh, and the four frontend choices the step does not
+    port (ROADMAP item 23), in both online drivers."""
     from ros_stereo_slam_tpu_torch.config import PGOConfig
     from ros_stereo_slam_tpu_torch.models import slam, slam_chunked
     from ros_stereo_slam_tpu_torch.models.vocab import Vocabulary
 
     cfg = PipelineConfig()
-    img, rgb = np.zeros((32, 48), np.float32), np.zeros((32, 48, 3), np.float32)
     with pytest.raises(NotImplementedError, match="mesh"):
         slam.StereoSLAM(cfg, device="cpu", mesh=object())
     graph = pg.PoseGraph(PGOConfig(max_poses=8), device="cpu")
     graph.initialize()
     with pytest.raises(NotImplementedError, match="mesh"):
         graph.optimize(torch.eye(4).repeat(8, 1, 1), mesh=object())
-    stream = slam.StereoSLAM(cfg, device="cpu")
-    for call in (stream.initialize, stream.process_frame):
-        with pytest.raises(NotImplementedError, match="left_rgb"):
-            call(img, img, left_rgb=rgb)
     voc = Vocabulary(k=2, levels=1, centers=[torch.ones((2, 256), dtype=torch.int8)],
                      idf=torch.ones(2))
-    chunked = slam_chunked.ChunkedSLAM(cfg, voc, device="cpu")
-    with pytest.raises(NotImplementedError, match="RGB"):
-        chunked.initialize(img, img, rgb0=rgb)
-    with pytest.raises(NotImplementedError, match="RGB"):
-        chunked.begin_chunk(img[None], img[None], rgbs=rgb[None])
-    with pytest.raises(NotImplementedError, match="RGB"):
-        slam_chunked.run_online_slam(cfg, voc, img[None], img[None], device="cpu",
-                                     rgb_seq=rgb[None])
-    ba = cfg.replace(ba_enabled=True)
-    with pytest.raises(NotImplementedError, match="ba_enabled"):
-        slam.StereoSLAM(ba, device="cpu")
-    with pytest.raises(NotImplementedError, match="ba_enabled"):
-        slam_chunked.ChunkedSLAM(ba, voc, device="cpu")
+    for choice in (dict(sampler="anms"), dict(stereo_matcher="orb"),
+                   dict(fmat_gate="ransac"), dict(stereo_gate="fmat")):
+        (name, value), = choice.items()
+        other = cfg.replace(frontend=dataclasses.replace(cfg.frontend, **choice),
+                            ba_enabled=True)
+        with pytest.raises(NotImplementedError, match=f"{name}={value!r}"):
+            slam.StereoSLAM(other, device="cpu")
+        with pytest.raises(NotImplementedError, match=f"{name}={value!r}"):
+            slam_chunked.ChunkedSLAM(other, voc, device="cpu")
     assert dataclasses.is_dataclass(slam_scan.ScanSlamResult)

@@ -79,7 +79,7 @@ def test_port_import_pulls_in_no_jax():
         "import ros_stereo_slam_tpu_torch\n"
         "from ros_stereo_slam_tpu_torch.models import convert, pipeline, step\n"
         "from ros_stereo_slam_tpu_torch.models import loop_closure, pose_graph, slam_scan, vocab\n"
-        "from ros_stereo_slam_tpu_torch.models import slam, slam_chunked\n"
+        "from ros_stereo_slam_tpu_torch.models import bundle_adjust, slam, slam_chunked\n"
         "from ros_stereo_slam_tpu_torch.ops import lk_cuda, pnp, sor, triangulate\n"
         "from ros_stereo_slam_tpu_torch.ops import anms, fast, orb, orb_cuda, ransac, vocab_cuda\n"
         "from ros_stereo_slam_tpu_torch.kernels import build\n"

@@ -170,17 +170,34 @@ def test_carry_from_jax_init_matches_port_init(runs):
 
 @pytest.mark.parametrize("override", [
     dict(sampler="anms"), dict(stereo_matcher="orb"), dict(fmat_gate="ransac"),
-    dict(stereo_gate="fmat"), "ba_enabled",
+    dict(stereo_gate="fmat"),
 ])
 def test_unported_choices_raise(runs, override):
     _, left, right, tcfg, *_ = runs
-    if override == "ba_enabled":
-        cfg = tcfg.replace(ba_enabled=True)
-    else:
-        import dataclasses
+    import dataclasses
 
-        cfg = tcfg.replace(frontend=dataclasses.replace(tcfg.frontend, **override))
+    cfg = tcfg.replace(frontend=dataclasses.replace(tcfg.frontend, **override))
     gp, gm = pipeline._grid_for(cfg, "cpu")
     with pytest.raises(NotImplementedError):
         step.init_carry(torch.from_numpy(left[0]), torch.from_numpy(right[0]),
                         gp, gm, 0, cfg)
+
+
+def test_ba_enabled_runs_the_slice(runs):
+    """``ba_enabled`` on the slice's configuration: every frame tracked, the
+    post-BA RMS finite and positive on every frame, ATE within
+    tests/test_ba_pipeline.py's bound of the odometry run (max(1.5x, 5 cm)),
+    and the streaming driver gives run_offline's poses bitwise."""
+    world, left, right, tcfg, _, _, tres = runs
+    cfg = tcfg.replace(ba_enabled=True)
+    res = pipeline.run_offline(cfg, left, right, device="cpu")
+    assert res.tracking_ok.all()
+    assert np.isfinite(res.ba_rms).all() and (res.ba_rms > 0).all(), res.ba_rms
+    ate_odo = metrics.ate_rmse(tres[0].trajectory, world.poses)
+    ate_ba = metrics.ate_rmse(res.trajectory, world.poses)
+    assert ate_ba < max(1.5 * ate_odo, 0.05), (ate_odo, ate_ba)
+    odo = pipeline.StereoOdometry(cfg, device="cpu")
+    odo.initialize(left[0], right[0])
+    for i in range(1, 5):
+        odo.process_frame(left[i], right[i])
+    np.testing.assert_array_equal(odo.trajectory_array(), res.trajectory[:5])

@@ -4,7 +4,7 @@ odometry (``run_offline``) and full SLAM (``run_offline_slam``).
 
     python3 tools/torch_kernel_count.py render --out build/kc_frames.npz
     python3 tools/torch_kernel_count.py count --frames-file build/kc_frames.npz \
-        [--root TREE] [--label NAME] [--out-dir DIR]
+        [--preset odometry|mapping|ba] [--root TREE] [--label NAME] [--out-dir DIR]
 
 ``render`` draws the frames once, with the port's renderer at full KITTI
 geometry (1241x376): the first ``--odo-frames`` + 1 frames of the bench
@@ -18,8 +18,13 @@ device busy share is their summed time over the run's wall time) and one
 warm run under a dispatch mode that counts every PyTorch op that is not a
 view.  It prints one JSON line per path and writes the per-name counts
 (and, on the card, each kernel name's summed device microseconds) to
-``--out-dir``.  Full SLAM uses ``preset_loop_closure()`` with a vocabulary
-trained on the card from every 2nd frame.
+``--out-dir``.  ``--preset`` picks the configurations: ``odometry``
+(default) runs ``preset_odometry()`` and full SLAM at
+``preset_loop_closure()``; ``mapping`` runs ``preset_mapping()`` through
+``run_offline`` with the corridor's RGB frames staged as uint8 (config 2;
+no full-SLAM path: the preset has no loop closure); ``ba`` runs
+``preset_ba()`` through both (config 4: windowed BA on every frame).  Full
+SLAM uses a vocabulary trained on the card from every 2nd frame.
 
 ``--small`` renders at 416x160 for a rehearsal on the CPU (``count
 --device cpu``, a k = 4, L = 3 vocabulary); only ops are counted there.
@@ -50,13 +55,14 @@ def _camera_kw(small: bool) -> dict:
                 width=416, height=160)
 
 
-def _render_job(cam_kw: dict, world_kw: dict, idx: list) -> list:
+def _render_job(cam_kw: dict, world_kw: dict, idx: list, rgb: bool) -> list:
     sys.path.insert(0, str(HERE))
     from ros_stereo_slam_tpu_torch.config import CameraConfig
     from ros_stereo_slam_tpu_torch.data.synthetic import SyntheticWorld
 
     world = SyntheticWorld(camera=CameraConfig(**cam_kw), **world_kw)
-    return [world.render(i)[:2] for i in idx]
+    return [world.render(i)[:2] + ((world.render_rgb(i) * 255.0 + 0.5).astype(np.uint8),)
+            if rgb else world.render(i)[:2] for i in idx]
 
 
 def render(args) -> None:
@@ -71,7 +77,7 @@ def render(args) -> None:
                                           *chip_smoke.REVISIT_SEEDS["A"])
     kw, idx = jobs[0]
     revisit = (kw, idx[:args.slam_frames + 1])
-    chunks = [(cam_kw, w, ix[i:i + 4]) for w, ix in (corridor, revisit)
+    chunks = [(cam_kw, w, ix[i:i + 4], w is corridor[0]) for w, ix in (corridor, revisit)
               for i in range(0, len(ix), 4)]
     with multiprocessing.get_context("spawn").Pool(args.workers) as pool:
         parts = pool.starmap(_render_job, chunks)
@@ -80,6 +86,7 @@ def render(args) -> None:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     np.savez(args.out, camera=json.dumps(cam_kw),
              odo_left=np.stack([f[0] for f in odo]), odo_right=np.stack([f[1] for f in odo]),
+             odo_rgb=np.stack([f[2] for f in odo]),
              slam_left=np.stack([f[0] for f in slam]),
              slam_right=np.stack([f[1] for f in slam]))
     print(f"rendered {len(odo)} corridor + {len(slam)} revisit frames into {args.out}",
@@ -153,10 +160,9 @@ def count(args) -> None:
 
     import ros_stereo_slam_tpu_torch  # noqa: F401  (sets the float policy)
     from ros_stereo_slam_tpu_torch.config import (
-        CameraConfig, preset_loop_closure, preset_odometry,
+        CameraConfig, preset_ba, preset_loop_closure, preset_mapping, preset_odometry,
     )
-    from ros_stereo_slam_tpu_torch.models import pipeline, slam_scan, vocab
-    from ros_stereo_slam_tpu_torch.ops import orb
+    from ros_stereo_slam_tpu_torch.models import pipeline
 
     cuda = args.device.startswith("cuda")
     if cuda and not torch.cuda.is_available():
@@ -167,13 +173,33 @@ def count(args) -> None:
     cam = CameraConfig(**cam_kw)
     out = {}
 
-    odo_cfg = preset_odometry().replace(camera=cam)
+    odo_preset, slam_preset = {"odometry": (preset_odometry, preset_loop_closure),
+                               "mapping": (preset_mapping, None),
+                               "ba": (preset_ba, preset_ba)}[args.preset]
+    odo_cfg = odo_preset().replace(camera=cam)
     L = torch.from_numpy(data["odo_left"]).to(dev)
     R = torch.from_numpy(data["odo_right"]).to(dev)
+    # rgb_seq only for mapping: an older tree's run_offline has no such argument
+    kw = dict(rgb_seq=torch.from_numpy(data["odo_rgb"]).to(dev)) if args.preset == "mapping" else {}
     out["odometry"] = _measure(
-        torch, lambda: pipeline.run_offline(odo_cfg, L, R, device=dev), L.shape[0] - 1, cuda)
+        torch, lambda: pipeline.run_offline(odo_cfg, L, R, device=dev, **kw), L.shape[0] - 1, cuda)
+    if slam_preset is not None:
+        out["slam"] = _slam(torch, slam_preset().replace(camera=cam), cam_kw, data, dev, cuda)
 
-    cfg = preset_loop_closure().replace(camera=cam)
+    if args.out_dir:
+        Path(args.out_dir).mkdir(parents=True, exist_ok=True)
+        path = Path(args.out_dir) / f"kernel_count_{args.label}_{args.preset}.json"
+        path.write_text(json.dumps({k: names for k, (_, names) in out.items()}, indent=1))
+    for name, (row, _) in out.items():
+        print(json.dumps({"label": args.label, "preset": args.preset, "path": name,
+                          "device": str(dev), **row}), flush=True)
+
+
+def _slam(torch, cfg, cam_kw: dict, data, dev, cuda: bool) -> tuple[dict, dict]:
+    """Full SLAM over the revisit frames, with a vocabulary trained on them."""
+    from ros_stereo_slam_tpu_torch.models import slam_scan, vocab
+    from ros_stereo_slam_tpu_torch.ops import orb
+
     if cam_kw:  # the CPU rehearsal: a vocabulary small enough to train here
         cfg = cfg.replace(loop=dataclasses.replace(cfg.loop, vocab_k=4, vocab_levels=3))
     lcc = cfg.loop
@@ -187,17 +213,8 @@ def count(args) -> None:
         docs.append(np.full(int(f.valid.sum()), i))
     voc = vocab.train_batched(torch.cat(descs), k=lcc.vocab_k, levels=lcc.vocab_levels,
                               doc_ids=np.concatenate(docs), device=dev)
-    out["slam"] = _measure(
-        torch, lambda: slam_scan.run_offline_slam(cfg, voc, SL, SR, device=dev),
-        SL.shape[0] - 1, cuda)
-
-    if args.out_dir:
-        Path(args.out_dir).mkdir(parents=True, exist_ok=True)
-        path = Path(args.out_dir) / f"kernel_count_{args.label}.json"
-        path.write_text(json.dumps({k: names for k, (_, names) in out.items()}, indent=1))
-    for name, (row, _) in out.items():
-        print(json.dumps({"label": args.label, "path": name, "device": str(dev), **row}),
-              flush=True)
+    return _measure(torch, lambda: slam_scan.run_offline_slam(cfg, voc, SL, SR, device=dev),
+                    SL.shape[0] - 1, cuda)
 
 
 def main() -> None:
@@ -214,6 +231,7 @@ def main() -> None:
     c.add_argument("--root", default=str(HERE))
     c.add_argument("--label", default="this")
     c.add_argument("--device", default="cuda")
+    c.add_argument("--preset", choices=("odometry", "mapping", "ba"), default="odometry")
     c.add_argument("--out-dir", default="")
     args = ap.parse_args()
     render(args) if args.cmd == "render" else count(args)

@@ -54,7 +54,21 @@ Phases (any failure exits non-zero and prints no result line):
     bitwise equal to its single-lane run) and through ``StereoSLAM`` over
     world A's frames 0-255 (closures at true revisits, PGO below
     odometry-only, a checkpoint after frame 128 resumed bitwise), with BA's
-    milliseconds per frame from CUDA events around ``step._ba_refine``.
+    milliseconds per frame from CUDA events around ``step._ba_refine``;
+13. reference_frontend: ``preset_odometry()`` with the reference's own
+    frontend (FAST + ANMS keypoints, F-matrix RANSAC on the stereo and the
+    temporal matches) through ``run_offline`` over the corridor;
+14. orb_stereo: ORB stereo matching (K2 on both views of every keyframe)
+    with the temporal F-gate through ``run_offline``, then (phase
+    orb_stereo_lanes) as 2 lanes of 24 frames through
+    ``run_sequence_batched`` (K1b, K2b), each lane bitwise equal to its
+    single-lane run;
+15. stereo_depth: the dense-disparity node on corridor pair 0 (SGBM, 96
+    disparities, block 7) against the depth oracle and, on a crop, against
+    the CPU run of the same function; the cloud -> SOR -> PLY flow;
+16. essential: ``monocular_triangulate`` on corridor frames 0 -> 1 (LK
+    tracks of the grid), and the card against the CPU on the same index
+    sets, on those tracks and on exact correspondences.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -136,6 +150,35 @@ MAPPING_WARM_RUNS = 2
 BA_WARM_RUNS = 2
 COLOUR_ATOL = 1e-5
 BA_SLAM_FRAMES = 255
+# The frontend choices (phases reference_frontend and orb_stereo), each
+# through run_offline over the corridor: the reference's own keypoints and
+# gates (FAST + ANMS, F-matrix RANSAC on the stereo and the temporal
+# matches), and its non-dense stereo matcher (ORB on both views) at the
+# setting of tests/test_match.py, also as 2 lanes (bitwise equal to their
+# single-lane runs).  The ATE bound is the odometry one: the JAX package's
+# full-size runs of these frontends were not made (PERF.md section 6).
+REFERENCE_FRONTEND = dict(sampler="anms", stereo_gate="fmat", fmat_gate="ransac")
+ORB_STEREO = dict(stereo_matcher="orb", fmat_gate="ransac", lk_seeded_iters=10,
+                  max_points=1152)
+FRONTEND_WARM_RUNS = 2
+# Dense disparity (phase stereo_depth) on corridor pair 0 against its
+# depth, with the bounds of tests/test_sgbm.py (valid share, median error,
+# bad-pixel rate over 3 px) and its border mask; the card against the CPU
+# on a crop: the same valid pixels, disparities within SGBM_CROP_ATOL px.
+SGBM_MAX_DISP, SGBM_BLOCK = 96, 7
+SGBM_MIN_VALID, SGBM_MAX_MEDIAN_PX, SGBM_MAX_BAD = 0.20, 1.0, 0.15
+SGBM_CROP = (slice(96, 224), slice(320, 704))
+SGBM_CROP_ATOL = 1e-4
+# Essential matrix (phase essential), corridor frames 0 -> 1.  On the LK
+# tracks of the grid, forward motion leaves E poorly conditioned: the JAX
+# package's own result moves with the key (tools/torch_essential_corridor.py),
+# so each run is held to that spread.  On exact correspondences (the grid
+# through the depth oracle) the card equals the CPU on the same index sets
+# (equal inliers, R within ESS_R_ATOL, unit t within ESS_T_ATOL), with
+# tests/test_essential.py's tight bounds against ground truth.
+ESS_TRACK_MIN_INLIERS, ESS_TRACK_ROT_DEG = 0.4, 1.5
+ESS_R_ATOL, ESS_T_ATOL = 1e-4, 1e-3
+ESS_ROT_DEG = 0.1
 # The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet): HBM
 # bytes/s, float32 FLOP/s outside the tensor cores, int8 OP/s.
 PEAK_BYTES_S = 3.35e12
@@ -1263,12 +1306,14 @@ def phase_batched_slam(torch, voc, worlds, cfg, dev) -> dict:
 
 
 def _kernel_counts(reset: bool = False) -> dict:
-    """K1/K2/K3 launches so far (all three set to 0 first with `reset`)."""
+    """K1/K1b/K2/K2b/K3 launches so far (all set to 0 first with `reset`)."""
     from ros_stereo_slam_tpu_torch.ops import lk_cuda, orb_cuda, vocab_cuda
 
     if reset:
-        lk_cuda.LAUNCHES = orb_cuda.LAUNCHES = vocab_cuda.LAUNCHES = 0
-    return dict(k1=lk_cuda.LAUNCHES, k2=orb_cuda.LAUNCHES, k3=vocab_cuda.LAUNCHES)
+        lk_cuda.LAUNCHES = lk_cuda.BATCH_LAUNCHES = vocab_cuda.LAUNCHES = 0
+        orb_cuda.LAUNCHES = orb_cuda.BATCH_LAUNCHES = 0
+    return dict(k1=lk_cuda.LAUNCHES, k1b=lk_cuda.BATCH_LAUNCHES, k2=orb_cuda.LAUNCHES,
+                k2b=orb_cuda.BATCH_LAUNCHES, k3=vocab_cuda.LAUNCHES)
 
 
 def _redispatched_detections(events, F: int, chunk: int, every: int) -> int:
@@ -1729,6 +1774,319 @@ def phase_ba(torch, voc, left, right, poses, cam, dev, sl: dict, rl, rr, rgt, sm
                        "ba_ms": statistics.median(ba_ms_s), "counts": counts_s}}
 
 
+def _frontend_cfg(cam, overrides: dict):
+    import dataclasses
+
+    from ros_stereo_slam_tpu_torch.config import preset_odometry
+
+    base = preset_odometry()
+    return base.replace(camera=cam, frontend=dataclasses.replace(base.frontend, **overrides))
+
+
+def phase_frontend(torch, name: str, overrides: dict, left, right, poses, cam, dev, sl: dict,
+                   smi: str) -> dict:
+    """One frontend choice through run_offline over the corridor: a cold
+    run, then warm runs, every counter from the first warm run."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.models import pipeline, step
+    from ros_stereo_slam_tpu_torch.utils import metrics
+
+    cfg = _frontend_cfg(cam, overrides)
+    L, R = (torch.from_numpy(a).to(dev) for a in (left, right))
+    F = L.shape[0] - 1
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline.run_offline(cfg, L, R, device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, cold_s = run()
+    times = []
+    for rep in range(FRONTEND_WARM_RUNS):
+        if rep == 0:
+            _kernel_counts(reset=True)
+            step.HOST_READS = step.RESCUES = 0
+        res, t = run()
+        times.append(t)
+        if rep == 0:
+            counts = dict(_kernel_counts(), host_reads=step.HOST_READS, rescues=step.RESCUES)
+    traj = res.trajectory
+    check(traj.shape == (F + 1, 4, 4) and bool(np.isfinite(traj).all()),
+          f"{name}: trajectory {traj.shape} not finite")
+    ate = metrics.ate_rmse(traj, poses)
+    n_kf = 1 + int(res.is_keyframe.sum())
+    med = statistics.median(times)
+    log(f"[{smi}] {name}: {overrides}, {F + 1} corridor frames {left.shape[2]}x{left.shape[1]}, "
+        f"cold {cold_s:.3f} s, warm {[round(t, 4) for t in times]} s, median {med:.4f} s -> "
+        f"{F / med:.2f} fps ({F / med / sl['fps']:.3f}x phase slice's); ATE {ate:.4f} m (bound "
+        f"{ATE_BOUND_M}; phase slice {sl['ate']:.4f}); keyframes {n_kf}; rescues "
+        f"{counts['rescues']}; host reads/frame {counts['host_reads'] / F:.2f}; launches K1 "
+        f"{counts['k1']}, K1b {counts['k1b']}, K2 {counts['k2']}, K2b {counts['k2b']}; min "
+        f"inliers {int(res.n_inliers.min())}; all tracked {bool(res.tracking_ok.all())}")
+    check(bool(res.tracking_ok.all()),
+          f"{name}: tracking lost on frames {np.nonzero(~res.tracking_ok)[0] + 1}")
+    check(ate < ATE_BOUND_M, f"{name}: ATE {ate} m >= {ATE_BOUND_M} m")
+    check(counts["host_reads"] == 2 * F,
+          f"{name}: {counts['host_reads']} host reads over {F} frames, not 2 per frame")
+    check(counts["k1"] > 0, f"{name}: the path launched no K1 kernel")
+    orb_route = cfg.frontend.stereo_matcher == "orb"
+    check(counts["k2"] == (2 * n_kf if orb_route else 0),
+          f"{name}: K2 launched {counts['k2']} times for {n_kf} keyframes")
+    check(counts["k1b"] == counts["k2b"] == 0, f"{name}: a lane-gridded kernel launched")
+    return {"fps": F / med, "ate": ate, "keyframes": n_kf, "counts": counts,
+            "trajectory": traj, "cfg": cfg}
+
+
+def phase_orb_stereo_lanes(torch, left, right, poses, cam, dev, smi: str) -> dict:
+    """ORB stereo as 2 lanes of 24 corridor frames through
+    run_sequence_batched (K1b, K2b): a cold run and a warm run, counters
+    from the warm run; each lane bitwise equal to its single-lane run with
+    the lane's key."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.models import pipeline, step, step_batched
+    from ros_stereo_slam_tpu_torch.utils import metrics
+
+    cfg = _frontend_cfg(cam, ORB_STEREO)
+    per = FRAMES // LANES
+    L, R = (torch.from_numpy(a).to(dev) for a in (left, right))
+    Ls = torch.stack([L[b * per:(b + 1) * per + 1] for b in range(LANES)])
+    Rs = torch.stack([R[b * per:(b + 1) * per + 1] for b in range(LANES)])
+    gp, gm = pipeline._grid_for(cfg, dev)
+    keys = step_batched.lane_keys(cfg.seed, LANES)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c0 = step.init_carry_batched(Ls[:, 0], Rs[:, 0], gp, gm, keys, cfg)
+        out = step_batched.run_sequence_batched(Ls[:, 1:], Rs[:, 1:], c0, gp, gm, cfg)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, cold_s = run()
+    _kernel_counts(reset=True)
+    step.HOST_READS = 0
+    (cN, st), t = run()
+    counts = dict(_kernel_counts(), host_reads=step.HOST_READS)
+    equal, ates = True, []
+    for b in range(LANES):
+        c = step.init_carry(Ls[b, 0], Rs[b, 0], gp, gm, keys[b], cfg)
+        cs, ss = step.run_sequence(Ls[b, 1:], Rs[b, 1:], c, gp, gm, cfg)
+        equal &= all(torch.equal(getattr(st, n)[:, b], getattr(ss, n)) for n in ss._fields)
+        equal &= all(torch.equal(x[b], y) for x, y in zip(cN.keyframes, cs.keyframes))
+        T = np.concatenate([np.eye(4, dtype=np.float32)[None], st.T_wc[:, b].cpu().numpy()])
+        ates.append(metrics.ate_rmse(T, poses[b * per:(b + 1) * per + 1]))
+    kf_frames = int(st.is_keyframe.any(1).sum())  # frames where any lane took the branch
+    log(f"[{smi}] orb_stereo lanes: {LANES} lanes x {per} frames, cold {cold_s:.3f} s, warm "
+        f"{t:.4f} s -> {LANES * per / t:.2f} fps aggregate; ATE per lane "
+        f"{[round(a, 4) for a in ates]} m; keyframes per lane "
+        f"{(st.is_keyframe.sum(0) + 1).tolist()}, frames with a keyframe branch {kf_frames}; "
+        f"host reads/frame {counts['host_reads'] / per:.2f}; launches K1b {counts['k1b']}, K2b "
+        f"{counts['k2b']}, K1 {counts['k1']}, K2 {counts['k2']}; lanes bitwise equal to their "
+        f"single-lane runs {equal}")
+    check(bool(st.tracking_ok.all()), "orb_stereo lanes: tracking lost")
+    check(max(ates) < ATE_BOUND_M, f"orb_stereo lanes: worst-lane ATE {max(ates)} m")
+    check(equal, "orb_stereo lanes: a lane differs from its single-lane run")
+    check(counts["host_reads"] == 2 * per, f"orb_stereo lanes: {counts['host_reads']} host reads")
+    check(counts["k1b"] > 0 and counts["k1"] == 0,
+          f"orb_stereo lanes: K1b {counts['k1b']}, K1 {counts['k1']}")
+    check(counts["k2b"] == 2 * (1 + kf_frames) and counts["k2"] == 0,
+          f"orb_stereo lanes: K2b {counts['k2b']} for {1 + kf_frames} keyframe branches, "
+          f"K2 {counts['k2']}")
+    return {"fps": LANES * per / t, "counts": counts, "ate_worst": max(ates)}
+
+
+def phase_stereo_depth(torch, left, right, depth, cam, dev, smi: str) -> dict:
+    """The dense-disparity node on corridor pair 0: SGBM against the
+    depth oracle, the card against the CPU on a crop, the cloud -> SOR ->
+    PLY flow; SGBM milliseconds split between the cost volume, the
+    aggregation and the selection (CUDA events, median of 5 after a warm-up)."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.ops import sgbm
+    from ros_stereo_slam_tpu_torch.utils import ply
+
+    L, R = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (left[0], right[0]))
+    D = SGBM_MAX_DISP
+    parts = {"cost_volume": lambda: sgbm.cost_volume(L, R, D, SGBM_BLOCK)}
+    vol = parts["cost_volume"]()
+    parts["aggregation"] = lambda: sgbm.aggregate(vol, 0.03, 0.12)
+    agg = parts["aggregation"]()
+    parts["selection"] = lambda: sgbm.select_disparity(agg, D)
+    ms = {k: cuda_ms(torch, fn, reps=5) for k, fn in parts.items()}
+    torch.cuda.reset_peak_memory_stats()
+    res = sgbm.sgbm(L, R, max_disp=D, block=SGBM_BLOCK)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    disp, valid = res.disparity.cpu().numpy(), res.valid.cpu().numpy()
+    gt = cam.fx * cam.baseline / depth
+    H, W = disp.shape
+    m = valid.copy()
+    m[:10] = m[-10:] = False
+    m[:, :70] = m[:, -10:] = False
+    m &= (gt > 2.0) & (gt < 60.0)
+    err = np.abs(disp[m] - gt[m])
+    share, med, bad = m.sum() / (H * W), float(np.median(err)), float((err > 3.0).mean())
+
+    rows, cols = SGBM_CROP
+    crop = [np.ascontiguousarray(a[0][rows, cols]) for a in (left, right)]
+    on_card = sgbm.sgbm(*(torch.from_numpy(c).to(dev) for c in crop), max_disp=D)
+    on_cpu = sgbm.sgbm(*(torch.from_numpy(c) for c in crop), max_disp=D)
+    cv, cd = on_card.valid.cpu().numpy(), on_card.disparity.cpu().numpy()
+    same_valid = bool(np.array_equal(cv, on_cpu.valid.numpy()))
+    crop_err = float(np.abs(cd - on_cpu.disparity.numpy()).max())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, pts = sgbm.depth_cloud(L, R, pinhole(cam), float(cam.baseline), max_disp=D,
+                              block=SGBM_BLOCK)
+    torch.cuda.synchronize()
+    flow_s = time.perf_counter() - t0
+    out_dir = ROOT / "build" / "stereo_depth"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    n_out = ply.save_ply(str(out_dir / "StereoCloud.ply"), pts.cpu().numpy())
+    back, _ = ply.load_ply(str(out_dir / "StereoCloud.ply"))
+    total = sum(ms.values())
+    log(f"[{smi}] stereo_depth: SGBM {W}x{H}, {D} disparities, block {SGBM_BLOCK}: "
+        f"{total:.3f} ms = cost volume {ms['cost_volume']:.3f} + aggregation "
+        f"{ms['aggregation']:.3f} + selection {ms['selection']:.3f} (median of 5, CUDA events); "
+        f"peak memory {peak_gb:.3f} GB; valid {share:.4f} (bound > {SGBM_MIN_VALID}), median "
+        f"error {med:.4f} px (bound < {SGBM_MAX_MEDIAN_PX}), bad-pixel rate {bad:.4f} (bound < "
+        f"{SGBM_MAX_BAD}); crop {crop[0].shape[1]}x{crop[0].shape[0]} card vs CPU: same valid "
+        f"{same_valid} ({int(cv.sum())} px), max |d| {crop_err:.2e} px (bound "
+        f"{SGBM_CROP_ATOL}); depth_cloud {flow_s:.3f} s, {n_out} points after SOR, PLY read "
+        f"back {len(back)}")
+    check(share > SGBM_MIN_VALID, f"stereo_depth: valid share {share}")
+    check(med < SGBM_MAX_MEDIAN_PX, f"stereo_depth: median disparity error {med} px")
+    check(bad < SGBM_MAX_BAD, f"stereo_depth: bad-pixel rate {bad}")
+    check(same_valid and cv.sum() > 0,
+          "stereo_depth: the card's valid pixels differ from the CPU's")
+    check(crop_err <= SGBM_CROP_ATOL, f"stereo_depth: card vs CPU disparity {crop_err} px")
+    check(len(back) == n_out == pts.shape[0] > 0, f"stereo_depth: PLY read back {len(back)}")
+    return {"ms": ms, "total_ms": total, "points": n_out}
+
+
+def pinhole(cam):
+    """The port's Pinhole of a CameraConfig."""
+    from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
+
+    return Pinhole(fx=float(cam.fx), fy=float(cam.fy), cx=float(cam.cx), cy=float(cam.cy))
+
+
+def corridor_tracks(torch, left0, left1, cam, dev):
+    """``preset_odometry()``'s grid tracked by LK from (H, W) frame `left0`
+    to `left1` on `dev`: (grid points, tracked points, valid)."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.config import preset_odometry
+    from ros_stereo_slam_tpu_torch.models import frontend, pipeline
+    from ros_stereo_slam_tpu_torch.ops import lk, pyramid
+
+    cfg = preset_odometry().replace(camera=cam)
+    fe = cfg.frontend
+    gp, gm = pipeline._grid_for(cfg, dev)
+    L0, L1 = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (left0, left1))
+    tr = lk.track(tuple(pyramid.build_pyramid(L0[None], fe.lk_levels)),
+                  tuple(pyramid.build_pyramid(L1[None], fe.lk_levels)), gp[None], None,
+                  frontend._lk_params(fe))
+    return gp, tr.points[0].contiguous(), gm & tr.valid[0]
+
+
+def _exact_correspondences(pts, depth, T21, cam):
+    """The grid points of frame 0 projected into frame 1 through the depth
+    oracle and the true motion: (pts1, pts2, valid) as numpy arrays."""
+    import numpy as np
+
+    z = depth[np.clip(pts[:, 1].astype(int), 0, cam.height - 1),
+              np.clip(pts[:, 0].astype(int), 0, cam.width - 1)]
+    P = np.stack([(pts[:, 0] - cam.cx) / cam.fx * z, (pts[:, 1] - cam.cy) / cam.fy * z, z], 1)
+    P2 = P @ T21[:3, :3].T + T21[:3, 3]
+    uv2 = np.stack([P2[:, 0] / P2[:, 2] * cam.fx + cam.cx, P2[:, 1] / P2[:, 2] * cam.fy + cam.cy],
+                   1)
+    m = ((P2[:, 2] > 0.1) & (uv2[:, 0] >= 0) & (uv2[:, 0] < cam.width) & (uv2[:, 1] >= 0)
+         & (uv2[:, 1] < cam.height) & np.isfinite(z))
+    return pts.astype(np.float32), uv2.astype(np.float32), m
+
+
+def phase_essential(torch, left, depth0, poses, cam, dev, smi: str) -> dict:
+    """The monocular utilities on corridor frames 0 -> 1.  LK tracks of
+    the grid (K1): ``monocular_triangulate`` on the card, and the solve on
+    the card and on the CPU from the same index sets, each held to the
+    bounds of the JAX package's spread on these tracks.  The grid
+    projected through the depth oracle (exact correspondences): the card
+    and the CPU on the same index sets, equal inliers, R and unit t within
+    tolerance."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.ops import essential, lk_cuda, ransac
+
+    T21 = np.linalg.inv(poses[1]) @ poses[0]
+    t_gt = T21[:3, 3] / np.linalg.norm(T21[:3, 3])
+    pin = pinhole(cam)
+
+    def rot_err(rp):
+        R = rp.R.cpu().double().numpy()
+        return float(np.degrees(np.arccos(np.clip((np.trace(T21[:3, :3].T @ R) - 1) / 2,
+                                                  -1, 1))))
+
+    def t_dot(rp):
+        return abs(float(rp.t.cpu().double().numpy() @ t_gt))
+
+    def on_both(pts1, pts2, m, seed):
+        """The solve from one set of index sets, on the card and on the CPU."""
+        idx = ransac._sample_minimal_sets(torch.Generator().manual_seed(seed),
+                                          torch.as_tensor(m).cpu(), 256, 8)
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            a = [torch.as_tensor(x).to(d) for x in (pts1, pts2, m)]
+            e = essential._essential_from_sets(idx.to(d), pin, *a, 1.0)
+            outs.append((e, essential.recover_pose(e.E, pin, *a[:2], e.inliers)))
+        return outs
+
+    lk_cuda.LAUNCHES = 0
+    pts1, pts2, m = corridor_tracks(torch, left[0], left[1], cam, dev)
+    k1 = lk_cuda.LAUNCHES
+    n_valid = int(m.sum())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    er, rp = essential.monocular_triangulate(gen, pin, pts1, pts2, m, 1.0, 256)
+    torch.cuda.synchronize()
+    mono_ms = (time.perf_counter() - t0) * 1e3
+    (ec, rc), (eh, rh) = on_both(pts1, pts2, m, 0)
+    runs = {"card": (er, rp), "card, CPU's sets": (ec, rc), "CPU": (eh, rh)}
+    log(f"[{smi}] essential, LK tracks: corridor frames 0 -> 1, {n_valid} of {pts1.shape[0]} "
+        f"grid points tracked (K1 launches {k1}); monocular_triangulate on the card "
+        f"{mono_ms:.1f} ms (one call, host clock); (inliers, rotation error deg, |t . t_gt|): "
+        + ", ".join(f"{k} ({int(e.n_inliers)}, {rot_err(r):.4f}, {t_dot(r):.5f})"
+                    for k, (e, r) in runs.items())
+        + f"; bounds > {ESS_TRACK_MIN_INLIERS} x valid, < {ESS_TRACK_ROT_DEG} deg")
+    check(k1 > 0, "essential: the LK tracks launched no K1 kernel")
+    for k, (e, r) in runs.items():
+        check(int(e.n_inliers) > ESS_TRACK_MIN_INLIERS * n_valid and rot_err(r) < ESS_TRACK_ROT_DEG,
+              f"essential ({k}): {int(e.n_inliers)} of {n_valid} inliers, {rot_err(r)} deg")
+
+    x1, x2, mx = _exact_correspondences(pts1.cpu().numpy(), depth0, T21, cam)
+    (ec, rc), (eh, rh) = on_both(x1, x2, mx, 1)
+    same_inl = bool(torch.equal(ec.inliers.cpu(), eh.inliers))
+    r_err = float((rc.R.cpu() - rh.R).abs().max())
+    t_err = float((rc.t.cpu() - rh.t).abs().max())
+    log(f"[{smi}] essential, exact correspondences ({int(mx.sum())} grid points through the "
+        f"depth oracle): inliers card {int(ec.n_inliers)}, CPU {int(eh.n_inliers)} (equal masks "
+        f"{same_inl}); max |dR| {r_err:.2e} (bound {ESS_R_ATOL}), max |dt| {t_err:.2e} (bound "
+        f"{ESS_T_ATOL}); rotation error card {rot_err(rc):.4f}, CPU {rot_err(rh):.4f} deg "
+        f"(bound {ESS_ROT_DEG}); |t . t_gt| card {t_dot(rc):.6f}, CPU {t_dot(rh):.6f}")
+    check(same_inl and int(ec.n_inliers) > 0.95 * int(mx.sum()),
+          f"essential: inliers {int(ec.n_inliers)} on the card, {int(eh.n_inliers)} on the CPU")
+    check(r_err <= ESS_R_ATOL and t_err <= ESS_T_ATOL,
+          f"essential: card vs CPU |dR| {r_err}, |dt| {t_err}")
+    check(rot_err(rc) < ESS_ROT_DEG and t_dot(rc) > 0.9999,
+          f"essential: exact correspondences give {rot_err(rc)} deg, |t . t_gt| {t_dot(rc)}")
+    return {"k1": k1, "ms": mono_ms, "inliers": int(er.n_inliers)}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         log(f"FAIL: package {PKG}/ not found beside chip_smoke.py")
@@ -1786,6 +2144,15 @@ def main() -> int:
         on = timed("online", phase_online, torch, voc, rl, rr, rgt, slam_cfg, dev, sm, smi)
         mp = timed("mapping", phase_mapping, torch, left, right, rgb8, cam, dev, sl, smi)
         ba = timed("ba", phase_ba, torch, voc, left, right, poses, cam, dev, sl, rl, rr, rgt, smi)
+        rf = timed("reference_frontend", phase_frontend, torch, "reference_frontend",
+                   REFERENCE_FRONTEND, left, right, poses, cam, dev, sl, smi)
+        ob = timed("orb_stereo", phase_frontend, torch, "orb_stereo", ORB_STEREO, left, right,
+                   poses, cam, dev, sl, smi)
+        obl = timed("orb_stereo_lanes", phase_orb_stereo_lanes, torch, left, right, poses, cam,
+                    dev, smi)
+        sd = timed("stereo_depth", phase_stereo_depth, torch, left, right, depths[0], cam, dev,
+                   smi)
+        es = timed("essential", phase_essential, torch, left, depths[0], poses, cam, dev, smi)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -1803,6 +2170,11 @@ def main() -> int:
         f"{ba['offline']['ba_ms']:.3f} ms of BA per frame), BA 2 lanes "
         f"{ba['lanes']['fps']:.2f} fps aggregate; full SLAM with BA (StereoSLAM) "
         f"{ba['stream']['fps']:.2f} fps vs streaming without {on['stream']['fps']:.2f} fps")
+    log(f"[{smi}] frontend choices against odometry on this card: slice {sl['fps']:.2f} fps, "
+        f"reference_frontend {rf['fps']:.2f} fps ({rf['fps'] / sl['fps']:.3f}x), orb_stereo "
+        f"{ob['fps']:.2f} fps ({ob['fps'] / sl['fps']:.3f}x), orb_stereo 2 lanes "
+        f"{obl['fps']:.2f} fps aggregate; ATE slice {sl['ate']:.4f} m, reference_frontend "
+        f"{rf['ate']:.4f} m, orb_stereo {ob['ate']:.4f} m; SGBM {sd['total_ms']:.3f} ms a pair")
     # (name, source, TPU kernel it replaces, launches on its own path, measures).
     # K1's launches are counted on the corridor slice, K2's and K3's on full
     # SLAM, K1b's on the batched odometry and K2b's on batched full SLAM.
@@ -1815,19 +2187,21 @@ def main() -> int:
         ("lk_level", "lk_level", "lk_pallas.py:120", sl["launches"], k1,
          {"slice": sl["launches"], "slam": sm["counts"]["lk_level"],
           "online_stream": on["stream"]["counts"]["k1"], "mapping": mp["launches"],
-          "ba": ba["offline"]["counts"]["k1"], "ba_stream": ba["stream"]["counts"]["k1"]}),
+          "ba": ba["offline"]["counts"]["k1"], "ba_stream": ba["stream"]["counts"]["k1"],
+          "reference_frontend": rf["counts"]["k1"], "orb_stereo": ob["counts"]["k1"],
+          "essential": es["k1"]}),
         ("orb_desc", "orb_desc", "orb_pallas.py:84", sm["counts"]["orb_desc"], k2,
          {"slam": sm["counts"]["orb_desc"], "online_stream": on["stream"]["counts"]["k2"],
-          "ba_stream": ba["stream"]["counts"]["k2"]}),
+          "ba_stream": ba["stream"]["counts"]["k2"], "orb_stereo": ob["counts"]["k2"]}),
         ("vocab_descend", "vocab_descend", "vocab_pallas.py:72",
          sm["counts"]["vocab_descend"], k3,
          {"slam": sm["counts"]["vocab_descend"], "online_stream": on["stream"]["counts"]["k3"],
           "ba_stream": ba["stream"]["counts"]["k3"]}),
         ("lk_level_batch", "lk_level", "lk_pallas.py:361", bo["launches"], k1b,
          {"batched_odo": bo["launches"], "batched_slam": bs["counts"]["k1b"],
-          "ba_lanes": ba["lanes"]["k1b"]}),
+          "ba_lanes": ba["lanes"]["k1b"], "orb_stereo_lanes": obl["counts"]["k1b"]}),
         ("orb_desc_batch", "orb_desc", "orb_pallas.py:207", bs["counts"]["k2b"], k2b,
-         {"batched_slam": bs["counts"]["k2b"]}),
+         {"batched_slam": bs["counts"]["k2b"], "orb_stereo_lanes": obl["counts"]["k2b"]}),
     ]
     rows = []
     for name, src, replaces, launches, meas, by_path in table:

@@ -71,10 +71,14 @@ def corrected_carry(carry: step_mod.SlamCarry, new_poses: torch.Tensor,
     )
     T_opt = new_poses[f].clone()
     left_pyr = pyramid.build_pyramid(carry.ref_pyr[0], fe.lk_levels)
-    right_pyr = pyramid.build_pyramid(step_mod._to_unit(right_img).contiguous(), fe.lk_levels)
+    right_pyr = pyramid.build_pyramid(step_mod._to_unit(right_img).contiguous(),
+                                      step_mod._right_levels(fe))
+    gens = step_mod._stereo_gate_generators(cfg, (carry.key,), f, step_mod._STREAM_CORRECTION,
+                                            T_opt.device)
     track, r_uv, r_mask = step_mod._bootstrap_track(  # one lane
         tuple(p[None] for p in left_pyr), tuple(p[None] for p in right_pyr), grid_pts[None],
-        grid_mask[None], T_opt[None], cfg, left_rgb=None if rgb_img is None else rgb_img[None])
+        grid_mask[None], T_opt[None], cfg, gens,
+        left_rgb=None if rgb_img is None else rgb_img[None])
     ba = None
     if cfg.ba_enabled:
         ba = step_mod.BAState(*(x[0] for x in step_mod._ba_reset(track, r_uv, r_mask,
@@ -106,7 +110,6 @@ class StereoSLAM:
             raise NotImplementedError("StereoSLAM(mesh=...) is not ported (the multi-device "
                                       "slice)")
         cfg = self.config
-        step_mod._check_supported(cfg)
         self.grid_pts, self.grid_mask = _grid_for(cfg, self.device)
         self._carry = None
         self.trajectory_dev = None  # (max_poses, 4, 4) on the device

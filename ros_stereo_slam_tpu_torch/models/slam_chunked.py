@@ -107,7 +107,6 @@ class ChunkedSLAM:
 
     def __post_init__(self):
         cfg = self.config
-        step_mod._check_supported(cfg)
         self.grid_pts, self.grid_mask = _grid_for(cfg, self.device)
         self._tree = self.vocab.packed().to(self.device)
         self._idf = self.vocab.idf.to(self.device)

@@ -14,9 +14,15 @@ PyTorch on the device that holds the frames:
   gives a bitwise-identical trajectory on one device.  The streams are not
   JAX's (the parity tests compare poses, not random draws).
 
-Only the default static choices of the frontend are ported: the grid
-sampler, LK stereo matching with the epipolar gate and no temporal
-F-gate.  The others raise ``NotImplementedError``.  The RGB map path
+Every static choice of the frontend is ported, each a branch of the
+reference's step: the keypoint sampler (the grid, or FAST + ANMS:
+``sampler="anms"``), the stereo matcher (LK, or ORB on both views matched
+by :func:`.match.mutual_hamming_match`: ``stereo_matcher="orb"``), the
+stereo gate (the epipolar rows, or F-matrix RANSAC: any ``stereo_gate``
+but ``"epipolar"``) and the temporal F-gate before PnP
+(``fmat_gate="ransac"``).  The two F-gates draw from streams of their
+own, so the default configuration draws and launches what it did before
+they were ported.  The RGB map path
 (``left_rgb``: keyframe colours from an RGB frame, config 2) and windowed
 bundle adjustment (``cfg.ba_enabled``, config 4: :func:`_ba_refine` on
 every frame, :func:`_ba_reset` on every keyframe) are ported.  The BA
@@ -40,7 +46,8 @@ import torch
 from ros_stereo_slam_tpu_torch.config import PipelineConfig
 from ros_stereo_slam_tpu_torch.models import bundle_adjust, frontend
 from ros_stereo_slam_tpu_torch.models.state import KeyframeStore, TrackState
-from ros_stereo_slam_tpu_torch.ops import interp, lk, pnp, pyramid, sor, triangulate
+from ros_stereo_slam_tpu_torch.ops import (anms, fast, interp, lk, match, orb, pnp, pyramid,
+                                           ransac, sor, triangulate)
 from ros_stereo_slam_tpu_torch.utils import lie
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole, project
 
@@ -49,8 +56,11 @@ from ros_stereo_slam_tpu_torch.utils.camera import Pinhole, project
 HOST_READS = 0
 RESCUES = 0
 
-# Generator streams of one frame.
+# Generator streams of one frame: PnP on the seeded track and on the
+# rescue; the temporal F-gate on each; the keyframe branch's stereo F-gate
+# (frame 0's bootstrap included); a correction's re-bootstrap.
 _STREAM_TRACK, _STREAM_RESCUE = 0, 1
+_STREAM_FGATE_TRACK, _STREAM_FGATE_RESCUE, _STREAM_KEYFRAME, _STREAM_CORRECTION = 2, 3, 4, 5
 
 
 class FrameStats(NamedTuple):
@@ -115,18 +125,6 @@ class SlamCarry(NamedTuple):
     ba: BAState | None = None  # present iff cfg.ba_enabled
 
 
-def _check_supported(cfg: PipelineConfig) -> None:
-    fe = cfg.frontend
-    for name, got, want in (
-        ("frontend.sampler", fe.sampler, "grid"),
-        ("frontend.stereo_matcher", fe.stereo_matcher, "lk"),
-        ("frontend.fmat_gate", fe.fmat_gate, "none"),
-        ("frontend.stereo_gate", fe.stereo_gate, "epipolar"),
-    ):
-        if got != want:
-            raise NotImplementedError(f"{name}={got!r} is not ported (only {want!r})")
-
-
 def _host_read(flag: torch.Tensor) -> bool:
     global HOST_READS
     HOST_READS += 1
@@ -140,9 +138,35 @@ def _generator(key: int, frame_idx: int, stream: int, device) -> torch.Generator
     return gen
 
 
+def _stereo_gate_generators(cfg: PipelineConfig, keys, frame_idx: int,
+                            stream: int, device) -> list | None:
+    """One generator per lane for the stereo F-gate of a (re)bootstrap, or
+    None where the bootstrap draws nothing (the epipolar gate, ORB stereo)."""
+    fe = cfg.frontend
+    if fe.stereo_matcher == "orb" or fe.stereo_gate == "epipolar":
+        return None
+    return [_generator(k, frame_idx, stream, device) for k in keys]
+
+
+def _grid_lk(fe) -> bool:
+    """The static grid with LK stereo: the only frontend whose keyframe
+    branch can seed its stereo re-match from each slot's last disparity."""
+    return fe.sampler == "grid" and fe.stereo_matcher == "lk"
+
+
 def _happy_levels(fe) -> int:
-    """Pyramid depth the seeded steady-state path touches."""
-    return min(max(fe.lk_seeded_levels, fe.lk_stereo_seeded_levels), fe.lk_levels)
+    """Pyramid depth the seeded steady-state path touches.  A keyframe
+    branch that re-matches unseeded (the ANMS sampler, ORB stereo) needs
+    the full pyramid every frame."""
+    if _grid_lk(fe):
+        return min(max(fe.lk_seeded_levels, fe.lk_stereo_seeded_levels), fe.lk_levels)
+    return fe.lk_levels
+
+
+def _right_levels(fe) -> int:
+    """Pyramid depth of the right view in an unseeded (re)bootstrap: ORB
+    stereo reads level 0 only."""
+    return 1 if fe.stereo_matcher == "orb" else fe.lk_levels
 
 
 def _cam_of(cfg: PipelineConfig) -> Pinhole:
@@ -157,12 +181,45 @@ def _to_unit(img: torch.Tensor) -> torch.Tensor:
     return img
 
 
+def _sample_keypoints(left_img: torch.Tensor, grid_pts, grid_mask, fe):
+    """Keypoint source of B lanes: the static grid (reference C2) or FAST +
+    ANMS on level 0 (reference C3, ``src/ANMS.cpp:18-67``) with the exact
+    top corners (the reference's ``approx_max_k`` is a TPU mechanic)."""
+    if fe.sampler != "anms":
+        return grid_pts, grid_mask
+    score = fast.fast_score(left_img, fe.fast_thresh / 255.0)
+    cand_pts, cand_scores, cand_mask = fast.top_corners(score, 4 * fe.max_points)
+    return anms.anms(cand_pts, cand_scores, cand_mask, fe.max_points, fe.anms_robust_coeff)
+
+
+def _orb_lanes(img: torch.Tensor, fe) -> orb.OrbFeatures:
+    """ORB features of a (B, H, W) stack: kernel K2 on a single lane's
+    image, K2b on B > 1 lanes (a lane of K2b equals K2's call)."""
+    if img.shape[0] == 1:
+        f = orb.detect_and_compute(img[0], fe.max_points, fe.fast_thresh / 255.0)
+        return orb.OrbFeatures(*(x[None] for x in f))
+    return orb.detect_and_compute(img, fe.max_points, fe.fast_thresh / 255.0)
+
+
+def _fgate(gens: list, pts1: torch.Tensor, pts2: torch.Tensor, mask: torch.Tensor,
+           thresh_px: float, iters: int) -> torch.Tensor:
+    """F-matrix RANSAC inliers of B lanes, lane by lane (lane b draws from
+    gens[b]), so a lane rounds as its single-lane run does."""
+    return _lane_by_lane(
+        lambda a, b, m, g: ransac.fmat_ransac(g, a, b, m, thresh_px, iters).inliers,
+        pts1, pts2, mask, gens)
+
+
 def _bootstrap_track(
     left_pyr, right_pyr, grid_pts, grid_mask, T_wc, cfg: PipelineConfig,
-    stereo_flow=None, left_rgb=None,
+    gens: list | None = None, stereo_flow=None, left_rgb=None,
 ) -> tuple[TrackState, torch.Tensor, torch.Tensor]:
-    """Stereo LK -> epipolar gate -> triangulate -> SOR -> world lift.
+    """Keypoints -> stereo match -> gate -> triangulate -> SOR -> world lift.
 
+    The keypoints are the grid or FAST + ANMS (``sampler``), matched by
+    stereo LK behind the epipolar or the F-matrix gate (``stereo_gate``;
+    the latter draws from `gens`, one generator per lane), or ORB corners
+    of both views matched by descriptor (``stereo_matcher="orb"``).
     Returns (track, right_uv, right_mask); the right-view matches feed the
     BA window's scale anchor.  `stereo_flow` (N, 2), if given, seeds the
     L->R match from each grid slot's last measured disparity.  `left_rgb`
@@ -172,15 +229,34 @@ def _bootstrap_track(
     grid points, (B, 4, 4) poses, (B, H, W, 3) RGB frames.
     """
     fe, kfc = cfg.frontend, cfg.keyframes
-    res = lk.track(left_pyr, right_pyr, grid_pts, stereo_flow,
-                   frontend._lk_stereo_params(fe))
-    # Rectified pair: a valid match has y_l == y_r and positive disparity.
-    dy = res.points[..., 1] - grid_pts[..., 1]
-    disp = grid_pts[..., 0] - res.points[..., 0]
-    m = (grid_mask & res.valid & (torch.abs(dy) <= fe.stereo_epipolar_tol_px)
-         & (disp > 0.05))
+    if fe.stereo_matcher == "orb":
+        # The reference's non-dense path: ORB on each view, brute-force
+        # descriptor matching gated to pairs on one row with positive
+        # disparity (src/triangulation.cpp:104-134).
+        fl, fr = _orb_lanes(left_pyr[0], fe), _orb_lanes(right_pyr[0], fe)
+        dv = torch.abs(fl.pts[..., :, None, 1] - fr.pts[..., None, :, 1])
+        disp = fl.pts[..., :, None, 0] - fr.pts[..., None, :, 0]
+        pair_ok = (dv <= fe.orb_epipolar_tol_px) & (disp > 0.1)
+        mres = match.mutual_hamming_match(
+            fl.desc_sign, fl.valid, fr.desc_sign, fr.valid, max_dist=fe.orb_match_max_dist,
+            ratio=fe.orb_match_ratio, pair_mask=pair_ok)
+        pts = fl.pts.contiguous()
+        right_pts = torch.gather(fr.pts, -2, mres.idx[..., None].expand(mres.idx.shape + (2,)))
+        m = mres.valid
+    else:
+        pts, mask = _sample_keypoints(left_pyr[0], grid_pts, grid_mask, fe)
+        res = lk.track(left_pyr, right_pyr, pts, stereo_flow, frontend._lk_stereo_params(fe))
+        m = mask & res.valid
+        if fe.stereo_gate == "epipolar":
+            # Rectified pair: a valid match has y_l == y_r and positive disparity.
+            dy = res.points[..., 1] - pts[..., 1]
+            disp = pts[..., 0] - res.points[..., 0]
+            m = m & (torch.abs(dy) <= fe.stereo_epipolar_tol_px) & (disp > 0.05)
+        else:
+            m = m & _fgate(gens, pts, res.points, m, fe.fmat_stereo_thresh_px, fe.fmat_iters)
+        right_pts = res.points
     tri = triangulate.triangulate_rectified(
-        _cam_of(cfg), float(cfg.camera.baseline), grid_pts, res.points, m,
+        _cam_of(cfg), float(cfg.camera.baseline), pts, right_pts, m,
         max_depth=kfc.max_depth,
     )
     clean = sor.sor_filter(
@@ -188,24 +264,29 @@ def _bootstrap_track(
         std_mul=kfc.sor_std_mul, max_depth=kfc.max_depth,
     )
     if left_rgb is not None:
-        colors = interp.bilinear_at_rgb(left_rgb, grid_pts)
+        colors = interp.bilinear_at_rgb(left_rgb, pts)
     else:
-        gray = interp.bilinear_at(left_pyr[0], grid_pts)
+        gray = interp.bilinear_at(left_pyr[0], pts)
         colors = torch.stack([gray, gray, gray], dim=-1)
     track = TrackState(
-        pts2d=grid_pts, pts3d=_lane_by_lane(lie.transform_points, T_wc, tri.points),
+        pts2d=pts, pts3d=_lane_by_lane(lie.transform_points, T_wc, tri.points),
         colors=colors, mask=clean,
     )
-    return track, res.points, clean
+    return track, right_pts, clean
 
 
 def _track_and_pnp(carry: SlamCarry, ref_pyr, c_pyr, init_flow, lk_params,
-                   gen: torch.Generator, cfg: PipelineConfig, cam, T_prior):
-    """Temporal LK track -> PnP with the folded retry ladder; the previous
-    pose seeds the GN hypothesis family."""
-    pc = cfg.pnp
+                   gen, fgens, cfg: PipelineConfig, cam, T_prior):
+    """Temporal LK track -> F-matrix gate (``fmat_gate="ransac"``, drawing
+    from `fgens`; the reference's ``src/tracking.cpp:75-84``) -> PnP with
+    the folded retry ladder; the previous pose seeds the GN hypothesis
+    family."""
+    fe, pc = cfg.frontend, cfg.pnp
     r = lk.track(ref_pyr, c_pyr, carry.track.pts2d, init_flow, lk_params)
     mm = carry.track.mask & r.valid
+    if fe.fmat_gate == "ransac":
+        mm = mm & _fgate(fgens, carry.track.pts2d, r.points, mm, fe.fmat_thresh_px,
+                         fe.fmat_iters)
     pp = pnp.pnp_ransac(
         gen, cam, carry.track.pts3d, r.points, mm,
         thresh_px=pc.thresh_px, iters=pc.iters,
@@ -381,7 +462,6 @@ def slam_frame_step(
     runs :func:`_step_lanes` with one lane, so a lane of the batched step
     rounds exactly as this step does.
     """
-    _check_supported(cfg)
     new, stats = _step_lanes(_one_lane(carry), left_img[None], right_img[None], grid_pts,
                              grid_mask, cfg, None if left_rgb is None else left_rgb[None])
     return _drop_lane(new), FrameStats(*(s[0] for s in stats))
@@ -415,16 +495,19 @@ def _step_lanes(
     dev = left_img.device
     B = left_img.shape[0]
     seeded = fe.lk_seed == "const_velocity"
+    stereo_seeded = seeded and _grid_lk(fe)
     # Lazy pyramid: the seeded path touches only the finest levels; the
     # rescue builds the coarse ones itself.
     cur_pyr = tuple(pyramid.build_pyramid(
         left_img, _happy_levels(fe) if seeded else fe.lk_levels))
     T_prior = _lane_by_lane(lie.inv_se3, carry.T_wc)
 
-    def track_and_pnp(ref_pyr, c_pyr, init_flow, lk_params, stream):
+    def track_and_pnp(ref_pyr, c_pyr, init_flow, lk_params, stream, fgate_stream):
         gens = [_generator(k, carry.frame_idx, stream, dev) for k in carry.key]
+        fgens = ([_generator(k, carry.frame_idx, fgate_stream, dev) for k in carry.key]
+                 if fe.fmat_gate == "ransac" else None)
         return _track_and_pnp(carry, ref_pyr, c_pyr, init_flow, lk_params,
-                              gens, cfg, cam, T_prior)
+                              gens, fgens, cfg, cam, T_prior)
 
     if seeded:
         # Predict the pose by replaying the last inter-frame motion, project
@@ -443,7 +526,7 @@ def _step_lanes(
             carry.ref_pyr[:n_lvl], cur_pyr[:n_lvl], init_flow,
             frontend._lk_params(fe)._replace(
                 iters=fe.lk_seeded_iters, walk_iters=fe.lk_seeded_walk_iters),
-            _STREAM_TRACK,
+            _STREAM_TRACK, _STREAM_FGATE_TRACK,
         )
         # Rescue: a wrong velocity prior starves PnP — re-track unseeded on
         # the full pyramid (coarse levels of both frames built only here).
@@ -453,11 +536,11 @@ def _step_lanes(
             ref_full = tuple(pyramid.build_pyramid(carry.ref_pyr[0], fe.lk_levels))
             cur_full = tuple(pyramid.build_pyramid(left_img, fe.lk_levels))
             rescued = track_and_pnp(ref_full, cur_full, None, frontend._lk_params(fe),
-                                    _STREAM_RESCUE)
+                                    _STREAM_RESCUE, _STREAM_FGATE_RESCUE)
             tracked = _where_lanes(need_rescue, rescued, tracked)
     else:
-        tracked = track_and_pnp(
-            carry.ref_pyr, cur_pyr, None, frontend._lk_params(fe), _STREAM_TRACK)
+        tracked = track_and_pnp(carry.ref_pyr, cur_pyr, None, frontend._lk_params(fe),
+                                _STREAM_TRACK, _STREAM_FGATE_TRACK)
     tracked_pts, m, p = tracked
 
     tracking_ok = p.n_inliers >= pc.min_inliers
@@ -478,19 +561,22 @@ def _step_lanes(
     if _host_read(is_kf.any()):
         gp = grid_pts.expand(B, -1, -1).contiguous()
         gm = grid_mask.expand(B, -1)
-        if seeded:
+        gens = _stereo_gate_generators(cfg, carry.key, carry.frame_idx, _STREAM_KEYFRAME, dev)
+        if stereo_seeded:
             n_lvl = min(fe.lk_stereo_seeded_levels, fe.lk_levels)
             right_pyr = tuple(pyramid.build_pyramid(right_img, n_lvl))
             kf_track, r_uv, r_mask = _bootstrap_track(
-                cur_pyr[:n_lvl], right_pyr, gp, gm, T_wc, cfg,
+                cur_pyr[:n_lvl], right_pyr, gp, gm, T_wc, cfg, gens,
                 stereo_flow=carry.stereo_flow, left_rgb=left_rgb,
             )
             flow = _where_lanes(is_kf, torch.where(kf_track.mask[..., None], r_uv - gp,
                                                    carry.stereo_flow), flow)
         else:
-            right_pyr = tuple(pyramid.build_pyramid(right_img, fe.lk_levels))
+            # Unseeded on the full pyramid; the grid's disparity prior is
+            # left as it is.  ORB stereo reads level 0 of the right view only.
+            right_pyr = tuple(pyramid.build_pyramid(right_img, _right_levels(fe)))
             kf_track, r_uv, r_mask = _bootstrap_track(cur_pyr, right_pyr, gp, gm, T_wc, cfg,
-                                                      left_rgb=left_rgb)
+                                                      gens, left_rgb=left_rgb)
         if cfg.ba_enabled:
             ba = _where_lanes(is_kf, _ba_reset(kf_track, r_uv, r_mask, T_wc, cfg), ba)
         track = _where_lanes(is_kf, kf_track, track)
@@ -557,7 +643,6 @@ def init_carry_batched(
     stays one int (lanes step in lockstep).  Lane b equals
     ``init_carry(..., key=keys[b], ...)``.
     """
-    _check_supported(cfg)
     B = left_imgs.shape[0]
     if left_imgs.dim() != 3 or right_imgs.shape != left_imgs.shape or len(keys) != B:
         raise ValueError(f"expected (B, H, W) images and B keys: {tuple(left_imgs.shape)}, "
@@ -567,14 +652,15 @@ def init_carry_batched(
     fe = cfg.frontend
     dev = left_imgs.device
     left_pyr = pyramid.build_pyramid(left_imgs, fe.lk_levels)
-    right_pyr = pyramid.build_pyramid(right_imgs, fe.lk_levels)
+    right_pyr = pyramid.build_pyramid(right_imgs, _right_levels(fe))
     T0 = torch.eye(4, dtype=torch.float32, device=dev).expand(B, 4, 4).contiguous()
     gp = grid_pts.expand(B, -1, -1).contiguous()
+    gens = _stereo_gate_generators(cfg, keys, 0, _STREAM_KEYFRAME, dev)
     track, r_uv, r_mask = _bootstrap_track(left_pyr, right_pyr, gp, grid_mask.expand(B, -1), T0,
-                                           cfg, left_rgb=left_rgbs)
+                                           cfg, gens, left_rgb=left_rgbs)
     kf = KeyframeStore.empty(cfg.keyframes.max_keyframes, fe.max_points, dev, lanes=B)
     kf = _insert_keyframe(kf, track, T0, 0)
-    stereo_flow = torch.where(track.mask[..., None], r_uv - gp, torch.zeros_like(r_uv))
+    stereo_flow = torch.where(track.mask[..., None], r_uv - track.pts2d, torch.zeros_like(r_uv))
     # Carry only the pyramid depth the steady-state (seeded) path touches.
     ref_keep = (left_pyr[: _happy_levels(fe)]
                 if fe.lk_seed == "const_velocity" else left_pyr)

@@ -59,7 +59,6 @@ def lane_keys(seed: int, lanes: int) -> tuple[int, ...]:
 
 def check_batched(cfg: PipelineConfig) -> None:
     """Raise for the configurations the batched step does not run."""
-    step_mod._check_supported(cfg)
     if cfg.frontend.lk_seed != "const_velocity":
         raise ValueError(
             "the batched step requires the const-velocity-seeded config (the "

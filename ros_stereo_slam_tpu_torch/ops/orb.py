@@ -92,8 +92,8 @@ def sign_of_packed(packed: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_mxu(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
-    """Hamming distance from sign vectors: (N, 256) x (M, 256) -> (N, M)."""
-    return (N_BITS - sa @ sb.T) * 0.5
+    """Hamming distance from sign vectors: (..., N, 256) x (..., M, 256) -> (..., N, M)."""
+    return (N_BITS - sa @ sb.transpose(-1, -2)) * 0.5
 
 
 @lru_cache(maxsize=8)

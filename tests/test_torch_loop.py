@@ -301,8 +301,9 @@ def test_spd_inverse_small_matches_reference():
 
 def test_unported_parts_documented():
     """What the online slice still refuses raises NotImplementedError: the
-    multi-device mesh, and the four frontend choices the step does not
-    port (ROADMAP item 23), in both online drivers."""
+    multi-device mesh.  The four frontend choices of ROADMAP item 23 are
+    ported: both online drivers take each one (with BA on) and bootstrap
+    frame 0 with it."""
     from ros_stereo_slam_tpu_torch.config import PGOConfig
     from ros_stereo_slam_tpu_torch.models import slam, slam_chunked
     from ros_stereo_slam_tpu_torch.models.vocab import Vocabulary
@@ -316,13 +317,17 @@ def test_unported_parts_documented():
         graph.optimize(torch.eye(4).repeat(8, 1, 1), mesh=object())
     voc = Vocabulary(k=2, levels=1, centers=[torch.ones((2, 256), dtype=torch.int8)],
                      idf=torch.ones(2))
+    world = small_world(n_frames=1, seed=3)
+    left, right, _ = world.render(0)
     for choice in (dict(sampler="anms"), dict(stereo_matcher="orb"),
                    dict(fmat_gate="ransac"), dict(stereo_gate="fmat")):
-        (name, value), = choice.items()
-        other = cfg.replace(frontend=dataclasses.replace(cfg.frontend, **choice),
-                            ba_enabled=True)
-        with pytest.raises(NotImplementedError, match=f"{name}={value!r}"):
-            slam.StereoSLAM(other, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"{name}={value!r}"):
-            slam_chunked.ChunkedSLAM(other, voc, device="cpu")
+        other = cfg.replace(camera=world.camera, ba_enabled=True,
+                            frontend=dataclasses.replace(cfg.frontend, **choice))
+        s = slam.StereoSLAM(other, device="cpu")
+        s.initialize(left, right)
+        c = slam_chunked.ChunkedSLAM(other, voc, device="cpu")
+        c.initialize(left, right)
+        for carry in (s._carry, c._carry):
+            assert int(carry.track.mask.sum()) > 50, choice
+            assert carry.ba is not None
     assert dataclasses.is_dataclass(slam_scan.ScanSlamResult)

@@ -169,18 +169,25 @@ def test_carry_from_jax_init_matches_port_init(runs):
 
 
 @pytest.mark.parametrize("override", [
-    dict(sampler="anms"), dict(stereo_matcher="orb"), dict(fmat_gate="ransac"),
-    dict(stereo_gate="fmat"),
+    dict(sampler="anms"), dict(stereo_matcher="orb", lk_seeded_iters=10, max_points=1152),
+    dict(fmat_gate="ransac"), dict(stereo_gate="fmat"),
 ])
-def test_unported_choices_raise(runs, override):
-    _, left, right, tcfg, *_ = runs
+def test_frontend_choices_run_the_slice(runs, override):
+    """Each frontend choice on the slice's world and configuration: every
+    frame tracked, ATE under the odometry bound of 0.10 m, and the
+    streaming driver gives run_offline's poses bitwise."""
+    world, left, right, tcfg, *_ = runs
     import dataclasses
 
     cfg = tcfg.replace(frontend=dataclasses.replace(tcfg.frontend, **override))
-    gp, gm = pipeline._grid_for(cfg, "cpu")
-    with pytest.raises(NotImplementedError):
-        step.init_carry(torch.from_numpy(left[0]), torch.from_numpy(right[0]),
-                        gp, gm, 0, cfg)
+    res = pipeline.run_offline(cfg, left, right, device="cpu")
+    assert res.tracking_ok.all(), res.n_inliers
+    assert metrics.ate_rmse(res.trajectory, world.poses) < 0.10
+    odo = pipeline.StereoOdometry(cfg, device="cpu")
+    odo.initialize(left[0], right[0])
+    for i in range(1, 5):
+        odo.process_frame(left[i], right[i])
+    np.testing.assert_array_equal(odo.trajectory_array(), res.trajectory[:5])
 
 
 def test_ba_enabled_runs_the_slice(runs):

@@ -4,7 +4,8 @@ odometry (``run_offline``) and full SLAM (``run_offline_slam``).
 
     python3 tools/torch_kernel_count.py render --out build/kc_frames.npz
     python3 tools/torch_kernel_count.py count --frames-file build/kc_frames.npz \
-        [--preset odometry|mapping|ba] [--root TREE] [--label NAME] [--out-dir DIR]
+        [--preset odometry|mapping|ba|anms|orb_stereo] [--root TREE] [--label NAME] \
+        [--out-dir DIR]
 
 ``render`` draws the frames once, with the port's renderer at full KITTI
 geometry (1241x376): the first ``--odo-frames`` + 1 frames of the bench
@@ -23,8 +24,17 @@ view.  It prints one JSON line per path and writes the per-name counts
 ``preset_loop_closure()``; ``mapping`` runs ``preset_mapping()`` through
 ``run_offline`` with the corridor's RGB frames staged as uint8 (config 2;
 no full-SLAM path: the preset has no loop closure); ``ba`` runs
-``preset_ba()`` through both (config 4: windowed BA on every frame).  Full
-SLAM uses a vocabulary trained on the card from every 2nd frame.
+``preset_ba()`` through both (config 4: windowed BA on every frame);
+``anms`` and ``orb_stereo`` run ``preset_odometry()`` with the frontends of
+``chip_smoke.py``'s phases reference_frontend (FAST + ANMS keypoints, both
+F-matrix gates) and orb_stereo (ORB stereo matching, the temporal F-gate)
+through ``run_offline`` only.  Full SLAM uses a vocabulary trained on the
+card from every 2nd frame.
+
+``pieces`` counts, on the CPU, the PyTorch ops that one call of each
+piece of the frontend choices dispatches at full size: ``fmat_ransac``
+(768 points, 128 hypotheses), the FAST + ANMS sampler, one ORB detection
+(its K2 runs as the plain version here) and the descriptor match.
 
 ``--small`` renders at 416x160 for a rehearsal on the CPU (``count
 --device cpu``, a k = 4, L = 3 vocabulary); only ops are counted there.
@@ -175,8 +185,17 @@ def count(args) -> None:
 
     odo_preset, slam_preset = {"odometry": (preset_odometry, preset_loop_closure),
                                "mapping": (preset_mapping, None),
-                               "ba": (preset_ba, preset_ba)}[args.preset]
+                               "ba": (preset_ba, preset_ba),
+                               "anms": (preset_odometry, None),
+                               "orb_stereo": (preset_odometry, None)}[args.preset]
     odo_cfg = odo_preset().replace(camera=cam)
+    if args.preset in ("anms", "orb_stereo"):
+        sys.path.insert(0, str(HERE))
+        import chip_smoke
+
+        fe = {"anms": chip_smoke.REFERENCE_FRONTEND, "orb_stereo": chip_smoke.ORB_STEREO}
+        odo_cfg = odo_cfg.replace(
+            frontend=dataclasses.replace(odo_cfg.frontend, **fe[args.preset]))
     L = torch.from_numpy(data["odo_left"]).to(dev)
     R = torch.from_numpy(data["odo_right"]).to(dev)
     # rgb_seq only for mapping: an older tree's run_offline has no such argument
@@ -217,6 +236,38 @@ def _slam(torch, cfg, cam_kw: dict, data, dev, cuda: bool) -> tuple[dict, dict]:
                     SL.shape[0] - 1, cuda)
 
 
+def pieces(args) -> None:
+    """Ops dispatched by one call of each frontend piece (CPU, seeded inputs)."""
+    sys.path.insert(0, str(HERE))
+    import torch
+
+    import ros_stereo_slam_tpu_torch  # noqa: F401  (sets the float policy)
+    from ros_stereo_slam_tpu_torch.config import FrontendConfig
+    from ros_stereo_slam_tpu_torch.models import step
+    from ros_stereo_slam_tpu_torch.ops import match, orb, ransac
+
+    gen = torch.Generator().manual_seed(0)
+    p1 = torch.rand(768, 2, generator=gen) * 400
+    p2 = p1 + torch.randn(768, 2, generator=gen)
+    valid = torch.rand(768, generator=gen) < 0.9
+    img = torch.rand(1, 376, 1241, generator=gen)
+    signs = torch.sign(torch.randn(1152, 256, generator=gen))
+    ones = torch.ones(1152, dtype=torch.bool)
+    calls = {
+        "fmat_ransac": lambda: ransac.fmat_ransac(gen, p1, p2, valid, 1.0, 128),
+        "anms_sampler": lambda: step._sample_keypoints(img, None, None,
+                                                       FrontendConfig(sampler="anms")),
+        "orb_detect_1152": lambda: orb.detect_and_compute(img[0], 1152, 12 / 255.0),
+        "orb_plain_k2_1152": lambda: orb._level_describe_plain(
+            img[0], torch.full((1152, 2), 100.0), ones),
+        "match_1152": lambda: match.mutual_hamming_match(signs, ones, signs, ones),
+    }
+    for name, fn in calls.items():
+        with _op_counter(torch)() as oc:
+            fn()
+        print(json.dumps({"piece": name, "ops": sum(oc.counts.values())}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -231,10 +282,12 @@ def main() -> None:
     c.add_argument("--root", default=str(HERE))
     c.add_argument("--label", default="this")
     c.add_argument("--device", default="cuda")
-    c.add_argument("--preset", choices=("odometry", "mapping", "ba"), default="odometry")
+    c.add_argument("--preset", choices=("odometry", "mapping", "ba", "anms", "orb_stereo"),
+                   default="odometry")
     c.add_argument("--out-dir", default="")
+    sub.add_parser("pieces")
     args = ap.parse_args()
-    render(args) if args.cmd == "render" else count(args)
+    {"render": render, "count": count, "pieces": pieces}[args.cmd](args)
 
 
 if __name__ == "__main__":

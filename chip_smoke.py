@@ -169,16 +169,26 @@ SGBM_MAX_DISP, SGBM_BLOCK = 96, 7
 SGBM_MIN_VALID, SGBM_MAX_MEDIAN_PX, SGBM_MAX_BAD = 0.20, 1.0, 0.15
 SGBM_CROP = (slice(96, 224), slice(320, 704))
 SGBM_CROP_ATOL = 1e-4
-# Essential matrix (phase essential), corridor frames 0 -> 1.  On the LK
-# tracks of the grid, forward motion leaves E poorly conditioned: the JAX
-# package's own result moves with the key (tools/torch_essential_corridor.py),
-# so each run is held to that spread.  On exact correspondences (the grid
-# through the depth oracle) the card equals the CPU on the same index sets
-# (equal inliers, R within ESS_R_ATOL, unit t within ESS_T_ATOL), with
-# tests/test_essential.py's tight bounds against ground truth.
+# Essential matrix (phase essential), corridor frames 0 -> 1 (a true
+# rotation of 0.344 deg and 0.80 m forward).  On the LK tracks of the grid,
+# forward motion leaves E poorly conditioned: the JAX package's own result
+# moves with the key (tools/torch_essential_corridor.py), and R = I with a
+# fitted t explains about as many tracks as the true pose, so the tracks
+# cannot tell R from I.  There each run is held to the spread of the JAX
+# package's results (a bound against gross faults), and the card to the CPU
+# on the same index sets through a float64 witness: the 256 hypotheses'
+# MSAC scores on the card must stray from float64 no further than the
+# CPU's do (median ratio <= ESS_ROUNDING_RATIO); where the two pick
+# different winners, that is rounding between near-tied scores.  On exact
+# correspondences (the grid through the depth oracle) the card equals the
+# CPU on the same index sets (equal inliers, R within ESS_R_ATOL, unit t
+# within ESS_T_ATOL), with tests/test_essential.py's tight bound against
+# ground truth, which must lie well below the true rotation (at most
+# ESS_ROT_SHARE of it), so that R = I fails there.
 ESS_TRACK_MIN_INLIERS, ESS_TRACK_ROT_DEG = 0.4, 1.5
+ESS_ROUNDING_RATIO = 3.0
 ESS_R_ATOL, ESS_T_ATOL = 1e-4, 1e-3
-ESS_ROT_DEG = 0.1
+ESS_ROT_DEG, ESS_ROT_SHARE = 0.1, 0.5
 # The card's peaks for a kernel's bound (NVIDIA's H100 SXM data sheet): HBM
 # bytes/s, float32 FLOP/s outside the tensor cores, int8 OP/s.
 PEAK_BYTES_S = 3.35e12
@@ -422,17 +432,19 @@ def device_ms(torch, launch, reps: int = 200, rounds: int = 7) -> float:
     return min(times)
 
 
-K1_N, K1_S = 768, 15
+# Points a K1 call tracks: the grid's 768 slots, and the ORB route's
+# keypoints (max_points).
+K1_N, K1_N_ORB, K1_S = 768, ORB_STEREO["max_points"], 15
 
 
-def _k1_points(rng, shape, depth, poses, i, cam):
-    """K1_N points of corridor frame i whose true position in frame i + 1
+def _k1_points(rng, shape, depth, poses, i, cam, n: int = K1_N):
+    """n points of corridor frame i whose true position in frame i + 1
     stays >= 40 px inside the image: (points, true positions in i + 1),
     from the rendered depth of frame i."""
     import numpy as np
 
     H, W = shape
-    n, m = K1_N, 40
+    m = 40
     cand = np.stack([rng.uniform(m, W - m, 8 * n), rng.uniform(m, H - m, 8 * n)],
                     axis=1)
     z = depth[cand[:, 1].astype(int), cand[:, 0].astype(int)].astype(np.float64)
@@ -454,7 +466,10 @@ def k1_cases(torch, left, depths, poses, cam, dev):
     are the true flow plus noise, as the path hands them over: up to 1 px
     for the seeded temporal track (level 0, 6 iters), up to 2 px for the
     rescue's level 0 after the coarse levels (10 iters), and the level-2
-    (311x94) rescue pass at 1/4 scale (10 iters)."""
+    (311x94) rescue pass at 1/4 scale (10 iters).  The ORB route tracks N =
+    1,152 keypoints: its seeded temporal track (level 0, lk_seeded_iters =
+    10, within 1 px) and a coarse level of its unseeded re-match (level 2,
+    10 iters)."""
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.ops import lk, pyramid
@@ -462,14 +477,15 @@ def k1_cases(torch, left, depths, poses, cam, dev):
     rng = np.random.default_rng(0)
     S = K1_S
     pts, uv1 = _k1_points(rng, left.shape[1:], depths[0], poses, 0, cam)
+    opts, ouv1 = _k1_points(rng, left.shape[1:], depths[0], poses, 0, cam, K1_N_ORB)
 
-    def seed(noise_px, scale=1.0):
-        g = (uv1 + rng.uniform(-noise_px, noise_px, uv1.shape)) / scale
+    def seed(noise_px, scale=1.0, truth=uv1):
+        g = (truth + rng.uniform(-noise_px, noise_px, truth.shape)) / scale
         return torch.from_numpy(g.astype(np.float32)).to(dev)
 
     ref_pyr = pyramid.build_pyramid(torch.from_numpy(left[0]).to(dev), 4)
     cur_pyr = pyramid.build_pyramid(torch.from_numpy(left[1]).to(dev), 4)
-    p = torch.from_numpy(pts).to(dev)
+    p, op = (torch.from_numpy(x).to(dev) for x in (pts, opts))
     base = lk.LKParams(window=S, levels=4, iters=10)
     return [
         ("L0 1241x376 iters=6", ref_pyr[0], cur_pyr[0], p, seed(1.0),
@@ -477,6 +493,10 @@ def k1_cases(torch, left, depths, poses, cam, dev):
         ("L0 1241x376 iters=10", ref_pyr[0], cur_pyr[0], p, seed(2.0), base),
         ("L2 311x94 iters=10", ref_pyr[2], cur_pyr[2], (p / 4.0).contiguous(),
          seed(2.0, 4.0), base),
+        ("ORB route L0 1241x376 iters=10", ref_pyr[0], cur_pyr[0], op,
+         seed(1.0, truth=ouv1), base),
+        ("ORB route L2 311x94 iters=10", ref_pyr[2], cur_pyr[2], (op / 4.0).contiguous(),
+         seed(2.0, 4.0, ouv1), base),
     ]
 
 
@@ -667,56 +687,69 @@ def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
     """K1b (``lk_level_batch_f32``) against its plain version (a loop of
     lk._track_level over lanes) on the card: the batched odometry's two
     lanes, corridor frames 0 -> 1 and 24 -> 25 at level 0 (1241x376), N =
-    768 points each, 6 iterations, guesses within 1 px of the truth; K1's
-    bounds.  Each lane must also equal the single-lane kernel's result
-    bitwise (one kernel body)."""
+    768 points each (the grid) and N = 1,152 (the ORB route's keypoints),
+    guesses within 1 px of the truth, 6 and 10 iterations (the grid's and
+    the ORB route's seeded track); K1's bounds.  Each lane must also equal
+    the single-lane kernel's result bitwise (one kernel body).  The
+    headline numbers are the grid's."""
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.ops import interp, lk, lk_cuda
 
     rng = np.random.default_rng(1)
     starts = [b * (FRAMES // LANES) for b in range(LANES)]
-    pts, guesses = [], []
-    for i in starts:
-        p, uv1 = _k1_points(rng, left.shape[1:], depths[i], poses, i, cam)
-        pts.append(p)
-        guesses.append((uv1 + rng.uniform(-1.0, 1.0, uv1.shape)).astype(np.float32))
     ref = torch.from_numpy(np.stack([left[i] for i in starts])).to(dev)
     cur = torch.from_numpy(np.stack([left[i + 1] for i in starts])).to(dev)
-    P = torch.from_numpy(np.stack(pts)).to(dev)
-    G = torch.from_numpy(np.stack(guesses)).to(dev)
-    params = lk.LKParams(window=K1_S, levels=4, iters=6)
-    kg, kr, kok = lk_cuda.track_level_batch(ref, cur, P, G, params)
-    pg, pr, pok = lk_cuda.track_level_batch_plain(ref, cur, P, G, params)
-    singles = [lk_cuda.track_level(ref[b], cur[b], P[b], G[b], params) for b in range(LANES)]
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(kg).all()), "K1b: non-finite points")
     H, W = ref.shape[1:]
-    inner = interp.in_bounds(kg, H, W, K1_BORDER_PX) & interp.in_bounds(pg, H, W, K1_BORDER_PX)
-    n, n_in = kok.numel(), int(inner.sum())
-    n_ok_diff = int((kok != pok).sum())
-    err = float((kg - pg)[inner].abs().max())
-    rerr = float((kr - pr)[inner].abs().max())
-    same = all(torch.equal(kg[b], s[0]) and torch.equal(kr[b], s[1])
-               and torch.equal(kok[b], s[2]) for b, s in enumerate(singles))
-    ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch(ref, cur, P, G, params))
-    plain_ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch_plain(ref, cur, P, G, params))
-    dev_ms = device_ms(torch, lk_cuda.bare_launch(ref, cur, P, G, params))
-    log(f"K1b {LANES} lanes L0 {W}x{H} iters=6: N={K1_N} per lane, ok={int(kok.sum())} "
-        f"ok_mismatch={n_ok_diff} compared={n_in} max|dpts|={err:.3e} px "
-        f"max|dresid|={rerr:.3e}; lanes equal the single-lane kernel: {same}; wrapper "
-        f"{ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    check(n_ok_diff == 0, f"K1b: ok differs on {n_ok_diff} points")
-    check(n_in >= 0.95 * n, f"K1b: only {n_in}/{n} points stay interior")
-    check(err <= K1_PTS_ATOL, f"K1b: points differ by {err} px")
-    check(rerr <= K1_RESID_ATOL, f"K1b: resid differs by {rerr}")
-    check(same, "K1b: a lane differs from the single-lane kernel on the same inputs")
-    evals = lk_evals(torch, lambda k: lk_cuda.track_level_batch(
-        ref, cur, P, G, params._replace(iters=k)), G, kg, params.iters)
-    work = lk_work(torch, P, G, kg, H, W, K1_S, evals)
-    log(f"K1b bound: {work['image_sectors']} image sectors, {evals} GN steps over "
-        f"{LANES} x {K1_N} points: {work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **work}
+    worst, out = 0.0, None
+    for n_pts, iters in ((K1_N, 6), (K1_N_ORB, 10)):
+        pts, guesses = [], []
+        for i in starts:
+            p, uv1 = _k1_points(rng, left.shape[1:], depths[i], poses, i, cam, n_pts)
+            pts.append(p)
+            guesses.append((uv1 + rng.uniform(-1.0, 1.0, uv1.shape)).astype(np.float32))
+        P = torch.from_numpy(np.stack(pts)).to(dev)
+        G = torch.from_numpy(np.stack(guesses)).to(dev)
+        params = lk.LKParams(window=K1_S, levels=4, iters=iters)
+        kg, kr, kok = lk_cuda.track_level_batch(ref, cur, P, G, params)
+        pg, pr, pok = lk_cuda.track_level_batch_plain(ref, cur, P, G, params)
+        singles = [lk_cuda.track_level(ref[b], cur[b], P[b], G[b], params)
+                   for b in range(LANES)]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(kg).all()), f"K1b N={n_pts}: non-finite points")
+        inner = (interp.in_bounds(kg, H, W, K1_BORDER_PX)
+                 & interp.in_bounds(pg, H, W, K1_BORDER_PX))
+        n, n_in = kok.numel(), int(inner.sum())
+        n_ok_diff = int((kok != pok).sum())
+        err = float((kg - pg)[inner].abs().max())
+        rerr = float((kr - pr)[inner].abs().max())
+        same = all(torch.equal(kg[b], s[0]) and torch.equal(kr[b], s[1])
+                   and torch.equal(kok[b], s[2]) for b, s in enumerate(singles))
+        ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch(ref, cur, P, G, params))
+        plain_ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch_plain(ref, cur, P, G,
+                                                                          params))
+        dev_ms = device_ms(torch, lk_cuda.bare_launch(ref, cur, P, G, params))
+        log(f"K1b {LANES} lanes L0 {W}x{H} iters={iters}: N={n_pts} per lane, "
+            f"ok={int(kok.sum())} ok_mismatch={n_ok_diff} compared={n_in} "
+            f"max|dpts|={err:.3e} px max|dresid|={rerr:.3e}; lanes equal the single-lane "
+            f"kernel: {same}; wrapper {ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+        check(n_ok_diff == 0, f"K1b N={n_pts}: ok differs on {n_ok_diff} points")
+        check(n_in >= 0.95 * n, f"K1b N={n_pts}: only {n_in}/{n} points stay interior")
+        check(err <= K1_PTS_ATOL, f"K1b N={n_pts}: points differ by {err} px")
+        check(rerr <= K1_RESID_ATOL, f"K1b N={n_pts}: resid differs by {rerr}")
+        check(same, f"K1b N={n_pts}: a lane differs from the single-lane kernel on the same "
+              f"inputs")
+        worst = max(worst, err)
+        if out is None:
+            evals = lk_evals(torch, lambda k: lk_cuda.track_level_batch(
+                ref, cur, P, G, params._replace(iters=k)), G, kg, params.iters)
+            work = lk_work(torch, P, G, kg, H, W, K1_S, evals)
+            log(f"K1b bound: {work['image_sectors']} image sectors, {evals} GN steps over "
+                f"{LANES} x {n_pts} points: {work['bound_ms'] * 1e3:.3f} us "
+                f"({work['bound_by']})")
+            out = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **work}
+    return {"max_abs_err": worst, **out}
 
 
 def phase_vocab(torch, left, cfg, dev):
@@ -784,17 +817,21 @@ def k2_border_case(torch, lvl, tag: str) -> tuple[int, int]:
     return pts.shape[0] * 256, int(per_corner.sum())
 
 
-def k2_phase(torch, img, cfg) -> dict:
+def k2_phase(torch, img, cfg, stereo_img) -> dict:
     """K2 (an (H, W) image) or K2b (a (B, H, W) stack of lanes, the batched
-    entry point) against its plain version, orb._level_describe_plain, at
-    the four ORB levels of a jittered revisit frame per lane, on the corners
-    FAST + ANMS pick there (the main path's shapes: 1241x376 .. 635x193,
-    173 .. 89 corners per lane), through ``level_describe``, the call the
-    main path makes.  Besides the bit and moment bounds: the packed words
-    must be pack_bits of the kernel's own signs, invalid rows zero, valid
-    rows +-1 and equal to the two-output entry point's, two runs bitwise
-    equal, each lane bitwise equal to the single-lane entry point, and (one
-    image only) the border case at the largest and the smallest level."""
+    entry point) against its plain version, orb._level_describe_plain,
+    through ``level_describe``, the call the main path makes, at the shapes
+    of both routes that describe corners: the four ORB levels of a
+    jittered revisit frame per lane `img` on the corners FAST + ANMS pick
+    there (full SLAM's detection: 1241x376 .. 635x193, 173 .. 89 corners
+    per lane), and the ORB stereo route's single level of corridor frame(s)
+    `stereo_img` (1241x376) on the 1,152 corners per lane that
+    ``detect_and_compute`` picks, as the route calls it.  Besides the bit and
+    moment bounds: the packed words must be pack_bits of the kernel's own
+    signs, invalid rows zero, valid rows +-1 and equal to the two-output
+    entry point's, two runs bitwise equal, each lane bitwise equal to the
+    single-lane entry point, and (one image only) the border case at the
+    largest and the smallest level."""
     from ros_stereo_slam_tpu_torch.ops import orb, orb_cuda
 
     lanes = img.dim() == 3
@@ -803,9 +840,14 @@ def k2_phase(torch, img, cfg) -> dict:
     lcc = cfg.loop
     budgets = orb._level_budgets(lcc.orb_features, lcc.orb_levels, 1.25)
     levels = orb.level_images(img, lcc.orb_levels, 1.25)
+    cases = [(f"level {l}", lvl, budget,
+              orb._level_corners(lvl, budget, cfg.frontend.fast_thresh / 255.0))
+             for l, (lvl, budget) in enumerate(zip(levels, budgets))]
+    fe = _frontend_cfg(cfg.camera, ORB_STEREO).frontend
+    f = orb.detect_and_compute(stereo_img, fe.max_points, fe.fast_thresh / 255.0)
+    cases.append(("ORB stereo level 0", stereo_img, fe.max_points, (f.pts, f.valid)))
     worst, n_bits, n_diff, rows = 0.0, 0, 0, []
-    for l, (lvl, budget) in enumerate(zip(levels, budgets)):
-        pts, valid = orb._level_corners(lvl, budget, cfg.frontend.fast_thresh / 255.0)
+    for label, lvl, budget, (pts, valid) in cases:
         ks, km, kw = orb_cuda.level_describe(lvl, pts, valid)
         again = orb_cuda.level_describe(lvl, pts, valid)
         ps, pm, pw = orb._level_describe_plain(lvl, pts, valid)
@@ -826,30 +868,30 @@ def k2_phase(torch, img, cfg) -> dict:
         two_ms = cuda_ms(torch, lambda: two_outputs(lvl, pts))
         dev_ms = device_ms(torch, orb_cuda.bare_launch(lvl, pts, valid))
         H, W = lvl.shape[-2:]
-        log(f"{tag} level {l} {nl}x{W}x{H}: N={budget} per lane, valid={nv} bits differing "
+        log(f"{tag} {label} {nl}x{W}x{H}: N={budget} per lane, valid={nv} bits differing "
             f"{diff}/{nv * 256} (at most {corner_max} in one corner) max|dm|={merr:.3e}"
             + (f"; lanes equal the single-lane kernel: {same}" if lanes else "")
             + f"; wrapper {ms:.4f} ms (two outputs only: {two_ms:.4f} ms), kernel alone "
             f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms")
-        check(nv > nl * budget // 2, f"{tag} level {l}: only {nv} valid corners")
-        check(m_ok, f"{tag} level {l}: moments differ by {merr}")
+        check(nv > nl * budget // 2, f"{tag} {label}: only {nv} valid corners")
+        check(m_ok, f"{tag} {label}: moments differ by {merr}")
         check(corner_max <= K2_MAX_CORNER_BITS,
-              f"{tag} level {l}: a corner differs in {corner_max} bits > {K2_MAX_CORNER_BITS}")
+              f"{tag} {label}: a corner differs in {corner_max} bits > {K2_MAX_CORNER_BITS}")
         check(bool(torch.isin(raw_s, torch.tensor([-1.0, 1.0], device=ks.device)).all()),
-              f"{tag} level {l}: signs not +-1")
+              f"{tag} {label}: signs not +-1")
         check(torch.equal(ks[valid], raw_s[valid]) and not bool(ks[~valid].any())
               and torch.equal(km, raw_m),
-              f"{tag} level {l}: masked signs are not the two-output signs times valid")
+              f"{tag} {label}: masked signs are not the two-output signs times valid")
         check(torch.equal(kw, orb.pack_bits(ks > 0)),
-              f"{tag} level {l}: packed words are not pack_bits of the kernel's signs")
+              f"{tag} {label}: packed words are not pack_bits of the kernel's signs")
         check(all(torch.equal(x, y) for x, y in zip((ks, km, kw), again)),
-              f"{tag} level {l}: two runs of the same call differ")
-        check(same, f"{tag} level {l}: a lane differs from the single-lane kernel")
+              f"{tag} {label}: two runs of the same call differ")
+        check(same, f"{tag} {label}: a lane differs from the single-lane kernel")
         worst = max(worst, merr)
         n_bits += nv * 256
         n_diff += diff
         rows.append((ms, plain_ms, dev_ms))
-        if l == 0:
+        if label == "level 0":
             work = orb_work(torch, lvl.reshape(nl, H, W), pts.reshape(nl, -1, 2),
                             km.reshape(nl, -1, 2))
     if not lanes:
@@ -861,7 +903,8 @@ def k2_phase(torch, img, cfg) -> dict:
     log(f"{tag}: bit agreement {agree:.5f} over {n_bits} bits of valid features "
         f"(bound {K2_MIN_AGREE})")
     check(agree >= K2_MIN_AGREE, f"{tag} bit agreement {agree} < {K2_MIN_AGREE}")
-    # The headline time is level 0 (the largest call of a detection frame).
+    # The headline time is full SLAM's level 0 (the largest call of a
+    # detection frame).
     log(f"{tag} bound: {work['image_sectors']} image sectors at level 0: "
         f"{work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
     return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
@@ -2010,20 +2053,44 @@ def _exact_correspondences(pts, depth, T21, cam):
     return pts.astype(np.float32), uv2.astype(np.float32), m
 
 
+def _skew(t):
+    """[t]x of (..., 3) t."""
+    import numpy as np
+
+    z = np.zeros(t.shape[:-1])
+    return np.stack([np.stack([z, -t[..., 2], t[..., 1]], -1),
+                     np.stack([t[..., 2], z, -t[..., 0]], -1),
+                     np.stack([-t[..., 1], t[..., 0], z], -1)], -2)
+
+
+def _pose_inliers(torch, E, pin, pts1, pts2, m, thr: float):
+    """Tracks within the solve's threshold of each (..., 3, 3) E, in float64
+    on the host."""
+    from ros_stereo_slam_tpu_torch.ops import essential, ransac
+
+    x1h, x2h = (torch.cat([x, torch.ones((x.shape[0], 1), dtype=x.dtype)], 1)
+                for x in (essential.normalized_coords(pin, p.cpu().double())
+                          for p in (pts1, pts2)))
+    err = ransac.sampson_distance(torch.as_tensor(E, dtype=torch.float64), x1h, x2h)
+    return ((err < thr) & m.cpu()).sum(-1)
+
+
 def phase_essential(torch, left, depth0, poses, cam, dev, smi: str) -> dict:
     """The monocular utilities on corridor frames 0 -> 1.  LK tracks of
     the grid (K1): ``monocular_triangulate`` on the card, and the solve on
     the card and on the CPU from the same index sets, each held to the
-    bounds of the JAX package's spread on these tracks.  The grid
-    projected through the depth oracle (exact correspondences): the card
-    and the CPU on the same index sets, equal inliers, R and unit t within
-    tolerance."""
+    bounds of the JAX package's spread on these tracks, and the card's
+    hypotheses to the CPU's through a float64 witness.  The grid projected
+    through the depth oracle (exact correspondences): the card and the CPU
+    on the same index sets, equal inliers, R and unit t within tolerance,
+    the rotation within a bound that R = I fails."""
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.ops import essential, lk_cuda, ransac
 
     T21 = np.linalg.inv(poses[1]) @ poses[0]
     t_gt = T21[:3, 3] / np.linalg.norm(T21[:3, 3])
+    true_deg = float(np.degrees(np.arccos(np.clip((np.trace(T21[:3, :3]) - 1) / 2, -1, 1))))
     pin = pinhole(cam)
 
     def rot_err(rp):
@@ -2034,10 +2101,12 @@ def phase_essential(torch, left, depth0, poses, cam, dev, smi: str) -> dict:
     def t_dot(rp):
         return abs(float(rp.t.cpu().double().numpy() @ t_gt))
 
-    def on_both(pts1, pts2, m, seed):
+    def sets(m, seed):
+        return ransac._sample_minimal_sets(torch.Generator().manual_seed(seed),
+                                           torch.as_tensor(m).cpu(), 256, 8)
+
+    def on_both(pts1, pts2, m, idx):
         """The solve from one set of index sets, on the card and on the CPU."""
-        idx = ransac._sample_minimal_sets(torch.Generator().manual_seed(seed),
-                                          torch.as_tensor(m).cpu(), 256, 8)
         outs = []
         for d in (dev, torch.device("cpu")):
             a = [torch.as_tensor(x).to(d) for x in (pts1, pts2, m)]
@@ -2055,21 +2124,59 @@ def phase_essential(torch, left, depth0, poses, cam, dev, smi: str) -> dict:
     er, rp = essential.monocular_triangulate(gen, pin, pts1, pts2, m, 1.0, 256)
     torch.cuda.synchronize()
     mono_ms = (time.perf_counter() - t0) * 1e3
-    (ec, rc), (eh, rh) = on_both(pts1, pts2, m, 0)
-    runs = {"card": (er, rp), "card, CPU's sets": (ec, rc), "CPU": (eh, rh)}
-    log(f"[{smi}] essential, LK tracks: corridor frames 0 -> 1, {n_valid} of {pts1.shape[0]} "
-        f"grid points tracked (K1 launches {k1}); monocular_triangulate on the card "
-        f"{mono_ms:.1f} ms (one call, host clock); (inliers, rotation error deg, |t . t_gt|): "
+    idx = sets(m, 0)
+    (ec, rc), (eh, rh) = on_both(pts1, pts2, m, idx)
+    host64 = [x.cpu().double() for x in (pts1, pts2)] + [m.cpu()]
+    e64 = essential._essential_from_sets(idx, pin, *host64, 1.0)
+    r64 = essential.recover_pose(e64.E, pin, *host64[:2], e64.inliers)
+    runs = {"card": (er, rp), "card, CPU's sets": (ec, rc), "CPU": (eh, rh),
+            "float64 host, same sets": (e64, r64)}
+    # R = I against the tracks: with the true t, and with the best t over
+    # a grid of directions (2 deg steps).
+    th, ph = np.meshgrid(np.radians(np.arange(0, 181, 2)), np.radians(np.arange(0, 360, 2)))
+    dirs = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)], -1)
+    thr = essential._threshold(pin, 1.0)
+    truth_inl = int(_pose_inliers(torch, _skew(t_gt) @ T21[:3, :3], pin, *host64, thr))
+    eye_true_t = int(_pose_inliers(torch, _skew(t_gt), pin, *host64, thr))
+    eye_best = int(_pose_inliers(torch, _skew(dirs.reshape(-1, 3)), pin, *host64, thr).max())
+    log(f"[{smi}] essential, LK tracks: corridor frames 0 -> 1 (true rotation {true_deg:.4f} "
+        f"deg), {n_valid} of {pts1.shape[0]} grid points tracked (K1 launches {k1}); "
+        f"monocular_triangulate on the card {mono_ms:.1f} ms (one call, host clock); "
+        f"(inliers, rotation error deg, |t . t_gt|): "
         + ", ".join(f"{k} ({int(e.n_inliers)}, {rot_err(r):.4f}, {t_dot(r):.5f})"
                     for k, (e, r) in runs.items())
-        + f"; bounds > {ESS_TRACK_MIN_INLIERS} x valid, < {ESS_TRACK_ROT_DEG} deg")
+        + f"; bounds > {ESS_TRACK_MIN_INLIERS} x valid, < {ESS_TRACK_ROT_DEG} deg; tracks "
+        f"within 1 px of the true pose {truth_inl}, of R = I with the true t {eye_true_t}, "
+        f"with the best t {eye_best}")
     check(k1 > 0, "essential: the LK tracks launched no K1 kernel")
-    for k, (e, r) in runs.items():
+    for k, (e, r) in list(runs.items())[:3]:  # the float64 run is the witness
         check(int(e.n_inliers) > ESS_TRACK_MIN_INLIERS * n_valid and rot_err(r) < ESS_TRACK_ROT_DEG,
               f"essential ({k}): {int(e.n_inliers)} of {n_valid} inliers, {rot_err(r)} deg")
 
+    # The float64 witness: the 256 hypotheses of the CPU's sets, their MSAC
+    # scores on the card, on the CPU and in float64 on the host, in units
+    # of the threshold.
+    s_c, s_h, s_64 = (essential._hypotheses(idx.to(a[0].device), pin, *a, 1.0)[2].cpu().double()
+                      / thr for a in ([pts1, pts2, m], [x.cpu() for x in (pts1, pts2, m)],
+                                      host64))
+    win = {k: int(torch.argmin(s)) for k, s in (("card", s_c), ("CPU", s_h), ("float64", s_64))}
+    dev_c, dev_h = (s_c - s_64).abs(), (s_h - s_64).abs()
+    ratio = float(dev_c.median() / dev_h.median().clamp(min=1e-12))
+    top = torch.argsort(s_64)[:5].tolist()
+    log(f"[{smi}] essential, float64 witness on the CPU's sets (MSAC scores in units of the "
+        f"threshold, of {n_valid}): winners card #{win['card']}, CPU #{win['CPU']}, float64 "
+        f"#{win['float64']}; "
+        + "; ".join(f"#{i} card {float(s_c[i]):.3f} CPU {float(s_h[i]):.3f} float64 "
+                    f"{float(s_64[i]):.3f}" for i in dict.fromkeys(list(win.values()) + top))
+        + f"; |score - float64| over the 256 hypotheses: card median {float(dev_c.median()):.4f} "
+        f"max {float(dev_c.max()):.3f}, CPU median {float(dev_h.median()):.4f} max "
+        f"{float(dev_h.max()):.3f} (ratio {ratio:.3f}, bound {ESS_ROUNDING_RATIO})")
+    check(ratio <= ESS_ROUNDING_RATIO,
+          f"essential: the card's hypothesis scores stray {ratio:.3f}x as far from float64 as "
+          f"the CPU's")
+
     x1, x2, mx = _exact_correspondences(pts1.cpu().numpy(), depth0, T21, cam)
-    (ec, rc), (eh, rh) = on_both(x1, x2, mx, 1)
+    (ec, rc), (eh, rh) = on_both(x1, x2, mx, sets(mx, 1))
     same_inl = bool(torch.equal(ec.inliers.cpu(), eh.inliers))
     r_err = float((rc.R.cpu() - rh.R).abs().max())
     t_err = float((rc.t.cpu() - rh.t).abs().max())
@@ -2077,7 +2184,11 @@ def phase_essential(torch, left, depth0, poses, cam, dev, smi: str) -> dict:
         f"depth oracle): inliers card {int(ec.n_inliers)}, CPU {int(eh.n_inliers)} (equal masks "
         f"{same_inl}); max |dR| {r_err:.2e} (bound {ESS_R_ATOL}), max |dt| {t_err:.2e} (bound "
         f"{ESS_T_ATOL}); rotation error card {rot_err(rc):.4f}, CPU {rot_err(rh):.4f} deg "
-        f"(bound {ESS_ROT_DEG}); |t . t_gt| card {t_dot(rc):.6f}, CPU {t_dot(rh):.6f}")
+        f"(bound {ESS_ROT_DEG}, R = I would give {true_deg:.4f}); |t . t_gt| card "
+        f"{t_dot(rc):.6f}, CPU {t_dot(rh):.6f}")
+    check(ESS_ROT_DEG <= ESS_ROT_SHARE * true_deg,
+          f"essential: the rotation bound {ESS_ROT_DEG} deg does not reject R = I "
+          f"({true_deg} deg)")
     check(same_inl and int(ec.n_inliers) > 0.95 * int(mx.sum()),
           f"essential: inliers {int(ec.n_inliers)} on the card, {int(eh.n_inliers)} on the CPU")
     check(r_err <= ESS_R_ATOL and t_err <= ESS_T_ATOL,
@@ -2133,10 +2244,13 @@ def main() -> int:
         probe = torch.from_numpy(rl[LAP + 2]).to(dev)  # a jittered revisit frame
         probes = torch.from_numpy(np.stack([worlds[n][0][LAP + 2] for n in REVISIT_SEEDS]))
         probes = probes.to(dev)
-        k2 = timed("kernels_k2", k2_phase, torch, probe, slam_cfg)
+        corridor0 = torch.from_numpy(left[0]).to(dev)
+        k2 = timed("kernels_k2", k2_phase, torch, probe, slam_cfg, corridor0)
         k3 = timed("kernels_k3", k3_phase, torch, probe, probes, voc, slam_cfg)
         k1b = timed("kernels_k1b", k1b_phase, torch, left, depths, poses, cam, dev)
-        k2b = timed("kernels_k2b", k2_phase, torch, probes, slam_cfg)
+        corridor_lanes = torch.from_numpy(np.stack(
+            [left[b * (FRAMES // LANES)] for b in range(LANES)])).to(dev)
+        k2b = timed("kernels_k2b", k2_phase, torch, probes, slam_cfg, corridor_lanes)
         sl = timed("slice", phase_slice, torch, left, right, poses, cam, dev)
         sm = timed("slam", phase_slam, torch, voc, rl, rr, rgt, slam_cfg, dev)
         bo = timed("batched_odo", phase_batched_odo, torch, left, right, poses, cam, dev)

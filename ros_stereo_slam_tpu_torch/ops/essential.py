@@ -123,41 +123,53 @@ def _eight_point_essential(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     return project_essential(linalg.null_vector(A).reshape(A.shape[:-2] + (3, 3)))
 
 
-def _essential_from_sets(idx: torch.Tensor, cam: Pinhole, pts1: torch.Tensor,
-                         pts2: torch.Tensor, mask: torch.Tensor,
-                         thresh_px: float = 1.0) -> EssentialResult:
-    """The E-RANSAC solve on given (K, 8) minimal sets."""
+def _threshold(cam: Pinhole, thresh_px: float) -> float:
+    """The squared Sampson threshold in normalized coordinates: the pixel
+    threshold converted with the mean focal length (first order, as OpenCV
+    does), in float32 as the reference computes it."""
+    f = np.float32(0.5) * (np.float32(cam.fx) + np.float32(cam.fy))
+    return float((np.float32(thresh_px) / f) ** 2)
+
+
+def _hypotheses(idx: torch.Tensor, cam: Pinhole, pts1: torch.Tensor, pts2: torch.Tensor,
+                mask: torch.Tensor, thresh_px: float = 1.0):
+    """The solve's first half on given (K, 8) minimal sets: the hypotheses
+    E (K, 3, 3), their Sampson errors (K, N) and MSAC scores (K,), the
+    squared threshold in normalized coordinates, and the (N, 3)
+    homogeneous normalized points."""
     n = pts1.shape[0]
     x1, x2 = normalized_coords(cam, pts1), normalized_coords(cam, pts2)
     E = _eight_point_essential(x1[idx], x2[idx])  # (K, 3, 3)
     ones = torch.ones((n, 1), dtype=x1.dtype, device=x1.device)
     x1h, x2h = torch.cat([x1, ones], dim=1), torch.cat([x2, ones], dim=1)
-    # Sampson distance in normalized coordinates; the pixel threshold is
-    # converted with the mean focal length (first order, as OpenCV does),
-    # in float32 as the reference computes it.
-    f = np.float32(0.5) * (np.float32(cam.fx) + np.float32(cam.fy))
-    thr = float((np.float32(thresh_px) / f) ** 2)
-    zero = torch.zeros((), dtype=x1.dtype, device=x1.device)
+    thr = _threshold(cam, thresh_px)
+    err = sampson_distance(E, x1h, x2h)
+    return E, err, _msac(err, mask, thr), thr, x1h, x2h
 
-    def msac_of(err):
-        # MSAC: the sum of truncated errors (lower is better) tells apart
-        # hypotheses whose inlier counts saturate (near-forward motion).
-        return torch.where(mask, torch.clamp(err, max=thr), zero).sum(-1)
 
-    err = sampson_distance(E, x1h, x2h)  # (K, N)
-    msac = msac_of(err)
+def _msac(err: torch.Tensor, mask: torch.Tensor, thr: float) -> torch.Tensor:
+    """MSAC: the sum of truncated errors (lower is better) tells apart
+    hypotheses whose inlier counts saturate (near-forward motion)."""
+    return torch.where(mask, torch.clamp(err, max=thr), torch.zeros_like(err)).sum(-1)
+
+
+def _essential_from_sets(idx: torch.Tensor, cam: Pinhole, pts1: torch.Tensor,
+                         pts2: torch.Tensor, mask: torch.Tensor,
+                         thresh_px: float = 1.0) -> EssentialResult:
+    """The E-RANSAC solve on given (K, 8) minimal sets."""
+    E, err, msac, thr, x1h, x2h = _hypotheses(idx, cam, pts1, pts2, mask, thresh_px)
     best = torch.argmin(torch.where(torch.isfinite(msac), msac, torch.inf))
     E_cur, inl_cur, sc_cur = E[best], (err[best] < thr) & mask, msac[best]
 
     # IRLS polish: Sampson-weighted refits over the current inlier set; a
     # refit is kept only if it is finite and does not raise the MSAC score.
-    A_full = _epipolar_design(x1, x2)
+    A_full = _epipolar_design(normalized_coords(cam, pts1), normalized_coords(cam, pts2))
     for _ in range(_REFIT_ROUNDS):
         e = sampson_distance(E_cur, x1h, x2h)
-        w = inl_cur.to(x1.dtype) / (1.0 + e / max(thr, 1e-12))
+        w = inl_cur.to(x1h.dtype) / (1.0 + e / max(thr, 1e-12))
         E_new = project_essential(linalg.null_vector(A_full * w[:, None]).reshape(3, 3))
         err_n = sampson_distance(E_new, x1h, x2h)
-        sc_n = msac_of(err_n)
+        sc_n = _msac(err_n, mask, thr)
         ok = torch.isfinite(E_new).all() & (sc_n <= sc_cur)
         E_cur = torch.where(ok, E_new, E_cur)
         inl_cur = torch.where(ok, (err_n < thr) & mask, inl_cur)

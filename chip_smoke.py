@@ -68,7 +68,14 @@ Phases (any failure exits non-zero and prints no result line):
     the CPU run of the same function; the cloud -> SOR -> PLY flow;
 16. essential: ``monocular_triangulate`` on corridor frames 0 -> 1 (LK
     tracks of the grid), and the card against the CPU on the same index
-    sets, on those tracks and on exact correspondences.
+    sets, on those tracks and on exact correspondences;
+17. multichip: config 5 at world size 1 (a one-rank NCCL group on
+    ``cuda:0``): landmark-sharded BA, edge- and chain-sharded PGO and the
+    sharded store's rewrite and gather at full width, and
+    ``StereoSLAM(preset_distributed(1), mesh=...)`` over phase ba's frames,
+    each bitwise equal to its single-device call, with K1/K2/K3 launches,
+    one float64 all-reduce of BA's reduced system timed, and what each
+    collective and each PGO layout's Gauss-Newton step cost.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1814,7 +1821,7 @@ def phase_ba(torch, voc, left, right, poses, cam, dev, sl: dict, rl, rr, rgt, sm
         check(counts_s[k] > 0, f"ba StereoSLAM launched no {k} kernel")
     return {"offline": offline_out, "lanes": lanes_out,
             "stream": {"fps": n / t_s, "ate": ate_s, "ate_odo": ate_odo, "events": events,
-                       "ba_ms": statistics.median(ba_ms_s), "counts": counts_s}}
+                       "ba_ms": statistics.median(ba_ms_s), "counts": counts_s, "run": s}}
 
 
 def _frontend_cfg(cam, overrides: dict):
@@ -2198,6 +2205,226 @@ def phase_essential(torch, left, depth0, poses, cam, dev, smi: str) -> dict:
     return {"k1": k1, "ms": mono_ms, "inliers": int(er.n_inliers)}
 
 
+# The multi-rank paths at world size 1 (phase multichip): config 5's
+# shapes (BAConfig's window and landmarks, PGOConfig's poses, loop edges
+# and 10 x 128 CG steps, KeyframeConfig's ring), a drifted circle of
+# MC_POSES poses with three loop edges (``dryrun.circle_problem``), timed
+# over MC_REPS warm calls each; the collectives' own cost over MC_OP_REPS
+# calls back to back.
+MC_POSES = 4500
+MC_LOOPS = ((1500, 10), (3000, 1490), (4490, 2980))
+MC_REPS = 2
+MC_OP_REPS = 200
+
+
+def _pgo_cost(T, args) -> float:
+    """Sum of squared edge residuals of the pose graph `args` at poses T."""
+    from ros_stereo_slam_tpu_torch.models import pose_graph
+
+    _, n, Z, li, lj, lZ, lv = args
+    r_o = pose_graph._edge_residual_jacobians(T[:n - 1], T[1:n], Z[1:n])[0]
+    r_l = pose_graph._edge_residual_jacobians(T[li.long()], T[lj.long()], lZ)[0][lv]
+    return float(r_o.double().square().sum() + r_l.double().square().sum())
+
+
+def _collective_costs(torch, mesh, pgo, pc, dev) -> dict:
+    """What the collectives cost at world size 1: per call, the host time to
+    enqueue MC_OP_REPS calls back to back and the wall time once they ran,
+    for a clone, ``mesh.psum`` and a bare in-place ``all_reduce`` on PGO's
+    (F, 6) float32 CG vector and BA's (48, 48) float64 reduced system; and
+    one Gauss-Newton step of PGO (``pc.cg_iters`` CG steps) per layout:
+    wall time (host clock around a synchronised call), and under
+    ``torch.profiler`` the device time summed over kernels, the host time
+    summed over ops and the all-reduces made."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from ros_stereo_slam_tpu_torch.models import pose_graph
+    from ros_stereo_slam_tpu_torch.parallel import dist_pgo
+    from ros_stereo_slam_tpu_torch.parallel.mesh import psum
+
+    ops = {}
+    for shape, dtype in (((pc.max_poses, 6), torch.float32), ((48, 48), torch.float64)):
+        x = torch.randn(shape, dtype=dtype, device=dev)
+        for name, fn in (("clone", lambda: x.clone()), ("psum", lambda: psum(x, mesh)),
+                         ("all_reduce", lambda: dist.all_reduce(x))):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MC_OP_REPS):
+                fn()
+            host = (time.perf_counter() - t0) / MC_OP_REPS * 1e3
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / MC_OP_REPS * 1e3
+            ops[f"{name} {'x'.join(map(str, shape))} {str(dtype)[6:]}"] = (host, wall)
+    kw = dict(iters=1, cg_iters=pc.cg_iters, damping=pc.damping)
+    gn = {}
+    for name, fn in (("single", lambda: pose_graph.optimize(*pgo, **kw)),
+                     ("edge_sharded", lambda: dist_pgo.optimize_sharded(mesh, *pgo, **kw)),
+                     ("chain_sharded", lambda: dist_pgo.optimize_chain_sharded(mesh, *pgo, **kw))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        gn[name] = {
+            "wall_ms": wall,
+            "device_ms": sum(e.self_device_time_total for e in ka) / 1e3,
+            "host_ops_ms": sum(e.self_cpu_time_total for e in ka
+                               if e.key.startswith(("aten::", "c10d::"))) / 1e3,
+            "all_reduces": sum(e.count for e in ka if e.key == "c10d::allreduce_"),
+        }
+    return {"ops": ops, "gn_step": gn}
+
+
+def phase_multichip(torch, voc, rl, rr, cam, dev, ba_stream: dict, smi: str) -> dict:
+    """Config 5 at world size 1 on the card: a one-rank NCCL group (a
+    HashStore, no environment, no port) from ``preset_distributed(1)`` and
+    every sharded function at full width against its single-device call,
+    bit for bit: landmark-sharded BA (W = 8, N = 2,048), edge- and
+    chain-sharded PGO (F = 4,608, L = 64, 10 x 128 CG), the sharded store
+    (K = 512 x 1,536) rewritten and gathered, one float64 all-reduce of
+    BA's reduced system (48 x 48), and StereoSLAM(preset_distributed(1),
+    mesh=...) over world A's frames 0-BA_SLAM_FRAMES against phase ba's
+    StereoSLAM (config 5 is config 4 with the mesh), with its K1/K2/K3
+    launches and the bytes of its keyframe store on the rank.  Then what
+    the collectives cost (``_collective_costs``)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ros_stereo_slam_tpu_torch.config import BAConfig, KeyframeConfig, PGOConfig
+    from ros_stereo_slam_tpu_torch.config import preset_distributed
+    from ros_stereo_slam_tpu_torch.models import bundle_adjust, pose_graph, slam
+    from ros_stereo_slam_tpu_torch.models.state import KeyframeStore
+    from ros_stereo_slam_tpu_torch.parallel import dist_ba, dist_map, dist_pgo, dryrun
+    from ros_stereo_slam_tpu_torch.parallel.mesh import all_gather, mesh_from_config, psum
+
+    def timed(fn, reps: int = MC_REPS):
+        """The last result of `reps` warm calls (after one cold call) and
+        their median milliseconds on the host clock."""
+        out, times = fn(), []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+    cfg = preset_distributed(1).replace(camera=cam)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = mesh_from_config(cfg.parallel, dev)
+        out, ms = {}, {}
+        # -- landmark-sharded BA -------------------------------------------
+        bc = BAConfig()
+        prob = dryrun.ba_problem(bc.window, bc.max_landmarks, 5, dev)
+        kw = dict(iters=bc.iters, damping=bc.damping, huber_px=bc.huber_px)
+        single, ms["ba_single"] = timed(lambda: bundle_adjust.ba_solve(*prob, **kw))
+        shard, ms["ba_sharded"] = timed(lambda: dist_ba.ba_solve_sharded(mesh, *prob, **kw))
+        out["ba"] = same(shard, single)
+        check(bool(torch.isfinite(single.T_cw).all()) and float(single.rms_after) < 1.0,
+              f"multichip: BA rms {float(single.rms_after)} px")
+        S = torch.randn((6 * bc.window, 6 * bc.window), dtype=torch.float64, device=dev)
+        ar_ms = cuda_ms(torch, lambda: psum(S, mesh), reps=100)
+        out["allreduce"] = torch.equal(psum(S, mesh), S)
+        # -- PGO, both layouts ---------------------------------------------
+        pc = PGOConfig()
+        args = dryrun.circle_problem(pc.max_poses, pc.max_loop_edges, MC_POSES, MC_LOOPS, dev)
+        kw = dict(iters=pc.iters, cg_iters=pc.cg_iters, damping=pc.damping)
+        opt, ms["pgo_single"] = timed(lambda: pose_graph.optimize(*args, **kw))
+        edge, ms["pgo_edge"] = timed(lambda: dist_pgo.optimize_sharded(mesh, *args, **kw))
+        chain, ms["pgo_chain"] = timed(lambda: dist_pgo.optimize_chain_sharded(mesh, *args, **kw))
+        out["pgo_edge"], out["pgo_chain"] = torch.equal(edge, opt), torch.equal(chain, opt)
+        n = MC_POSES
+        cost0, cost1 = _pgo_cost(args[0], args), _pgo_cost(opt, args)
+        check(cost1 < 0.1 * cost0, f"multichip: PGO took the cost from {cost0} to {cost1}")
+        # -- the sharded store, rewritten and gathered ----------------------
+        kc = KeyframeConfig()
+        g = torch.Generator(device=dev).manual_seed(7)
+        kf = KeyframeStore.empty(kc.max_keyframes, kc.map_block_points, dev)._replace(
+            points=5 * torch.randn((kc.max_keyframes, kc.map_block_points, 3), generator=g,
+                                   device=dev),
+            frame_idx=torch.randint(0, n, (kc.max_keyframes,), generator=g, device=dev,
+                                    dtype=torch.int32))
+        rw, ms["rewrite_single"] = timed(lambda: pose_graph.rewrite_points(
+            kf.points, kf.frame_idx, args[0], opt))
+        sh = dist_map.shard_keyframes(mesh, kf)
+        rws, ms["rewrite_sharded"] = timed(lambda: all_gather(dist_map.rewrite_points_sharded(
+            sh.points, sh.frame_idx, args[0], opt), mesh))
+        out["rewrite"] = torch.equal(rws, rw)
+        out["store"] = same(dist_map.gather_keyframes(mesh, sh), kf)
+        # -- StereoSLAM under the mesh --------------------------------------
+        nf = BA_SLAM_FRAMES
+        SL, SR = (torch.from_numpy(a[:nf + 1]).to(dev) for a in (rl, rr))
+
+        def stream():
+            s = slam.StereoSLAM(cfg, voc, mesh=mesh, device=dev)
+            s.initialize(SL[0], SR[0])
+            for i in range(1, nf + 1):
+                s.process_frame(SL[i], SR[i])
+            return s
+
+        ba_run = ba_stream["run"]
+        _kernel_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = stream()
+        torch.cuda.synchronize()
+        t_s = time.perf_counter() - t0
+        counts = _kernel_counts()
+        events = [(e.query, e.match, e.n_inliers) for e in s.loop_events]
+        want = [(e.query, e.match, e.n_inliers) for e in ba_run.loop_events]
+        out["slam_traj"] = np.array_equal(s.trajectory_array(), ba_run.trajectory_array())
+        out["slam_events"] = events == want
+        out["slam_map"] = same(s.keyframes, ba_run.keyframes)
+        pts_m, _ = s.map_points()
+        out["slam_points"] = len(pts_m) == len(ba_run.map_points()[0])
+        store_mb = sum(t.numel() * t.element_size() for t in s._carry.keyframes) / 2**20
+        cost = _collective_costs(torch, mesh, args, pc, dev)
+    finally:
+        dist.destroy_process_group()
+    log(f"[{smi}] multichip: one-rank NCCL group; ms (median of {MC_REPS} warm calls, host "
+        f"clock) sharded / single: BA W={bc.window} N={bc.max_landmarks} "
+        f"{ms['ba_sharded']:.3f} / {ms['ba_single']:.3f}; PGO F={pc.max_poses} "
+        f"L={pc.max_loop_edges} {pc.iters}x{pc.cg_iters} CG edge-sharded {ms['pgo_edge']:.3f}, "
+        f"chain-sharded {ms['pgo_chain']:.3f} / {ms['pgo_single']:.3f}; rewrite "
+        f"K={kc.max_keyframes}x{kc.map_block_points} (sharded: rewrite + gather) "
+        f"{ms['rewrite_sharded']:.3f} / {ms['rewrite_single']:.3f}; one float64 all-reduce "
+        f"of {6 * bc.window}x{6 * bc.window} {ar_ms * 1e3:.2f} us (CUDA events, median of 100)")
+    log(f"[{smi}] multichip: BA rms {float(single.rms_before):.4f} -> "
+        f"{float(single.rms_after):.4f} px; PGO cost {cost0:.6g} -> {cost1:.6g}; "
+        f"StereoSLAM(preset_distributed(1), mesh) world A frames 0-{nf}: {t_s:.3f} s -> "
+        f"{nf / t_s:.2f} fps (phase ba's run of the same frames: {ba_stream['fps']:.2f} "
+        f"fps); closures {events}; {len(pts_m)} map points; keyframe store on the rank "
+        f"{store_mb:.3f} MiB; launches K1 {counts['k1']}, K2 {counts['k2']}, K3 "
+        f"{counts['k3']}; bitwise equal to the single-device calls: {json.dumps(out)}")
+    log(f"[{smi}] multichip collectives, per call over {MC_OP_REPS} back to back "
+        f"(host ms to enqueue, wall ms): "
+        + "; ".join(f"{k} {h:.4f} / {w:.4f}" for k, (h, w) in cost["ops"].items()))
+    log(f"[{smi}] multichip PGO, one GN step of {pc.cg_iters} CG steps: "
+        + "; ".join(f"{k} wall {v['wall_ms']:.3f} ms, device {v['device_ms']:.3f} ms, host ops "
+                    f"{v['host_ops_ms']:.3f} ms, {v['all_reduces']} all-reduces"
+                    for k, v in cost["gn_step"].items()))
+    for name, ok in out.items():
+        check(ok, f"multichip: {name} differs from its single-device call")
+    for k in ("k1", "k2", "k3"):
+        check(counts[k] > 0, f"multichip: StereoSLAM(mesh=...) launched no {k} kernel")
+    return {"ms": ms, "allreduce_ms": ar_ms, "fps": nf / t_s, "counts": counts,
+            "store_mb": store_mb, "cost": cost}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         log(f"FAIL: package {PKG}/ not found beside chip_smoke.py")
@@ -2267,6 +2494,7 @@ def main() -> int:
         sd = timed("stereo_depth", phase_stereo_depth, torch, left, right, depths[0], cam, dev,
                    smi)
         es = timed("essential", phase_essential, torch, left, depths[0], poses, cam, dev, smi)
+        mc = timed("multichip", phase_multichip, torch, voc, rl, rr, cam, dev, ba["stream"], smi)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -2303,14 +2531,15 @@ def main() -> int:
           "online_stream": on["stream"]["counts"]["k1"], "mapping": mp["launches"],
           "ba": ba["offline"]["counts"]["k1"], "ba_stream": ba["stream"]["counts"]["k1"],
           "reference_frontend": rf["counts"]["k1"], "orb_stereo": ob["counts"]["k1"],
-          "essential": es["k1"]}),
+          "essential": es["k1"], "multichip": mc["counts"]["k1"]}),
         ("orb_desc", "orb_desc", "orb_pallas.py:84", sm["counts"]["orb_desc"], k2,
          {"slam": sm["counts"]["orb_desc"], "online_stream": on["stream"]["counts"]["k2"],
-          "ba_stream": ba["stream"]["counts"]["k2"], "orb_stereo": ob["counts"]["k2"]}),
+          "ba_stream": ba["stream"]["counts"]["k2"], "orb_stereo": ob["counts"]["k2"],
+          "multichip": mc["counts"]["k2"]}),
         ("vocab_descend", "vocab_descend", "vocab_pallas.py:72",
          sm["counts"]["vocab_descend"], k3,
          {"slam": sm["counts"]["vocab_descend"], "online_stream": on["stream"]["counts"]["k3"],
-          "ba_stream": ba["stream"]["counts"]["k3"]}),
+          "ba_stream": ba["stream"]["counts"]["k3"], "multichip": mc["counts"]["k3"]}),
         ("lk_level_batch", "lk_level", "lk_pallas.py:361", bo["launches"], k1b,
          {"batched_odo": bo["launches"], "batched_slam": bs["counts"]["k1b"],
           "ba_lanes": ba["lanes"]["k1b"], "orb_stereo_lanes": obl["counts"]["k1b"]}),

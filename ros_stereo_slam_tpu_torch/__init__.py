@@ -16,6 +16,9 @@ Subpackages
                 vocabulary, loop closure, pose graph, windowed bundle
                 adjustment, the full-SLAM drivers (scan, frame by frame,
                 chunked online).
+- ``parallel``: the multi-device paths over ``torch.distributed``: the
+                mesh and its collectives, landmark-sharded BA, edge- and
+                chain-sharded PGO, the sharded keyframe map, a dry run.
 - ``kernels`` : builds ``csrc/*.cu`` with ``nvcc`` at first use.
 """
 

@@ -34,8 +34,14 @@ Two choices differ from the JAX module, both about the device:
   triangular solves): a few launches, and the exact Gauss-Newton step.
 
 Every sum over landmarks or poses is a plain reduction (no atomics), so
-runs on one device are bitwise equal.  Landmark-sharded BA (the JAX
-module's ``axis_name``) is not ported.
+runs on one device are bitwise equal.  With a `mesh` (the JAX module's
+``axis_name``) the landmarks and their observation columns are this rank's
+shard: the sums over landmarks (U and bp, the ``W V^-1 W^T`` and
+``W V^-1 bl`` terms of the reduced system, the RMS sums, the finite check
+of the landmarks) are all-reduced, so the step and the accept decision
+are the same on every rank, while the landmark blocks, their inverses and
+the back-substitution stay local
+(:mod:`ros_stereo_slam_tpu_torch.parallel.dist_ba`).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 
 from ros_stereo_slam_tpu_torch.ops import linalg
+from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, psum, psum_many
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
 
 _F64 = torch.float64
@@ -143,15 +150,21 @@ def _residuals(pb: _Problem, R: torch.Tensor, t: torch.Tensor, X: torch.Tensor):
     return p, inv_z, pb.mask & (z > 1e-3), qf, qf + pb.c_minus_obs
 
 
-def _rms(m: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Reprojection RMS over the observations `m` that count."""
-    n = m.sum().clamp(min=1)
-    return (torch.where(m, torch.linalg.vecdot(r, r), 0.0).sum() / n).sqrt()
+def _rms(m: torch.Tensor, r: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
+    """Reprojection RMS over the observations `m` that count (over every
+    rank's observations with a `mesh`)."""
+    sq = torch.where(m, torch.linalg.vecdot(r, r), 0.0).sum()
+    if mesh is not None:
+        sq, n = psum(torch.stack([sq, m.sum().to(sq.dtype)]), mesh)
+        return (sq / n.clamp(min=1)).sqrt()
+    return (sq / m.sum().clamp(min=1)).sqrt()
 
 
-def _gn_step(pb: _Problem, R, t, X, res, damping: float, huber_px: float):
+def _gn_step(pb: _Problem, R, t, X, res, damping: float, huber_px: float,
+             mesh: Mesh | None = None):
     """One Gauss-Newton step from the poses (R, t) and landmarks X, given
-    their `res`iduals; returns the new (R, t, X)."""
+    their `res`iduals; returns the new (R, t, X).  With a `mesh` the sums
+    over landmarks are taken over every rank's."""
     p, inv_z, m, qf, r = res
     W, N = qf.shape[:2]
     # Row k of d(u, v)/dp is (f_k e_k - qf_k e_z) / z; the pose columns are
@@ -168,12 +181,10 @@ def _gn_step(pb: _Problem, R, t, X, res, damping: float, huber_px: float):
     Ub = HG[:, :, :6].sum(1)  # (W, 6, 10): U = [..., :6], bp = [..., 9]
     Vb = HG[:, :, 6:9].sum(0)  # (N, 3, 10): V = [..., 6:9], bl = [..., 9]
     Wc = HG[:, :, :6, 6:9]  # (W, N, 6, 3)
-    U, bp = Ub[..., :6], Ub[..., 9]
     V, bl = Vb[..., 6:9], Vb[..., 9]
     # Marquardt (diagonal-relative) damping; the absolute 1e-6 keeps the
     # blocks of unobserved landmarks invertible.
-    for blk in (U, V):
-        blk.diagonal(dim1=-2, dim2=-1).mul_(1.0 + damping).add_(1e-6)
+    V.diagonal(dim1=-2, dim2=-1).mul_(1.0 + damping).add_(1e-6)
     V_inv = linalg.inv3x3(V) * pb.lm_valid[:, None, None]
 
     # Reduced camera system S dp = rhs, S = U - W V^-1 W^T, rhs = W V^-1 bl - bp
@@ -181,8 +192,13 @@ def _gn_step(pb: _Problem, R, t, X, res, damping: float, huber_px: float):
     Bm = Wc.permute(0, 2, 1, 3).reshape(6 * W, N, 3)
     A = (Bm[:, :, None, :] @ V_inv).view(6 * W, 3 * N)
     Bm = Bm.view(6 * W, 3 * N)
-    S = (U[:, :, None, :] * pb.eye_w).reshape(6 * W, 6 * W) - A @ Bm.T
-    rhs = A @ bl.reshape(-1) - bp.reshape(-1)
+    AB, Abl = A @ Bm.T, A @ bl.reshape(-1)
+    if mesh is not None:  # the landmark sums, over every rank's landmarks
+        Ub, AB, Abl = psum_many(mesh, Ub, AB, Abl)
+    U, bp = Ub[..., :6], Ub[..., 9]
+    U.diagonal(dim1=-2, dim2=-1).mul_(1.0 + damping).add_(1e-6)
+    S = (U[:, :, None, :] * pb.eye_w).reshape(6 * W, 6 * W) - AB
+    rhs = Abl - bp.reshape(-1)
     # Gauge (the fixed poses' rows and columns become identity, rhs 0) and
     # symmetric diagonal equilibration in one product, then the direct
     # factorisation.  A fixed row's e multiplies a zero.
@@ -216,11 +232,14 @@ def ba_solve(
     iters: int = 10,
     damping: float = 1e-4,
     huber_px: float = 2.0,
+    mesh: Mesh | None = None,
 ) -> BAResult:
     """`iters` damped Gauss-Newton steps on the window; float32 in and out,
     float64 inside.  Returns the input unchanged when the final RMS is
     above the initial one or anything is non-finite (selected on the
-    device: no host read)."""
+    device: no host read).  With a `mesh`, `landmarks`, `obs` and
+    `obs_mask` are this rank's shard of the landmark axis and the sums over
+    landmarks run over every rank's (each rank must call this)."""
     k = _consts(cam, T_cw.device)
     W = T_cw.shape[0]
     free = (~fixed).to(_F64)
@@ -234,18 +253,20 @@ def ba_solve(
     )
     R, t, X = T_cw[:, :3, :3].to(_F64), T_cw[:, :3, 3].to(_F64), landmarks.to(_F64)
     res = _residuals(pb, R, t, X)
-    rms0 = _rms(res[2], res[4])
+    rms0 = _rms(res[2], res[4], mesh)
     for it in range(iters):
         if it:
             res = _residuals(pb, R, t, X)
-        R, t, X = _gn_step(pb, R, t, X, res, damping, huber_px)
+        R, t, X = _gn_step(pb, R, t, X, res, damping, huber_px, mesh)
     _, _, m, _, r = _residuals(pb, R, t, X)
-    rms1 = _rms(m, r)
+    rms1 = _rms(m, r, mesh)
     T_fin = torch.cat([torch.cat([R, t[:, :, None]], dim=2).to(T_cw.dtype), T_cw[:, 3:]], dim=1)
     X_fin = X.to(landmarks.dtype)
+    X_ok = (_finite(X_fin).all() if mesh is None
+            else psum((~_finite(X_fin)).sum(), mesh) == 0)
     # Keep the input if the refinement diverged (rare, ill-conditioned
     # windows).
-    better = (rms1 <= rms0) & _finite(T_fin).all() & _finite(X_fin).all()
+    better = (rms1 <= rms0) & _finite(T_fin).all() & X_ok
     return BAResult(
         T_cw=torch.where(better, T_fin, T_cw),
         landmarks=torch.where(better, X_fin, landmarks),

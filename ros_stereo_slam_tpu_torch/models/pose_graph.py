@@ -5,8 +5,12 @@ runs Gauss-Newton with right-perturbation Jacobians (second-order inverse
 right Jacobian), vertex 0 fixed, identity information, and the normal
 equations solved by block-Jacobi-preconditioned conjugate gradient whose
 matvec is an edge-wise gather and scatter; :class:`PoseGraph` is the
-incremental graph of the online drivers, with g2o text I/O.  The sharded
-layouts (``PoseGraph.optimize(mesh=...)``) are not ported yet.
+incremental graph of the online drivers, with g2o text I/O.  The solve
+itself, :func:`gauss_newton`, runs on any layout of the vertex rows:
+:func:`optimize` gives it all F rows and, with a mesh, sums its normal
+equations over the ranks (the edge-sharded layout);
+``PoseGraph.optimize(mesh=...)`` routes to the chain-sharded one
+(:mod:`ros_stereo_slam_tpu_torch.parallel.dist_pgo`).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import torch
 from ros_stereo_slam_tpu_torch.config import PGOConfig
 
 from ros_stereo_slam_tpu_torch.ops import linalg
+from ros_stereo_slam_tpu_torch.parallel.mesh import (Mesh, all_gather, check_mesh, psum,
+                                                     shard_bounds)
 from ros_stereo_slam_tpu_torch.utils import lie
 
 
@@ -46,6 +52,78 @@ def _edge_residual_jacobians(Ti, Tj, Z):
     return r, -Jri @ lie.adjoint_se3(lie.inv_se3(Tij)), Jri
 
 
+def gauss_newton(T, odo_Z, loop_Z, w_o, w_l, ok, free, ends, scatter, dot,
+                 iters: int, cg_iters: int, damping: float) -> torch.Tensor:
+    """Gauss-Newton with block-Jacobi-preconditioned CG on one layout of the
+    graph's vertex rows `T` (all F of them, or a rank's block).
+
+    The layout comes as three functions: ``ends(x)`` gives x at the
+    odometry edges' two ends and at the loop edges' two ends;
+    ``scatter(ci, cj, cli, clj)`` adds the four per-edge terms onto the
+    layout's vertex rows, summed over the ranks that share the graph;
+    ``dot(a, b)`` is the whole inner product.  `w_o`/`w_l` weigh the
+    edges, `ok` holds the (E, 1, 1) masks of the four ends' free vertices
+    and `free` the rows' gauge mask.
+    """
+    dt, dev = T.dtype, T.device
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+
+    def jt(J, r):
+        return torch.einsum("eab,ea->eb", J, r)
+
+    def safe(v):
+        return torch.where(v.abs() > 1e-20, v, torch.full_like(v, 1e-20))
+
+    for _ in range(iters):
+        T_prev, T_cur, T_li, T_lj = ends(T)
+        r_o, Ji_o, Jj_o = _edge_residual_jacobians(T_prev, T_cur, odo_Z)
+        r_l, Ji_l, Jj_l = _edge_residual_jacobians(T_li, T_lj, loop_Z)
+        Ji_o = Ji_o * ok[0] * w_o[:, None, None]
+        Jj_o = Jj_o * ok[1] * w_o[:, None, None]
+        Ji_l = Ji_l * ok[2] * w_l[:, None, None]
+        Jj_l = Jj_l * ok[3] * w_l[:, None, None]
+        r_o_w = r_o * w_o[:, None]
+        r_l_w = r_l * w_l[:, None]
+
+        # right-hand side b = -sum J^T r, scattered per vertex
+        b = scatter(-jt(Ji_o, r_o_w), -jt(Jj_o, r_o_w), -jt(Ji_l, r_l_w), -jt(Jj_l, r_l_w))
+        # block diagonal of H for the Jacobi preconditioner
+        D = scatter(*(torch.einsum("eab,eac->ebc", J, J) for J in (Ji_o, Jj_o, Ji_l, Jj_l)))
+        D_inv = linalg.spd_inverse_small(D + (damping + 1e-8) * eye6)
+
+        def hx(x):
+            """H @ x by edge-wise gather and scatter."""
+            x_prev, x_cur, x_li, x_lj = ends(x)
+            t_o = (torch.einsum("eab,eb->ea", Ji_o, x_prev)
+                   + torch.einsum("eab,eb->ea", Jj_o, x_cur))
+            t_l = (torch.einsum("eab,eb->ea", Ji_l, x_li)
+                   + torch.einsum("eab,eb->ea", Jj_l, x_lj))
+            return scatter(jt(Ji_o, t_o), jt(Jj_o, t_o), jt(Ji_l, t_l),
+                           jt(Jj_l, t_l)) + damping * x
+
+        def precond(v):
+            return torch.einsum("fab,fb->fa", D_inv, v)
+
+        # preconditioned CG from x = 0
+        x = torch.zeros(T.shape[:-2] + (6,), dtype=dt, device=dev)
+        r = b - hx(x)
+        z = precond(r)
+        p = z
+        rz = dot(r, z)
+        for _ in range(cg_iters):
+            Ap = hx(p)
+            alpha = rz / safe(dot(p, Ap))
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = precond(r)
+            rz_new = dot(r, z)
+            p = z + (rz_new / safe(rz)) * p
+            rz = rz_new
+        # right update: T <- T exp(x^)
+        T = T @ lie.exp_se3(x * free[:, None])
+    return T
+
+
 def optimize(
     poses: torch.Tensor,  # (F, 4, 4) current estimates
     n_poses: int,  # number of valid poses
@@ -57,88 +135,54 @@ def optimize(
     iters: int = 10,
     cg_iters: int = 64,
     damping: float = 1e-6,
+    mesh: Mesh | None = None,
 ) -> torch.Tensor:
-    """Gauss-Newton over the pose chain; returns the optimized (F, 4, 4)."""
+    """Gauss-Newton over the pose chain; returns the optimized (F, 4, 4).
+
+    With a `mesh` (:class:`~ros_stereo_slam_tpu_torch.parallel.mesh.Mesh`,
+    the JAX function's ``axis_name``) every rank passes the same whole
+    arrays and gets the same result (the EDGE-sharded layout): rank d
+    takes the odometry edges of its block of F (F must divide by the mesh
+    size), rank 0 alone the loop edges, the poses and CG vectors stay
+    replicated, and each rank's share of b, of the block diagonal and of
+    every ``H @ x`` is summed over the ranks.
+    """
+    check_mesh(mesh)
     F = poses.shape[0]
     dev, dt = poses.device, poses.dtype
-    idx = torch.arange(F, device=dev)
+    vid = torch.arange(F, device=dev)
+    idx = vid
+    if mesh is not None:
+        blk = shard_bounds(F, mesh, "poses")
+        idx, odo_Z = vid[blk], odo_Z[blk]
+        if mesh.rank != 0:
+            loop_valid = torch.zeros_like(loop_valid)
     prev = torch.clamp(idx - 1, min=0)
     loop_i, loop_j = loop_i.to(torch.int64), loop_j.to(torch.int64)
     # Odometry edge e connects (e-1, e), valid for 1 <= e < n_poses.
     w_o = ((idx >= 1) & (idx < n_poses)).to(dt)
     w_l = loop_valid.to(dt)
-    # Gauge: vertex 0 is constant.
-    free = ((idx > 0) & (idx < n_poses)).to(dt)
+    # Gauge: vertex 0 is constant (over poses, not edges).
+    free = ((vid > 0) & (vid < n_poses)).to(dt)
 
-    def vertex_ok(vid):
-        return ((vid > 0) & (vid < n_poses)).to(dt)[:, None, None]
+    def vertex_ok(v):
+        return ((v > 0) & (v < n_poses)).to(dt)[:, None, None]
 
-    def scatter(rows, vals, out):
-        return out.index_add_(0, rows, vals)
+    def ends(x):
+        return x[prev], x if mesh is None else x[idx], x[loop_i], x[loop_j]
 
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    T = poses
-    for _ in range(iters):
-        r_o, Ji_o, Jj_o = _edge_residual_jacobians(T[prev], T, odo_Z)
-        r_l, Ji_l, Jj_l = _edge_residual_jacobians(T[loop_i], T[loop_j], loop_Z)
-        Ji_o = Ji_o * vertex_ok(idx - 1) * w_o[:, None, None]
-        Jj_o = Jj_o * vertex_ok(idx) * w_o[:, None, None]
-        Ji_l = Ji_l * vertex_ok(loop_i) * w_l[:, None, None]
-        Jj_l = Jj_l * vertex_ok(loop_j) * w_l[:, None, None]
-        r_o_w = r_o * w_o[:, None]
-        r_l_w = r_l * w_l[:, None]
+    def scatter(ci, cj, cli, clj):
+        out = torch.zeros((F,) + ci.shape[1:], dtype=ci.dtype, device=dev)
+        for rows, c in ((prev, ci), (idx, cj), (loop_i, cli), (loop_j, clj)):
+            out.index_add_(0, rows, c)
+        return out if mesh is None else psum(out, mesh)
 
-        def jt(J, r):
-            return torch.einsum("eab,ea->eb", J, r)
+    def dot(a, b):
+        return (a * b).sum()
 
-        # right-hand side b = -sum J^T r, scattered per vertex
-        b = torch.zeros((F, 6), dtype=dt, device=dev)
-        for rows, J, r in ((prev, Ji_o, r_o_w), (idx, Jj_o, r_o_w),
-                           (loop_i, Ji_l, r_l_w), (loop_j, Jj_l, r_l_w)):
-            scatter(rows, -jt(J, r), b)
-
-        # block diagonal of H for the Jacobi preconditioner
-        D = torch.zeros((F, 6, 6), dtype=dt, device=dev)
-        for rows, J in ((prev, Ji_o), (idx, Jj_o), (loop_i, Ji_l), (loop_j, Jj_l)):
-            scatter(rows, torch.einsum("eab,eac->ebc", J, J), D)
-        D_inv = linalg.spd_inverse_small(D + (damping + 1e-8) * eye6)
-
-        def hx(x):
-            """H @ x by edge-wise gather and scatter (x: (F, 6))."""
-            t_o = (torch.einsum("eab,eb->ea", Ji_o, x[prev])
-                   + torch.einsum("eab,eb->ea", Jj_o, x))
-            t_l = (torch.einsum("eab,eb->ea", Ji_l, x[loop_i])
-                   + torch.einsum("eab,eb->ea", Jj_l, x[loop_j]))
-            out = torch.zeros_like(x)
-            for rows, J, t in ((prev, Ji_o, t_o), (idx, Jj_o, t_o),
-                               (loop_i, Ji_l, t_l), (loop_j, Jj_l, t_l)):
-                scatter(rows, jt(J, t), out)
-            return out + damping * x
-
-        def precond(v):
-            return torch.einsum("fab,fb->fa", D_inv, v)
-
-        def safe(v):
-            return torch.where(v.abs() > 1e-20, v, torch.full_like(v, 1e-20))
-
-        # preconditioned CG from x = 0
-        x = torch.zeros((F, 6), dtype=dt, device=dev)
-        r = b - hx(x)
-        z = precond(r)
-        p = z
-        rz = (r * z).sum()
-        for _ in range(cg_iters):
-            Ap = hx(p)
-            alpha = rz / safe((p * Ap).sum())
-            x = x + alpha * p
-            r = r - alpha * Ap
-            z = precond(r)
-            rz_new = (r * z).sum()
-            p = z + (rz_new / safe(rz)) * p
-            rz = rz_new
-        # right update: T <- T exp(x^)
-        T = T @ lie.exp_se3(x * free[:, None])
-    return T
+    ok = (vertex_ok(idx - 1), vertex_ok(idx), vertex_ok(loop_i), vertex_ok(loop_j))
+    return gauss_newton(poses, odo_Z, loop_Z, w_o, w_l, ok, free, ends, scatter, dot,
+                        iters, cg_iters, damping)
 
 
 def chain_measurements(poses: torch.Tensor) -> torch.Tensor:
@@ -192,6 +236,7 @@ class PoseGraph:
     device: torch.device | str = "cuda"
     count: int = 0
     n_loops: int = 0
+    last_path: str | None = None  # the layout of the last optimize: "single", "chain_sharded"
 
     def __post_init__(self):
         F, L = self.config.max_poses, self.config.max_loop_edges
@@ -237,15 +282,28 @@ class PoseGraph:
         self.loop_valid[s] = True
         self.n_loops += 1
 
-    def optimize(self, poses: torch.Tensor, mesh=None) -> torch.Tensor:
+    def optimize(self, poses: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
         """Global optimization of the (max_poses, 4, 4) `poses` (the
-        reference's ``globalOptimize``); returns new poses."""
-        if mesh is not None:
-            raise NotImplementedError("PoseGraph.optimize(mesh=...) is not ported (the "
-                                      "multi-device slice)")
+        reference's ``globalOptimize``); returns new poses.
+
+        Under a `mesh` of more than one rank whose size divides max_poses,
+        every rank (each must call this) solves its block of the chain
+        (:func:`~ros_stereo_slam_tpu_torch.parallel.dist_pgo.
+        optimize_chain_sharded`) and the blocks are gathered; otherwise the
+        single-device solve runs.  `last_path` says which ran.
+        """
+        check_mesh(mesh)
         c = self.config
-        return optimize(poses, self.count, self.odo_Z, self.loop_i, self.loop_j, self.loop_Z,
-                        self.loop_valid, iters=c.iters, cg_iters=c.cg_iters, damping=c.damping)
+        args = (poses, self.count, self.odo_Z, self.loop_i, self.loop_j, self.loop_Z,
+                self.loop_valid)
+        kw = dict(iters=c.iters, cg_iters=c.cg_iters, damping=c.damping)
+        if mesh is not None and mesh.size > 1 and poses.shape[0] % mesh.size == 0:
+            from ros_stereo_slam_tpu_torch.parallel import dist_pgo
+
+            self.last_path = "chain_sharded"
+            return all_gather(dist_pgo.optimize_chain_sharded(mesh, *args, **kw), mesh)
+        self.last_path = "single"
+        return optimize(*args, **kw)
 
     # -- g2o text I/O (the reference's saveStructure, poseGraph.h:140-179) --
 

@@ -24,8 +24,16 @@ As the JAX package's driver does, the gray frames are cast to float32
 and NOT scaled: uint8 frames reach the step as 0..255 (ROADMAP F2).  RGB
 frames (``left_rgb``) keep their dtype and a uint8 one is scaled where the
 keyframe samples it, as in every driver.  BA runs inside the step when
-``cfg.ba_enabled``; a correction opens a fresh BA window.  The mesh
-(multi-device map) is not ported and raises.
+``cfg.ba_enabled``; a correction opens a fresh BA window.
+
+With a ``mesh`` (:mod:`ros_stereo_slam_tpu_torch.parallel.mesh`, config 5)
+every rank runs the same frames through the same step, as the JAX
+program runs it replicated, but holds only its K/D slots of the keyframe
+store (:mod:`ros_stereo_slam_tpu_torch.parallel.dist_map`); a closure
+solves the pose graph chain-sharded when the mesh has more than one rank
+and rewrites each rank's blocks in place.  The outputs (``keyframes``,
+``map_points``, ``save_map``, the checkpoint) gather the map, so every
+rank calls them; only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -41,15 +49,18 @@ from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
 from ros_stereo_slam_tpu_torch.models.pipeline import (FrameInfo, _grid_for, map_points_of,
                                                        rgb_frame)
 from ros_stereo_slam_tpu_torch.models.pose_graph import PoseGraph, rewrite_points
-from ros_stereo_slam_tpu_torch.models.state import TrackState
+from ros_stereo_slam_tpu_torch.models.state import KeyframeShard, TrackState
 from ros_stereo_slam_tpu_torch.ops import orb, pyramid
+from ros_stereo_slam_tpu_torch.parallel import dist_map
+from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, barrier, check_mesh
 from ros_stereo_slam_tpu_torch.utils import lie
 
 
 def corrected_carry(carry: step_mod.SlamCarry, new_poses: torch.Tensor,
                     old_poses: torch.Tensor, right_img: torch.Tensor, grid_pts: torch.Tensor,
                     grid_mask: torch.Tensor, cfg: PipelineConfig,
-                    rgb_img: torch.Tensor | None = None) -> step_mod.SlamCarry:
+                    rgb_img: torch.Tensor | None = None,
+                    shard: KeyframeShard | None = None) -> step_mod.SlamCarry:
     """Apply a pose-graph result to the carry after frame
     f = ``carry.frame_idx - 1`` (the reference's ``VisualSLAM.cpp:120-146``,
     as both online drivers apply it).
@@ -59,7 +70,10 @@ def corrected_carry(carry: step_mod.SlamCarry, new_poses: torch.Tensor,
     the full pyramids of frame f's left image (the carry's ``ref_pyr[0]``)
     and `right_img` (uint8 is scaled), coloured from frame f's `rgb_img`
     if given; frame f enters the keyframe ring, whose arrays are written
-    in place; with BA on, the window restarts on the new track.
+    in place; with BA on, the window restarts on the new track.  With a
+    `shard` the carry holds that rank's block of a ring sharded over a
+    mesh: its blocks are rewritten and frame f lands in the whole ring's
+    slot, written where the block holds it (no collective).
     """
     fe = cfg.frontend
     f = carry.frame_idx - 1
@@ -84,7 +98,7 @@ def corrected_carry(carry: step_mod.SlamCarry, new_poses: torch.Tensor,
         ba = step_mod.BAState(*(x[0] for x in step_mod._ba_reset(track, r_uv, r_mask,
                                                                    T_opt[None], cfg)))
     track = TrackState(*(x[0] for x in track))
-    kf = step_mod._insert_keyframe(kf, track, T_opt, f)
+    kf = step_mod._insert_keyframe(kf, track, T_opt, f, shard=shard)
     return carry._replace(track=track, T_wc=T_opt, keyframes=kf, ba=ba)
 
 
@@ -97,19 +111,25 @@ class LoopEvent:
 
 @dataclass
 class StereoSLAM:
-    """Streaming SLAM: one :meth:`process_frame` per stereo pair on `device`."""
+    """Streaming SLAM: one :meth:`process_frame` per stereo pair on `device`
+    (under a `mesh`, on the mesh's device, every rank calling every method
+    with the same frames)."""
 
     config: PipelineConfig
     vocab: vocab_mod.Vocabulary | None = None
-    mesh: object | None = None
+    mesh: Mesh | None = None
     device: torch.device | str = "cuda"
     frame_count: int = field(init=False, default=0)
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError("StereoSLAM(mesh=...) is not ported (the multi-device "
-                                      "slice)")
+        check_mesh(self.mesh)
         cfg = self.config
+        self._kf_shard = None
+        if self.mesh is not None:
+            if torch.device(self.device).type != self.mesh.device.type:
+                raise ValueError(f"device {self.device} is not the mesh's {self.mesh.device}")
+            self.device = self.mesh.device
+            self._kf_shard = dist_map.keyframe_shardings(self.mesh, cfg.keyframes.max_keyframes)
         self.grid_pts, self.grid_mask = _grid_for(cfg, self.device)
         self._carry = None
         self.trajectory_dev = None  # (max_poses, 4, 4) on the device
@@ -175,6 +195,7 @@ class StereoSLAM:
         left, right = self._frame(left), self._frame(right)
         self._carry = step_mod.init_carry(left, right, self.grid_pts, self.grid_mask,
                                           cfg.seed, cfg, rgb_frame(left_rgb, self.device))
+        self._shard_store()
         self.trajectory_dev = torch.eye(4, dtype=torch.float32,
                                         device=self.device).repeat(cfg.pgo.max_poses, 1, 1)
         self.graph.initialize()
@@ -194,7 +215,7 @@ class StereoSLAM:
         rgb = rgb_frame(left_rgb, self.device)
         prev_T = self._carry.T_wc
         self._carry, stats = step_mod.slam_frame_step(self._carry, left, right, self.grid_pts,
-                                                      self.grid_mask, cfg, rgb)
+                                                      self.grid_mask, cfg, rgb, self._kf_shard)
         T_wc = self._carry.T_wc
         self.graph.add_odometry(lie.inv_se3(prev_T) @ T_wc)
         self._append_pose(T_wc)
@@ -208,9 +229,10 @@ class StereoSLAM:
         if cand is not None:
             self.graph.add_loop(*self._measure_loop_edge(cand, left, right))
             old_poses = self.trajectory_dev
-            self.trajectory_dev = self.graph.optimize(old_poses)
+            self.trajectory_dev = self.graph.optimize(old_poses, mesh=self.mesh)
             self._carry = corrected_carry(self._carry, self.trajectory_dev, old_poses, right,
-                                          self.grid_pts, self.grid_mask, cfg, rgb)
+                                          self.grid_pts, self.grid_mask, cfg, rgb,
+                                          self._kf_shard)
             self.loop_events.append(LoopEvent(cand.query, cand.match, cand.n_inliers))
 
         frame_idx = self.frame_count
@@ -229,30 +251,46 @@ class StereoSLAM:
 
     # -- outputs -----------------------------------------------------------
 
+    def _shard_store(self) -> None:
+        """Keep only this rank's slots of the carry's (whole) store."""
+        if self.mesh is not None:
+            self._carry = self._carry._replace(
+                keyframes=dist_map.shard_keyframes(self.mesh, self._carry.keyframes))
+
+    def _writes_files(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
     def trajectory_array(self) -> np.ndarray:
         return self.trajectory_dev[: self.frame_count].cpu().numpy()
 
     @property
     def keyframes(self):
-        return self._carry.keyframes
+        """The whole keyframe store (gathered over the mesh's ranks)."""
+        kf = self._carry.keyframes
+        return kf if self.mesh is None else dist_map.gather_keyframes(self.mesh, kf)
 
     def map_points(self) -> tuple[np.ndarray, np.ndarray]:
-        return map_points_of(self._carry.keyframes)
+        return map_points_of(self.keyframes)
 
     def save_graph(self, path: str) -> None:
-        self.graph.save(path, self.trajectory_array())
+        if self._writes_files():
+            self.graph.save(path, self.trajectory_array())
 
     def save_map(self, path: str) -> int:
+        """Write the map as PLY (rank 0 under a mesh); returns its points."""
         from ros_stereo_slam_tpu_torch.utils import ply
 
-        return ply.save_ply(path, *self.map_points())
+        pts, cols = self.map_points()
+        if self._writes_files():
+            ply.save_ply(path, pts, cols)
+        return len(pts)
 
     # -- checkpoint / resume (the reference saves artifacts, never resumes) --
 
     def _state_tree(self) -> dict:
         g = self.graph
         tree = {
-            "carry": self._carry,
+            "carry": self._carry._replace(keyframes=self.keyframes),
             "traj": self.trajectory_dev,
             "graph": {"odo_Z": g.odo_Z, "loop_i": g.loop_i, "loop_j": g.loop_j,
                       "loop_Z": g.loop_Z, "loop_valid": g.loop_valid},
@@ -262,6 +300,9 @@ class StereoSLAM:
         return tree
 
     def save_checkpoint(self, path: str) -> None:
+        """Under a mesh the checkpoint holds the whole map (rank 0 writes it,
+        the others wait), so it loads into a mesh of any size or into one
+        device."""
         from ros_stereo_slam_tpu_torch.utils import checkpoint
 
         d = self.detector
@@ -276,7 +317,11 @@ class StereoSLAM:
             "has_last": bool(d and d.has_last),
             "tracking_failed": self.tracking_failed,
         }
-        checkpoint.save_pytree(path, self._state_tree(), meta)
+        tree = self._state_tree()
+        if self._writes_files():
+            checkpoint.save_pytree(path, tree, meta)
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     def load_checkpoint(self, path: str) -> None:
         """Restore into an object built with the SAME config and vocabulary
@@ -285,6 +330,7 @@ class StereoSLAM:
 
         tree, meta = checkpoint.load_pytree(path, self._state_tree())
         self._carry = tree["carry"]
+        self._shard_store()
         self.trajectory_dev = tree["traj"]
         g = self.graph
         for name, t in tree["graph"].items():

@@ -68,3 +68,12 @@ class KeyframeStore(NamedTuple):
     @property
     def capacity(self) -> int:
         return self.poses.shape[-3]
+
+
+class KeyframeShard(NamedTuple):
+    """A rank's block of a keyframe ring sharded over a mesh
+    (:func:`ros_stereo_slam_tpu_torch.parallel.dist_map.keyframe_shardings`):
+    it holds slots ``[base, base + K/D)`` of a ring of `capacity` slots."""
+
+    base: int
+    capacity: int  # the whole ring's

@@ -45,7 +45,7 @@ import torch
 
 from ros_stereo_slam_tpu_torch.config import PipelineConfig
 from ros_stereo_slam_tpu_torch.models import bundle_adjust, frontend
-from ros_stereo_slam_tpu_torch.models.state import KeyframeStore, TrackState
+from ros_stereo_slam_tpu_torch.models.state import KeyframeShard, KeyframeStore, TrackState
 from ros_stereo_slam_tpu_torch.ops import (anms, fast, interp, lk, match, orb, pnp, pyramid,
                                            ransac, sor, triangulate)
 from ros_stereo_slam_tpu_torch.utils import lie
@@ -365,7 +365,8 @@ def _ba_refine(ba: BAState, track: TrackState, T_wc, obs_uv, obs_mask, cfg: Pipe
 
 
 def _insert_keyframe(kf: KeyframeStore, track: TrackState, T_wc: torch.Tensor,
-                     frame_idx: int, sel: torch.Tensor | None = None) -> KeyframeStore:
+                     frame_idx: int, sel: torch.Tensor | None = None,
+                     shard: KeyframeShard | None = None) -> KeyframeStore:
     """Write the keyframe into ring slot count % capacity.
 
     The store's arrays are updated IN PLACE (the reference copies them);
@@ -376,18 +377,30 @@ def _insert_keyframe(kf: KeyframeStore, track: TrackState, T_wc: torch.Tensor,
     lanes' slots are written back unchanged, so no lane's store is touched
     by another lane's keyframe and nothing is read on the host.  Without
     `sel`, every lane writes.
+
+    On a `shard` of a ring sharded over a mesh, the slot is taken in the
+    whole ring (``count % shard.capacity``) and written only where this
+    shard holds it; ``count`` advances on every shard.
     """
     if T_wc.dim() == 2:  # one store: the lane form with one lane (views)
         out = _insert_keyframe(KeyframeStore(*(x[None] for x in kf)),
-                               TrackState(*(x[None] for x in track)), T_wc[None], frame_idx)
+                               TrackState(*(x[None] for x in track)), T_wc[None], frame_idx,
+                               shard=shard)
         return KeyframeStore(*(x[0] for x in out))
     lanes = torch.arange(T_wc.shape[0], device=T_wc.device)
-    slot = kf.count.long() % kf.capacity
+    keep = sel
+    if shard is None:
+        slot = kf.count.long() % kf.capacity
+    else:
+        slot = kf.count.long() % shard.capacity - shard.base
+        mine = (slot >= 0) & (slot < kf.capacity)
+        slot = slot.clamp(0, kf.capacity - 1)
+        keep = mine if sel is None else sel & mine
 
     def put(field: torch.Tensor, new) -> None:
-        if sel is not None:
-            keep = sel.reshape((-1,) + (1,) * (field.dim() - 2))
-            new = torch.where(keep, new, field[lanes, slot])
+        if keep is not None:
+            k = keep.reshape((-1,) + (1,) * (field.dim() - 2))
+            new = torch.where(k, new, field[lanes, slot])
         field[lanes, slot] = new
 
     put(kf.poses, T_wc)
@@ -453,6 +466,7 @@ def slam_frame_step(
     grid_mask: torch.Tensor,
     cfg: PipelineConfig,
     left_rgb: torch.Tensor | None = None,
+    kf_shard: KeyframeShard | None = None,
 ) -> tuple[SlamCarry, FrameStats]:
     """One odometry frame on the frames' device.
 
@@ -460,10 +474,12 @@ def slam_frame_step(
     here, per frame); `left_rgb` (H, W, 3; float32 or uint8), if given,
     colours the points a keyframe triangulates (the RGB map path).  It
     runs :func:`_step_lanes` with one lane, so a lane of the batched step
-    rounds exactly as this step does.
+    rounds exactly as this step does.  `kf_shard`: the carry's keyframe
+    store is that shard of a ring sharded over a mesh.
     """
     new, stats = _step_lanes(_one_lane(carry), left_img[None], right_img[None], grid_pts,
-                             grid_mask, cfg, None if left_rgb is None else left_rgb[None])
+                             grid_mask, cfg, None if left_rgb is None else left_rgb[None],
+                             kf_shard)
     return _drop_lane(new), FrameStats(*(s[0] for s in stats))
 
 
@@ -475,6 +491,7 @@ def _step_lanes(
     grid_mask: torch.Tensor,
     cfg: PipelineConfig,
     left_rgb: torch.Tensor | None = None,
+    kf_shard: KeyframeShard | None = None,
 ) -> tuple[SlamCarry, FrameStats]:
     """The frame step of B lanes: `carry` with a leading lane axis on every
     tensor and B keys, (B, H, W) frames (and (B, H, W, 3) RGB frames or
@@ -581,7 +598,7 @@ def _step_lanes(
             ba = _where_lanes(is_kf, _ba_reset(kf_track, r_uv, r_mask, T_wc, cfg), ba)
         track = _where_lanes(is_kf, kf_track, track)
         keyframes = _insert_keyframe(keyframes, track, T_wc, carry.frame_idx,
-                                     is_kf if B > 1 else None)
+                                     is_kf if B > 1 else None, kf_shard)
 
     # Velocity update: keep the last good estimate through a tracking
     # failure (the held pose would otherwise zero the prior).

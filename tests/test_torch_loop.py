@@ -300,20 +300,21 @@ def test_spd_inverse_small_matches_reference():
 
 
 def test_unported_parts_documented():
-    """What the online slice still refuses raises NotImplementedError: the
-    multi-device mesh.  The four frontend choices of ROADMAP item 23 are
-    ported: both online drivers take each one (with BA on) and bootstrap
-    frame 0 with it."""
+    """The online slice refuses nothing any more.  The multi-device mesh is
+    ported (tests/test_torch_parallel.py): a mesh that is not a
+    ``parallel.mesh.Mesh`` raises TypeError.  The four frontend choices of
+    ROADMAP item 23 are ported: both online drivers take each one (with BA
+    on) and bootstrap frame 0 with it."""
     from ros_stereo_slam_tpu_torch.config import PGOConfig
     from ros_stereo_slam_tpu_torch.models import slam, slam_chunked
     from ros_stereo_slam_tpu_torch.models.vocab import Vocabulary
 
     cfg = PipelineConfig()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         slam.StereoSLAM(cfg, device="cpu", mesh=object())
     graph = pg.PoseGraph(PGOConfig(max_poses=8), device="cpu")
     graph.initialize()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         graph.optimize(torch.eye(4).repeat(8, 1, 1), mesh=object())
     voc = Vocabulary(k=2, levels=1, centers=[torch.ones((2, 256), dtype=torch.int8)],
                      idf=torch.ones(2))

@@ -84,6 +84,7 @@ def test_port_import_pulls_in_no_jax():
         "from ros_stereo_slam_tpu_torch.ops import anms, fast, orb, orb_cuda, ransac, vocab_cuda\n"
         "from ros_stereo_slam_tpu_torch.ops import essential, match, sgbm\n"
         "from ros_stereo_slam_tpu_torch.kernels import build\n"
+        "from ros_stereo_slam_tpu_torch.parallel import dist_ba, dist_map, dist_pgo, dryrun, mesh\n"
         "from ros_stereo_slam_tpu_torch.utils import checkpoint, metrics, ply\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"

@@ -75,7 +75,20 @@ Phases (any failure exits non-zero and prints no result line):
     ``StereoSLAM(preset_distributed(1), mesh=...)`` over phase ba's frames,
     each bitwise equal to its single-device call, with K1/K2/K3 launches,
     one float64 all-reduce of BA's reduced system timed, and what each
-    collective and each PGO layout's Gauss-Newton step cost.
+    collective and each PGO layout's Gauss-Newton step cost;
+18. cli: the four command-line tools on the card.  KITTI-layout trees
+    (stdlib zlib PNGs under ``build/kitti_smoke``: sequence 00 = the
+    corridor's 49 frames as uint8 with ``image_2``, sequence 01 = world A's
+    frames 0-255) read back through ``KittiSequence`` bitwise (the route
+    printed); ``run_kitti --mode scan`` (odometry) string for string equal
+    to ``run_offline`` on the same uint8 frames; ``run_kitti --mode stream
+    --preset mapping`` with a chromatic map; ``build_vocab`` (k = 9, L = 6)
+    from sequence 01, then ``run_kitti --preset loop_closure --mode scan``:
+    closures at true revisits, carried into ``poseGraph.g2o``;
+    ``run_synthetic --preset loop_closure --orbit --mode chunked``, whose
+    vocabulary (``vocab.train`` on the card) equals the CPU's bitwise;
+    ``python -m ...stereo_depth`` in a child that imports no JAX.  K1/K2/K3
+    launches per run (``--no-plots`` where matplotlib is absent).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -204,6 +217,13 @@ PEAK_INT8_S = 1979e12
 # A spin of this many cycles (~25 us) spaces the launches that
 # device_ms_spaced times without touching memory.
 SPIN_CYCLES = 50_000
+# Phase cli: the KITTI-layout trees it writes (under build/, git-ignored),
+# the frames of each run and the vocabulary the CLI trains from sequence 01.
+KITTI_DIR = ROOT / "build" / "kitti_smoke"
+CLI_OUT = ROOT / "build" / "cli_smoke"
+CLI_MAPPING_FRAMES = 17
+CLI_VOCAB = dict(stride=4, k=9, levels=6)
+CLI_SYNTH_FRAMES = 80
 
 
 def log(msg: str) -> None:
@@ -2425,6 +2445,263 @@ def phase_multichip(torch, voc, rl, rr, cam, dev, ba_stream: dict, smi: str) -> 
             "store_mb": store_mb, "cost": cost}
 
 
+def _png_gray_or_rgb(img) -> bytes:
+    """A stdlib-zlib PNG of an (H, W) or (H, W, 3) uint8 image, every row
+    filter 0 (None)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    ctype = 0 if img.ndim == 2 else 2
+    rows = np.hstack([np.zeros((h, 1), np.uint8), img.reshape(h, -1)])
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_kitti_tree(seq: str, lefts, rights, poses, rgbs=None) -> None:
+    """uint8 frames -> KITTI_DIR/sequences/<seq>/image_{0,1[,2]}/%06d.png and
+    KITTI_DIR/poses/<seq>.txt (threads: zlib releases the GIL)."""
+    import numpy as np
+
+    base = KITTI_DIR / "sequences" / seq
+    jobs = []
+    for d, frames in (("image_0", lefts), ("image_1", rights), ("image_2", rgbs)):
+        if frames is None:
+            continue
+        (base / d).mkdir(parents=True, exist_ok=True)
+        jobs += [(base / d / f"{i:06d}.png", f) for i, f in enumerate(frames)]
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda job: job[0].write_bytes(_png_gray_or_rgb(job[1])), jobs))
+    (KITTI_DIR / "poses").mkdir(parents=True, exist_ok=True)
+    np.savetxt(KITTI_DIR / "poses" / f"{seq}.txt",
+               np.asarray(poses)[:, :3, :4].reshape(len(poses), 12), fmt="%.9g")
+
+
+def _read_back(seq: str, lefts, rights, rgbs=None) -> str:
+    """Every frame of the tree through KittiSequence, held to uint8 / 255
+    bitwise (the native loader, where it builds, to its own v * (1.0f / 255),
+    which round-trips to the same uint8); returns the route taken."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.data import kitti
+
+    ks = kitti.KittiSequence(str(KITTI_DIR), seq)
+    check(ks.available and len(ks) == len(lefts), f"sequence {seq}: {len(ks)} frames read")
+    scale = (np.float32(1.0) / np.float32(255.0)) if ks.route == "native" else None
+    for i in range(len(lefts)):
+        for got, want in zip(ks.frame(i), (lefts[i], rights[i])):
+            ref = (want.astype(np.float32) * scale if scale is not None
+                   else want.astype(np.float32) / 255.0)
+            check(got.dtype == np.float32 and np.array_equal(got, ref),
+                  f"sequence {seq} frame {i}: the {ks.route} route does not give the PNG's "
+                  "uint8 values")
+            check(np.array_equal(np.clip(got * 255.0, 0, 255).astype(np.uint8), want),
+                  f"sequence {seq} frame {i}: the scan mode's quantization loses values")
+        if rgbs is not None:
+            check(np.array_equal(ks.frame_rgb(i), rgbs[i].astype(np.float32) / 255.0),
+                  f"sequence {seq} frame {i}: image_2 does not read back")
+    return ks.route
+
+
+def _cli(torch, main, argv: list) -> tuple[dict, str]:
+    """One CLI's main(argv) in this process: its K1/K2/K3 launches (counts
+    set to 0 just before, read just after) and its standard output."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    _kernel_counts(reset=True)
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    out = buf.getvalue()
+    check(rc == 0, f"{main.__module__} {' '.join(argv)} exited {rc}:\n{out[-2000:]}")
+    return counts, out
+
+
+def _lines(path) -> list:
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def _loop_edges(g2o) -> list:
+    """(i, j) of the EDGE lines between non-consecutive vertices."""
+    edges = []
+    for line in _lines(g2o):
+        f = line.split()
+        if f[0].startswith("EDGE") and int(f[2]) != int(f[1]) + 1:
+            edges.append((int(f[1]), int(f[2])))
+    return edges
+
+
+def phase_cli(torch, left, right, rgb8, poses, rl, rr, rgt, dev, smi: str) -> dict:
+    """The four CLIs on the card, through their main(argv) in this process
+    (stereo_depth through python -m in a child), over KITTI-layout trees
+    written from the rendered frames: sequence 00 = the corridor (gray
+    pairs and image_2), sequence 01 = world A's frames 0-255 (gray)."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.config import preset_odometry
+    from ros_stereo_slam_tpu_torch.data import kitti, loader
+    from ros_stereo_slam_tpu_torch.models import vocab
+    from ros_stereo_slam_tpu_torch.models.pipeline import run_offline
+    from ros_stereo_slam_tpu_torch.tools import build_vocab, run_kitti, run_synthetic
+    from ros_stereo_slam_tpu_torch.utils import outputs, ply
+
+    for d in (KITTI_DIR, CLI_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    q = np.clip(left * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    qr = np.clip(right * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    n_lc = SLAM_FRAMES  # world A's frames 0-255
+    ql = np.clip(rl[:n_lc] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    qlr = np.clip(rr[:n_lc] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    write_kitti_tree("00", q, qr, poses, rgb8)
+    write_kitti_tree("01", ql, qlr, rgt[:n_lc])
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    routes = {seq: _read_back(seq, *fr) for seq, fr in
+              (("00", (q, qr, rgb8)), ("01", (ql, qlr)))}
+    log(f"cli: trees written in {write_s:.2f} s (00: {len(q)} frames with image_2, 01: "
+        f"{n_lc} gray frames; stdlib zlib PNGs), read back in {time.perf_counter() - t0:.2f} s; "
+        f"gray frames read by the {routes} route(s) (native loader "
+        f"{'builds' if loader.native_available() else 'unavailable: ' + loader.UNAVAILABLE}), "
+        "colour by the numpy decoder; every frame equals uint8 / 255 bitwise")
+    plots = importlib.util.find_spec("matplotlib") is not None
+    flags = ["--device", str(dev)] + ([] if plots else ["--no-plots"])
+    log(f"cli: matplotlib {'imports: the CLIs draw their PNGs' if plots else 'is absent: the CLIs run with --no-plots'}")
+    root = ["--root", str(KITTI_DIR)]
+    out, res = {}, {}
+
+    # odometry, scan mode: string for string the library run on the same uint8
+    o = CLI_OUT / "odometry"
+    out["odometry"], _ = _cli(torch, run_kitti.main, root + [
+        "--seq", "00", "--preset", "odometry", "--mode", "scan", "--frames", str(len(q)),
+        "--out", str(o)] + flags)
+    cam00 = kitti.camera_for_sequence("00")
+    lib = run_offline(preset_odometry().replace(camera=cam00), q, qr, device=dev)
+    rows = _lines(o / "trajectory.txt")
+    check(rows == [outputs.pose_row_kitti(T) for T in lib.trajectory],
+          "run_kitti --mode scan: trajectory.txt differs from run_offline on the same frames")
+    check(len(_lines(o / "metrics.jsonl")) == len(q), "run_kitti: metrics.jsonl rows")
+    summary = json.loads((o / "summary.json").read_text())
+    log(f"cli odometry (run_kitti --mode scan, {len(q)} frames): trajectory.txt equals "
+        f"run_offline's string for string; K1 {out['odometry']['k1']}; ATE "
+        f"{summary['ate_rmse']:.4f} m (camera_for_sequence('00'): baseline {cam00.baseline} m; "
+        f"the frames were rendered at 0.54 m, so no ATE bound is held)")
+
+    # mapping, stream mode: colours from image_2
+    o = CLI_OUT / "mapping"
+    out["mapping"], _ = _cli(torch, run_kitti.main, root + [
+        "--seq", "00", "--preset", "mapping", "--mode", "stream", "--frames",
+        str(CLI_MAPPING_FRAMES), "--out", str(o)] + flags)
+    pts, cols = ply.load_ply(str(o / "map.ply"))
+    chroma = float(np.abs(cols.astype(np.int64) - cols.mean(1, keepdims=True)).mean())
+    check(len(pts) > 0 and cols is not None and chroma > 1.0,
+          f"mapping CLI map: {len(pts)} points, mean chroma {chroma:.3f}")
+    log(f"cli mapping (run_kitti --mode stream, {CLI_MAPPING_FRAMES} frames): {len(pts)} PLY "
+        f"points, mean |channel - gray| {chroma:.2f} / 255 (chromatic); K1 "
+        f"{out['mapping']['k1']}")
+
+    # vocabulary from sequence 01, then loop closure in scan mode
+    vpath = CLI_OUT / "vocab_01.npz"
+    CLI_OUT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    out["build_vocab"], vtxt = _cli(torch, build_vocab.main, root + [
+        "--seq", "01", "--frames", str(n_lc), "--stride", str(CLI_VOCAB["stride"]),
+        "--k", str(CLI_VOCAB["k"]), "--levels", str(CLI_VOCAB["levels"]),
+        "--out", str(vpath), "--device", str(dev)])
+    vocab_s = time.perf_counter() - t0
+    o = CLI_OUT / "loop_closure"
+    t0 = time.perf_counter()
+    out["loop_closure"], lc_txt = _cli(torch, run_kitti.main, root + [
+        "--seq", "01", "--preset", "loop_closure", "--vocab", str(vpath), "--mode", "scan",
+        "--frames", str(n_lc), "--out", str(o)] + flags)
+    lc_s = time.perf_counter() - t0
+    events = [tuple(int(x) for x in line.split()[2:5:2]) for line in lc_txt.splitlines()
+              if line.startswith("[kitti] LOOP")]
+    check(len(events) >= 1, "run_kitti loop_closure accepted no closure")
+    for qf, mf in events:
+        d = (qf - mf) % LAP
+        check(min(d, LAP - d) <= REVISIT_TOL,
+              f"CLI closure ({qf}, {mf}) is not within {REVISIT_TOL} frames of a true revisit")
+    edges = _loop_edges(o / "poseGraph.g2o")
+    check(len(edges) == len(events) and all(e[0] == qf for e, (qf, _) in zip(edges, events)),
+          f"poseGraph.g2o loop edges {edges} do not carry the closures {events}")
+    summary = json.loads((o / "summary.json").read_text())
+    trainer = "train_batched" if CLI_VOCAB["k"] ** CLI_VOCAB["levels"] > 4096 else "train"
+    log(f"cli build_vocab (k={CLI_VOCAB['k']}, L={CLI_VOCAB['levels']}, {trainer}, every "
+        f"{CLI_VOCAB['stride']}th of {n_lc} frames): {vocab_s:.1f} s; K2 "
+        f"{out['build_vocab']['k2']}, K3 {out['build_vocab']['k3']} (the IDF)")
+    log(f"cli loop_closure (run_kitti --mode scan, {n_lc} frames): {lc_s:.1f} s; closures "
+        f"(query, match) {events} at true revisits; g2o loop edges {edges}; ATE "
+        f"{summary['ate_rmse']:.4f} m; K1 {out['loop_closure']['k1']}, K2 "
+        f"{out['loop_closure']['k2']}, K3 {out['loop_closure']['k3']}")
+
+    # the synthetic CLI: host-recursive training on the card, chunked SLAM
+    o = CLI_OUT / "synthetic"
+    out["synthetic"], syn_txt = _cli(torch, run_synthetic.main, [
+        "--preset", "loop_closure", "--orbit", "--frames", str(CLI_SYNTH_FRAMES), "--mode",
+        "chunked", "--out", str(o)] + flags)
+    world, cfg = run_synthetic.world_and_config(CLI_SYNTH_FRAMES, True, 13, 2, "loop_closure")
+    X, docs = run_synthetic.sequence_descriptors(
+        [world.render(i)[0] if i % 4 == 0 else None for i in range(CLI_SYNTH_FRAMES)], cfg, dev)
+    card = vocab.Vocabulary.load(str(o / "vocab.npz"), device="cpu")
+    host = vocab.train(X, k=8, levels=3, doc_ids=docs, device="cpu")
+    check(all(torch.equal(a, b) for a, b in zip(card.centers, host.centers))
+          and torch.equal(card.idf, host.idf),
+          "run_synthetic's vocabulary (trained on the card) differs from train on the CPU")
+    summary = json.loads((o / "summary.json").read_text())
+    syn_events = [line for line in syn_txt.splitlines() if line.startswith("[run] LOOP")]
+    log(f"cli synthetic (run_synthetic --preset loop_closure --orbit, {CLI_SYNTH_FRAMES} "
+        f"frames, chunked): vocab.train k=8 L=3 on the card equals the CPU's bitwise over "
+        f"{len(X)} descriptors; {len(syn_events)} closures; ATE {summary['ate_rmse']:.4f} m; "
+        f"K1 {out['synthetic']['k1']}, K2 {out['synthetic']['k2']}, K3 {out['synthetic']['k3']}")
+
+    # stereo_depth through python -m in a child process
+    o = CLI_OUT / "stereo"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", f"{PKG}.tools.stereo_depth", "--root",
+         str(KITTI_DIR), "--seq", "00", "--frames", "1", "--out", str(o), "--device", str(dev)]
+        + ([] if plots else ["--no-plots"]),
+        capture_output=True, text=True, cwd=str(ROOT), timeout=300)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"python -m stereo_depth exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    mods = [line.split("|")[-1].strip() for line in proc.stderr.splitlines()
+            if line.startswith("import time:")]
+    jaxy = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "ros_stereo_slam_tpu")]
+    check(not jaxy and f"{PKG}.ops.sgbm" in mods,
+          f"the stereo_depth child imported {jaxy[:5]} ({len(mods)} modules)")
+    cloud, _ = ply.load_ply(str(o / "StereoCloud.ply"))
+    check(len(cloud) > 0 and bool(np.isfinite(cloud).all()), "StereoCloud.ply holds no points")
+    log(f"cli stereo_depth (python -m in a child, {child_s:.1f} s): {len(cloud)} cloud "
+        f"points, {len(mods)} modules imported, none of JAX")
+
+    for name, kern in (("odometry", "k1"), ("mapping", "k1"), ("loop_closure", "k1"),
+                       ("loop_closure", "k2"), ("loop_closure", "k3"), ("build_vocab", "k2"),
+                       ("build_vocab", "k3"), ("synthetic", "k1"), ("synthetic", "k2"),
+                       ("synthetic", "k3")):
+        check(out[name][kern] > 0, f"the CLI run {name} launched no {kern.upper()} kernel")
+    total = {k: sum(c[k] for c in out.values()) for k in ("k1", "k2", "k3")}
+    log(f"[{smi}] cli: launches per run {out}; in all K1 {total['k1']}, K2 {total['k2']}, "
+        f"K3 {total['k3']}")
+    return {"counts": total, "runs": out}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         log(f"FAIL: package {PKG}/ not found beside chip_smoke.py")
@@ -2495,6 +2772,7 @@ def main() -> int:
                    smi)
         es = timed("essential", phase_essential, torch, left, depths[0], poses, cam, dev, smi)
         mc = timed("multichip", phase_multichip, torch, voc, rl, rr, cam, dev, ba["stream"], smi)
+        cl = timed("cli", phase_cli, torch, left, right, rgb8, poses, rl, rr, rgt, dev, smi)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
@@ -2531,15 +2809,16 @@ def main() -> int:
           "online_stream": on["stream"]["counts"]["k1"], "mapping": mp["launches"],
           "ba": ba["offline"]["counts"]["k1"], "ba_stream": ba["stream"]["counts"]["k1"],
           "reference_frontend": rf["counts"]["k1"], "orb_stereo": ob["counts"]["k1"],
-          "essential": es["k1"], "multichip": mc["counts"]["k1"]}),
+          "essential": es["k1"], "multichip": mc["counts"]["k1"], "cli": cl["counts"]["k1"]}),
         ("orb_desc", "orb_desc", "orb_pallas.py:84", sm["counts"]["orb_desc"], k2,
          {"slam": sm["counts"]["orb_desc"], "online_stream": on["stream"]["counts"]["k2"],
           "ba_stream": ba["stream"]["counts"]["k2"], "orb_stereo": ob["counts"]["k2"],
-          "multichip": mc["counts"]["k2"]}),
+          "multichip": mc["counts"]["k2"], "cli": cl["counts"]["k2"]}),
         ("vocab_descend", "vocab_descend", "vocab_pallas.py:72",
          sm["counts"]["vocab_descend"], k3,
          {"slam": sm["counts"]["vocab_descend"], "online_stream": on["stream"]["counts"]["k3"],
-          "ba_stream": ba["stream"]["counts"]["k3"], "multichip": mc["counts"]["k3"]}),
+          "ba_stream": ba["stream"]["counts"]["k3"], "multichip": mc["counts"]["k3"],
+          "cli": cl["counts"]["k3"]}),
         ("lk_level_batch", "lk_level", "lk_pallas.py:361", bo["launches"], k1b,
          {"batched_odo": bo["launches"], "batched_slam": bs["counts"]["k1b"],
           "ba_lanes": ba["lanes"]["k1b"], "orb_stereo_lanes": obl["counts"]["k1b"]}),

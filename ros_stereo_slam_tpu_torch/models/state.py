@@ -1,7 +1,7 @@
 """SLAM state as fixed-capacity NamedTuples of tensors.
 
-Port of ``ros_stereo_slam_tpu/models/state.py`` (``TrackState`` and
-``KeyframeStore``).  Every store has a static capacity plus a validity
+Port of ``ros_stereo_slam_tpu/models/state.py`` (``TrackState``,
+``KeyframeStore`` and ``TrajectoryStore``).  Every store has a static capacity plus a validity
 mask or count, as in the reference.  The batched-lane drivers stack B
 lanes on a leading axis of every field (``lanes=B`` in ``empty``).
 """
@@ -68,6 +68,22 @@ class KeyframeStore(NamedTuple):
     @property
     def capacity(self) -> int:
         return self.poses.shape[-3]
+
+
+class TrajectoryStore(NamedTuple):
+    """Per-frame pose chain (reference ``isoVector`` + canvas trajectory)."""
+
+    poses: torch.Tensor  # (F, 4, 4) f32 — world-from-cam per frame
+    valid: torch.Tensor  # (F,) bool
+    count: torch.Tensor  # () i32
+
+    @staticmethod
+    def empty(capacity: int, device: torch.device | str) -> "TrajectoryStore":
+        return TrajectoryStore(
+            poses=torch.eye(4, dtype=torch.float32, device=device).repeat(capacity, 1, 1),
+            valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+            count=torch.zeros((), dtype=torch.int32, device=device),
+        )
 
 
 class KeyframeShard(NamedTuple):

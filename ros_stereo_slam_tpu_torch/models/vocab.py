@@ -19,10 +19,19 @@ persistent form (save, load, :mod:`.convert`).
   :func:`_descend_packed_plain` on CPU tensors.  :func:`_descend` is the
   counterpart of the reference's ``_descend`` on sign rows; the full-SLAM
   path descends ORB's packed words directly.
+- :func:`train` is the reference's host-recursive trainer (the
+  small-vocabulary oracle): numpy's ``default_rng`` draws, first-max
+  argmax assignments on `device`.  Dots of +-1 vectors are exact
+  integers in float32, so its centres and IDF equal the reference's bit
+  for bit, on the CPU and on the card.
 - :func:`train_batched` is the level-synchronous trainer.  Its random
   draws come from a CPU ``torch.Generator`` and are moved to the device;
   everything after them is exact integer work, so a seed gives the same
   vocabulary on the CPU and on the card (not JAX's: its keys differ).
+- The dense BoW oracles (:func:`bow_row`, :func:`score_l1`,
+  :func:`dense_of_sparse`, :func:`score_db_sparse`,
+  :func:`score_pair_sparse`) are the reference's test forms, O(n_words)
+  per row: not for the reference scale.
 - The sparse BoW, binned shortlist and exact min-intersection rescore
   are the reference's formulas (see its module docstring).  Each also
   takes a leading lane axis (the batched-lane drivers), every lane
@@ -45,8 +54,6 @@ from ros_stereo_slam_tpu_torch.ops.orb import N_BITS
 
 # Descriptors (or table rows) per block in the trainer and pack_centers.
 _CHUNK = 8192
-# Set bits of every byte value.
-_POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
 
 
 @dataclass(frozen=True)
@@ -150,6 +157,85 @@ def _idf_of(voc: Vocabulary, X: torch.Tensor, doc_ids: np.ndarray | None) -> Non
     idf = np.log(n_docs / np.maximum(df, 1)).astype(np.float32)
     idf[df == 0] = 0.0
     voc.idf = torch.from_numpy(idf).to(voc.centers[0].device)
+
+
+def _kmeans_signs(X: np.ndarray, k: int, iters: int = 8, seed: int = 0,
+                  device="cpu") -> np.ndarray:
+    """Binary k-means on (N, 256) {-1,+1} vectors -> (k, 256) sign centers.
+
+    The reference's draws (numpy ``default_rng(seed)``) and votes on the
+    host; the assignment dots on `device`."""
+    n = X.shape[0]
+    rng = np.random.default_rng(seed)
+    if n == 0:
+        return rng.choice([-1.0, 1.0], size=(k, N_BITS)).astype(np.float32)
+    init = X[rng.choice(n, size=min(k, n), replace=False)]
+    C = np.concatenate(
+        [init, rng.choice([-1.0, 1.0], size=(k - init.shape[0], N_BITS))]
+    ).astype(np.float32)
+    Xd = torch.from_numpy(X).to(device)
+    for _ in range(iters):
+        # Hamming == argmax dot for sign vectors (first max on ties).
+        assign = _argmax_dot(Xd, C)
+        for c in range(k):
+            sel = X[assign == c]
+            if sel.shape[0]:
+                # bit-wise majority vote == sign of mean
+                m = sel.mean(axis=0)
+                C[c] = np.where(m >= 0, 1.0, -1.0)
+            else:
+                C[c] = X[rng.integers(n)]
+    return C
+
+
+def _argmax_dot(Xd: torch.Tensor, C: np.ndarray) -> np.ndarray:
+    """(N,) first argmax over the k centers of each row's dot product."""
+    Cd = torch.from_numpy(C).to(Xd.device)
+    return torch.argmax(Xd @ Cd.T, dim=1).cpu().numpy()
+
+
+def train(
+    descriptors, k: int = 9, levels: int = 4, seed: int = 0,
+    doc_ids: np.ndarray | None = None, device="cuda",
+) -> Vocabulary:
+    """Host-recursive trainer from (N, 256) sign descriptors (array or tensor).
+
+    The small-vocabulary oracle (tests, tiny worlds): the recursion visits
+    every internal node in Python; for reference-scale vocabularies use
+    :func:`train_batched`.  `doc_ids` (N,) frame ids give TF-IDF weights
+    (uniform weights without them); the IDF's descent runs on `device`
+    (kernel K3 on the card).
+    """
+    X = np.asarray(torch.as_tensor(descriptors).cpu(), dtype=np.float32)
+    # per-level center tables
+    centers = [np.zeros((k ** (l + 1), N_BITS), np.float32) for l in range(levels)]
+
+    def recurse(data: np.ndarray, level: int, node: int, seed_: int):
+        C = _kmeans_signs(data, k, seed=seed_, device=device)
+        centers[level][node * k : (node + 1) * k] = C
+        if level + 1 == levels:
+            return
+        if data.shape[0]:
+            assign = _argmax_dot(torch.from_numpy(data).to(device), C)
+        else:
+            assign = np.zeros((0,), np.int64)
+        for c in range(k):
+            recurse(data[assign == c], level + 1, node * k + c, seed_ * k + c + 1)
+
+    recurse(X, 0, 0, seed + 1)
+    voc = Vocabulary(k=k, levels=levels,
+                     centers=[torch.from_numpy(c.astype(np.int8)).to(device) for c in centers],
+                     idf=torch.ones((k**levels,), dtype=torch.float32, device=device))
+    _idf_of(voc, torch.from_numpy(X).to(device), doc_ids)
+    return voc
+
+
+def build_vocab(descriptors, k: int, levels: int, doc_ids: np.ndarray | None = None,
+                device="cuda") -> Vocabulary:
+    """The trainer the vocabulary CLI picks: :func:`train` up to 4,096
+    words, :func:`train_batched` above (the reference tool's rule)."""
+    trainer = train_batched if k ** levels > 4096 else train
+    return trainer(descriptors, k=k, levels=levels, doc_ids=doc_ids, device=device)
 
 
 # -- level-synchronous batched trainer (reference scale) --------------------
@@ -258,7 +344,7 @@ def _descend_packed_plain(q_bits: torch.Tensor, valid: torch.Tensor, tree: Packe
     (``torch.argmin``); invalid rows take child 0.  Exact.
     """
     node = torch.zeros((q_bits.shape[0],), dtype=torch.int64, device=q_bits.device)
-    table = _POPCOUNT8.to(q_bits.device)
+    table = orb.POPCOUNT8.to(q_bits.device)
     kk = torch.arange(k, device=q_bits.device)
     for l in range(n_levels):
         first = node * k
@@ -301,6 +387,44 @@ def _descend(centers, desc_sign: torch.Tensor, k: int, upto: int) -> torch.Tenso
 def transform_words(voc: Vocabulary, desc_sign: torch.Tensor) -> torch.Tensor:
     """(N, 256) sign descriptors -> (N,) int64 word ids (leaf indices)."""
     return _descend(voc.packed(), desc_sign, voc.k, voc.levels)
+
+
+# -- dense BoW (oracle form, small vocabularies) ------------------------------
+
+
+def bow_row(words: torch.Tensor, valid: torch.Tensor, idf: torch.Tensor,
+            n_words: int) -> torch.Tensor:
+    """Sparse word list -> L1-normalized TF-IDF dense BoW row (n_words,).
+
+    The test oracle for the sparse form below; O(n_words) storage.
+    """
+    w = torch.where(valid, idf[words], 0.0)
+    row = torch.zeros((n_words,), dtype=torch.float32, device=w.device).index_add_(
+        0, words.to(torch.int64), w)
+    return row / torch.clamp(row.abs().sum(), min=1e-12)
+
+
+def score_l1(query: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """DBoW2 L1 score: s = 1 - 0.5 * |q - d|_1, batched over db rows."""
+    return 1.0 - 0.5 * torch.abs(query[None, :] - db).sum(1)
+
+
+def dense_of_sparse(uw: torch.Tensor, uv: torch.Tensor, n_words: int) -> torch.Tensor:
+    """Scatter a sparse BoW into its dense (n_words,) row."""
+    return torch.zeros((n_words,), dtype=torch.float32, device=uv.device).index_add_(
+        0, uw.to(torch.int64), uv)
+
+
+def score_db_sparse(q_dense: torch.Tensor, db_words: torch.Tensor,
+                    db_wvals: torch.Tensor) -> torch.Tensor:
+    """Min-intersection L1 score of a dense query row against the sparse
+    database (merged-unique rows, zero-weight padding): (capacity,)."""
+    return torch.minimum(q_dense[db_words.to(torch.int64)], db_wvals).sum(1)
+
+
+def score_pair_sparse(q_dense: torch.Tensor, w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Min-intersection score of a dense query row vs ONE sparse row."""
+    return torch.minimum(q_dense[w.to(torch.int64)], v).sum()
 
 
 # -- sparse BoW -------------------------------------------------------------

@@ -91,6 +91,17 @@ def sign_of_packed(packed: torch.Tensor) -> torch.Tensor:
     return torch.where(unpack_bits(packed), 1.0, -1.0).to(torch.float32)
 
 
+# Set bits of every byte value.
+POPCOUNT8 = torch.tensor([bin(i).count("1") for i in range(256)], dtype=torch.int32)
+
+
+def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact Hamming distances between (N, 8) and (M, 8) packed sets:
+    (N, M) int32, by a byte popcount table."""
+    x = (a[:, None, :] ^ b[None, :, :]).contiguous().view(torch.uint8)  # (N, M, 32)
+    return POPCOUNT8.to(a.device)[x.to(torch.int64)].sum(-1).to(torch.int32)
+
+
 def hamming_mxu(sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
     """Hamming distance from sign vectors: (..., N, 256) x (..., M, 256) -> (..., N, M)."""
     return (N_BITS - sa @ sb.transpose(-1, -2)) * 0.5

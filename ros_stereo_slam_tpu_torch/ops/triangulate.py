@@ -1,7 +1,8 @@
 """Stereo triangulation on a rectified rig.
 
-Port of ``triangulate_rectified`` from
-``ros_stereo_slam_tpu/ops/triangulate.py``.
+Port of ``ros_stereo_slam_tpu/ops/triangulate.py``: the closed-form
+rectified triangulation of the fast path and the general two-view DLT
+(``cv::triangulatePoints``'s formulation) for verification.
 """
 
 from __future__ import annotations
@@ -49,3 +50,23 @@ def triangulate_rectified(
         & (z < max_depth)
     )
     return TriangulationResult(points=pts, valid=valid, depth=z)
+
+
+def triangulate_dlt(P1: torch.Tensor, P2: torch.Tensor, uv1: torch.Tensor,
+                    uv2: torch.Tensor) -> torch.Tensor:
+    """General two-view homogeneous DLT, batched over N points: (N, 3).
+
+    Same formulation as ``cv::triangulatePoints``: each pair's 4x4 system,
+    rows normalized, null vector from a batched SVD, de-homogenized.
+    """
+    A = torch.stack([
+        uv1[:, 0:1] * P1[2] - P1[0],
+        uv1[:, 1:2] * P1[2] - P1[1],
+        uv2[:, 0:1] * P2[2] - P2[0],
+        uv2[:, 1:2] * P2[2] - P2[1],
+    ], dim=1)  # (N, 4, 4)
+    # Row-normalize then SVD (f32 conditioning; eigh(A^T A) is too lossy).
+    A = A / torch.linalg.norm(A, dim=2, keepdim=True)
+    X = torch.linalg.svd(A).Vh[:, -1]
+    w = X[:, 3:4]
+    return X[:, :3] / torch.where(torch.abs(w) > 1e-12, w, torch.full_like(w, 1e-12))

@@ -452,3 +452,23 @@ def test_orb_batch_kernel_wrapper_checks_inputs(cuda_device):
         orb_cuda.orb_descriptors_batch(imgs[0], pts[0])
     sign, m = orb_cuda.orb_descriptors_batch(imgs, torch.empty((2, 0, 2), device=cuda_device))
     assert sign.shape == (2, 0, 256) and m.shape == (2, 0, 2)
+
+
+def test_vocab_train_on_card_equals_cpu(cuda_device):
+    """The host-recursive trainer with its dots on the card: the same
+    centres and IDF as on the CPU, bit for bit (+-1 dots are exact integers
+    in float32; argmax takes the first max on both), and the IDF's descent
+    is one K3 launch."""
+    rng = np.random.default_rng(17)
+    cent = rng.choice(np.array([-1.0, 1.0], np.float32), size=(12, 256))
+    X = cent[rng.integers(0, 12, 2000)]
+    X = np.where(rng.random(X.shape) < 0.1, -X, X).astype(np.float32)
+    docs = rng.integers(0, 40, 2000)
+    before = vocab_cuda.LAUNCHES
+    on_card = vocab.train(X, k=8, levels=3, doc_ids=docs, device=cuda_device)
+    torch.cuda.synchronize()
+    assert vocab_cuda.LAUNCHES == before + 1
+    on_cpu = vocab.train(X, k=8, levels=3, doc_ids=docs, device="cpu")
+    for a, b in zip(on_card.centers, on_cpu.centers, strict=True):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert torch.equal(on_card.idf.cpu(), on_cpu.idf)

@@ -211,7 +211,7 @@ def k3_tree():
 
 def _popc(x):
     """Set bits per 32-bit word of an int32 tensor."""
-    b = vocab._POPCOUNT8[x.contiguous().view(torch.uint8).to(torch.int64)]
+    b = orb.POPCOUNT8[x.contiguous().view(torch.uint8).to(torch.int64)]
     return b.reshape(x.shape + (4,)).sum(-1)
 
 

@@ -28,7 +28,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize(
-    "rel", ["config.py", "ops/grid.py", "data/synthetic.py", "utils/metrics.py", "utils/ply.py"]
+    "rel", ["config.py", "ops/grid.py", "data/synthetic.py", "utils/metrics.py", "utils/ply.py",
+            "viz/web.py", "viz/draw.py"]
 )
 def test_copy_source_matches_original(rel):
     """Verbatim copies: only the package name in imports differs, and the
@@ -85,7 +86,12 @@ def test_port_import_pulls_in_no_jax():
         "from ros_stereo_slam_tpu_torch.ops import essential, match, sgbm\n"
         "from ros_stereo_slam_tpu_torch.kernels import build\n"
         "from ros_stereo_slam_tpu_torch.parallel import dist_ba, dist_map, dist_pgo, dryrun, mesh\n"
-        "from ros_stereo_slam_tpu_torch.utils import checkpoint, metrics, ply\n"
+        "from ros_stereo_slam_tpu_torch.utils import checkpoint, metrics, outputs, ply, profiling\n"
+        "from ros_stereo_slam_tpu_torch.models import frontend\n"
+        "from ros_stereo_slam_tpu_torch.data import kitti, loader, png\n"
+        "from ros_stereo_slam_tpu_torch.viz import web\n"
+        "from ros_stereo_slam_tpu_torch.tools import build_vocab, run_kitti, run_synthetic\n"
+        "from ros_stereo_slam_tpu_torch.tools import stereo_depth\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

@@ -276,3 +276,22 @@ def test_f3_pallas_tile_clamp_shifts_border_corners(images):
     # ... at x = 18 it does not (a shifted patch, not rounding)
     assert np.abs(m_pallas[0] - m_jnp[0]).max() > 10.0, (m_pallas[0], m_jnp[0])
     np.testing.assert_allclose(m_port.numpy(), m_jnp, atol=1e-3, rtol=1e-5)
+
+
+def test_hamming_packed_matches_reference():
+    """Exact Hamming distances of packed sets, as the JAX package's
+    popcount form; and equal to the sign-vector form."""
+    rng = np.random.default_rng(19)
+    bits = rng.random((23, 256)) > 0.5
+    bits[3] = bits[20]  # a zero distance
+    bits[4] = ~bits[21]  # the full 256
+    pj = np.asarray(jorb.pack_bits(jnp.asarray(bits)))
+    pt = orb.pack_bits(torch.from_numpy(bits))
+    ht = orb.hamming_packed(pt[:12], pt[12:])
+    assert ht.dtype == torch.int32
+    np.testing.assert_array_equal(
+        ht.numpy(), np.asarray(jorb.hamming_packed(jnp.asarray(pj[:12]), jnp.asarray(pj[12:]))))
+    np.testing.assert_array_equal(
+        ht.numpy(), orb.hamming_mxu(orb.sign_of_packed(pt[:12]),
+                                    orb.sign_of_packed(pt[12:])).numpy().astype(np.int32))
+    assert int(ht[3, 8]) == 0 and int(ht[4, 9]) == 256

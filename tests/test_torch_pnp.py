@@ -35,6 +35,15 @@ CAM_T = tcam.Pinhole(**CAM)
 CAM_J = jcam.Pinhole(**{k: jnp.float32(v) for k, v in CAM.items()})
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scene(seed=0, n=400, noise_px=0.3, outlier_frac=0.2):
     """World points in front of a camera, a GT cam-from-world pose, noisy
     observations with gross outliers, and a validity mask."""
@@ -162,3 +171,203 @@ def test_keyframe_ring_matches_jax():
     for name in KeyframeStore._fields:
         np.testing.assert_array_equal(getattr(tkf, name).numpy(),
                                       np.asarray(getattr(jkf, name)), err_msg=name)
+
+
+def test_triangulate_dlt_matches_jax():
+    """The JAX package's DLT case (tests/test_geometry.py): a rectified pair
+    at b = 0.54 m; both packages recover the points, and agree."""
+    rng = np.random.default_rng(2)
+    n, b = 64, 0.54
+    X = np.stack([rng.uniform(-15, 15, n), rng.uniform(-3, 3, n),
+                  rng.uniform(5, 60, n)], 1).astype(np.float32)
+    K = np.array([[CAM["fx"], 0, CAM["cx"]], [0, CAM["fy"], CAM["cy"]], [0, 0, 1]], np.float32)
+
+    def project(t):
+        pc = X + t
+        return np.stack([K[0, 0] * pc[:, 0] / pc[:, 2] + K[0, 2],
+                         K[1, 1] * pc[:, 1] / pc[:, 2] + K[1, 2]], 1).astype(np.float32)
+
+    uv_l, uv_r = project(np.zeros(3, np.float32)), project(np.array([-b, 0, 0], np.float32))
+    P1 = (K @ np.concatenate([np.eye(3), np.zeros((3, 1))], axis=1)).astype(np.float32)
+    P2 = (K @ np.concatenate([np.eye(3), np.array([[-b], [0], [0]])], axis=1)).astype(np.float32)
+    jout = np.asarray(jtri.triangulate_dlt(*(jnp.asarray(a) for a in (P1, P2, uv_l, uv_r))))
+    tout = ttri.triangulate_dlt(*(torch.from_numpy(a) for a in (P1, P2, uv_l, uv_r))).numpy()
+    np.testing.assert_allclose(tout, X, rtol=2e-3, atol=2e-2)
+    np.testing.assert_allclose(tout, jout, rtol=2e-3, atol=2e-2)
+
+
+def test_trajectory_store_matches_jax():
+    from ros_stereo_slam_tpu.models.state import TrajectoryStore as JTrajectoryStore
+    from ros_stereo_slam_tpu_torch.models.state import TrajectoryStore
+
+    t, j = TrajectoryStore.empty(5, "cpu"), JTrajectoryStore.empty(5)
+    assert t._fields == j._fields
+    for a, b in zip(t, j):
+        assert a.dtype == {"float32": torch.float32, "bool": torch.bool,
+                           "int32": torch.int32}[str(b.dtype)]
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.fixture(scope="module")
+def frontend_pair():
+    """Frames 0 and 1 of the quarter-size world, both packages' pyramids and
+    the config's profiles."""
+    from ros_stereo_slam_tpu.config import PipelineConfig as JPipelineConfig
+    from ros_stereo_slam_tpu.models import frontend as jfe
+    from ros_stereo_slam_tpu_torch.config import PipelineConfig
+    from ros_stereo_slam_tpu_torch.data.synthetic import small_world
+    from ros_stereo_slam_tpu_torch.models import frontend as tfe
+    from ros_stereo_slam_tpu_torch.ops import grid
+
+    world = small_world(n_frames=2, seed=3)
+    c = world.camera
+    frames = [world.render(i)[:2] for i in range(2)]
+    fe = PipelineConfig().frontend
+    jfe_cfg = JPipelineConfig().frontend
+    levels = fe.lk_levels
+    pyr_t = [[tfe.preprocess(torch.from_numpy(img), levels) for img in f] for f in frames]
+    pyr_j = [[jfe.preprocess(jnp.asarray(img), levels) for img in f] for f in frames]
+    pts, mask = grid.grid_points(c.height, c.width, 12, 1024)
+    cam_t = tcam.Pinhole(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy)
+    cam_j = jcam.Pinhole(**{k: jnp.float32(getattr(c, k)) for k in ("fx", "fy", "cx", "cy")})
+    return dict(jfe=jfe, tfe=tfe, fe=fe, jfe_cfg=jfe_cfg, pyr_t=pyr_t, pyr_j=pyr_j, pts=pts,
+                mask=mask, cam_t=cam_t, cam_j=cam_j, baseline=c.baseline)
+
+
+def _feeder(sets):
+    """A draw callable that hands out index sets drawn by JAX, in order."""
+    it = iter(sets)
+    return lambda mask, k_hyp, m: torch.from_numpy(np.array(next(it))).long()
+
+
+def _f1_band(d, levels: int) -> float:
+    """How far from the top/left border JAX's jnp LK can read a wrapped
+    patch (ROADMAP F1: ``lax.dynamic_slice`` wraps a negative start, the
+    port clamps): a coarse-level window of 2^(levels-1) (window // 2 + 1) px."""
+    return 2 ** (levels - 1) * (d["fe"].lk_window // 2 + 1)
+
+
+def _only_f1_differences(mask_t, mask_j, pts, tracked, band: float) -> None:
+    """Masks equal except at <= 3 points, each with its point or JAX's
+    track within the F1 band of the top or left border."""
+    diff = np.nonzero(mask_t != mask_j)[0]
+    near = np.minimum(pts[diff].min(axis=1), tracked[diff].min(axis=1))
+    assert len(diff) <= 3 and np.all(near < band), (diff, pts[diff], tracked[diff])
+
+
+def _jax_bootstrap(d, key):
+    """JAX's stereo_bootstrap and the F-gate sets it drew (its own LK mask)."""
+    from ros_stereo_slam_tpu.ops import lk as jlk
+
+    jfe, fe = d["jfe"], d["jfe_cfg"]
+    lp, rp = d["pyr_j"][0]
+    pts, mask = jnp.asarray(d["pts"]), jnp.asarray(d["mask"])
+    res = jlk.track(lp, rp, pts, None, jfe._lk_stereo_params(fe))
+    fidx = jransac._sample_minimal_sets(key, mask & res.valid, fe.fmat_iters, 8)
+    out = jfe.stereo_bootstrap(lp, rp, pts, mask, jnp.eye(4, dtype=jnp.float32), key,
+                               d["cam_j"], jnp.float32(d["baseline"]), jnp.float32(500.0), fe)
+    return out, fidx
+
+
+def test_preprocess_matches_jax(frontend_pair):
+    d = frontend_pair
+    for ft, fj in zip(d["pyr_t"], d["pyr_j"]):
+        for pt_, pj_ in zip(ft, fj):
+            assert len(pt_) == len(pj_) == d["fe"].lk_levels
+            for a, b in zip(pt_, pj_):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+def test_stereo_bootstrap_from_jax_sets_matches_jax(frontend_pair):
+    """Stereo LK -> F-gate on JAX's index sets -> triangulation -> world:
+    the same valid set but for F1's reach, points within 1e-3 m (float32
+    LK tracks)."""
+    from ros_stereo_slam_tpu.ops import lk as jlk
+
+    d = frontend_pair
+    (jstate_, jn), fidx = _jax_bootstrap(d, jax.random.PRNGKey(3))
+    lp, rp = d["pyr_t"][0]
+    T = torch.eye(4)
+    tstate, tn = d["tfe"].bootstrap_from_sets(
+        lp, rp, torch.from_numpy(d["pts"]), torch.from_numpy(d["mask"]), T, _feeder([fidx]),
+        d["cam_t"], d["baseline"], 500.0, d["fe"])
+    jtrack = np.asarray(jlk.track(*d["pyr_j"][0], jnp.asarray(d["pts"]), None,
+                                  d["jfe"]._lk_stereo_params(d["jfe_cfg"])).points)
+    mt, mj = tstate.mask.numpy(), np.asarray(jstate_.mask)
+    _only_f1_differences(mt, mj, d["pts"], jtrack, _f1_band(d, d["fe"].lk_stereo_levels))
+    assert abs(int(tn) - int(jn)) <= 3 and int(jn) > 100
+    m = mt & mj
+    np.testing.assert_allclose(tstate.pts3d.numpy()[m], np.asarray(jstate_.pts3d)[m],
+                               rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(tstate.colors.numpy(), np.asarray(jstate_.colors), atol=1e-6)
+    # the generator form runs the same stages from its own draws
+    gstate, gn = d["tfe"].stereo_bootstrap(
+        lp, rp, torch.from_numpy(d["pts"]), torch.from_numpy(d["mask"]), T,
+        torch.Generator().manual_seed(0), d["cam_t"], d["baseline"], 500.0, d["fe"])
+    assert abs(int(gn) - int(jn)) <= 0.05 * int(jn)
+
+
+def _jax_odometry_after_lk(d, jstate_, points, valid, key, pc):
+    """JAX's odometry_step after its LK, recomposed from the JAX package's
+    own F-gate and PnP on given LK output; also the index sets they draw."""
+    cfg = d["jfe_cfg"]
+    k_f, k_pnp = jax.random.split(key)
+    m = jstate_.mask & valid
+    fidx = jransac._sample_minimal_sets(k_f, m, cfg.fmat_iters, 8)
+    fres = jransac.fmat_ransac(k_f, jstate_.pts2d, points, m, thresh_px=cfg.fmat_thresh_px,
+                               iters=cfg.fmat_iters)
+    m = m & fres.inliers
+    pidx = jransac._sample_minimal_sets(jax.random.split(k_pnp)[0], m, pc.iters, 6)
+    pres = jpnp.pnp_ransac(k_pnp, d["cam_j"], jstate_.pts3d, points, m, thresh_px=2.0,
+                           iters=pc.iters, refine_iters=pc.refine_iters,
+                           huber_px=pc.refine_huber_px)
+    return pres, int(m.sum()), fidx, pidx
+
+
+def test_odometry_step_from_jax_sets_matches_jax(frontend_pair):
+    """Temporal LK -> F-gate -> PnP.  First, the JAX package's stages
+    recomposed after its LK give its odometry_step bitwise (so the
+    recomposition is the reference).  Then the port's stage, on the index
+    sets JAX draws from its split key over the PORT's LK output, against
+    that recomposition on the same LK output: equal tracked and inlier sets
+    and counts, pose within 1e-4 / 1e-3 m.  (The LK outputs themselves
+    differ only at F1's reach, where JAX reads a wrapped patch; LK parity
+    is tests/test_torch_lk.py's.)"""
+    from ros_stereo_slam_tpu.config import PnPConfig as JPnPConfig
+    from ros_stereo_slam_tpu.ops import lk as jlk
+    from ros_stereo_slam_tpu_torch.config import PnPConfig
+    from ros_stereo_slam_tpu_torch.ops import lk as tlk
+
+    d = frontend_pair
+    (jstate_, _), _ = _jax_bootstrap(d, jax.random.PRNGKey(3))
+    fe, jfe_cfg, pc = d["fe"], d["jfe_cfg"], PnPConfig()
+    ref_j, cur_j = d["pyr_j"][0][0], d["pyr_j"][1][0]
+    key = jax.random.PRNGKey(5)
+    jout = d["jfe"].odometry_step(ref_j, cur_j, jstate_, key, d["cam_j"], jnp.float32(2.0),
+                                  jfe_cfg, JPnPConfig())
+    jres = jlk.track(ref_j, cur_j, jstate_.pts2d, None, d["jfe"]._lk_params(jfe_cfg))
+    pres, n_trk, _, _ = _jax_odometry_after_lk(d, jstate_, jres.points, jres.valid, key, pc)
+    np.testing.assert_array_equal(np.asarray(pres.T_cw), np.asarray(jout.T_cw))
+    np.testing.assert_array_equal(np.asarray(pres.inliers), np.asarray(jout.mask))
+    assert n_trk == int(jout.n_tracked)
+
+    track = TrackState(*(torch.from_numpy(np.array(x)) for x in jstate_))
+    tres = tlk.track(d["pyr_t"][0][0], d["pyr_t"][1][0], track.pts2d, None,
+                     d["tfe"]._lk_params(fe))
+    pres, n_trk, fidx, pidx = _jax_odometry_after_lk(
+        d, jstate_, jnp.asarray(tres.points.numpy()), jnp.asarray(tres.valid.numpy()), key, pc)
+    tout = d["tfe"].odometry_from_sets(d["pyr_t"][0][0], d["pyr_t"][1][0], track,
+                                       _feeder([fidx, pidx]), d["cam_t"], 2.0, fe, pc)
+    np.testing.assert_array_equal(tout.tracked.numpy(), tres.points.numpy())
+    assert int(tout.n_tracked) == n_trk > 100
+    assert int(tout.n_inliers) == int(pres.n_inliers)
+    np.testing.assert_array_equal(tout.mask.numpy(), np.asarray(pres.inliers))
+    Tj = np.asarray(pres.T_cw)
+    np.testing.assert_allclose(tout.T_cw.numpy()[:3, :3], Tj[:3, :3], atol=1e-4)
+    np.testing.assert_allclose(tout.T_cw.numpy()[:3, 3], Tj[:3, 3], atol=1e-3)
+    np.testing.assert_allclose(tout.T_wc.numpy(), np.linalg.inv(tout.T_cw.numpy()), atol=1e-5)
+    # the generator form: its own draws, the same pose to 2 cm
+    gout = d["tfe"].odometry_step(d["pyr_t"][0][0], d["pyr_t"][1][0], track,
+                                  torch.Generator().manual_seed(1), d["cam_t"], 2.0, fe, pc)
+    np.testing.assert_allclose(gout.T_wc.numpy()[:3, 3], np.asarray(jout.T_wc)[:3, 3],
+                               atol=0.02)

@@ -321,3 +321,99 @@ def test_vocab_from_numpy_round_trip(small_vocab, tmp_path):
     for cb, cj in zip(back.centers, voc_j.centers):
         np.testing.assert_array_equal(np.asarray(cb), np.asarray(cj))
     np.testing.assert_array_equal(back.idf, voc_j.idf)
+
+
+def _equal_vocabularies(vt, vj) -> None:
+    assert (vt.k, vt.levels) == (vj.k, vj.levels)
+    for ct, cj in zip(vt.centers, vj.centers, strict=True):
+        assert ct.dtype == torch.int8
+        np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    assert vt.idf.dtype == torch.float32
+    np.testing.assert_array_equal(vt.idf.numpy(), vj.idf)
+
+
+@pytest.mark.parametrize("k,levels,n", [(4, 3, 400), (3, 3, 24), (8, 3, 300)])
+def test_train_bitwise_equal_to_reference(k, levels, n):
+    """The host-recursive trainer: numpy's draws, first-max assignments and
+    majority votes give the JAX trainer's centres and IDF bit for bit.  At
+    these sizes some level-2 nodes hold fewer descriptors than k (random
+    sign children) and some none (all children random)."""
+    rng = np.random.default_rng(40 + k)
+    X, docs = _corpus(rng, n=n)
+    vt = vocab.train(X, k=k, levels=levels, doc_ids=docs, device="cpu")
+    vj = jvocab.train(X, k=k, levels=levels, doc_ids=docs)
+    _equal_vocabularies(vt, vj)
+    # a node of the recursion's last level holds fewer descriptors than k
+    words = vocab.transform_words(vt, torch.from_numpy(X)).numpy()
+    parents = np.bincount(words // k, minlength=k ** (levels - 1))
+    assert (parents < k).any(), parents
+    # no doc ids: uniform weights, as the reference
+    flat = vocab.train(X, k=k, levels=levels, device="cpu")
+    np.testing.assert_array_equal(flat.idf.numpy(), np.ones(k ** levels, np.float32))
+
+
+def test_kmeans_signs_matches_reference():
+    rng = np.random.default_rng(50)
+    X, _ = _corpus(rng, n=90)
+    for k, seed, n in ((5, 3, 90), (9, 1, 4), (4, 2, 0)):
+        np.testing.assert_array_equal(vocab._kmeans_signs(X[:n], k, seed=seed),
+                                      jvocab._kmeans_signs(X[:n], k, seed=seed))
+
+
+def test_build_vocab_picks_the_trainer_by_size():
+    rng = np.random.default_rng(51)
+    X, docs = _corpus(rng, n=120)
+    small = vocab.build_vocab(X, 4, 2, doc_ids=docs, device="cpu")
+    _equal_vocabularies(small, vocab.train(X, k=4, levels=2, doc_ids=docs, device="cpu"))
+    big = vocab.build_vocab(X, 17, 3, doc_ids=docs, device="cpu")  # 4,913 words
+    _equal_vocabularies(big, vocab.train_batched(X, k=17, levels=3, doc_ids=docs, device="cpu"))
+
+
+def test_dense_bow_oracles_match_reference(small_vocab):
+    voc_j, rng = small_vocab
+    voc_t = convert.vocab_from_numpy(voc_j, "cpu")
+    n_words = voc_j.n_words
+    rows_j, rows_t, sparse_j, sparse_t = [], [], [], []
+    for f in range(4):
+        words = rng.integers(0, n_words, 80)
+        words[:10] = words[10:20]  # duplicates merge
+        valid = rng.random(80) > 0.2
+        wj, vj = jnp.asarray(words, jnp.int32), jnp.asarray(valid)
+        wt, vt = torch.from_numpy(words), torch.from_numpy(valid)
+        rows_j.append(jvocab.bow_row(wj, vj, jnp.asarray(voc_j.idf), n_words))
+        rows_t.append(vocab.bow_row(wt, vt, voc_t.idf, n_words))
+        np.testing.assert_allclose(rows_t[-1].numpy(), np.asarray(rows_j[-1]), atol=1e-7)
+        sparse_j.append(jvocab.bow_sparse(wj, vj, jnp.asarray(voc_j.idf), n_words))
+        sparse_t.append(vocab.bow_sparse(wt, vt, voc_t.idf, n_words))
+    np.testing.assert_allclose(vocab.score_l1(rows_t[0], torch.stack(rows_t)).numpy(),
+                               np.asarray(jvocab.score_l1(rows_j[0], jnp.stack(rows_j))),
+                               atol=1e-6)
+    qj = jvocab.dense_of_sparse(*sparse_j[0], n_words)
+    qt = vocab.dense_of_sparse(*sparse_t[0], n_words)
+    np.testing.assert_allclose(qt.numpy(), np.asarray(qj), atol=1e-7)
+    dbw_j = jnp.stack([s[0] for s in sparse_j])
+    dbv_j = jnp.stack([s[1] for s in sparse_j])
+    dbw_t = torch.stack([s[0] for s in sparse_t])
+    dbv_t = torch.stack([s[1] for s in sparse_t])
+    got = vocab.score_db_sparse(qt, dbw_t, dbv_t).numpy()
+    np.testing.assert_allclose(got, np.asarray(jvocab.score_db_sparse(qj, dbw_j, dbv_j)),
+                               atol=1e-6)
+    # the min-intersection identity: the sparse scores are the dense L1 scores
+    np.testing.assert_allclose(got, vocab.score_l1(rows_t[0], torch.stack(rows_t)).numpy(),
+                               atol=1e-5)
+    for (wj, vj), (wt, vt) in zip(sparse_j, sparse_t):
+        np.testing.assert_allclose(float(vocab.score_pair_sparse(qt, wt, vt)),
+                                   float(jvocab.score_pair_sparse(qj, wj, vj)), atol=1e-6)
+
+
+def test_trained_vocabulary_npz_crosses_both_ways(tmp_path):
+    """A vocabulary the port trains loads in the JAX package with equal
+    centres and IDF, and the reverse."""
+    rng = np.random.default_rng(52)
+    X, docs = _corpus(rng, n=200)
+    vt = vocab.train(X, k=4, levels=3, doc_ids=docs, device="cpu")
+    vt.save(str(tmp_path / "port.npz"))
+    _equal_vocabularies(vt, jvocab.Vocabulary.load(str(tmp_path / "port.npz")))
+    vj = jvocab.train(X, k=3, levels=2, doc_ids=docs)
+    vj.save(str(tmp_path / "jax.npz"))
+    _equal_vocabularies(vocab.Vocabulary.load(str(tmp_path / "jax.npz"), device="cpu"), vj)

@@ -23,9 +23,11 @@ Phases (any failure exits non-zero and prints no result line):
    dense descent product left in the detection step), with the median time of a
    wrapper call (CUDA events around it: ``ms``), the kernel's own time
    (200 bare launches of the C entry point back to back between two
-   events, the least of 7 rounds: ``device_ms``), an empty kernel's time
-   taken the same way (the launch floor) and the bound of each call's
-   work on the card;
+   events, the least of 7 rounds: ``device_ms``), each launch again behind
+   a spacer that keeps the queue ahead of the card (a spin, L2-hot:
+   ``device_ms_spaced_hot``; a 64 MB write, L2-cold: ``device_ms_cold``),
+   an empty kernel's time taken the same way (the launch floor) and the
+   bound of each call's work on the card;
 6. slice: the stereo-odometry path (``run_offline`` on ``cuda:0``) over the
    corridor, checked against ground truth, with K1's launch count from that
    run; then the streaming driver (``StereoOdometry``) against ``run_offline``;
@@ -39,44 +41,57 @@ Phases (any failure exits non-zero and prints no result line):
 9. batched_slam: ``run_offline_slam_batched`` over worlds A and B as two
    lanes, checked per lane against ground truth, with K1b/K2b/K3 counts
    (K3: one per detection frame for all lanes);
-10. online: the online postures over world A at the same configuration:
+10. polish: K1 and K1b with freeze-polish (3 walk steps of 8, the JAX
+    sweep's row) against their plain versions on the card at the seeded
+    track's shapes and at borders, each kernel's time beside the
+    walk-only run of the same 8 steps; then ``run_offline`` over the
+    corridor with ``lk_seeded_iters=8, lk_seeded_walk_iters=3`` against
+    ground truth (phase slice's ATE bound), its K1 launches and its fps
+    beside phase slice's;
+11. lane_cadences: the corridor as 2 lanes with ``batch_align_window=2``
+    (every keyframe on an even ``frame_idx`` unless tracking failed; ATE
+    per lane), and ``run_offline_slam_batched(interleave=True)`` over
+    worlds A and B: lane 0's accepted closures are phase batched_slam's
+    lane 0's, lane 1 detects on odd frames and closes at true revisits;
+    K1b/K2/K2b/K3 counts (K2b only in the lockstep frame-0 detection);
+12. online: the online postures over world A at the same configuration:
     ``StereoSLAM`` frame by frame (a checkpoint after frame 128 resumed in a
     fresh object, the graph and the map written and read back) and
     ``run_online_slam(chunk=32)``, speculative and sequential; both accept
     phase slam's closures, with K1/K2/K3 counts per path;
-11. mapping: config 2, ``preset_mapping()`` through ``run_offline`` over the
+13. mapping: config 2, ``preset_mapping()`` through ``run_offline`` over the
     corridor with its RGB frames staged as uint8 (~69 MB): the trajectory
     bitwise equal to phase slice's, keyframe 0's colours equal to a host
     bilinear sample of RGB frame 0, a chromatic map, the PLY read back;
-12. ba: config 4, ``preset_ba()`` (windowed Schur BA on every frame)
+14. ba: config 4, ``preset_ba()`` (windowed Schur BA on every frame)
     through ``run_offline`` over the corridor (ATE against phase slice's),
     through ``step_batched.run_sequence_batched`` as 2 lanes (each lane
     bitwise equal to its single-lane run) and through ``StereoSLAM`` over
     world A's frames 0-255 (closures at true revisits, PGO below
     odometry-only, a checkpoint after frame 128 resumed bitwise), with BA's
     milliseconds per frame from CUDA events around ``step._ba_refine``;
-13. reference_frontend: ``preset_odometry()`` with the reference's own
+15. reference_frontend: ``preset_odometry()`` with the reference's own
     frontend (FAST + ANMS keypoints, F-matrix RANSAC on the stereo and the
     temporal matches) through ``run_offline`` over the corridor;
-14. orb_stereo: ORB stereo matching (K2 on both views of every keyframe)
+16. orb_stereo: ORB stereo matching (K2 on both views of every keyframe)
     with the temporal F-gate through ``run_offline``, then (phase
     orb_stereo_lanes) as 2 lanes of 24 frames through
     ``run_sequence_batched`` (K1b, K2b), each lane bitwise equal to its
     single-lane run;
-15. stereo_depth: the dense-disparity node on corridor pair 0 (SGBM, 96
+17. stereo_depth: the dense-disparity node on corridor pair 0 (SGBM, 96
     disparities, block 7) against the depth oracle and, on a crop, against
     the CPU run of the same function; the cloud -> SOR -> PLY flow;
-16. essential: ``monocular_triangulate`` on corridor frames 0 -> 1 (LK
+18. essential: ``monocular_triangulate`` on corridor frames 0 -> 1 (LK
     tracks of the grid), and the card against the CPU on the same index
     sets, on those tracks and on exact correspondences;
-17. multichip: config 5 at world size 1 (a one-rank NCCL group on
+19. multichip: config 5 at world size 1 (a one-rank NCCL group on
     ``cuda:0``): landmark-sharded BA, edge- and chain-sharded PGO and the
     sharded store's rewrite and gather at full width, and
     ``StereoSLAM(preset_distributed(1), mesh=...)`` over phase ba's frames,
     each bitwise equal to its single-device call, with K1/K2/K3 launches,
     one float64 all-reduce of BA's reduced system timed, and what each
     collective and each PGO layout's Gauss-Newton step cost;
-18. cli: the four command-line tools on the card.  KITTI-layout trees
+20. cli: the four command-line tools on the card.  KITTI-layout trees
     (stdlib zlib PNGs under ``build/kitti_smoke``: sequence 00 = the
     corridor's 49 frames as uint8 with ``image_2``, sequence 01 = world A's
     frames 0-255) read back through ``KittiSequence`` bitwise (the route
@@ -143,6 +158,12 @@ K2_MAX_CORNER_BITS = 4
 K2_MOMENT_ATOL = 2e-3
 K2_MOMENT_RTOL = 1e-5
 WARM_RUNS = 3  # phases slice and batched_odo
+# Phase polish: the seeded track with freeze-polish, the JAX sweep's row
+# "seeded 8 = walk 3 + polish 5" (tools/sweep_fast.py); phase lane_cadences:
+# the batched lanes' shared keyframe window.
+POLISH = dict(lk_seeded_iters=8, lk_seeded_walk_iters=3)
+POLISH_WARM_RUNS = 2
+ALIGN_WINDOW = 2
 # Batched lanes: the corridor splits into 2 lanes of FRAMES // 2 frames
 # (bench.py --lanes 2); full SLAM runs the revisit worlds A and B as 2
 # lanes.  A lane's poses must match its single-lane run with the same key
@@ -623,43 +644,71 @@ def orb_work(torch, img, pts, moments) -> dict:
     return {**_bound(nbytes, ops), "image_sectors": sectors}
 
 
-def phase_kernels(torch, cases) -> dict:
-    """K1 against lk._track_level on the card.  The two routes clamp tile
-    reads differently at image borders (by design, as the JAX kernel and
-    its oracle do), so points and residuals are compared where both
-    results stay K1_BORDER_PX inside the image; that must be >= 95 % of N."""
+def _k1_case(torch, name, ref, cur, pts, guess, params) -> tuple:
+    """One K1 call against lk._track_level on the card.  The two routes
+    clamp tile reads differently at image borders (by design, as the JAX
+    kernel and its oracle do), so points and residuals are compared where
+    both results stay K1_BORDER_PX inside the image; that must be >= 95 %
+    of N.  Returns (max |dpts|, wrapper ms, plain ms, device_ms, the bare
+    launch)."""
     from ros_stereo_slam_tpu_torch.ops import interp, lk, lk_cuda
+
+    kg, kr, kok = lk_cuda.track_level(ref, cur, pts, guess, params)
+    again = lk_cuda.track_level(ref, cur, pts, guess, params)
+    pg, pr, pok = lk._track_level(ref, cur, pts, guess, params)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(kg).all()), f"K1 {name}: non-finite points")
+    check(all(torch.equal(x, y) for x, y in zip((kg, kr, kok), again)),
+          f"K1 {name}: two runs of the same call differ")
+    H, W = ref.shape
+    inner = (interp.in_bounds(kg, H, W, K1_BORDER_PX)
+             & interp.in_bounds(pg, H, W, K1_BORDER_PX))
+    n, n_in = pts.shape[0], int(inner.sum())
+    n_ok_diff = int((kok != pok).sum())
+    err = float((kg - pg)[inner].abs().max())
+    rerr = float((kr - pr)[inner].abs().max())
+    ms = cuda_ms(torch, lambda: lk_cuda.track_level(ref, cur, pts, guess, params))
+    plain_ms = cuda_ms(torch, lambda: lk._track_level(ref, cur, pts, guess, params))
+    launch = lk_cuda.bare_launch(ref, cur, pts, guess, params)
+    dev_ms = device_ms(torch, launch)
+    log(f"K1 {name}: N={n} ok={int(kok.sum())} ok_mismatch={n_ok_diff} "
+        f"compared={n_in} max|dpts|={err:.3e} px max|dresid|={rerr:.3e} "
+        f"wrapper {ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    check(n_ok_diff == 0, f"K1 {name}: ok differs on {n_ok_diff} points")
+    check(n_in >= 0.95 * n, f"K1 {name}: only {n_in}/{n} points stay interior")
+    check(err <= K1_PTS_ATOL, f"K1 {name}: points differ by {err} px")
+    check(rerr <= K1_RESID_ATOL, f"K1 {name}: resid differs by {rerr}")
+    return err, ms, plain_ms, dev_ms, launch
+
+
+def spaced_ms(torch, launch, dev) -> dict:
+    """`launch` timed by device_ms_spaced behind a spin (L2-hot) and behind
+    a 64 MB scratch write (L2-cold)."""
+    hot = device_ms_spaced(torch, launch, lambda: torch.cuda._sleep(SPIN_CYCLES))
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cold = device_ms_spaced(torch, launch, lambda: scratch.fill_(1))
+    del scratch
+    torch.cuda.synchronize()
+    return {"device_ms_spaced_hot": hot, "device_ms_cold": cold}
+
+
+def phase_kernels(torch, cases) -> dict:
+    """K1 against lk._track_level on the card (:func:`_k1_case`), the
+    headline call's times behind a spacer too, its bound and the border
+    case."""
+    from ros_stereo_slam_tpu_torch.ops import lk_cuda
 
     worst, rows = 0.0, []
     for name, ref, cur, pts, guess, params in cases:
-        kg, kr, kok = lk_cuda.track_level(ref, cur, pts, guess, params)
-        again = lk_cuda.track_level(ref, cur, pts, guess, params)
-        pg, pr, pok = lk._track_level(ref, cur, pts, guess, params)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(kg).all()), f"K1 {name}: non-finite points")
-        check(all(torch.equal(x, y) for x, y in zip((kg, kr, kok), again)),
-              f"K1 {name}: two runs of the same call differ")
-        H, W = ref.shape
-        inner = (interp.in_bounds(kg, H, W, K1_BORDER_PX)
-                 & interp.in_bounds(pg, H, W, K1_BORDER_PX))
-        n, n_in = pts.shape[0], int(inner.sum())
-        n_ok_diff = int((kok != pok).sum())
-        err = float((kg - pg)[inner].abs().max())
-        rerr = float((kr - pr)[inner].abs().max())
-        ms = cuda_ms(torch, lambda: lk_cuda.track_level(ref, cur, pts, guess, params))
-        plain_ms = cuda_ms(torch, lambda: lk._track_level(ref, cur, pts, guess, params))
-        dev_ms = device_ms(torch, lk_cuda.bare_launch(ref, cur, pts, guess, params))
-        log(f"K1 {name}: N={n} ok={int(kok.sum())} ok_mismatch={n_ok_diff} "
-            f"compared={n_in} max|dpts|={err:.3e} px max|dresid|={rerr:.3e} "
-            f"wrapper {ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain {plain_ms:.4f} ms")
-        check(n_ok_diff == 0, f"K1 {name}: ok differs on {n_ok_diff} points")
-        check(n_in >= 0.95 * n, f"K1 {name}: only {n_in}/{n} points stay interior")
-        check(err <= K1_PTS_ATOL, f"K1 {name}: points differ by {err} px")
-        check(rerr <= K1_RESID_ATOL, f"K1 {name}: resid differs by {rerr}")
+        err, *times = _k1_case(torch, name, ref, cur, pts, guess, params)
         worst = max(worst, err)
-        rows.append((ms, plain_ms, dev_ms))
+        rows.append(times)
     # The headline time is the seeded temporal track (the per-frame call).
     _, ref, cur, pts, guess, params = cases[0]
+    spaced = spaced_ms(torch, rows[0][3], ref.device)
+    log(f"K1 {cases[0][0]} kernel alone behind a spacer: {spaced['device_ms_spaced_hot']:.4f} "
+        f"ms after a spin (L2-hot), {spaced['device_ms_cold']:.4f} ms after a 64 MB scratch "
+        f"write (L2-cold)")
     out = lk_cuda.track_level(ref, cur, pts, guess, params)[0]
     evals = lk_evals(torch, lambda k: lk_cuda.track_level(
         ref, cur, pts, guess, params._replace(iters=k)), guess, out, params.iters)
@@ -668,7 +717,7 @@ def phase_kernels(torch, cases) -> dict:
         f"{pts.shape[0]} points: {work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
     k1_border_case(torch, ref, params)
     return {"max_abs_err": worst, "ms": rows[0][0], "plain_ms": rows[0][1],
-            "device_ms": rows[0][2], **work}
+            "device_ms": rows[0][2], **spaced, **work}
 
 
 def k1_border_case(torch, img, params) -> None:
@@ -710,7 +759,8 @@ def k1_border_case(torch, img, params) -> None:
           f"K1 border case: only {int(inside.sum())}/{4 * n} tracked points stay in the image")
 
 
-def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
+def k1b_phase(torch, left, depths, poses, cam, dev,
+              runs=((K1_N, 6, None), (K1_N_ORB, 10, None)), tag: str = "K1b") -> dict:
     """K1b (``lk_level_batch_f32``) against its plain version (a loop of
     lk._track_level over lanes) on the card: the batched odometry's two
     lanes, corridor frames 0 -> 1 and 24 -> 25 at level 0 (1241x376), N =
@@ -718,7 +768,8 @@ def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
     guesses within 1 px of the truth, 6 and 10 iterations (the grid's and
     the ORB route's seeded track); K1's bounds.  Each lane must also equal
     the single-lane kernel's result bitwise (one kernel body).  The
-    headline numbers are the grid's."""
+    headline numbers are the first run's (the grid's); `runs` holds (points
+    per lane, iters, walk_iters or None for a walk of every step)."""
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.ops import interp, lk, lk_cuda
@@ -729,7 +780,7 @@ def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
     cur = torch.from_numpy(np.stack([left[i + 1] for i in starts])).to(dev)
     H, W = ref.shape[1:]
     worst, out = 0.0, None
-    for n_pts, iters in ((K1_N, 6), (K1_N_ORB, 10)):
+    for n_pts, iters, walk in runs:
         pts, guesses = [], []
         for i in starts:
             p, uv1 = _k1_points(rng, left.shape[1:], depths[i], poses, i, cam, n_pts)
@@ -737,13 +788,14 @@ def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
             guesses.append((uv1 + rng.uniform(-1.0, 1.0, uv1.shape)).astype(np.float32))
         P = torch.from_numpy(np.stack(pts)).to(dev)
         G = torch.from_numpy(np.stack(guesses)).to(dev)
-        params = lk.LKParams(window=K1_S, levels=4, iters=iters)
+        params = lk.LKParams(window=K1_S, levels=4, iters=iters,
+                             walk_iters=iters if walk is None else walk)
         kg, kr, kok = lk_cuda.track_level_batch(ref, cur, P, G, params)
         pg, pr, pok = lk_cuda.track_level_batch_plain(ref, cur, P, G, params)
         singles = [lk_cuda.track_level(ref[b], cur[b], P[b], G[b], params)
                    for b in range(LANES)]
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(kg).all()), f"K1b N={n_pts}: non-finite points")
+        check(bool(torch.isfinite(kg).all()), f"{tag} N={n_pts}: non-finite points")
         inner = (interp.in_bounds(kg, H, W, K1_BORDER_PX)
                  & interp.in_bounds(pg, H, W, K1_BORDER_PX))
         n, n_in = kok.numel(), int(inner.sum())
@@ -755,27 +807,36 @@ def k1b_phase(torch, left, depths, poses, cam, dev) -> dict:
         ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch(ref, cur, P, G, params))
         plain_ms = cuda_ms(torch, lambda: lk_cuda.track_level_batch_plain(ref, cur, P, G,
                                                                           params))
-        dev_ms = device_ms(torch, lk_cuda.bare_launch(ref, cur, P, G, params))
-        log(f"K1b {LANES} lanes L0 {W}x{H} iters={iters}: N={n_pts} per lane, "
+        launch = lk_cuda.bare_launch(ref, cur, P, G, params)
+        dev_ms = device_ms(torch, launch)
+        log(f"{tag} {LANES} lanes L0 {W}x{H} iters={iters} walk={params.walk_iters}: "
+            f"N={n_pts} per lane, "
             f"ok={int(kok.sum())} ok_mismatch={n_ok_diff} compared={n_in} "
             f"max|dpts|={err:.3e} px max|dresid|={rerr:.3e}; lanes equal the single-lane "
             f"kernel: {same}; wrapper {ms:.4f} ms, kernel alone {dev_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
-        check(n_ok_diff == 0, f"K1b N={n_pts}: ok differs on {n_ok_diff} points")
-        check(n_in >= 0.95 * n, f"K1b N={n_pts}: only {n_in}/{n} points stay interior")
-        check(err <= K1_PTS_ATOL, f"K1b N={n_pts}: points differ by {err} px")
-        check(rerr <= K1_RESID_ATOL, f"K1b N={n_pts}: resid differs by {rerr}")
-        check(same, f"K1b N={n_pts}: a lane differs from the single-lane kernel on the same "
-              f"inputs")
+        check(n_ok_diff == 0, f"{tag} N={n_pts}: ok differs on {n_ok_diff} points")
+        check(n_in >= 0.95 * n, f"{tag} N={n_pts}: only {n_in}/{n} points stay interior")
+        check(err <= K1_PTS_ATOL, f"{tag} N={n_pts}: points differ by {err} px")
+        check(rerr <= K1_RESID_ATOL, f"{tag} N={n_pts}: resid differs by {rerr}")
+        check(same, f"{tag} N={n_pts}: a lane differs from the single-lane kernel on the "
+              f"same inputs")
         worst = max(worst, err)
         if out is None:
-            evals = lk_evals(torch, lambda k: lk_cuda.track_level_batch(
-                ref, cur, P, G, params._replace(iters=k)), G, kg, params.iters)
-            work = lk_work(torch, P, G, kg, H, W, K1_S, evals)
-            log(f"K1b bound: {work['image_sectors']} image sectors, {evals} GN steps over "
-                f"{LANES} x {n_pts} points: {work['bound_ms'] * 1e3:.3f} us "
-                f"({work['bound_by']})")
-            out = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **work}
+            spaced = spaced_ms(torch, launch, dev)
+            log(f"{tag} kernel alone behind a spacer: {spaced['device_ms_spaced_hot']:.4f} ms "
+                f"after a spin (L2-hot), {spaced['device_ms_cold']:.4f} ms after a 64 MB "
+                f"scratch write (L2-cold)")
+            out = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms, **spaced,
+                   "inputs": (ref, cur, P, G)}
+            if walk is None:  # lk_evals counts the steps of a walk-only call
+                evals = lk_evals(torch, lambda k: lk_cuda.track_level_batch(
+                    ref, cur, P, G, params._replace(iters=k)), G, kg, params.iters)
+                work = lk_work(torch, P, G, kg, H, W, K1_S, evals)
+                log(f"{tag} bound: {work['image_sectors']} image sectors, {evals} GN steps "
+                    f"over {LANES} x {n_pts} points: {work['bound_ms'] * 1e3:.3f} us "
+                    f"({work['bound_by']})")
+                out.update(work)
     return {"max_abs_err": worst, **out}
 
 
@@ -893,7 +954,8 @@ def k2_phase(torch, img, cfg, stereo_img) -> dict:
         ms = cuda_ms(torch, lambda: orb_cuda.level_describe(lvl, pts, valid))
         plain_ms = cuda_ms(torch, lambda: orb._level_describe_plain(lvl, pts, valid))
         two_ms = cuda_ms(torch, lambda: two_outputs(lvl, pts))
-        dev_ms = device_ms(torch, orb_cuda.bare_launch(lvl, pts, valid))
+        launch = orb_cuda.bare_launch(lvl, pts, valid)
+        dev_ms = device_ms(torch, launch)
         H, W = lvl.shape[-2:]
         log(f"{tag} {label} {nl}x{W}x{H}: N={budget} per lane, valid={nv} bits differing "
             f"{diff}/{nv * 256} (at most {corner_max} in one corner) max|dm|={merr:.3e}"
@@ -921,6 +983,10 @@ def k2_phase(torch, img, cfg, stereo_img) -> dict:
         if label == "level 0":
             work = orb_work(torch, lvl.reshape(nl, H, W), pts.reshape(nl, -1, 2),
                             km.reshape(nl, -1, 2))
+            spaced = spaced_ms(torch, launch, lvl.device)
+            log(f"{tag} level 0 kernel alone behind a spacer: "
+                f"{spaced['device_ms_spaced_hot']:.4f} ms after a spin (L2-hot), "
+                f"{spaced['device_ms_cold']:.4f} ms after a 64 MB scratch write (L2-cold)")
     if not lanes:
         for lvl in (levels[0], levels[-1]):
             nb, nd = k2_border_case(torch, lvl, tag)
@@ -935,7 +1001,7 @@ def k2_phase(torch, img, cfg, stereo_img) -> dict:
     log(f"{tag} bound: {work['image_sectors']} image sectors at level 0: "
         f"{work['bound_ms'] * 1e3:.3f} us ({work['bound_by']})")
     return {"max_abs_err": worst, "mismatches": n_diff, "ms": rows[0][0],
-            "plain_ms": rows[0][1], "device_ms": rows[0][2], **work}
+            "plain_ms": rows[0][1], "device_ms": rows[0][2], **spaced, **work}
 
 
 def device_ms_spaced(torch, launch, spacer, reps: int = 50, rounds: int = 5) -> float:
@@ -988,7 +1054,7 @@ def descent_products(torch, tree, idf, img, cfg, n_desc: int) -> list:
 
     from ros_stereo_slam_tpu_torch.models import slam_scan
 
-    lc = slam_scan.init_lc_state(cfg, img.device)
+    lc = slam_scan.init_lc_state(cfg, device=img.device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         slam_scan._lc_scan_step(lc, img, 0, tree, idf, cfg, cfg.loop.vocab_k)
@@ -1062,11 +1128,8 @@ def k3_phase(torch, img, imgs, voc, cfg) -> dict:
     whole_ms = cuda_ms(torch, lambda: vocab._descend(tree, sign, k, L))
     launch = vocab_cuda.bare_launch(bits, valid, tree, k, L)
     dev_ms = device_ms(torch, launch)
-    hot_ms = device_ms_spaced(torch, launch, lambda: torch.cuda._sleep(SPIN_CYCLES))
-    scratch = torch.empty(64 << 20, dtype=torch.uint8, device=img.device)
-    cold_ms = device_ms_spaced(torch, launch, lambda: scratch.fill_(1))
-    del scratch
-    torch.cuda.synchronize()
+    spaced = spaced_ms(torch, launch, img.device)
+    hot_ms, cold_ms = spaced["device_ms_spaced_hot"], spaced["device_ms_cold"]
     check(torch.equal(launch.outputs[0], vocab_cuda.descend(bits, valid, tree, k, L)),
           "K3: the bare launch's word ids differ from the wrapper's")
     log(f"K3 kernel alone: {dev_ms:.4f} ms back to back (L2-hot); behind a spacer, so the "
@@ -1091,8 +1154,7 @@ def k3_phase(torch, img, imgs, voc, cfg) -> dict:
         f"{rows_read * 32} bytes -> {work['bound_ms'] * 1e3:.3f} us ({work['bound_by']}); as "
         f"int8 rows {rows_read * 256} bytes -> {old['bound_ms'] * 1e3:.3f} us")
     return {"max_abs_err": float(worst), "mismatches": worst, "ms": ms, "plain_ms": plain_ms,
-            "device_ms": dev_ms, "device_ms_spaced_hot": hot_ms, "device_ms_cold": cold_ms,
-            "whole_descent_ms": whole_ms,
+            "device_ms": dev_ms, **spaced, "whole_descent_ms": whole_ms,
             "int8_bound_ms": old["bound_ms"], **work}
 
 
@@ -1296,7 +1358,7 @@ def phase_batched_odo(torch, left, right, poses, cam, dev) -> dict:
     check(max(lane_diff) <= LANE_TOL_M,
           f"a lane differs from its single-lane run by {max(lane_diff)} m > {LANE_TOL_M}")
     return {"launches": counts["k1b"], "fps": LANES * per / med, "ate_worst": max(ates),
-            "lane_diff": max(lane_diff)}
+            "lane_diff": max(lane_diff), "keyframes": (st.is_keyframe.sum(0) + 1).tolist()}
 
 
 def phase_batched_slam(torch, voc, worlds, cfg, dev) -> dict:
@@ -1364,7 +1426,8 @@ def phase_batched_slam(torch, voc, worlds, cfg, dev) -> dict:
                   f"true revisit")
         check(ate < ate_odo, f"lane {name}: post-PGO ATE {ate} m is not below odometry-only "
                              f"{ate_odo} m")
-        out.append({"lane": name, "ate": ate, "ate_odo": ate_odo, "events": events})
+        out.append({"lane": name, "ate": ate, "ate_odo": ate_odo, "events": events,
+                    "trajectory": traj})
     for k in ("k1b", "k2b", "k3"):
         check(counts[k] > 0, f"the batched full-SLAM path launched no {k} kernel")
     n_detect = 1 + F // max(cfg.loop.detect_every, 1)
@@ -1373,6 +1436,254 @@ def phase_batched_slam(torch, voc, worlds, cfg, dev) -> dict:
     check(counts["host_reads"] == 2 * F,
           f"{counts['host_reads']} host reads over {F} frames, not 2 per frame")
     return {"counts": counts, "fps": LANES * F / med, "lanes": out}
+
+
+def k1_converged_walk_case(torch, img, params) -> None:
+    """K1 with freeze-polish where the walk converges at once and polish
+    must still run: the image moved by 1 px to the right (to the bottom),
+    reference points whose match lies in [dim - S//2 - 2, dim - S//2 - 1)
+    from their exact match.  No tile clamps there, but the polish anchor
+    does, and the clamped sample moves the points: K1 within K1's bounds of
+    its plain version, the walk alone leaving the points where they were."""
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.ops import lk, lk_cuda
+
+    H, W = img.shape
+    r, n = params.window // 2, 64
+    rng = np.random.default_rng(3)
+    f = rng.uniform(0.1, 0.9, n)
+    worst, moved = 0.0, []
+    for axis, fixed, along in ((1, W, H), (0, H, W)):
+        edge = fixed - r - 3 + f
+        mid = rng.uniform(40, along - 40, n)
+        pts = np.stack([edge, mid] if axis == 1 else [mid, edge], 1).astype(np.float32)
+        p = torch.from_numpy(pts).to(img.device)
+        shift = torch.tensor([1.0, 0.0] if axis == 1 else [0.0, 1.0], device=img.device)
+        cur = torch.roll(img, 1, dims=axis).contiguous()
+        g0 = p + shift
+        kg, kr, kok = lk_cuda.track_level(img, cur, p, g0, params)
+        pg, pr, pok = lk._track_level(img, cur, p, g0, params)
+        wg = lk_cuda.track_level(img, cur, p, g0, params._replace(iters=params.walk_iters))[0]
+        torch.cuda.synchronize()
+        check(torch.equal(kok, pok), "K1 converged-walk case: ok differs")
+        worst = max(worst, float((kg - pg).abs().max()), float((kr - pr).abs().max()) / 2)
+        check(float((wg - g0).abs().max()) < 1e-3, "K1 converged-walk case: the walk moved")
+        moved.append(float((kg - wg).abs().max(1).values.mean()))
+    log(f"K1 converged-walk case ({2 * n} points at the right and bottom borders of {W}x{H}): "
+        f"max |kernel - plain| {worst:.3e}, mean polish move {[round(m, 3) for m in moved]} px")
+    check(worst <= K1_PTS_ATOL, f"K1 converged-walk case: kernel and plain differ by {worst}")
+    check(min(moved) > 0.05, f"K1 converged-walk case: polish did not move the points {moved}")
+
+
+def phase_polish(torch, left, right, depths, poses, cam, dev, sl: dict) -> dict:
+    """Freeze-polish on the card: K1 and K1b with 3 walk steps of 8 against
+    their plain versions at the seeded track's shapes (level 0, the grid's
+    768 points and the ORB route's 1,152) and at borders, each kernel's
+    time beside the walk-only call of the same 8 steps; then the corridor
+    through run_offline with POLISH (one cold run, then warm runs, counts
+    from the first warm run), held to phase slice's ATE bound."""
+    import dataclasses
+
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.config import preset_odometry
+    from ros_stereo_slam_tpu_torch.models import pipeline, step
+    from ros_stereo_slam_tpu_torch.ops import lk, lk_cuda
+    from ros_stereo_slam_tpu_torch.utils import metrics
+
+    iters, walk = POLISH["lk_seeded_iters"], POLISH["lk_seeded_walk_iters"]
+    cases = k1_cases(torch, left, depths, poses, cam, dev)
+    k1 = None
+    for name, ref, cur, pts, guess, params in (cases[0], cases[3]):
+        pol = params._replace(iters=iters, walk_iters=walk)
+        err, ms, plain_ms, dev_ms, launch = _k1_case(
+            torch, f"{name.split(' iters')[0]} walk {walk} of {iters}", ref, cur, pts, guess, pol)
+        walk_ms = device_ms(torch, lk_cuda.bare_launch(ref, cur, pts, guess,
+                                                       pol._replace(walk_iters=iters)))
+        log(f"K1 polish N={pts.shape[0]}: kernel alone {dev_ms:.4f} ms against {walk_ms:.4f} ms "
+            f"for {iters} walk steps ({dev_ms / walk_ms:.3f}x)")
+        if k1 is None:
+            k1 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+                  "walk_device_ms": walk_ms, **spaced_ms(torch, launch, dev)}
+            log(f"K1 polish kernel alone behind a spacer: {k1['device_ms_spaced_hot']:.4f} ms "
+                f"after a spin (L2-hot), {k1['device_ms_cold']:.4f} ms after a 64 MB scratch "
+                f"write (L2-cold)")
+            k1_border_case(torch, ref, pol)
+            k1_converged_walk_case(torch, ref, pol)
+        k1["max_abs_err"] = max(k1["max_abs_err"], err)
+    k1b = k1b_phase(torch, left, depths, poses, cam, dev, runs=((K1_N, iters, walk),),
+                    tag="K1b polish")
+    k1b["walk_device_ms"] = device_ms(torch, lk_cuda.bare_launch(
+        *k1b.pop("inputs"), lk.LKParams(window=K1_S, levels=4, iters=iters, walk_iters=iters)))
+    log(f"K1b polish: kernel alone {k1b['device_ms']:.4f} ms against "
+        f"{k1b['walk_device_ms']:.4f} ms for {iters} walk steps "
+        f"({k1b['device_ms'] / k1b['walk_device_ms']:.3f}x)")
+
+    base = preset_odometry()
+    cfg = base.replace(camera=cam, frontend=dataclasses.replace(base.frontend, **POLISH))
+    L = torch.from_numpy(left).to(dev)
+    R = torch.from_numpy(right).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipeline.run_offline(cfg, L, R, device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    times, counts = [], None
+    for rep in range(POLISH_WARM_RUNS):
+        if rep == 0:
+            _kernel_counts(reset=True)
+            step.HOST_READS = step.RESCUES = 0
+        t0 = time.perf_counter()
+        res = pipeline.run_offline(cfg, L, R, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            counts = {**_kernel_counts(), "host_reads": step.HOST_READS,
+                      "rescues": step.RESCUES}
+    F = left.shape[0] - 1
+    traj = res.trajectory
+    check(traj.shape == (F + 1, 4, 4) and bool(np.isfinite(traj).all()),
+          f"polish: trajectory {traj.shape} not finite")
+    ate = metrics.ate_rmse(traj, poses)
+    med = statistics.median(times)
+    fps = F / med
+    log(f"polish: run_offline {POLISH} over {F + 1} corridor frames, cold {first_s:.3f} s, "
+        f"warm runs {[round(t, 4) for t in times]} s -> {fps:.2f} fps against phase slice's "
+        f"{sl['fps']:.2f} fps ({fps / sl['fps']:.3f}x)")
+    log(f"polish: ATE {ate:.4f} m (bound {ATE_BOUND_M}; slice {sl['ate']:.4f} m), keyframes "
+        f"{1 + int(res.is_keyframe.sum())}, rescues {counts['rescues']}, host reads/frame "
+        f"{counts['host_reads'] / F:.2f}, K1 launches {counts['k1']} (slice {sl['launches']}), "
+        f"K1b {counts['k1b']}, all tracked {bool(res.tracking_ok.all())}")
+    check(bool(res.tracking_ok.all()),
+          f"polish: tracking lost on frames {np.nonzero(~res.tracking_ok)[0] + 1}")
+    check(ate < ATE_BOUND_M, f"polish: ATE {ate} m >= {ATE_BOUND_M} m")
+    check(counts["k1"] > 0, "the polish path launched no K1 kernel")
+    check(counts["host_reads"] == 2 * F,
+          f"polish: {counts['host_reads']} host reads over {F} frames, not 2 per frame")
+    check(not np.array_equal(traj, sl["trajectory"]), "polish: the trajectory is phase slice's")
+    return {"k1": k1, "k1b": k1b, "counts": counts, "fps": fps, "ate": ate}
+
+
+def phase_lane_cadences(torch, voc, left, right, poses, cam, worlds, slam_cfg, dev,
+                        bo: dict, bs: dict) -> dict:
+    """The batched lanes' other cadences on the card.  The corridor as 2
+    lanes of 24 frames with ``batch_align_window`` = ALIGN_WINDOW (one cold
+    run, one warm run, counts from the warm run): no keyframe off the
+    window unless tracking failed, ATE per lane.  Then worlds A and B through
+    ``run_offline_slam_batched(interleave=True)`` (one run, counts from it):
+    lane 0 (phase 0) accepts phase batched_slam's lane 0's closures, lane 1
+    (phase 1) detects on odd frames only and closes at true revisits; K1b
+    for odometry, single-lane K2 and K3 for each lane's detection, K2b only
+    in the lockstep frame-0 detection."""
+    import dataclasses
+
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.config import preset_odometry
+    from ros_stereo_slam_tpu_torch.models import pipeline, slam_scan, step, step_batched
+    from ros_stereo_slam_tpu_torch.utils import metrics
+
+    base = preset_odometry()
+    cfg = base.replace(camera=cam, keyframes=dataclasses.replace(
+        base.keyframes, batch_align_window=ALIGN_WINDOW))
+    per = FRAMES // LANES
+    starts = [b * per for b in range(LANES)]
+    Lc = torch.from_numpy(left).to(dev)
+    Rc = torch.from_numpy(right).to(dev)
+    Ls = torch.stack([Lc[s:s + per + 1] for s in starts])
+    Rs = torch.stack([Rc[s:s + per + 1] for s in starts])
+    gp, gm = pipeline._grid_for(cfg, dev)
+    keys = step_batched.lane_keys(cfg.seed, LANES)
+
+    def run():
+        c0 = step.init_carry_batched(Ls[:, 0], Rs[:, 0], gp, gm, keys, cfg)
+        return step_batched.run_sequence_batched(Ls[:, 1:], Rs[:, 1:], c0, gp, gm, cfg)
+
+    run()
+    torch.cuda.synchronize()
+    _kernel_counts(reset=True)
+    step.HOST_READS = step.RESCUES = 0
+    t0 = time.perf_counter()
+    _, st = run()
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+    align_counts = {**_kernel_counts(), "host_reads": step.HOST_READS}
+    T = st.T_wc.cpu().numpy()
+    kf, ok = st.is_keyframe.cpu().numpy(), st.tracking_ok.cpu().numpy()  # (per, B)
+    frame_idx = 1 + np.arange(per)
+    off = kf & ok & (frame_idx % ALIGN_WINDOW != 0)[:, None]
+    ates = [metrics.ate_rmse(np.concatenate([np.eye(4, dtype=np.float32)[None], T[:, b]]),
+                             poses[s0:s0 + per + 1]) for b, s0 in enumerate(starts)]
+    kf_idx = [(frame_idx[kf[:, b]]).tolist() for b in range(LANES)]
+    align_fps = LANES * per / align_s
+    log(f"lane_cadences align: {LANES} lanes x {per} frames, batch_align_window="
+        f"{ALIGN_WINDOW}: keyframes at frame_idx {kf_idx} (lockstep run: "
+        f"{bo['keyframes']} per lane), ATE per lane {[round(a, 4) for a in ates]} m, warm run "
+        f"{align_s:.3f} s -> {align_fps:.2f} fps aggregate (phase batched_odo "
+        f"{bo['fps']:.2f} fps); K1b {align_counts['k1b']}, K1 {align_counts['k1']}, host "
+        f"reads/frame {align_counts['host_reads'] / per:.2f}, all tracked {bool(ok.all())}")
+    check(bool(ok.all()), f"align: tracking lost at (frame, lane) {np.argwhere(~ok)}")
+    check(not off.any(), f"align: keyframes off the window at (frame, lane) {np.argwhere(off)}")
+    check(bool(kf.any()), "align: no keyframe after frame 0")
+    check(max(ates) < ATE_BOUND_M, f"align: worst-lane ATE {max(ates)} m >= {ATE_BOUND_M} m")
+    check(align_counts["k1b"] > 0 and align_counts["k1"] == 0,
+          f"align: K1b {align_counts['k1b']}, K1 {align_counts['k1']}")
+    check(align_counts["host_reads"] == 2 * per,
+          f"align: {align_counts['host_reads']} host reads over {per} frames")
+
+    L = torch.from_numpy(np.stack([worlds[n][0] for n in REVISIT_SEEDS])).to(dev)
+    R = torch.from_numpy(np.stack([worlds[n][1] for n in REVISIT_SEEDS])).to(dev)
+    F = L.shape[1] - 1
+    every = max(slam_cfg.loop.detect_every, 1)
+    torch.cuda.synchronize()
+    _kernel_counts(reset=True)
+    step.HOST_READS = 0
+    t0 = time.perf_counter()
+    res = slam_scan.run_offline_slam_batched(slam_cfg, voc, L, R, device=dev, interleave=True)
+    torch.cuda.synchronize()
+    ilv_s = time.perf_counter() - t0
+    counts = {**_kernel_counts(), "host_reads": step.HOST_READS}
+    detections = [sum(1 for f in range(1, F + 1) if f % every == slam_scan.lane_phase(b, every))
+                  for b in range(LANES)]
+    n_levels = slam_cfg.loop.orb_levels
+    log(f"lane_cadences interleave: {LANES} lanes x {F + 1} revisit frames in {ilv_s:.3f} s "
+        f"(one run, the first with interleave) -> {LANES * F / ilv_s:.2f} fps aggregate (phase "
+        f"batched_slam {bs['fps']:.2f} fps, warm); detections per lane {detections}; launches "
+        f"K1b {counts['k1b']}, K2 {counts['k2']}, K2b {counts['k2b']}, K3 {counts['k3']}, K1 "
+        f"{counts['k1']}; host reads/frame {counts['host_reads'] / F:.2f}")
+    lanes = []
+    for b, (name, r) in enumerate(zip(REVISIT_SEEDS, res)):
+        gt = worlds[name][2]
+        ate, ate_odo = metrics.ate_rmse(r.trajectory, gt), metrics.ate_rmse(r.trajectory_odo, gt)
+        events = [(int(q), int(m), int(n)) for q, m, n in r.loop_events]
+        log(f"lane_cadences interleave lane {name} (phase {slam_scan.lane_phase(b, every)}): "
+            f"ATE post-PGO {ate:.4f} m, odometry only {ate_odo:.4f} m; loop events {events} "
+            f"(lockstep: {bs['lanes'][b]['events']})")
+        check(bool(r.tracking_ok.all()), f"interleave lane {name}: tracking lost")
+        check(len(events) >= 1, f"interleave lane {name}: no loop closure accepted")
+        for q, m, _ in events:
+            d = (q - m) % LAP
+            check(min(d, LAP - d) <= REVISIT_TOL and q % every == slam_scan.lane_phase(b, every),
+                  f"interleave lane {name}: closure ({q}, {m}) off its phase or not a revisit")
+        check(ate < ate_odo, f"interleave lane {name}: post-PGO ATE {ate} m >= {ate_odo} m")
+        lanes.append({"lane": name, "ate": ate, "ate_odo": ate_odo, "events": events})
+    lock0 = bs["lanes"][0]
+    check([e[:2] for e in lanes[0]["events"]] == [e[:2] for e in lock0["events"]],
+          f"interleave lane 0 accepts {lanes[0]['events']}, lockstep {lock0['events']}")
+    d0 = float(np.abs(res[0].trajectory - lock0["trajectory"]).max())
+    log(f"lane_cadences interleave lane 0 against lockstep: max |dT| {d0:.3e}")
+    check(d0 <= LANE_TOL_M, f"interleave lane 0's trajectory differs from lockstep by {d0}")
+    check(counts["k3"] == 1 + sum(detections),
+          f"K3 launched {counts['k3']} times for 1 + {sum(detections)} detections")
+    check(counts["k2"] == n_levels * sum(detections) and counts["k2b"] == n_levels,
+          f"K2 {counts['k2']} / K2b {counts['k2b']}: not {n_levels} a per-lane detection and "
+          f"{n_levels} for frame 0's lockstep detection")
+    check(counts["k1b"] > 0, "the interleaved path launched no K1b kernel")
+    check(counts["host_reads"] == 2 * F, f"interleave: {counts['host_reads']} host reads")
+    return {"align": {"counts": align_counts, "fps": align_fps, "ates": ates},
+            "interleave": {"counts": counts, "fps": LANES * F / ilv_s, "lanes": lanes},
+            "counts": {k: align_counts[k] + counts[k] for k in counts if k in align_counts}}
 
 
 def _kernel_counts(reset: bool = False) -> dict:
@@ -2759,6 +3070,9 @@ def main() -> int:
         sm = timed("slam", phase_slam, torch, voc, rl, rr, rgt, slam_cfg, dev)
         bo = timed("batched_odo", phase_batched_odo, torch, left, right, poses, cam, dev)
         bs = timed("batched_slam", phase_batched_slam, torch, voc, worlds, slam_cfg, dev)
+        po = timed("polish", phase_polish, torch, left, right, depths, poses, cam, dev, sl)
+        lcd = timed("lane_cadences", phase_lane_cadences, torch, voc, left, right, poses, cam,
+                    worlds, slam_cfg, dev, bo, bs)
         on = timed("online", phase_online, torch, voc, rl, rr, rgt, slam_cfg, dev, sm, smi)
         mp = timed("mapping", phase_mapping, torch, left, right, rgb8, cam, dev, sl, smi)
         ba = timed("ba", phase_ba, torch, voc, left, right, poses, cam, dev, sl, rl, rr, rgt, smi)
@@ -2781,6 +3095,14 @@ def main() -> int:
     log(f"single-lane vs batched on this card: odometry {sl['fps']:.2f} fps vs "
         f"{bo['fps']:.2f} fps aggregate over {LANES} lanes; full SLAM {sm['fps']:.2f} fps vs "
         f"{bs['fps']:.2f} fps aggregate")
+    log(f"[{smi}] the three ported branches on this card: polish {po['fps']:.2f} fps against "
+        f"slice {sl['fps']:.2f} fps ({po['fps'] / sl['fps']:.3f}x), K1 polish device_ms "
+        f"{po['k1']['device_ms']:.4f} against {po['k1']['walk_device_ms']:.4f} walk-only, K1b "
+        f"{po['k1b']['device_ms']:.4f} against {po['k1b']['walk_device_ms']:.4f}; aligned "
+        f"lanes {lcd['align']['fps']:.2f} fps against batched_odo {bo['fps']:.2f} fps "
+        f"({lcd['align']['fps'] / bo['fps']:.3f}x); interleaved full SLAM "
+        f"{lcd['interleave']['fps']:.2f} fps (one run) against batched_slam {bs['fps']:.2f} "
+        f"fps ({lcd['interleave']['fps'] / bs['fps']:.3f}x)")
     log(f"[{smi}] full SLAM per posture on this card: scan {sm['fps']:.2f} fps, streaming "
         f"{on['stream']['fps']:.2f} fps, chunked {on['chunked']['fps']:.2f} fps speculative "
         f"and {on['chunked']['fps_sequential']:.2f} fps sequential")
@@ -2802,28 +3124,35 @@ def main() -> int:
     # launches_by_path: each path's count, its counters set to 0 before it.
     # ms is the time of a wrapper call (CUDA events around it, host work
     # included), device_ms the kernel's own (bare launches back to back),
-    # launch_floor_ms an empty kernel's, taken the same way.
+    # launch_floor_ms an empty kernel's, taken the same way; device_ms_spaced_hot
+    # and device_ms_cold each launch behind a spin and behind a 64 MB write.
+    # K1 and K1b add their freeze-polish call (phase polish, walk 3 of 8):
+    # polish_device_ms beside polish_walk_device_ms, the same 8 steps as walk.
     table = [
         ("lk_level", "lk_level", "lk_pallas.py:120", sl["launches"], k1,
          {"slice": sl["launches"], "slam": sm["counts"]["lk_level"],
           "online_stream": on["stream"]["counts"]["k1"], "mapping": mp["launches"],
           "ba": ba["offline"]["counts"]["k1"], "ba_stream": ba["stream"]["counts"]["k1"],
           "reference_frontend": rf["counts"]["k1"], "orb_stereo": ob["counts"]["k1"],
-          "essential": es["k1"], "multichip": mc["counts"]["k1"], "cli": cl["counts"]["k1"]}),
+          "essential": es["k1"], "multichip": mc["counts"]["k1"], "cli": cl["counts"]["k1"],
+          "polish": po["counts"]["k1"], "lane_cadences": lcd["counts"]["k1"]}),
         ("orb_desc", "orb_desc", "orb_pallas.py:84", sm["counts"]["orb_desc"], k2,
          {"slam": sm["counts"]["orb_desc"], "online_stream": on["stream"]["counts"]["k2"],
           "ba_stream": ba["stream"]["counts"]["k2"], "orb_stereo": ob["counts"]["k2"],
-          "multichip": mc["counts"]["k2"], "cli": cl["counts"]["k2"]}),
+          "multichip": mc["counts"]["k2"], "cli": cl["counts"]["k2"],
+          "lane_cadences": lcd["counts"]["k2"]}),
         ("vocab_descend", "vocab_descend", "vocab_pallas.py:72",
          sm["counts"]["vocab_descend"], k3,
          {"slam": sm["counts"]["vocab_descend"], "online_stream": on["stream"]["counts"]["k3"],
           "ba_stream": ba["stream"]["counts"]["k3"], "multichip": mc["counts"]["k3"],
-          "cli": cl["counts"]["k3"]}),
+          "cli": cl["counts"]["k3"], "lane_cadences": lcd["counts"]["k3"]}),
         ("lk_level_batch", "lk_level", "lk_pallas.py:361", bo["launches"], k1b,
          {"batched_odo": bo["launches"], "batched_slam": bs["counts"]["k1b"],
-          "ba_lanes": ba["lanes"]["k1b"], "orb_stereo_lanes": obl["counts"]["k1b"]}),
+          "ba_lanes": ba["lanes"]["k1b"], "orb_stereo_lanes": obl["counts"]["k1b"],
+          "polish": po["counts"]["k1b"], "lane_cadences": lcd["counts"]["k1b"]}),
         ("orb_desc_batch", "orb_desc", "orb_pallas.py:207", bs["counts"]["k2b"], k2b,
-         {"batched_slam": bs["counts"]["k2b"], "orb_stereo_lanes": obl["counts"]["k2b"]}),
+         {"batched_slam": bs["counts"]["k2b"], "orb_stereo_lanes": obl["counts"]["k2b"],
+          "lane_cadences": lcd["counts"]["k2b"]}),
     ]
     rows = []
     for name, src, replaces, launches, meas, by_path in table:
@@ -2838,6 +3167,13 @@ def main() -> int:
                     "int8_bound_ms"):
             if key in meas:
                 row[key] = meas[key]
+        if name in ("lk_level", "lk_level_batch"):
+            pol = po["k1" if name == "lk_level" else "k1b"]
+            row.update(polish_max_abs_err=pol["max_abs_err"], polish_ms=pol["ms"],
+                       polish_plain_ms=pol["plain_ms"], polish_device_ms=pol["device_ms"],
+                       polish_walk_device_ms=pol["walk_device_ms"],
+                       polish_device_ms_spaced_hot=pol["device_ms_spaced_hot"],
+                       polish_device_ms_cold=pol["device_ms_cold"])
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,13 @@
 //      Scharr gradients of that sampled patch (not of pre-filtered gradient
 //      images: away from borders the two agree);
 //   2. the 2x2 structure tensor (a, b, c); min_eig / S^2 is the `ok` gate;
-//   3. `iters` Gauss-Newton steps, each resampling an S x S patch of the
-//      current image at the guess; a step of 0 once |delta| < eps;
-//   4. residual = mean |cur - tmpl| / (std(tmpl) + 1e-3);
+//   3. `iters` Gauss-Newton steps, a step of 0 once |delta| < eps: the first
+//      walk = min(iters, walk_iters) resample an S x S patch of the current
+//      image at the guess; the remaining ones (freeze-polish) sample a frozen
+//      (S+2)^2 tile anchored at the post-walk guess, at the guess clamped to
+//      the ~±1 px cell the tile covers;
+//   4. residual = mean |cur - tmpl| / (std(tmpl) + 1e-3), sampled where the
+//      last step sampled (the clamped position after a polish phase);
 // and what the caller did after it: ok = min_eig > min_eig_thresh, and a point
 // that is not ok gets its input guess back.
 // Tile starts are clamped into the image and the sub-pixel fraction is taken
@@ -51,6 +55,15 @@
 // atomics).  The block leaves its loop once |delta| < eps: the reference then
 // repeats the same zero step, so the early exit changes no result, and the
 // patch sampled for that step is the residual's.
+//
+// Freeze-polish: after the walk, the block stages the raw (S+2)^2 tile at
+// the anchor base = clamp(floor(g - half) - 1, 0, dim - S - 3) into shared
+// memory once, with the same row-wise loads, and every polish step samples it
+// at base + clamp(g - half - base, 0, 2 - 1e-4): the top-left tap moves by
+// 0 or 1 px in each axis, so the step reads no device memory at all (the TPU
+// kernel keeps the same tile in registers).  The |delta| < eps exit ends only
+// the phase it happens in: a walk that converges still runs the polish
+// phase, whose clamped sample can move a point near a border.
 //
 // TMA tiled copies are not used: a tensor map needs a row pitch that is a
 // multiple of 16 bytes, and a level row is 1241 * 4 = 4,964 bytes (620, 310
@@ -122,8 +135,8 @@ template <int PPT, int PPR>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, int H, int W,
                 const float* __restrict__ ref_pts, const float* __restrict__ guesses,
-                int n_pts, int S, int iters, float eps, float min_eig_thresh,
-                float* __restrict__ out_pts, float* __restrict__ out_resid,
+                int n_pts, int S, int iters, int walk_iters, float eps,
+                float min_eig_thresh, float* __restrict__ out_pts, float* __restrict__ out_resid,
                 unsigned char* __restrict__ out_ok) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
@@ -164,18 +177,22 @@ lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, in
   __syncthreads();
 
   // This thread's window pixels: template value, gradients, and the offset
-  // of the pixel's top-left tap in a staged (S+1)^2 footprint.
+  // of the pixel's top-left tap in a staged (S+1)^2 footprint (tap) and in
+  // the frozen (S+2)^2 polish tile (ptap).
+  const int P = S + 2;  // side of the frozen polish tile
   float tm[PPT], gx[PPT], gy[PPT];
-  int tap[PPT];
+  int tap[PPT], ptap[PPT];
   float sums[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // a, b, c, sum t, sum t^2
 #pragma unroll
   for (int j = 0; j < PPT; ++j) {
     const int k = tid + kThreads * j;
     tm[j] = gx[j] = gy[j] = 0.f;
     tap[j] = -1;
+    ptap[j] = 0;
     if (k < SS) {
       const int r = k / S, cc = k - (k / S) * S;
       tap[j] = r * R + cc;
+      ptap[j] = r * P + cc;
       const float* t = tmpl + r * T + cc;  // top-left of the 3x3 neighbourhood
       const float dx0 = 0.5f * (t[2] - t[0]);
       const float dx1 = 0.5f * (t[T + 2] - t[T]);
@@ -214,28 +231,57 @@ lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, in
   const float guess_x = guesses[2 * row];
   const float guess_y = guesses[2 * row + 1];
   float gxp = guess_x, gyp = guess_y;
+  const int walk = min(iters, walk_iters);
+  float bx = 0.f, by = 0.f;  // the frozen tile's start (integers) in polish
   // One pass per Gauss-Newton step, and a last one (it == iters) for the
   // residual at the final guess.  Every value that steers the loop comes from
   // block_sum, so it is the same in all threads and the barriers line up.
   float sad = 0.f;
   for (int it = 0;; ++it) {
-    int cy0, cx0;
+    const bool polish = iters > walk && it >= walk;
+    const float* base;  // top-left tap of this step's sample in shared memory
+    int pitch;
     float cfy, cfx;
-    tile_start(gyp - half, S, H, &cy0, &cfy);
-    tile_start(gxp - half, S, W, &cx0, &cfx);
-    const float* src = cur + static_cast<size_t>(cy0) * W + cx0;
-    // No barrier is needed here: every thread read raw before the barrier
-    // inside the last block_sum, and red is next written after the one below.
+    // No barrier is needed before the stores: every thread read raw before
+    // the barrier inside the last block_sum, and red is next written after
+    // the barrier below (which polish steps keep for that reason alone).
+    if (!polish) {
+      int cy0, cx0;
+      tile_start(gyp - half, S, H, &cy0, &cfy);
+      tile_start(gxp - half, S, W, &cx0, &cfx);
+      const float* src = cur + static_cast<size_t>(cy0) * W + cx0;
 #pragma unroll
-    for (int j = 0; j < PPR; ++j) {
-      if (stage[j] >= 0) raw[tid + kThreads * j] = __ldg(src + stage[j]);
+      for (int j = 0; j < PPR; ++j) {
+        if (stage[j] >= 0) raw[tid + kThreads * j] = __ldg(src + stage[j]);
+      }
+      base = raw;
+      pitch = R;
+    } else {
+      if (it == walk) {  // stage the frozen tile once, at the post-walk anchor
+        by = fminf(fmaxf(floorf(gyp - half) - 1.f, 0.f), static_cast<float>(H - S - 3));
+        bx = fminf(fmaxf(floorf(gxp - half) - 1.f, 0.f), static_cast<float>(W - S - 3));
+        const float* src =
+            cur + static_cast<size_t>(static_cast<int>(by)) * W + static_cast<int>(bx);
+        for (int k = tid; k < P * P; k += kThreads) {
+          const int r = k / P;
+          raw[k] = __ldg(src + r * W + (k - r * P));
+        }
+      }
+      // NaN guesses clamp to the anchor (fmaxf drops NaN).
+      const float oy = fminf(fmaxf(gyp - half - by, 0.f), 2.f - 1e-4f);
+      const float ox = fminf(fmaxf(gxp - half - bx, 0.f), 2.f - 1e-4f);
+      const int iy1 = oy >= 1.f, ix1 = ox >= 1.f;
+      cfy = oy - static_cast<float>(iy1);
+      cfx = ox - static_cast<float>(ix1);
+      base = raw + iy1 * P + ix1;
+      pitch = P;
     }
     __syncthreads();
     float part[3] = {0.f, 0.f, 0.f};  // bx, by, sum |d|
 #pragma unroll
     for (int j = 0; j < PPT; ++j) {
       if (tap[j] >= 0) {
-        const float d = bilerp(raw + tap[j], R, cfx, cfy) - tm[j];
+        const float d = bilerp(base + (polish ? ptap[j] : tap[j]), pitch, cfx, cfy) - tm[j];
         part[0] += gx[j] * d;
         part[1] += gy[j] * d;
         part[2] += fabsf(d);
@@ -246,9 +292,14 @@ lk_level_kernel(const float* __restrict__ ref, const float* __restrict__ cur, in
     if (it >= iters) break;  // block-uniform
     const float ddx = (c * part[0] - b * part[1]) * inv_det;
     const float ddy = (a * part[1] - b * part[0]) * inv_det;
-    // Converged: the guess stays, so the patch just sampled is the final one
-    // and its |d| sum is the residual's.
-    if (ddx * ddx + ddy * ddy < eps * eps) break;  // block-uniform
+    if (ddx * ddx + ddy * ddy < eps * eps) {  // block-uniform
+      // Converged: the guess stays, so within a phase every later step
+      // repeats this zero step and the patch just sampled is the
+      // residual's.  A walk that converges still runs the polish phase.
+      if (polish || walk >= iters) break;
+      it = walk - 1;
+      continue;
+    }
     gxp -= ddx;
     gyp -= ddy;
   }
@@ -273,25 +324,26 @@ __global__ void empty_kernel() {}
 template <int PPT, int PPR>
 cudaError_t launch(const float* ref, const float* cur, int n_lanes, int H, int W,
                    const float* ref_pts, const float* guesses, int n_pts, int S, int iters,
-                   float eps, float min_eig_thresh, float* out_pts, float* out_resid,
-                   unsigned char* out_ok, cudaStream_t stream) {
+                   int walk_iters, float eps, float min_eig_thresh, float* out_pts,
+                   float* out_resid, unsigned char* out_ok, cudaStream_t stream) {
   const dim3 grid(n_pts, n_lanes);
   const size_t smem =
       static_cast<size_t>((S + 3) * (S + 3) + (S + 2) * (S + 2) + kWarps * kMaxSums) *
       sizeof(float);
   lk_level_kernel<PPT, PPR><<<grid, kThreads, smem, stream>>>(
-      ref, cur, H, W, ref_pts, guesses, n_pts, S, iters, eps, min_eig_thresh, out_pts,
-      out_resid, out_ok);
+      ref, cur, H, W, ref_pts, guesses, n_pts, S, iters, walk_iters, eps, min_eig_thresh,
+      out_pts, out_resid, out_ok);
   return cudaGetLastError();
 }
 
 // Both entry points: n_lanes lanes of (H, W) images and (n_pts, 2) points.
 int lk_level_lanes(const void* ref, const void* cur, int n_lanes, int H, int W,
                    const void* ref_pts, const void* guesses, int n_pts, int S, int iters,
-                   float eps, float min_eig_thresh, void* out_pts, void* out_resid,
-                   void* out_ok, void* stream) {
+                   int walk_iters, float eps, float min_eig_thresh, void* out_pts,
+                   void* out_resid, void* out_ok, void* stream) {
   if (n_pts <= 0 || n_lanes <= 0) return static_cast<int>(cudaSuccess);
-  if (S < 1 || S > 32 || H < S + 3 || W < S + 3 || n_lanes > 65535 || iters < 0)
+  if (S < 1 || S > 32 || H < S + 3 || W < S + 3 || n_lanes > 65535 || iters < 0 ||
+      walk_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* r = static_cast<const float*>(ref);
   const auto* cu = static_cast<const float*>(cur);
@@ -306,13 +358,16 @@ int lk_level_lanes(const void* ref, const void* cur, int n_lanes, int H, int W,
   cudaError_t err;
   if (S <= 15) {
     err = launch<per_thread(15 * 15), per_thread(16 * 16)>(
-        r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op, ores, ok, st);
+        r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, walk_iters, eps, min_eig_thresh, op,
+        ores, ok, st);
   } else if (S <= 22) {
     err = launch<per_thread(22 * 22), per_thread(23 * 23)>(
-        r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op, ores, ok, st);
+        r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, walk_iters, eps, min_eig_thresh, op,
+        ores, ok, st);
   } else {
     err = launch<per_thread(32 * 32), per_thread(33 * 33)>(
-        r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, eps, min_eig_thresh, op, ores, ok, st);
+        r, cu, n_lanes, H, W, rp, g, n_pts, S, iters, walk_iters, eps, min_eig_thresh, op,
+        ores, ok, st);
   }
   return static_cast<int>(err);
 }
@@ -322,14 +377,15 @@ int lk_level_lanes(const void* ref, const void* cur, int n_lanes, int H, int W,
 // Plain C entry points (loaded with ctypes).  Images (H, W) f32 row-major;
 // ref_pts, guesses, out_pts (n_pts, 2) f32 row-major; out_resid (n_pts,) f32;
 // out_ok (n_pts,) bytes, 1 where min_eig > min_eig_thresh; where it is 0,
-// out_pts holds the input guess.  Requires 1 <= S <= 32, H >= S + 3,
-// W >= S + 3 (the caller checks).  Launch on `stream` and return
-// cudaGetLastError().
+// out_pts holds the input guess.  The first min(iters, walk_iters) steps
+// resample, the rest polish.  Requires 1 <= S <= 32, H >= S + 3, W >= S + 3,
+// iters >= 0, walk_iters >= 0 (the caller checks).  Launch on `stream` and
+// return cudaGetLastError().
 extern "C" int lk_level_f32(const void* ref, const void* cur, int H, int W, const void* ref_pts,
-                            const void* guesses, int n_pts, int S, int iters, float eps,
-                            float min_eig_thresh, void* out_pts, void* out_resid, void* out_ok,
-                            void* stream) {
-  return lk_level_lanes(ref, cur, 1, H, W, ref_pts, guesses, n_pts, S, iters, eps,
+                            const void* guesses, int n_pts, int S, int iters, int walk_iters,
+                            float eps, float min_eig_thresh, void* out_pts, void* out_resid,
+                            void* out_ok, void* stream) {
+  return lk_level_lanes(ref, cur, 1, H, W, ref_pts, guesses, n_pts, S, iters, walk_iters, eps,
                         min_eig_thresh, out_pts, out_resid, out_ok, stream);
 }
 
@@ -338,10 +394,10 @@ extern "C" int lk_level_f32(const void* ref, const void* cur, int H, int W, cons
 // one launch, lanes on blockIdx.y (1 <= n_lanes <= 65535).
 extern "C" int lk_level_batch_f32(const void* ref, const void* cur, int n_lanes, int H, int W,
                                   const void* ref_pts, const void* guesses, int n_pts, int S,
-                                  int iters, float eps, float min_eig_thresh, void* out_pts,
-                                  void* out_resid, void* out_ok, void* stream) {
-  return lk_level_lanes(ref, cur, n_lanes, H, W, ref_pts, guesses, n_pts, S, iters, eps,
-                        min_eig_thresh, out_pts, out_resid, out_ok, stream);
+                                  int iters, int walk_iters, float eps, float min_eig_thresh,
+                                  void* out_pts, void* out_resid, void* out_ok, void* stream) {
+  return lk_level_lanes(ref, cur, n_lanes, H, W, ref_pts, guesses, n_pts, S, iters,
+                        walk_iters, eps, min_eig_thresh, out_pts, out_resid, out_ok, stream);
 }
 
 // One empty kernel (one thread, no work) on `stream`.

@@ -305,6 +305,16 @@ class LoopDetector:
         # runs every Nth frame, as in the scan epilogue
         self._gater = CandidateGater(self.config, stride=max(self.config.detect_every, 1))
 
+    # The reference's database attributes, read-only views of `lc`.
+    db_words = property(lambda self: self.lc.db_words)
+    db_wvals = property(lambda self: self.lc.db_wvals)
+    db_bins = property(lambda self: self.lc.db_bins)
+    db_bits = property(lambda self: self.lc.db_bits)
+    db_pts = property(lambda self: self.lc.db_pts)
+    db_pt_valid = property(lambda self: self.lc.db_pt_valid)
+    db_valid = property(lambda self: self.lc.db_valid)
+    db_ids = property(lambda self: self.lc.db_ids)
+
     def _bow_of(self, feats: orb_mod.OrbFeatures):
         return bow_of(feats, self._tree, self._idf, self.vocab.k)
 

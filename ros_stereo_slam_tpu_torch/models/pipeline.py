@@ -157,6 +157,7 @@ def run_offline(
     right_seq,
     device: torch.device | str = "cuda",
     rgb_seq=None,
+    block: bool = True,
 ) -> OfflineResult:
     """Run a full sequence: frame-0 bootstrap, then every frame.
 
@@ -165,7 +166,10 @@ def run_offline(
     rgb_seq: optional (F, H, W, 3) float32 or uint8 colour stack that
     colours the keyframe map points (the RGB map path; uint8 is staged as
     uint8 and scaled per keyframe).
+    `block` is accepted as the reference accepts it: reading the stats to
+    the host always waits for the device.
     """
+    del block
     grid_pts, grid_mask = _grid_for(cfg, device)
     left = _stage(left_seq, device)
     right = _stage(right_seq, device)

@@ -127,8 +127,9 @@ class ChunkedSLAM:
         l0, r0 = _stage(left0, self.device), _stage(right0, self.device)
         self._carry = step_mod.init_carry(l0, r0, self.grid_pts, self.grid_mask, cfg.seed, cfg,
                                           rgb_frame(rgb0, self.device))
-        self._lc, _ = slam_scan._lc_scan_step(slam_scan.init_lc_state(cfg, self.device), l0, 0,
-                                              self._tree, self._idf, cfg, self.vocab.k)
+        self._lc, _ = slam_scan._lc_scan_step(
+            slam_scan.init_lc_state(cfg, self.vocab.n_words, self.device), l0, 0, self._tree,
+            self._idf, cfg, self.vocab.k)
         self.graph.initialize()
         self._prev_T = self._carry.T_wc
         self.frame_count = 1

@@ -23,10 +23,13 @@ frames staged on the device, as :func:`.pipeline.run_offline` is:
 
 Batched lanes (:func:`run_offline_slam_batched`): B sequences step in
 lockstep through :mod:`.step_batched`, and every detection frame runs
-:func:`_lc_scan_step` once for all lanes (ORB's K2 and the descent's K3
+:func:`_lc_scan_step` once for all lanes (ORB's K2b and the descent's K3
 launched once for every lane), each lane writing its own database row in
-place.  The interleaved lane cadence (a measured refutation in the
-reference) is not ported.  Every driver takes RGB frames (``rgb_seq``,
+place.  The interleaved cadence (``interleave=True``) shifts lane b's
+detection to frames with ``fid % detect_every == lane_phase(b, ...)``:
+each such frame runs the single-lane step (K2, K3) for each lane whose
+phase it is, on views of that lane's database
+(:func:`_lc_scan_step_lane`).  Every driver takes RGB frames (``rgb_seq``,
 ``rgb_seqs``) that colour the keyframes, and runs BA when
 ``cfg.ba_enabled`` (config 4), through the step.  The online postures, per frame
 (:mod:`.slam`) and in chunks (:mod:`.slam_chunked`), run the same
@@ -63,8 +66,11 @@ class LCScanStats(NamedTuple):
     ns: torch.Tensor  # () f32 score against the previous detected frame
 
 
-def init_lc_state(cfg: PipelineConfig, device, lanes: int | None = None) -> LCScanState:
-    """An empty database on `device` (one per lane with `lanes`)."""
+def init_lc_state(cfg: PipelineConfig, n_words: int | None = None,
+                  device: torch.device | str = "cuda", lanes: int | None = None) -> LCScanState:
+    """An empty database on `device` (one per lane with `lanes`).  `n_words`
+    (the vocabulary's size, the reference's second argument) does not
+    shape the sparse database and is not read."""
     return lc_mod.empty_database(cfg.loop, device, lanes)
 
 
@@ -149,28 +155,24 @@ def run_sequence_slam(
     Returns ((carry, lc), (frame stats, detection stats)), each stats
     tuple stacked along frames and left on the device.
     """
-    return _run_frames(left_seq, right_seq, rgb_seq, carry, lc, grid_pts, grid_mask, tree, idf,
-                       cfg, vocab_k, step_mod.slam_frame_step,
-                       _null_stats(cfg, left_seq.device), fid_start)
+    return _run_frames(left_seq, right_seq, rgb_seq, carry, lc, grid_pts, grid_mask, cfg,
+                       step_mod.slam_frame_step,
+                       _detect_lockstep(tree, idf, cfg, vocab_k,
+                                        _null_stats(cfg, left_seq.device)),
+                       fid_start)
 
 
-def _run_frames(frames_l, frames_r, frames_rgb, carry, lc, grid_pts, grid_mask, tree, idf,
-                cfg: PipelineConfig, vocab_k: int, frame_step, null: LCScanStats,
-                fid_start: int = 1):
-    """The frame loop of the drivers: `frame_step` on every frame, then,
-    on every ``detect_every``-th frame, :func:`_lc_scan_step` (`null` stats
-    on the others).  frames_l[i] is frame fid_start + i (of every lane);
-    `frames_rgb` is None or its RGB frames."""
-    every = max(cfg.loop.detect_every, 1)
+def _run_frames(frames_l, frames_r, frames_rgb, carry, lc, grid_pts, grid_mask,
+                cfg: PipelineConfig, frame_step, detect, fid_start: int = 1):
+    """The frame loop of the drivers: `frame_step` on every frame, then
+    ``detect(lc, left, fid) -> (lc, stats)``.  frames_l[i] is frame
+    fid_start + i (of every lane); `frames_rgb` is None or its RGB frames."""
     fstats, lstats = [], []
     for i in range(frames_l.shape[0]):
         fid = fid_start + i
         carry, fs = frame_step(carry, frames_l[i], frames_r[i], grid_pts, grid_mask, cfg,
                                None if frames_rgb is None else frames_rgb[i])
-        if fid % every == 0:
-            lc, ls = _lc_scan_step(lc, frames_l[i], fid, tree, idf, cfg, vocab_k)
-        else:
-            ls = null
+        lc, ls = detect(lc, frames_l[i], fid)
         fstats.append(fs)
         lstats.append(ls)
     if not fstats:
@@ -178,11 +180,73 @@ def _run_frames(frames_l, frames_r, frames_rgb, carry, lc, grid_pts, grid_mask, 
     return (carry, lc), (_stack(fstats), _stack(lstats))
 
 
-def _refuse_unported_lanes(interleave: bool) -> None:
-    if interleave:
-        raise NotImplementedError(
-            "interleave=True is not ported (measured slower than the lockstep "
-            "cadence in the reference)")
+def _detect_lockstep(tree, idf, cfg: PipelineConfig, vocab_k: int, null: LCScanStats):
+    """Detection on every ``detect_every``-th frame, for all lanes at once
+    (`null` stats on the others).  ``lax.cond`` on the cadence becomes a
+    host branch on the frame id, which the host knows."""
+    every = max(cfg.loop.detect_every, 1)
+
+    def detect(lc, left, fid):
+        if fid % every:
+            return lc, null
+        return _lc_scan_step(lc, left, fid, tree, idf, cfg, vocab_k)
+
+    return detect
+
+
+def lane_phase(lane: int, every: int) -> int:
+    """Detection phase of a lane under the interleaved batched cadence:
+    lane b detects on frames with ``fid % every == lane_phase(b, every)``
+    (single-lane and lockstep runs use phase 0)."""
+    return lane % max(every, 1)
+
+
+def _lc_scan_step_lane(lc: LCScanState, lane: int, left_img: torch.Tensor, frame_id: int,
+                       tree: vocab_mod.PackedTree, idf: torch.Tensor, cfg: PipelineConfig,
+                       vocab_k: int) -> tuple[LCScanState, LCScanStats]:
+    """One LANE's detection step against the lane-stacked database.
+
+    The single-lane :func:`_lc_scan_step` runs on views of lane `lane`, so
+    its ring-row insert lands in the lane-stacked tensors in place; only
+    the previous-frame fields are written back into the lane.  A lane's
+    database (about 135 MB at the reference scale) is never copied.
+    `left_img` is the lane's (H, W) frame; the stats have no lane axis.
+    """
+    new, stats = _lc_scan_step(_lane(lc, lane), left_img, frame_id, tree, idf, cfg, vocab_k)
+
+    def put(x, row):
+        x = x.clone()  # the lane-stacked previous-frame fields are small
+        x[lane] = row
+        return x
+
+    return lc._replace(last_words=put(lc.last_words, new.last_words),
+                       last_wvals=put(lc.last_wvals, new.last_wvals),
+                       have_last=put(lc.have_last, new.have_last)), stats
+
+
+def _detect_interleaved(tree, idf, cfg: PipelineConfig, vocab_k: int, null: LCScanStats):
+    """Detection of the lanes whose phase is ``fid % detect_every``, one
+    lane at a time (:func:`_lc_scan_step_lane`); the other lanes get their
+    row of the (B, ...) `null` stats."""
+    every = max(cfg.loop.detect_every, 1)
+
+    def detect(lc, left, fid):
+        rows = []
+        for b in range(left.shape[0]):
+            if lane_phase(b, every) == fid % every:
+                lc, row = _lc_scan_step_lane(lc, b, left[b], fid, tree, idf, cfg, vocab_k)
+            else:
+                row = _lane(null, b)
+            rows.append(row)
+        return lc, _stack(rows)
+
+    return detect
+
+
+def _interleaved(interleave: bool, lanes: int, cfg: PipelineConfig) -> bool:
+    """Whether `interleave` changes the cadence: it needs several lanes and
+    a stride (with ``detect_every`` 1 every lane detects every frame)."""
+    return interleave and lanes > 1 and max(cfg.loop.detect_every, 1) > 1
 
 
 def run_sequence_slam_batched(
@@ -197,23 +261,27 @@ def run_sequence_slam_batched(
     cfg: PipelineConfig,
     vocab_k: int,
     rgb_seq: torch.Tensor | None = None,  # (B, F, H, W, 3) f32 or uint8
+    fid_start: int = 1,
     interleave: bool = False,
 ):
-    """B lanes of odometry + detection in lockstep: the batched step, and
-    on every ``detect_every``-th frame one lane-form :func:`_lc_scan_step`
-    for all lanes (the reference's lockstep cadence).
+    """B lanes of odometry + detection: the batched step, and on every
+    ``detect_every``-th frame one lane-form :func:`_lc_scan_step` for all
+    lanes (the reference's lockstep cadence), or with `interleave` each
+    lane's detection on its own phase of the stride (:func:`lane_phase`).
 
     `carry` from :func:`.step.init_carry_batched`, `lc` from
-    ``init_lc_state(..., lanes=B)``.  Returns ((carry, lc), (frame stats,
-    detection stats)), the stats frame-major, (F, B, ...), as the
-    reference's scan gives them.
+    ``init_lc_state(..., lanes=B)``; `fid_start` is the frame id of row 0.
+    Returns ((carry, lc), (frame stats, detection stats)), the stats
+    frame-major, (F, B, ...), as the reference's scan gives them.
     """
-    _refuse_unported_lanes(interleave)
-    null = _null_stats(cfg, left_seq.device, (left_seq.shape[0],))
+    B = left_seq.shape[0]
+    null = _null_stats(cfg, left_seq.device, (B,))
+    detect = (_detect_interleaved if _interleaved(interleave, B, cfg)
+              else _detect_lockstep)(tree, idf, cfg, vocab_k, null)
     return _run_frames(left_seq.transpose(0, 1), right_seq.transpose(0, 1),
                        None if rgb_seq is None else rgb_seq.transpose(0, 1), carry, lc,
-                       grid_pts, grid_mask, tree, idf, cfg, vocab_k,
-                       step_batched.slam_frame_step_batched, null)
+                       grid_pts, grid_mask, cfg, step_batched.slam_frame_step_batched, detect,
+                       fid_start)
 
 
 class EpilogueGater:
@@ -225,12 +293,19 @@ class EpilogueGater:
     before the cooldown is armed: a candidate that fails geometry does not
     suppress the following frames.  Stateful across calls, so one instance
     can process a sequence in blocks.
+
+    Detection frames are those with ``fid % detect_every == phase`` (a
+    lane's :func:`lane_phase` under the interleaved cadence, else 0).
+    `key` is accepted as the reference accepts it and not read: the
+    geometric check draws from each pair's :func:`loop_closure.geom_key`.
     """
 
-    def __init__(self, cfg: PipelineConfig):
+    def __init__(self, cfg: PipelineConfig, key=None, phase: int = 0):
+        del key
         self.cfg = cfg
         self.lcc = cfg.loop
         self.every = max(cfg.loop.detect_every, 1)
+        self.phase = phase % self.every
         self.gater = lc_mod.CandidateGater(cfg.loop, stride=self.every)
         self.cooldown = 0
 
@@ -251,7 +326,7 @@ class EpilogueGater:
         cands = []
         for i in range(n):
             fid = fid_start + i
-            if fid % self.every != 0 or fid <= lcc.dislocal:
+            if fid % self.every != self.phase or fid <= lcc.dislocal:
                 continue
             gated = self.gater.gate(fid, top_ids[i], top_scores[i], float(ns_arr[i]))
             if gated is None or fid <= suppress_until:
@@ -334,13 +409,16 @@ def _measure_edges_pnp(lc_arrays, cands, geom, frame_of, cfg: PipelineConfig):
 
 
 def measure_loop_edges(accepted: list, lc: LCScanState, frame_of,
-                       cfg: PipelineConfig) -> tuple[list, list]:
+                       cfg: PipelineConfig, key=None) -> tuple[list, list]:
     """Accepted closures -> (loop events, (i, j, Z) pose-graph edges).
 
     PnP-measured edges when configured; otherwise, or where PnP starves,
     the reference's identity edge to the vertex before the match.
-    `frame_of`: callable ``fid -> (left, right)`` frames.
+    `frame_of`: callable ``fid -> (left, right)`` frames.  `key` is
+    accepted as the reference accepts it and not read: each pair draws
+    from its own :func:`loop_closure.edge_key`.
     """
+    del key
     loop_events, loop_edges = [], []
     if not accepted:
         return loop_events, loop_edges
@@ -374,12 +452,13 @@ class ScanSlamResult:
 
 
 def _epilogue_one(cfg: PipelineConfig, lc, top_ids, top_scores, ns, fstats, keyframes,
-                  frame_of) -> ScanSlamResult:
+                  frame_of, phase: int = 0) -> ScanSlamResult:
     """Host epilogue: gates -> geometric check -> accept -> PnP loop edges
-    -> one PGO -> keyframe map rewrite.  `fstats` holds host arrays."""
+    -> one PGO -> keyframe map rewrite.  `fstats` holds host arrays;
+    `phase` is the lane's detection phase (:class:`EpilogueGater`)."""
     traj_odo = np.concatenate([np.eye(4, dtype=np.float32)[None],
                                np.asarray(fstats.T_wc)], axis=0)
-    gate = EpilogueGater(cfg)
+    gate = EpilogueGater(cfg, phase=phase)
     accepted = gate.process(lc, top_ids, top_scores, ns, fid_start=1)
     loop_events, loop_edges = measure_loop_edges(accepted, lc, frame_of, cfg)
 
@@ -429,11 +508,11 @@ def run_offline_slam_batched(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, l
     starts from key ``step_batched.lane_keys(cfg.seed, B)[b]``.  The
     database is one per lane (about 135 MB each at the reference scale).
     `rgb_seqs` ((B, F, H, W, 3) float32 or uint8, optional) colours each
-    lane's keyframes.  `interleave=True` is not ported and raises.
+    lane's keyframes.  `interleave=True` shifts lane b's detection frames
+    to ``fid % detect_every == lane_phase(b, detect_every)``.
     """
     from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage, rgb_frame
 
-    _refuse_unported_lanes(interleave)
     step_batched.check_batched(cfg)
     grid_pts, grid_mask = _grid_for(cfg, device)
     left, right = _stage(left_seqs, device), _stage(right_seqs, device)
@@ -443,18 +522,21 @@ def run_offline_slam_batched(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, l
     carry = step_mod.init_carry_batched(left[:, 0], right[:, 0], grid_pts, grid_mask,
                                         step_batched.lane_keys(cfg.seed, B), cfg,
                                         None if rgb is None else rgb[:, 0])
-    lc, _ = _lc_scan_step(init_lc_state(cfg, device, lanes=B), left[:, 0], 0, tree, idf, cfg,
-                          vocab.k)
+    # frame 0 enters every lane's database, whatever its phase
+    lc, _ = _lc_scan_step(init_lc_state(cfg, vocab.n_words, device, lanes=B), left[:, 0], 0,
+                          tree, idf, cfg, vocab.k)
     (carry, lc), (fstats, lstats) = run_sequence_slam_batched(
         left[:, 1:], right[:, 1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k,
-        None if rgb is None else rgb[:, 1:])
+        None if rgb is None else rgb[:, 1:], interleave=interleave)
     fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
     top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
+    every = max(cfg.loop.detect_every, 1)
     return [
         _epilogue_one(cfg, _lane(lc, b), top_ids[:, b], top_scores[:, b], ns[:, b],
                       step_mod.FrameStats(*(f[:, b] for f in fstats_h)),
                       _lane(carry.keyframes, b),
-                      lambda fid, b=b: (left[b, fid], right[b, fid]))
+                      lambda fid, b=b: (left[b, fid], right[b, fid]),
+                      phase=lane_phase(b, every) if _interleaved(interleave, B, cfg) else 0)
         for b in range(B)
     ]
 
@@ -478,7 +560,8 @@ def run_offline_slam(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, left_seq,
     carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg,
                                 None if rgb is None else rgb[0])
     # frame 0 enters the database too (0 % detect_every == 0)
-    lc, _ = _lc_scan_step(init_lc_state(cfg, device), left[0], 0, tree, idf, cfg, vocab.k)
+    lc, _ = _lc_scan_step(init_lc_state(cfg, vocab.n_words, device), left[0], 0, tree, idf,
+                          cfg, vocab.k)
     (carry, lc), (fstats, lstats) = run_sequence_slam(
         left[1:], right[1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k,
         rgb_seq=None if rgb is None else rgb[1:])

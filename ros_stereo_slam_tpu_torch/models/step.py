@@ -492,6 +492,7 @@ def _step_lanes(
     cfg: PipelineConfig,
     left_rgb: torch.Tensor | None = None,
     kf_shard: KeyframeShard | None = None,
+    kf_window: int = 1,
 ) -> tuple[SlamCarry, FrameStats]:
     """The frame step of B lanes: `carry` with a leading lane axis on every
     tensor and B keys, (B, H, W) frames (and (B, H, W, 3) RGB frames or
@@ -500,7 +501,8 @@ def _step_lanes(
     when it runs, it runs for all lanes and a per-lane ``where`` keeps it
     only in the lanes that take it.  With one lane that is the reference's
     ``lax.cond``; with B it is the reference's batch-hoisted branch
-    (``step_batched.py``).
+    (``step_batched.py``).  `kf_window` > 1 is the batched step's shared
+    keyframe cadence (``KeyframeConfig.batch_align_window``).
     """
     global RESCUES
     # frames sliced from a (B, F, H, W) stack are strided views; the
@@ -575,6 +577,11 @@ def _step_lanes(
 
     # --- keyframe trigger + re-triangulation ---
     is_kf = (p.n_inliers < kfc.min_pnp_inliers) | ~tracking_ok
+    if kf_window > 1 and carry.frame_idx % kf_window:
+        # Off the shared window frame, inlier-triggered keyframes wait;
+        # tracking failures fire at once.  frame_idx is lockstep across
+        # lanes, so on window frames every due lane fires together.
+        is_kf = ~tracking_ok
     if _host_read(is_kf.any()):
         gp = grid_pts.expand(B, -1, -1).contiguous()
         gm = grid_mask.expand(B, -1)

@@ -28,9 +28,10 @@ RANSAC sets from its own generators, and every sum is taken per lane in
 an order that does not depend on B: on the CPU the two agree bitwise;
 BA solves each lane's window on its own).  Only the const-velocity-seeded
 configuration is batched, as in the reference; RGB frames, BA and the
-mapping preset run as in the single-lane step, and the shared keyframe
-cadence (``batch_align_window``, a measured refutation in the reference)
-is not ported and raises.
+mapping preset run as in the single-lane step.  With
+``KeyframeConfig.batch_align_window`` W > 1 the lanes share a keyframe
+cadence: an inlier-triggered keyframe waits for a frame with
+``frame_idx % W == 0``, a tracking failure fires at once.
 """
 
 from __future__ import annotations
@@ -64,10 +65,6 @@ def check_batched(cfg: PipelineConfig) -> None:
             "the batched step requires the const-velocity-seeded config (the "
             "batch hoist targets the seeded/rescue split); got "
             f"lk_seed={cfg.frontend.lk_seed!r}")
-    if cfg.keyframes.batch_align_window > 1:
-        raise NotImplementedError(
-            "batch_align_window > 1 is not ported (measured slower and less "
-            "accurate in the reference)")
 
 
 def slam_frame_step_batched(
@@ -92,7 +89,8 @@ def slam_frame_step_batched(
             or len(carry.key) != left_img.shape[0]:
         raise ValueError(f"expected (B, H, W) frames for {len(carry.key)} lanes, got "
                          f"{tuple(left_img.shape)} and {tuple(right_img.shape)}")
-    return step_mod._step_lanes(carry, left_img, right_img, grid_pts, grid_mask, cfg, left_rgb)
+    return step_mod._step_lanes(carry, left_img, right_img, grid_pts, grid_mask, cfg, left_rgb,
+                                kf_window=max(cfg.keyframes.batch_align_window, 1))
 
 
 def run_sequence_batched(

@@ -12,8 +12,11 @@ It runs the CPU path and is the oracle of the CUDA kernel in
 Lane form: :func:`track` also takes pyramids of (B, h, w) levels with
 (B, N, 2) points (the batched-lane drivers); each level then goes through
 ``lk_cuda.track_level_batch``, one kernel launch for all lanes.
-The reference's freeze-polish phase (``walk_iters < iters``) is reached
-by no configuration and is not ported: asking for it raises.
+
+Freeze-polish (``walk_iters < iters``): after ``walk_iters`` full
+resampling steps, the remaining steps sample a frozen tile anchored at the
+post-walk guess, clamped to a ~±1 px cell around the anchor (the
+reference's jnp route and Pallas kernel use the same clamp formula).
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ class LKParams(NamedTuple):
     window: int = 21
     levels: int = 4
     iters: int = 10
-    # Full-resampling GN iterations per level.  Only walk_iters >= iters
-    # (every iteration resamples) is supported.
+    # Full-resampling GN iterations per level; the remaining iters - walk
+    # "polish" iterations sample a frozen (window+2)^2 tile anchored after
+    # the walk (sampling clamped to a ~±1 px cell around the anchor).
     walk_iters: int = 10
     eps: float = 0.01
     # Per-pixel min eigenvalue of the spatial gradient matrix, for images
@@ -47,11 +51,9 @@ class LKResult(NamedTuple):
 
 
 def check_params(params: LKParams) -> None:
-    if params.walk_iters < params.iters:
-        raise NotImplementedError(
-            "LK freeze-polish (walk_iters < iters) is not ported; "
-            f"got walk_iters={params.walk_iters}, iters={params.iters}"
-        )
+    if params.iters < 0 or params.walk_iters < 0:
+        raise ValueError(f"LK iteration counts must be >= 0, got iters={params.iters}, "
+                         f"walk_iters={params.walk_iters}")
 
 
 def _track_level(
@@ -84,17 +86,38 @@ def _track_level(
     inv_det = torch.where(det > 1e-12, 1.0 / torch.clamp(det, min=1e-12),
                           torch.zeros_like(det))
 
-    g = guesses
-    for _ in range(params.iters):
-        it = interp.extract_patches(cur_img, g, w) - tmpl
+    def gn_update(g, pos):
+        """One Gauss-Newton step of `g`, sampling the current image at `pos`."""
+        it = interp.extract_patches(cur_img, pos, w) - tmpl
         bx = (gx * it).sum((1, 2))
         by = (gy * it).sum((1, 2))
         delta = torch.stack([(c * bx - b * by) * inv_det,
                              (a * by - b * bx) * inv_det], dim=-1)
         # masked convergence: once |delta| < eps, steps become no-ops
         moving = ~(torch.linalg.vector_norm(delta, dim=-1) < params.eps)
-        g = g - moving[:, None] * delta
-    cur = interp.extract_patches(cur_img, g, w)
+        return g - moving[:, None] * delta
+
+    walk = min(params.iters, params.walk_iters)
+    g = guesses
+    for _ in range(walk):
+        g = gn_update(g, g)
+    g_res = g
+    if params.iters > walk:
+        # Freeze-polish: every further sample comes from the ~±1 px cell
+        # around the post-walk anchor; the residual is taken at the clamped
+        # position, the returned point is the unclamped guess.
+        h_i, w_i = cur_img.shape
+        half = (w - 1) * 0.5
+        hi = torch.tensor([w_i - w - 3.0, h_i - w - 3.0], dtype=g.dtype, device=g.device)
+        base = torch.minimum(torch.clamp(torch.floor(g - half) - 1.0, min=0.0), hi)
+
+        def clamp_pos(gp):
+            return base + torch.clamp(gp - half - base, 0.0, 2.0 - 1e-4) + half
+
+        for _ in range(params.iters - walk):
+            g = gn_update(g, clamp_pos(g))
+        g_res = clamp_pos(g)
+    cur = interp.extract_patches(cur_img, g_res, w)
     contrast = torch.std(tmpl, dim=(1, 2), correction=0) + 1e-3
     resid = (cur - tmpl).abs().mean((1, 2)) / contrast
     return torch.where(ok[:, None], g, guesses), resid, ok

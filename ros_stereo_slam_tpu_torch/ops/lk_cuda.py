@@ -52,8 +52,8 @@ def _fn(name: str):
         fn = getattr(build.load("lk_level"), name)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = {
-            "lk_level_f32": [p, p, i, i, p, p, i, i, i, f, f, p, p, p, p],
-            "lk_level_batch_f32": [p, p, i, i, i, p, p, i, i, i, f, f, p, p, p, p],
+            "lk_level_f32": [p, p, i, i, p, p, i, i, i, i, f, f, p, p, p, p],
+            "lk_level_batch_f32": [p, p, i, i, i, p, p, i, i, i, i, f, f, p, p, p, p],
             "empty_launch": [p],
         }[name]
         fn.restype = ctypes.c_int
@@ -117,7 +117,7 @@ def _launcher(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, outs):
     H, W = ref_img.shape[-2:]
     args = (ref_img.data_ptr(), cur_img.data_ptr(), *ref_img.shape[:-2], H, W,
             ref_pts.data_ptr(), guesses.data_ptr(), ref_pts.shape[-2], params.window,
-            params.iters, float(params.eps), float(params.min_eig), outs[0].data_ptr(),
+            params.iters, params.walk_iters, float(params.eps), float(params.min_eig), outs[0].data_ptr(),
             outs[1].data_ptr(), outs[2].data_ptr(),
             torch.cuda.current_stream(ref_img.device).cuda_stream)
 

@@ -9,7 +9,8 @@ tests/test_lk_pallas.py.  Bounds:
   interpret=True)``: points within 5e-3 px, residuals within 1e-2, ``ok``
   equal (the bounds of tests/test_lk_pallas.py), on points >= 30 px inside
   the image (the Pallas kernel differentiates the sampled patch, the plain
-  version samples gradient images: they agree away from borders, H6).
+  version samples gradient images: they agree away from borders, H6); the
+  same with freeze-polish (walk 3 of 8 iterations).
 - K2b's plain version against ``orb_pallas.orb_descriptors_batch(
   select_dtype="f32", interpret=True)`` on corners >= 30 px inside
   (clear of fault F3): >= 99.5 % of bits equal, moments within 2e-3 +
@@ -17,7 +18,9 @@ tests/test_lk_pallas.py.  Bounds:
 - Batched odometry against JAX ``run_sequence_batched`` from the same
   vmapped ``init_carry``: equal keyframe and tracking flags; poses within
   the bounds of tests/test_torch_slice.py (4 cm per position, 2 cm per
-  frame-to-frame motion), since the RANSAC draws differ.
+  frame-to-frame motion), since the RANSAC draws differ.  The same with the
+  shared keyframe window (``batch_align_window=2``), which must also fire
+  no inlier-triggered keyframe on an odd ``frame_idx``.
 - Inside the port, lane b of ``run_sequence_batched`` against the
   single-lane ``run_sequence`` started with ``lane_keys(seed, B)[b]``:
   equal flags, inlier counts and keyframe stores, poses within 1e-5 (the
@@ -62,7 +65,7 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def test_k1b_plain_matches_pallas_batch():
+def _k1b_case():
     rng = np.random.default_rng(4)
     imgs, curs, ptss, guesses = [], [], [], []
     for b in range(B):
@@ -72,13 +75,19 @@ def test_k1b_plain_matches_pallas_batch():
         p = np.stack([rng.uniform(30, 226, 32), rng.uniform(30, 162, 32)], 1)
         ptss.append(p.astype(np.float32))
         guesses.append((p + rng.uniform(-1, 1, p.shape)).astype(np.float32))
-    args = [np.stack(a) for a in (imgs, curs, ptss, guesses)]
-    jg, jr, jok = lk_pallas.track_level_batch(
-        *(jnp.asarray(a) for a in args), jlk.LKParams(window=15, iters=6, select_dtype="f32"),
-        interpret=True)
+    return [np.stack(a) for a in (imgs, curs, ptss, guesses)]
+
+
+def _k1b_against_pallas(walk):
+    args = _k1b_case()
+    iters = 6 if walk is None else 8
+    jparams = jlk.LKParams(window=15, iters=iters, walk_iters=walk or iters, select_dtype="f32")
+    jg, jr, jok = lk_pallas.track_level_batch(*(jnp.asarray(a) for a in args), jparams,
+                                              interpret=True)
     before = lk_cuda.BATCH_LAUNCHES
     tg, tr, tok = lk_cuda.track_level_batch(*(torch.from_numpy(a) for a in args),
-                                            lk.LKParams(window=15, iters=6))
+                                            lk.LKParams(window=15, iters=iters,
+                                                        walk_iters=walk or iters))
     assert lk_cuda.BATCH_LAUNCHES == before  # CPU tensors: the plain version
     assert tg.shape == (B, 32, 2) and tr.shape == tok.shape == (B, 32)
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
@@ -88,6 +97,14 @@ def test_k1b_plain_matches_pallas_batch():
     for b in range(B):
         flow = np.median(tg[b].numpy() - args[2][b], axis=0)
         np.testing.assert_allclose(flow, [3 - 2 * b, -2 + b], atol=0.05)
+
+
+def test_k1b_plain_matches_pallas_batch():
+    _k1b_against_pallas(None)
+
+
+def test_k1b_polish_plain_matches_pallas_batch():
+    _k1b_against_pallas(3)
 
 
 def test_k2b_plain_matches_pallas_batch():
@@ -133,25 +150,28 @@ def _motions(T):
     return np.stack([np.linalg.inv(T[i - 1]) @ T[i] for i in range(1, len(T))])
 
 
-def test_batched_odometry_matches_jax(lanes):
-    worlds, L, R, tcfg, jcfg, gp, gm = lanes
+@pytest.fixture(scope="module")
+def jax_start(lanes):
+    """JAX's grid and its vmapped ``init_carry`` of both lanes."""
+    _, L, R, _, jcfg, _, _ = lanes
     pts, mask = (jnp.asarray(a) for a in jgrid.grid_points(
         jcfg.camera.height, jcfg.camera.width, jcfg.frontend.grid_step, jcfg.frontend.max_points))
     keys = jax.random.split(jax.random.PRNGKey(0), B)
     jcarry0 = jax.vmap(lambda l0, r0, k: jstep.init_carry(l0, r0, pts, mask, k, jcfg))(
         jnp.asarray(L[:, 0]), jnp.asarray(R[:, 0]), keys)
+    return pts, mask, jcarry0
+
+
+def _odometry_against_jax(lanes, jax_start, **kf):
+    """Both packages' batched odometry from JAX's start, with the keyframe
+    settings `kf` changed; returns the port's and JAX's stats."""
+    worlds, L, R, tcfg, jcfg, gp, gm = lanes
+    pts, mask, jcarry0 = jax_start
+    tcfg = tcfg.replace(keyframes=dataclasses.replace(tcfg.keyframes, **kf))
+    jcfg = jcfg.replace(keyframes=dataclasses.replace(jcfg.keyframes, **kf))
     _, jst = jax.device_get(jstep_batched.run_sequence_batched(
         jnp.asarray(L[:, 1:]), jnp.asarray(R[:, 1:]), jcarry0, pts, mask, jcfg))
-
-    jc = jax.device_get(jcarry0)
-    carry0 = convert.carry_from_numpy(jc, "cpu")
-    assert isinstance(carry0.key, tuple) and len(carry0.key) == B and carry0.frame_idx == 1
-    back = convert.carry_to_numpy(carry0)  # the lane-stacked round trip
-    np.testing.assert_array_equal(back.key, np.asarray(jc.key))
-    np.testing.assert_array_equal(back.frame_idx, np.asarray(jc.frame_idx))
-    for ours, theirs in ((back.track, jc.track), (back.keyframes, jc.keyframes)):
-        for x, y in zip(ours, theirs):
-            np.testing.assert_array_equal(x, np.asarray(y))
+    carry0 = convert.carry_from_numpy(jax.device_get(jcarry0), "cpu")
     reads = step.HOST_READS
     _, st = step_batched.run_sequence_batched(torch.from_numpy(L[:, 1:]),
                                               torch.from_numpy(R[:, 1:]), carry0, gp, gm, tcfg)
@@ -168,6 +188,39 @@ def test_batched_odometry_matches_jax(lanes):
         assert dmot.max() < MOTION_TOL_M, (b, dmot)
         gt = worlds[b].poses[F]
         assert np.linalg.norm(t[-1, :3, 3] - gt[:3, 3]) < 0.05
+    return st, jst
+
+
+def test_batched_odometry_matches_jax(lanes, jax_start):
+    jc = jax.device_get(jax_start[2])
+    carry0 = convert.carry_from_numpy(jc, "cpu")
+    assert isinstance(carry0.key, tuple) and len(carry0.key) == B and carry0.frame_idx == 1
+    back = convert.carry_to_numpy(carry0)  # the lane-stacked round trip
+    np.testing.assert_array_equal(back.key, np.asarray(jc.key))
+    np.testing.assert_array_equal(back.frame_idx, np.asarray(jc.frame_idx))
+    for ours, theirs in ((back.track, jc.track), (back.keyframes, jc.keyframes)):
+        for x, y in zip(ours, theirs):
+            np.testing.assert_array_equal(x, np.asarray(y))
+    _odometry_against_jax(lanes, jax_start)
+
+
+def test_batched_align_window_matches_jax(lanes, jax_start):
+    """``batch_align_window=2``: inlier-triggered keyframes wait for an even
+    ``frame_idx`` (tracking failures would fire at once), as in JAX.  At a
+    trigger of 200 PnP inliers both lanes fall below it on frame_idx 3 and
+    the window defers their keyframe to frame_idx 4."""
+    kf = dict(min_pnp_inliers=200)
+    st, _ = _odometry_against_jax(lanes, jax_start, batch_align_window=2, **kf)
+    frame_idx = 1 + np.arange(F)
+    fired = st.is_keyframe.numpy() & st.tracking_ok.numpy()  # (F, B)
+    assert not fired[frame_idx % 2 == 1].any(), fired
+    assert fired[frame_idx == 4].all(), fired
+    _, L, R, tcfg, _, gp, gm = lanes
+    cfg = tcfg.replace(keyframes=dataclasses.replace(tcfg.keyframes, **kf))
+    _, st1 = step_batched.run_sequence_batched(
+        torch.from_numpy(L[:, 1:]), torch.from_numpy(R[:, 1:]),
+        convert.carry_from_numpy(jax.device_get(jax_start[2]), "cpu"), gp, gm, cfg)
+    assert st1.is_keyframe.numpy()[frame_idx == 3].all()  # unaligned: on frame_idx 3
 
 
 @pytest.mark.parametrize("case", ["lockstep", "divergent"])
@@ -220,18 +273,14 @@ def test_lanes_match_single_lane(lanes, case):
         assert n_rescue_frames == singles[0][2]
 
 
-@pytest.mark.parametrize("change", ["lk_seed", "batch_align_window"])
+@pytest.mark.parametrize("change", ["lk_seed"])
 def test_unported_batched_options_raise(lanes, change):
+    """The batched step needs the const-velocity seed, as the reference's."""
     _, L, R, tcfg, _, gp, gm = lanes
     Lt, Rt = torch.from_numpy(L), torch.from_numpy(R)
     c0 = step.init_carry_batched(Lt[:, 0], Rt[:, 0], gp, gm, (1, 2), tcfg)
-    if change == "lk_seed":
-        cfg = tcfg.replace(frontend=dataclasses.replace(tcfg.frontend, lk_seed="none"))
-        err = ValueError
-    else:
-        cfg = tcfg.replace(keyframes=dataclasses.replace(tcfg.keyframes, batch_align_window=2))
-        err = NotImplementedError
-    with pytest.raises(err):
+    cfg = tcfg.replace(frontend=dataclasses.replace(tcfg.frontend, lk_seed="none"))
+    with pytest.raises(ValueError):
         step_batched.run_sequence_batched(Lt[:, 1:2], Rt[:, 1:2], c0, gp, gm, cfg)
 
 

@@ -15,10 +15,16 @@ batched scan runs it.  Bounds:
   tests/test_torch_slam_slice.py (ids and validity equal, weights within
   1e-6, >= 99.9 % of packed descriptor words equal: ORB near-tie bits,
   H8);
+- the interleaved cadence's per-lane step (``_lc_scan_step_lane``, lane
+  fid % 2 on frame fid) against the JAX package's, jitted with the lane
+  static, over frames 0-15: the same bounds as the lane form;
 - ``run_offline_slam_batched`` against the single-lane run of each lane
   with the lane's key: equal accepted (query, match) sets, trajectories
   within 1e-4; each lane closes its revisit (query >= 68, match <= 12)
-  with post-PGO ATE below the odometry-only ATE and below 0.25 m.
+  with post-PGO ATE below the odometry-only ATE and below 0.25 m;
+- ``run_offline_slam_batched(interleave=True)``: lane 0 (phase 0) keeps the
+  lockstep run's accepted set, trajectories within 1e-4; lane 1 detects on
+  odd frames only and closes its revisit at an odd query frame.
 """
 
 import jax
@@ -98,7 +104,7 @@ def test_batched_detection_matches_jax_vmap(worlds_and_vocab):
         in_axes=(0, 0, None)))
     lcj = jax.tree.map(lambda x: jnp.broadcast_to(x[None], (B,) + x.shape),
                        jscan.init_lc_state(jcfg, voc.n_words))
-    lct = slam_scan.init_lc_state(tcfg, "cpu", lanes=B)
+    lct = slam_scan.init_lc_state(tcfg, device="cpu", lanes=B)
     n_candidates = 0
     for fid in range(0, 20, tcfg.loop.detect_every):
         lcj, sj = step_j(lcj, jnp.asarray(L[:, fid]), jnp.int32(fid))
@@ -111,16 +117,55 @@ def test_batched_detection_matches_jax_vmap(worlds_and_vocab):
         np.testing.assert_allclose(st.ns.numpy(), sj.ns, atol=1e-5)
         n_candidates += int((st.top_ids >= 0).sum())
     assert n_candidates > 10
+    _assert_databases_match(lct, lcj)
+    # the lane-stacked JAX database carries across as it is
+    j = jax.device_get(lcj)
+    back = convert.lc_state_to_numpy(convert.lc_state_from_numpy(j, "cpu"))
+    np.testing.assert_array_equal(back.db_bits, np.asarray(j.db_bits))
+    assert back.db_ids.shape == (B, tcfg.loop.db_capacity)
+
+
+def _assert_databases_match(lct, lcj):
+    """Final databases: ids and validity equal, weights within 1e-6, >= 99.9 %
+    of packed descriptor words equal (ORB near-tie bits, H8)."""
     j = jax.device_get(lcj)
     t = convert.lc_state_to_numpy(lct)
     for name in ("db_words", "db_pt_valid", "db_valid", "db_ids", "last_words", "have_last"):
         np.testing.assert_array_equal(getattr(t, name), np.asarray(getattr(j, name)), name)
     np.testing.assert_allclose(t.db_wvals, np.asarray(j.db_wvals), atol=1e-6)
     assert (t.db_bits == np.asarray(j.db_bits)).mean() >= 0.999
-    # the lane-stacked JAX database carries across as it is
-    back = convert.lc_state_to_numpy(convert.lc_state_from_numpy(j, "cpu"))
-    np.testing.assert_array_equal(back.db_bits, np.asarray(j.db_bits))
-    assert back.db_ids.shape == (B, tcfg.loop.db_capacity)
+
+
+def test_lane_detection_step_matches_jax(worlds_and_vocab):
+    """The interleaved cadence's per-lane step: lane fid % 2 detects on
+    frame fid (both lanes on frame 0), against the JAX package's
+    ``_lc_scan_step_lane`` on the same frames."""
+    _, L, _, voc, tvoc, jcfg, tcfg = worlds_and_vocab
+    centers, idf = tuple(voc.centers), jnp.asarray(voc.idf)
+    step_j = jax.jit(jscan._lc_scan_step_lane, static_argnames=("lane", "cfg", "vocab_k"))
+    lcj = jax.tree.map(lambda x: jnp.broadcast_to(x[None], (B,) + x.shape),
+                       jscan.init_lc_state(jcfg, voc.n_words))
+    lct = slam_scan.init_lc_state(tcfg, voc.n_words, "cpu", lanes=B)
+    every = tcfg.loop.detect_every
+    n_candidates = 0
+    for fid in range(16):
+        for b in range(B) if fid == 0 else [fid % every]:  # lane b's phase is b % every
+            assert slam_scan.lane_phase(b, every) == jscan.lane_phase(b, every)
+            lcj, sj = step_j(lcj, b, jnp.asarray(L[b, fid]), jnp.int32(fid), centers, idf, jcfg,
+                             voc.k)
+            lct, st = slam_scan._lc_scan_step_lane(lct, b, torch.from_numpy(L[b, fid]), fid,
+                                                   tvoc.packed(), tvoc.idf, tcfg, tvoc.k)
+            sj = jax.device_get(sj)
+            np.testing.assert_array_equal(st.top_ids.numpy(), sj.top_ids, err_msg=f"{fid} {b}")
+            np.testing.assert_allclose(st.top_scores.numpy(), sj.top_scores, atol=1e-5)
+            np.testing.assert_allclose(st.ns.numpy(), sj.ns, atol=1e-5)
+            n_candidates += int((st.top_ids >= 0).sum())
+    assert n_candidates > 10
+    _assert_databases_match(lct, lcj)
+    # each lane's ring holds frame 0 and the frames of its phase
+    ids = lct.db_ids.numpy()
+    assert set(ids[0][ids[0] >= 0]) == set(range(0, 16, 2))
+    assert set(ids[1][ids[1] >= 0]) == {0} | set(range(1, 16, 2))
 
 
 def _single_lane_slam(cfg, voc, L, R, key):
@@ -128,8 +173,8 @@ def _single_lane_slam(cfg, voc, L, R, key):
     gp, gm = pipeline._grid_for(cfg, "cpu")
     Lt, Rt = torch.from_numpy(L), torch.from_numpy(R)
     carry = step.init_carry(Lt[0], Rt[0], gp, gm, key, cfg)
-    lc, _ = slam_scan._lc_scan_step(slam_scan.init_lc_state(cfg, "cpu"), Lt[0], 0, voc.packed(),
-                                    voc.idf, cfg, voc.k)
+    lc, _ = slam_scan._lc_scan_step(slam_scan.init_lc_state(cfg, voc.n_words, "cpu"), Lt[0], 0,
+                                    voc.packed(), voc.idf, cfg, voc.k)
     (carry, lc), (fs, ls) = slam_scan.run_sequence_slam(
         Lt[1:], Rt[1:], carry, lc, gp, gm, voc.packed(), voc.idf, cfg, voc.k)
     return slam_scan._epilogue_one(cfg, lc, *(x.numpy() for x in ls),
@@ -137,11 +182,19 @@ def _single_lane_slam(cfg, voc, L, R, key):
                                    lambda fid: (Lt[fid], Rt[fid]))
 
 
-def test_batched_slam_lanes_match_single_lane(worlds_and_vocab):
-    worlds, L, R, _, tvoc, _, tcfg = worlds_and_vocab
+@pytest.fixture(scope="module")
+def lockstep_run(worlds_and_vocab):
+    """The lockstep batched run and the host reads it made."""
+    _, L, R, _, tvoc, _, tcfg = worlds_and_vocab
     reads = step.HOST_READS
     res = slam_scan.run_offline_slam_batched(tcfg, tvoc, L, R, device="cpu")
-    assert step.HOST_READS - reads == 2 * (N_FRAMES - 1)
+    return res, step.HOST_READS - reads
+
+
+def test_batched_slam_lanes_match_single_lane(worlds_and_vocab, lockstep_run):
+    worlds, L, R, _, tvoc, _, tcfg = worlds_and_vocab
+    res, n_reads = lockstep_run
+    assert n_reads == 2 * (N_FRAMES - 1)
     assert len(res) == B
     keys = step_batched.lane_keys(tcfg.seed, B)
     for b, r in enumerate(res):
@@ -161,11 +214,28 @@ def test_batched_slam_lanes_match_single_lane(worlds_and_vocab):
         assert ate < ate_odo and ate < 0.25, (b, ate, ate_odo)
 
 
-@pytest.mark.parametrize("kw", [dict(interleave=True)])
-def test_unported_batched_slam_options_raise(worlds_and_vocab, kw):
-    _, L, R, _, tvoc, _, tcfg = worlds_and_vocab
-    with pytest.raises(NotImplementedError):
-        slam_scan.run_offline_slam_batched(tcfg, tvoc, L[:, :2], R[:, :2], device="cpu", **kw)
+def test_interleaved_lanes(worlds_and_vocab, lockstep_run):
+    """``interleave=True``: lane 0 detects on even frames as in lockstep and
+    keeps its accepted set; lane 1 detects on odd frames and closes its
+    revisit at an odd query frame.  The odometry is the lockstep run's."""
+    worlds, L, R, _, tvoc, _, tcfg = worlds_and_vocab
+    reads = step.HOST_READS
+    res = slam_scan.run_offline_slam_batched(tcfg, tvoc, L, R, device="cpu", interleave=True)
+    assert step.HOST_READS - reads == 2 * (N_FRAMES - 1)
+    lock = lockstep_run[0]
+    assert [(q, m) for q, m, _ in res[0].loop_events] == \
+        [(q, m) for q, m, _ in lock[0].loop_events]
+    np.testing.assert_allclose(res[0].trajectory, lock[0].trajectory, atol=1e-4)
+    for b in range(B):
+        np.testing.assert_array_equal(res[b].trajectory_odo, lock[b].trajectory_odo)
+        np.testing.assert_array_equal(res[b].is_keyframe, lock[b].is_keyframe)
+    assert res[1].loop_events, "lane 1 must close its revisit"
+    for q, m, n_inl in res[1].loop_events:
+        assert q % 2 == 1 and n_inl >= tcfg.loop.geom_min_points, (q, m)
+    q, m, _ = res[1].loop_events[0]
+    assert q >= N_FRAMES - 8 - 4 and m <= 12, (q, m)
+    gt = worlds[1].poses[:N_FRAMES]
+    assert metrics.ate_rmse(res[1].trajectory, gt) < metrics.ate_rmse(res[1].trajectory_odo, gt)
 
 
 def test_batched_slam_rgb_seqs_colour_lanes(worlds_and_vocab):

@@ -136,7 +136,7 @@ def test_fid_start_continues_a_run(world_and_vocab):
 
     def start():
         carry = step.init_carry(Lt[0], Rt[0], gp, gm, tcfg.seed, tcfg)
-        lc, _ = slam_scan._lc_scan_step(slam_scan.init_lc_state(tcfg, "cpu"), Lt[0], 0, tree,
+        lc, _ = slam_scan._lc_scan_step(slam_scan.init_lc_state(tcfg, device="cpu"), Lt[0], 0, tree,
                                         idf, tcfg, tvoc.k)
         return carry, lc
 

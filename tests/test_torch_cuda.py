@@ -29,6 +29,10 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
 - K1b and K2b (the batched entry points of the same sources): K1's and
   K2's bounds against the lane loops of the plain versions, and bitwise
   equal, lane by lane, to the single-lane entry points (one kernel body).
+- K1 and K1b with freeze-polish (``walk_iters < iters``): K1's bounds, on
+  interior points and on points whose walk converges next to the right or
+  bottom border, where the polish anchor clamps and the clamped sample
+  must still move them; NaN guard rows around border points.
 """
 
 import numpy as np
@@ -472,3 +476,91 @@ def test_vocab_train_on_card_equals_cpu(cuda_device):
     for a, b in zip(on_card.centers, on_cpu.centers, strict=True):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
     assert torch.equal(on_card.idf.cpu(), on_cpu.idf)
+
+
+@pytest.mark.parametrize("window,walk,iters", [(15, 3, 8), (15, 2, 6), (21, 3, 8)])
+def test_polish_kernel_matches_plain_version(cuda_device, window, walk, iters):
+    args = [t.to(cuda_device) for t in _setup(window + walk + iters, 200)]
+    params = lk.LKParams(window=window, iters=iters, walk_iters=walk)
+    kg, kr, kok = lk_cuda.track_level(*args, params)
+    pg, pr, pok = lk._track_level(*args, params)
+    torch.cuda.synchronize()
+    assert torch.equal(kok, pok)
+    np.testing.assert_allclose(kg.cpu().numpy(), pg.cpu().numpy(), atol=5e-3)
+    np.testing.assert_allclose(kr.cpu().numpy(), pr.cpu().numpy(), atol=1e-2)
+    walk_only = lk_cuda.track_level(*args, params._replace(iters=walk))[0]
+    assert float((walk_only - kg).abs().max()) > 1e-3  # the polish steps ran
+
+
+def _converged_at_border(seed, window, shape=(96, 128)):
+    """Reference points whose true match in the current image (the image
+    moved by +1 px across the border) lies in [dim - S//2 - 2, dim - S//2 - 1):
+    the walk converges there at once and no tile clamps, but the polish
+    anchor does, and its clamped sample sits up to 1 px left of (above) the
+    match.  Half the points at the right border, half at the bottom."""
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    img = _smooth_noise_2d(shape, rng, octaves=4, base_period=16)
+    r = window // 2
+    n = 32
+    fx = rng.uniform(0.1, 0.9, n)
+    x = np.concatenate([W - r - 3 + fx[:16], rng.uniform(30, W - 30, 16)])
+    y = np.concatenate([rng.uniform(30, H - 30, 16), H - r - 3 + fx[16:]])
+    pts = np.stack([x, y], 1).astype(np.float32)
+    shift = np.concatenate([np.tile([1.0, 0.0], (16, 1)), np.tile([0.0, 1.0], (16, 1))])
+    cur_r = np.roll(img, 1, axis=1).astype(np.float32)
+    cur_b = np.roll(img, 1, axis=0).astype(np.float32)
+    return img, cur_r, cur_b, pts, (pts + shift).astype(np.float32)
+
+
+@pytest.mark.parametrize("window", [15, 21])
+def test_polish_kernel_runs_after_a_converged_walk(cuda_device, window):
+    img, cur_r, cur_b, pts, match = _converged_at_border(window, window)
+    params = lk.LKParams(window=window, iters=8, walk_iters=3)
+    for cur, sel in ((cur_r, slice(0, 16)), (cur_b, slice(16, 32))):
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+                for a in (img, cur, pts[sel], match[sel])]
+        kg, kr, kok = lk_cuda.track_level(*args, params)
+        pg, pr, pok = lk._track_level(*args, params)
+        torch.cuda.synchronize()
+        assert torch.equal(kok, pok) and bool(kok.all())
+        np.testing.assert_allclose(kg.cpu().numpy(), pg.cpu().numpy(), atol=5e-3)
+        np.testing.assert_allclose(kr.cpu().numpy(), pr.cpu().numpy(), atol=1e-2)
+        walk_only = lk_cuda.track_level(*args, params._replace(iters=3))[0]
+        assert float((walk_only - args[3]).abs().max()) < 1e-3  # the walk converged
+        assert float((kg - walk_only).abs().max(1).values.mean()) > 0.05  # polish moved them
+
+
+@pytest.mark.parametrize("window", [15, 21])
+def test_polish_kernel_border_points_read_inside_the_image(cuda_device, window):
+    """test_kernel_border_points_read_inside_the_image with freeze-polish."""
+    rng = np.random.default_rng(window + 1)
+    H, W = 96, 128
+    img = torch.from_numpy(_smooth_noise_2d((H, W), rng, octaves=4, base_period=16))
+    d = rng.uniform(0.0, window, 64)
+    x = np.concatenate([d[:16], W - 1 - d[16:32], rng.uniform(0, W - 1, 32)])
+    y = np.concatenate([rng.uniform(0, H - 1, 32), d[32:48], H - 1 - d[48:]])
+    pts = torch.from_numpy(np.stack([x, y], 1).astype(np.float32)).to(cuda_device)
+    pad = window + 4
+    guarded = torch.full(((H + 2 * pad) * W,), float("nan"), device=cuda_device)
+    inner = guarded[pad * W:(pad + H) * W].view(H, W)
+    inner.copy_(img)
+    params = lk.LKParams(window=window, iters=8, walk_iters=3)
+    kg, kr, kok = lk_cuda.track_level(inner, inner, pts, pts.clone(), params)
+    torch.cuda.synchronize()
+    assert torch.isfinite(kg).all() and torch.isfinite(kr).all()
+    assert float((kg - pts).abs().max()) < window
+
+
+def test_polish_batch_kernel_matches_plain_version(cuda_device):
+    args = [t.to(cuda_device) for t in _lanes((4, 5, 6), 200)]
+    params = lk.LKParams(window=15, iters=8, walk_iters=3)
+    kg, kr, kok = lk_cuda.track_level_batch(*args, params)
+    pg, pr, pok = lk_cuda.track_level_batch_plain(*args, params)
+    torch.cuda.synchronize()
+    assert torch.equal(kok, pok)
+    np.testing.assert_allclose(kg.cpu().numpy(), pg.cpu().numpy(), atol=5e-3)
+    np.testing.assert_allclose(kr.cpu().numpy(), pr.cpu().numpy(), atol=1e-2)
+    for b in range(3):  # each lane: the single-lane entry point, bitwise
+        sg, sr, sok = lk_cuda.track_level(*(t[b] for t in args), params)
+        assert torch.equal(sg, kg[b]) and torch.equal(sr, kr[b]) and torch.equal(sok, kok[b])

@@ -180,10 +180,9 @@ def test_candidate_gater_same_decisions():
     assert lc.group_islands(ids, scores) == jlc.group_islands(ids, scores)
 
 
-def test_epilogue_gater_same_accept_set(monkeypatch):
-    """Both packages' EpilogueGater on the same stats, geometry stubbed by
-    the same rule: the accepted (query, match, n_inliers) lists are equal,
-    across a block split that carries the cooldown."""
+def _gater_accept_sets(monkeypatch, phase: int):
+    """Both packages' EpilogueGater(phase=) over the same shortlists, with
+    detection rows on the frames of that phase; returns both accept lists."""
     kw = dict(dislocal=4, min_separation=20, cooldown=6, detect_every=2, alpha=0.3,
               min_nss=0.001, k_consistency=1, geom_min_points=12, db_capacity=64,
               max_db_results=8, orb_features=16)
@@ -210,14 +209,17 @@ def test_epilogue_gater_same_accept_set(monkeypatch):
     ids = np.full((n, K), -1, np.int32)
     scores = np.full((n, K), -1e9, np.float32)
     ns = np.full((n,), -1.0, np.float32)
-    for i in range(1, n, 2):  # detection rows (fid = i + 1 even)
+    for i in range(n):  # detection rows: fid = i + 1 of the gater's phase
         fid = i + 1
+        if fid % 2 != phase:
+            continue
         ids[i] = np.clip(fid - 40 + rng.integers(-2, 3, K), 0, None)
         scores[i] = np.sort(rng.random(K))[::-1].astype(np.float32)
         ns[i] = 0.5
-    gj, gt = jscan.EpilogueGater(cfg_j), slam_scan.EpilogueGater(cfg_t)
+    gj = jscan.EpilogueGater(cfg_j, phase=phase)
+    gt = slam_scan.EpilogueGater(cfg_t, key=None, phase=phase)
     lc_j = jscan.init_lc_state(cfg_j, 16)
-    lc_t = slam_scan.init_lc_state(cfg_t, "cpu")
+    lc_t = slam_scan.init_lc_state(cfg_t, device="cpu")
     acc_j, acc_t = [], []
     for s, e in ((0, 50), (50, n)):
         acc_j += gj.process(lc_j, ids[s:e], scores[s:e], ns[s:e], fid_start=1 + s)
@@ -225,6 +227,21 @@ def test_epilogue_gater_same_accept_set(monkeypatch):
         assert gj.cooldown == gt.cooldown
     assert [(a[0], a[1], a[4]) for a in acc_t] == [(a[0], a[1], a[4]) for a in acc_j]
     assert len(acc_t) >= 3
+    return acc_t
+
+
+def test_epilogue_gater_same_accept_set(monkeypatch):
+    """Both packages' EpilogueGater on the same stats, geometry stubbed by
+    the same rule: the accepted (query, match, n_inliers) lists are equal,
+    across a block split that carries the cooldown."""
+    _gater_accept_sets(monkeypatch, 0)
+
+
+def test_epilogue_gater_phase_matches_jax(monkeypatch):
+    """A lane of the interleaved cadence: ``phase=1`` gates the odd frames,
+    as the JAX gater does, and accepts only odd queries."""
+    acc = _gater_accept_sets(monkeypatch, 1)
+    assert all(a[0] % 2 == 1 for a in acc)
 
 
 def _circle(n, radius=10.0):

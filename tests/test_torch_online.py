@@ -217,7 +217,7 @@ def test_loop_detector_matches_jax_and_scan_step(world_and_vocab):
     det_t = lc.LoopDetector(tvoc, lcc, device="cpu")
     det_j = jlc.LoopDetector(vocab=voc, config=jcfg.loop)
     carried = None
-    scan_lc = slam_scan.init_lc_state(tcfg, "cpu")
+    scan_lc = slam_scan.init_lc_state(tcfg, device="cpu")
     tree = tvoc.packed()
     n_checked = 0
     for i in range(max(check) + 1):

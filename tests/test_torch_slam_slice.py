@@ -95,7 +95,7 @@ def detection(world_and_vocab):
     world, L, R, voc, jcfg, tcfg = world_and_vocab
     tvoc = convert.vocab_from_numpy(voc, "cpu")
     lcj = jscan.init_lc_state(jcfg, voc.n_words)
-    lct = slam_scan.init_lc_state(tcfg, "cpu")
+    lct = slam_scan.init_lc_state(tcfg, device="cpu")
     centers, idf = tuple(voc.centers), jnp.asarray(voc.idf)
     K = slam_scan._top_k_count(tcfg.loop)
     rows = {name: (np.full((N_FRAMES - 1, K), -1, np.int32),

@@ -11,7 +11,9 @@ where the JAX run's own per-frame position error against ground truth
 reaches 3.1 cm: each frame-to-frame motion must agree within 2 cm (1.1 cm
 measured), each position within 4 cm (2.0 cm measured), the ATEs within
 1 cm of each other and both under 0.10 m.  Two port runs with one seed
-must be bitwise equal.
+must be bitwise equal.  The seeded track with freeze-polish
+(``lk_seeded_walk_iters=3``) is held to the same bounds against the JAX
+package's run of that configuration.
 """
 
 import jax
@@ -69,18 +71,11 @@ def runs():
     return world, left, right, tcfg, jcfg, jres, tres
 
 
-def test_keyframes_and_tracking_identical(runs):
-    *_, jres, tres = runs
-    np.testing.assert_array_equal(tres[0].is_keyframe, jres.is_keyframe)
-    np.testing.assert_array_equal(tres[0].tracking_ok, jres.tracking_ok)
-    assert tres[0].tracking_ok.all()
-    # keyframes at frames 4 and 8 (stats start at frame 1)
-    assert list(np.nonzero(tres[0].is_keyframe)[0] + 1) == [4, 8]
-
-
-def test_positions_and_ate_close_to_jax(runs):
-    world, *_, jres, tres = runs
-    traj = tres[0].trajectory
+def _assert_close_to_jax(world, tres, jres):
+    np.testing.assert_array_equal(tres.is_keyframe, jres.is_keyframe)
+    np.testing.assert_array_equal(tres.tracking_ok, jres.tracking_ok)
+    assert tres.tracking_ok.all()
+    traj = tres.trajectory
     assert traj.shape == jres.trajectory.shape == (12, 4, 4)
     dpos = np.linalg.norm(traj[:, :3, 3] - jres.trajectory[:, :3, 3], axis=1)
     assert dpos.max() < POS_TOL_M, dpos
@@ -96,6 +91,35 @@ def test_positions_and_ate_close_to_jax(runs):
     ate_j = metrics.ate_rmse(jres.trajectory, world.poses)
     assert ate_t < 0.10 and ate_j < 0.10, (ate_t, ate_j)
     assert abs(ate_t - ate_j) < 0.01, (ate_t, ate_j)
+
+
+def test_keyframes_and_tracking_identical(runs):
+    *_, jres, tres = runs
+    np.testing.assert_array_equal(tres[0].is_keyframe, jres.is_keyframe)
+    np.testing.assert_array_equal(tres[0].tracking_ok, jres.tracking_ok)
+    assert tres[0].tracking_ok.all()
+    # keyframes at frames 4 and 8 (stats start at frame 1)
+    assert list(np.nonzero(tres[0].is_keyframe)[0] + 1) == [4, 8]
+
+
+def test_positions_and_ate_close_to_jax(runs):
+    world, *_, jres, tres = runs
+    _assert_close_to_jax(world, tres[0], jres)
+
+
+def test_seeded_polish_matches_jax(runs):
+    """``lk_seeded_walk_iters=3``: the seeded track's last iterations take
+    the freeze-polish phase (K1's plain version here), in both packages."""
+    import dataclasses
+
+    world, left, right, tcfg, jcfg, _, tres = runs
+    tcfg = tcfg.replace(frontend=dataclasses.replace(tcfg.frontend, lk_seeded_walk_iters=3))
+    jcfg = jcfg.replace(frontend=dataclasses.replace(jcfg.frontend, lk_seeded_walk_iters=3))
+    assert tcfg.frontend.lk_seeded_iters > 3
+    jres = jpipe.run_offline(jcfg, left, right)
+    res = pipeline.run_offline(tcfg, left, right, device="cpu", block=False)
+    _assert_close_to_jax(world, res, jres)
+    assert not np.array_equal(res.trajectory, tres[0].trajectory)  # the polish ran
 
 
 def test_same_seed_bitwise_identical(runs):

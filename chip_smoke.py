@@ -85,7 +85,9 @@ Phases (any failure exits non-zero and prints no result line):
     tracks of the grid), and the card against the CPU on the same index
     sets, on those tracks and on exact correspondences;
 19. multichip: config 5 at world size 1 (a one-rank NCCL group on
-    ``cuda:0``): landmark-sharded BA, edge- and chain-sharded PGO and the
+    ``cuda:0``): the points-sharded odometry step on corridor frames
+    0 -> 1 (768 points; its collectives and K1 launches counted),
+    landmark-sharded BA, edge- and chain-sharded PGO and the
     sharded store's rewrite and gather at full width, and
     ``StereoSLAM(preset_distributed(1), mesh=...)`` over phase ba's frames,
     each bitwise equal to its single-device call, with K1/K2/K3 launches,
@@ -2614,11 +2616,16 @@ def _collective_costs(torch, mesh, pgo, pc, dev) -> dict:
     return {"ops": ops, "gn_step": gn}
 
 
-def phase_multichip(torch, voc, rl, rr, cam, dev, ba_stream: dict, smi: str) -> dict:
+def phase_multichip(torch, voc, rl, rr, cam, dev, ba_stream: dict, smi: str,
+                    corridor: tuple) -> dict:
     """Config 5 at world size 1 on the card: a one-rank NCCL group (a
     HashStore, no environment, no port) from ``preset_distributed(1)`` and
     every sharded function at full width against its single-device call,
-    bit for bit: landmark-sharded BA (W = 8, N = 2,048), edge- and
+    bit for bit: the points-sharded odometry step on the corridor's frames
+    0 -> 1 (`corridor`: their left and right images; 768 points, K1 on the
+    rank's block) with identically seeded generators, the collectives it
+    makes counted and its K1 launches counted on their own path;
+    landmark-sharded BA (W = 8, N = 2,048), edge- and
     chain-sharded PGO (F = 4,608, L = 64, 10 x 128 CG), the sharded store
     (K = 512 x 1,536) rewritten and gathered, one float64 all-reduce of
     BA's reduced system (48 x 48), and StereoSLAM(preset_distributed(1),
@@ -2634,7 +2641,9 @@ def phase_multichip(torch, voc, rl, rr, cam, dev, ba_stream: dict, smi: str) -> 
     from ros_stereo_slam_tpu_torch.models import bundle_adjust, pose_graph, slam
     from ros_stereo_slam_tpu_torch.models.state import KeyframeStore
     from ros_stereo_slam_tpu_torch.parallel import dist_ba, dist_map, dist_pgo, dryrun
-    from ros_stereo_slam_tpu_torch.parallel.mesh import all_gather, mesh_from_config, psum
+    from ros_stereo_slam_tpu_torch.parallel.mesh import (
+        COLLECTIVES, all_gather, mesh_from_config, psum,
+    )
 
     def timed(fn, reps: int = MC_REPS):
         """The last result of `reps` warm calls (after one cold call) and
@@ -2658,6 +2667,20 @@ def phase_multichip(torch, voc, rl, rr, cam, dev, ba_stream: dict, smi: str) -> 
     try:
         mesh = mesh_from_config(cfg.parallel, dev)
         out, ms = {}, {}
+        # -- the points-sharded odometry step ------------------------------
+        (c_left, c_right) = corridor
+        odo_in = dryrun.odometry_inputs(cfg, c_left[0], c_right[0], c_left[1], dev)
+        odo_n = odo_in[2].pts2d.shape[0]
+        _kernel_counts(reset=True)
+        before = COLLECTIVES.copy()
+        odo = dryrun.run_odometry(mesh, cfg, odo_in)
+        torch.cuda.synchronize()
+        odo_counts, odo_coll = _kernel_counts(), COLLECTIVES - before
+        odo_single, ms["odometry_single"] = timed(lambda: dryrun.run_odometry(None, cfg, odo_in))
+        odo_again, ms["odometry_sharded"] = timed(lambda: dryrun.run_odometry(mesh, cfg, odo_in))
+        out["odometry"] = same(odo, odo_single) and same(odo_again, odo_single)
+        check(int(odo_single.n_inliers) > 100 and bool(torch.isfinite(odo_single.T_wc).all()),
+              f"multichip: the odometry step kept {int(odo_single.n_inliers)} inliers")
         # -- landmark-sharded BA -------------------------------------------
         bc = BAConfig()
         prob = dryrun.ba_problem(bc.window, bc.max_landmarks, 5, dev)
@@ -2726,6 +2749,15 @@ def phase_multichip(torch, voc, rl, rr, cam, dev, ba_stream: dict, smi: str) -> 
         cost = _collective_costs(torch, mesh, args, pc, dev)
     finally:
         dist.destroy_process_group()
+    log(f"[{smi}] multichip odometry: dist_frontend.odometry_step_sharded on corridor frames "
+        f"0 -> 1 at {c_left.shape[2]}x{c_left.shape[1]}, {odo_n} points, one-rank NCCL group, "
+        f"sharded {ms['odometry_sharded']:.3f} ms / single frontend.odometry_step "
+        f"{ms['odometry_single']:.3f} ms (median of {MC_REPS} warm calls, host clock); "
+        f"collectives a step: {odo_coll['all_gather']} all_gather + {odo_coll['all_reduce']} "
+        f"all_reduce ({sum(odo_coll.values())} in all); K1 launches on this path "
+        f"{odo_counts['k1']}; n_tracked {int(odo.n_tracked)}, n_inliers {int(odo.n_inliers)}; "
+        f"bitwise the single call (pose, tracked points, mask, counts): {out['odometry']}; "
+        f"world size > 1 not run: NCCL takes one GPU per rank and this host has one")
     log(f"[{smi}] multichip: one-rank NCCL group; ms (median of {MC_REPS} warm calls, host "
         f"clock) sharded / single: BA W={bc.window} N={bc.max_landmarks} "
         f"{ms['ba_sharded']:.3f} / {ms['ba_single']:.3f}; PGO F={pc.max_poses} "
@@ -2752,7 +2784,9 @@ def phase_multichip(torch, voc, rl, rr, cam, dev, ba_stream: dict, smi: str) -> 
         check(ok, f"multichip: {name} differs from its single-device call")
     for k in ("k1", "k2", "k3"):
         check(counts[k] > 0, f"multichip: StereoSLAM(mesh=...) launched no {k} kernel")
+    check(odo_counts["k1"] > 0, "multichip: the points-sharded odometry step launched no K1")
     return {"ms": ms, "allreduce_ms": ar_ms, "fps": nf / t_s, "counts": counts,
+            "odometry_counts": odo_counts, "odometry_collectives": dict(odo_coll),
             "store_mb": store_mb, "cost": cost}
 
 
@@ -3085,7 +3119,8 @@ def main() -> int:
         sd = timed("stereo_depth", phase_stereo_depth, torch, left, right, depths[0], cam, dev,
                    smi)
         es = timed("essential", phase_essential, torch, left, depths[0], poses, cam, dev, smi)
-        mc = timed("multichip", phase_multichip, torch, voc, rl, rr, cam, dev, ba["stream"], smi)
+        mc = timed("multichip", phase_multichip, torch, voc, rl, rr, cam, dev, ba["stream"], smi,
+                   (left[:2], right[:2]))
         cl = timed("cli", phase_cli, torch, left, right, rgb8, poses, rl, rr, rgt, dev, smi)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
@@ -3121,7 +3156,9 @@ def main() -> int:
     # K1's launches are counted on the corridor slice, K2's and K3's on full
     # SLAM, K1b's on the batched odometry and K2b's on batched full SLAM.
     # No single PyTorch call computes any of them, so library_ms is null.
-    # launches_by_path: each path's count, its counters set to 0 before it.
+    # launches_by_path: each path's count, its counters set to 0 before it;
+    # multichip adds phase multichip's two paths (StereoSLAM(mesh=) and the
+    # points-sharded odometry step, multichip_odometry on its own).
     # ms is the time of a wrapper call (CUDA events around it, host work
     # included), device_ms the kernel's own (bare launches back to back),
     # launch_floor_ms an empty kernel's, taken the same way; device_ms_spaced_hot
@@ -3134,7 +3171,9 @@ def main() -> int:
           "online_stream": on["stream"]["counts"]["k1"], "mapping": mp["launches"],
           "ba": ba["offline"]["counts"]["k1"], "ba_stream": ba["stream"]["counts"]["k1"],
           "reference_frontend": rf["counts"]["k1"], "orb_stereo": ob["counts"]["k1"],
-          "essential": es["k1"], "multichip": mc["counts"]["k1"], "cli": cl["counts"]["k1"],
+          "essential": es["k1"],
+          "multichip": mc["counts"]["k1"] + mc["odometry_counts"]["k1"],
+          "multichip_odometry": mc["odometry_counts"]["k1"], "cli": cl["counts"]["k1"],
           "polish": po["counts"]["k1"], "lane_cadences": lcd["counts"]["k1"]}),
         ("orb_desc", "orb_desc", "orb_pallas.py:84", sm["counts"]["orb_desc"], k2,
          {"slam": sm["counts"]["orb_desc"], "online_stream": on["stream"]["counts"]["k2"],

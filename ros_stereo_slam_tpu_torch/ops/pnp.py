@@ -15,6 +15,10 @@ axis B, :func:`pnp_ransac` takes one generator per lane (each lane draws
 its own index sets, as its single-lane run would) and
 :func:`_pnp_from_sets` solves all lanes at once; the retry ladder and
 ``used_retry`` are per lane.
+
+Points sharded over a mesh (config 5, ``parallel/dist_frontend.py``):
+:func:`_pnp_from_sets` with a `mesh` splits the scoring and the
+Gauss-Newton normal equations by points; see its docstring.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from ros_stereo_slam_tpu_torch.ops import linalg
 from ros_stereo_slam_tpu_torch.ops.ransac import _sample_minimal_sets
+from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, psum, psum_many, shard_bounds
 from ros_stereo_slam_tpu_torch.utils import lie
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
 
@@ -123,6 +128,7 @@ def _gn_refine(
     iters: int,
     huber_px: float = 2.0,
     damping: float = 1e-4,
+    mesh: Mesh | None = None,
 ) -> torch.Tensor:
     """Huber-IRLS Gauss-Newton on SE(3), batched over leading dimensions:
     T0 (..., 4, 4), X (..., N, 3), uv (..., N, 2), weights_mask (..., N).
@@ -133,6 +139,10 @@ def _gn_refine(
     last-bit difference into a different inlier set a few frames later.
     In float64 those differences stay far below float32's rounding, so a
     lane's pose does not depend on how many lanes run beside it.
+
+    With a `mesh`, X, uv and weights_mask are this rank's points: the
+    normal equations (H, b) are summed over the ranks in one all-reduce
+    a step, and the solve runs replicated.
     """
     out_dtype = T0.dtype
     T0, X, uv, weights_mask = (a.to(torch.float64) for a in (T0, X, uv, weights_mask))
@@ -164,9 +174,11 @@ def _gn_refine(
         # Normal equations as products and sums over (point, row): two
         # launches each, where einsum's batched product also copies its
         # operands into the product's layout.
-        H = (Jw[..., :, None] * J[..., None, :]).sum((-4, -3)) + damping * eye6
+        H = (Jw[..., :, None] * J[..., None, :]).sum((-4, -3))
         b = (Jw * r[..., None]).sum((-3, -2))
-        dxi = linalg.spd_solve(H, -b)
+        if mesh is not None:
+            H, b = psum_many(mesh, H, b)
+        dxi = linalg.spd_solve(H + damping * eye6, -b)
         T = lie.exp_se3(dxi) @ T
     return T.to(out_dtype)
 
@@ -184,12 +196,22 @@ def _pnp_from_sets(
     retry_thresh_px: float | None = None,
     min_inliers: int = 0,
     huber_px: float = 0.5,
+    mesh: Mesh | None = None,
 ) -> PnPResult:
     """The PnP solve on given minimal sets: `idx` (K, 6) for the DLT
     family, `idx2` (K2, 8) for the prior-seeded GN family (used iff
     `T_init` is given).  Lane form: idx (B, K, 6), idx2 (B, K2, 8), pts3d
-    (B, N, 3), uv (B, N, 2), mask (B, N), T_init (B, 4, 4)."""
+    (B, N, 3), uv (B, N, 2), mask (B, N), T_init (B, 4, 4).
+
+    With a `mesh` every rank passes the whole point set; the hypotheses
+    are fitted replicated, each rank scores and refines on its block of
+    points (``shard_bounds``), the counts are summed over the ranks, and
+    `inliers` and `errors` are this rank's block.
+    """
     lanes = mask.dim() == 2
+    cols = slice(None) if mesh is None else shard_bounds(mask.shape[-1], mesh, "points")
+    # this rank's points (all of them without a mesh)
+    X, x2, m = pts3d[..., cols, :], uv[..., cols, :], mask[..., cols]
     # the GN steps' float64 points, converted once for the three GN calls
     X64, uv64 = pts3d.to(torch.float64), uv.to(torch.float64)
     xn = torch.stack([(uv[..., 0] - cam.cx) / cam.fx,
@@ -206,19 +228,24 @@ def _pnp_from_sets(
 
     # (K, N) errors of every hypothesis at every point
     if lanes:
-        err = _reproj_errors(cam, Rk, tk, pts3d[:, None], uv[:, None])
+        err = _reproj_errors(cam, Rk, tk, X[:, None], x2[:, None])
     else:
-        err = _reproj_errors(cam, Rk, tk, pts3d, uv)
-    inl = (err < thresh_px) & mask[..., None, :]
+        err = _reproj_errors(cam, Rk, tk, X, x2)
+    inl = (err < thresh_px) & m[..., None, :]
     counts = inl.sum(-1)
+    if mesh is not None:
+        counts = psum(counts, mesh)
     best = torch.argmax(counts, dim=-1)
     # Retry ladder folded into one pass: if the tight threshold starves,
     # pick (and gate) by the loose one over the SAME hypothesis set.
     use_thresh = thresh_px
     starved = torch.zeros(best.shape, dtype=torch.bool, device=pts3d.device)
     if retry_thresh_px is not None:
-        inl_r = (err < retry_thresh_px) & mask[..., None, :]
-        best_r = torch.argmax(inl_r.sum(-1), dim=-1)
+        inl_r = (err < retry_thresh_px) & m[..., None, :]
+        counts_r = inl_r.sum(-1)
+        if mesh is not None:
+            counts_r = psum(counts_r, mesh)
+        best_r = torch.argmax(counts_r, dim=-1)
         starved = _rows(counts, best, lanes) < min_inliers
         best = torch.where(starved, best_r, best)
         use_thresh = torch.where(starved, float(retry_thresh_px),
@@ -228,18 +255,20 @@ def _pnp_from_sets(
 
     # GN polish on the best hypothesis' inliers (Huber tighter than the
     # gate), re-score, one more round on the expanded set, final score.
+    X64, uv64 = X64[..., cols, :], uv64[..., cols, :]
     T = _gn_refine(cam, T, X64, uv64, _rows(inl, best, lanes).to(torch.float64), refine_iters,
-                   huber_px=huber_px)
-    final_err = _reproj_errors(cam, T[..., :3, :3], T[..., :3, 3], pts3d, uv)
-    final_inl = (final_err < use_thresh) & mask
+                   huber_px=huber_px, mesh=mesh)
+    final_err = _reproj_errors(cam, T[..., :3, :3], T[..., :3, 3], X, x2)
+    final_inl = (final_err < use_thresh) & m
     T = _gn_refine(cam, T, X64, uv64, final_inl.to(torch.float64), refine_iters,
-                   huber_px=huber_px)
-    final_err = _reproj_errors(cam, T[..., :3, :3], T[..., :3, 3], pts3d, uv)
-    final_inl = (final_err < use_thresh) & mask
+                   huber_px=huber_px, mesh=mesh)
+    final_err = _reproj_errors(cam, T[..., :3, :3], T[..., :3, 3], X, x2)
+    final_inl = (final_err < use_thresh) & m
+    n_inliers = final_inl.sum(-1)
     return PnPResult(
         T_cw=T,
         inliers=final_inl,
-        n_inliers=final_inl.sum(-1),
+        n_inliers=n_inliers if mesh is None else psum(n_inliers, mesh),
         errors=final_err,
         used_retry=starved,
     )

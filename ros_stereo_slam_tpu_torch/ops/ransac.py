@@ -10,6 +10,10 @@ Sampling is split from solving, as for PnP: :func:`fmat_ransac` draws
 the index sets from a ``torch.Generator`` and hands them to
 :func:`_fmat_from_sets`, so a test can feed the solver index sets drawn
 by the JAX reference (whose random streams torch cannot reproduce).
+
+Points sharded over a mesh (config 5, ``parallel/dist_frontend.py``):
+:func:`_fmat_from_sets` with a `mesh` splits only the (K, N) Sampson
+scoring by points; see its docstring.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ros_stereo_slam_tpu_torch.ops import linalg
+from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, all_gather, psum, shard_bounds
 
 
 class FRansacResult(NamedTuple):
@@ -96,9 +101,18 @@ def sampson_distance(F: torch.Tensor, p1h: torch.Tensor, p2h: torch.Tensor) -> t
 
 
 def _fmat_from_sets(idx: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor,
-                    mask: torch.Tensor, thresh_px: float = 1.0) -> FRansacResult:
-    """The F-matrix solve on given (K, 8) minimal sets."""
+                    mask: torch.Tensor, thresh_px: float = 1.0,
+                    mesh: Mesh | None = None) -> FRansacResult:
+    """The F-matrix solve on given (K, 8) minimal sets.
+
+    With a `mesh` every rank passes the whole point set and scores only
+    its block of columns (``shard_bounds``); the per-hypothesis counts are
+    summed over the ranks and the best hypothesis' errors gathered, so the
+    normalisation, the fits, the refit and its guard run replicated on
+    whole rows and every rank returns the single call's result.
+    """
     n = pts1.shape[0]
+    cols = slice(None) if mesh is None else shard_bounds(n, mesh, "points")
     T1 = _build_T(*_normalization_stats(pts1, mask))
     T2 = _build_T(*_normalization_stats(pts2, mask))
     p1n = pts1 * T1[0, 0] + T1[:2, 2][None, :]
@@ -110,24 +124,30 @@ def _fmat_from_sets(idx: torch.Tensor, pts1: torch.Tensor, pts2: torch.Tensor,
     p1h = torch.cat([pts1, ones], dim=1)
     p2h = torch.cat([pts2, ones], dim=1)
     thr2 = thresh_px**2
-    err = sampson_distance(F, p1h, p2h)  # (K, N)
-    inl = (err < thr2) & mask[None, :]
+    err = sampson_distance(F, p1h[cols], p2h[cols])  # (K, N), a mesh: (K, N / D)
+    inl = (err < thr2) & mask[None, cols]
     counts = inl.sum(1)
+    if mesh is not None:
+        counts = psum(counts, mesh)
     best = torch.argmax(counts)
+    err_best, inl_best = err[best], inl[best]
+    if mesh is not None:
+        err_best = all_gather(err_best, mesh)
+        inl_best = (err_best < thr2) & mask
 
     # Least-squares refit on the best inlier set, kept only if it loses no
     # inliers (the reference's degenerate guard).
-    Fn_refit = _weighted_refit(p1n, p2n, inl[best].to(pts1.dtype))
+    Fn_refit = _weighted_refit(p1n, p2n, inl_best.to(pts1.dtype))
     F_refit = T2.T @ Fn_refit @ T1
     err_refit = sampson_distance(F_refit, p1h, p2h)
     inl_refit = (err_refit < thr2) & mask
     better = inl_refit.sum() >= counts[best]
-    best_inl = torch.where(better, inl_refit, inl[best])
+    best_inl = torch.where(better, inl_refit, inl_best)
     return FRansacResult(
         F=torch.where(better, F_refit, F[best]),
         inliers=best_inl,
         n_inliers=best_inl.sum(),
-        errors=torch.where(better, err_refit, err[best]),
+        errors=torch.where(better, err_refit, err_best),
     )
 
 

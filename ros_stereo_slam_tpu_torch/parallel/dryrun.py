@@ -6,15 +6,19 @@
 Without ``torchrun`` it starts D ranks itself (a file store in a temporary
 directory).  On the card each rank needs a GPU of its own (NCCL); ``--device
 cpu`` runs the ranks on gloo.  The steps, those of the JAX package's
-``__graft_entry__.dryrun_multichip`` (its first step, one frame's points
-sharded by XLA's partitioner, has no counterpart here):
+``__graft_entry__.dryrun_multichip``:
 
-1. landmark-sharded BA (:func:`.dist_ba.ba_solve_sharded`);
-2. edge-sharded PGO (:func:`.dist_pgo.optimize_sharded`);
-3. chain-sharded PGO against the edge-sharded result (atol 1e-3);
-4. the sharded keyframe store and its block-local rewrite (the blocks,
+1. the points-sharded odometry step
+   (:func:`.dist_frontend.odometry_step_sharded`, one small world's frames
+   0 -> 1 after the single-device stereo bootstrap, a multiple of D
+   points) against the single call on every rank: the same counts and
+   inliers, the pose within ``ODO_ATOL``, and bit for bit at world size 1;
+2. landmark-sharded BA (:func:`.dist_ba.ba_solve_sharded`);
+3. edge-sharded PGO (:func:`.dist_pgo.optimize_sharded`);
+4. chain-sharded PGO against the edge-sharded result (atol 1e-3);
+5. the sharded keyframe store and its block-local rewrite (the blocks,
    gathered, bitwise the whole store's rewrite);
-5. fleet lanes over the ranks: rank d runs lanes ``[d*B/D, (d+1)*B/D)``
+6. fleet lanes over the ranks: rank d runs lanes ``[d*B/D, (d+1)*B/D)``
    of a B-lane batch through ``step_batched.run_sequence_batched``, each
    lane's generators keyed by its global index
    (``step_batched.lane_keys(seed, B)[b]``), so every lane is the
@@ -37,16 +41,58 @@ import torch.distributed as dist
 
 from ros_stereo_slam_tpu_torch.config import FrontendConfig, preset_distributed, preset_odometry
 from ros_stereo_slam_tpu_torch.data.synthetic import small_world
-from ros_stereo_slam_tpu_torch.models import pose_graph, step, step_batched
+from ros_stereo_slam_tpu_torch.models import frontend, pose_graph, step, step_batched
 from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for
 from ros_stereo_slam_tpu_torch.models.state import KeyframeStore
-from ros_stereo_slam_tpu_torch.parallel import dist_ba, dist_map, dist_pgo
+from ros_stereo_slam_tpu_torch.parallel import dist_ba, dist_frontend, dist_map, dist_pgo
 from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, all_gather, mesh_from_config
 from ros_stereo_slam_tpu_torch.utils import lie
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
 
 LANES_PER_RANK = 1
 LANE_FRAMES = 2
+ODO_POINTS = 512  # grid slots of the odometry step, rounded up to a multiple of D
+ODO_SEED = 1
+ODO_ATOL = 1e-5
+
+
+def odometry_inputs(cfg, left0, right0, left1, device, seed: int = 0) -> tuple:
+    """odometry_step's inputs for frames 0 -> 1: both left pyramids and
+    the track of frame 0's single-device stereo bootstrap (identity pose,
+    the generator seeded with `seed`), and the camera."""
+    fe, c = cfg.frontend, cfg.camera
+    ref_pyr, right_pyr, cur_pyr = (frontend.preprocess(torch.as_tensor(im).to(device),
+                                                       fe.lk_levels)
+                                   for im in (left0, right0, left1))
+    gp, gm = _grid_for(cfg, device)
+    cam = Pinhole(c.fx, c.fy, c.cx, c.cy)
+    track, _ = frontend.stereo_bootstrap(
+        ref_pyr, right_pyr, gp, gm, torch.eye(4, device=device),
+        torch.Generator(device=device).manual_seed(seed), cam, c.baseline,
+        cfg.keyframes.max_depth, fe)
+    return ref_pyr, cur_pyr, track, cam
+
+
+def odometry_problem(D: int, device) -> tuple:
+    """The config and :func:`odometry_inputs` of one small world's frames
+    0 -> 1, with ODO_POINTS grid slots rounded up to a multiple of D."""
+    world = small_world(n_frames=2, seed=9)
+    fe = FrontendConfig(grid_step=16, max_points=-(-ODO_POINTS // D) * D)
+    cfg = preset_odometry().replace(camera=world.camera, frontend=fe)
+    (l0, r0, _), (l1, _, _) = world.render(0), world.render(1)
+    return cfg, odometry_inputs(cfg, l0, r0, l1, device)
+
+
+def run_odometry(mesh: Mesh | None, cfg, inputs: tuple):
+    """The odometry step on `inputs` (:func:`odometry_inputs`), points-sharded
+    over `mesh` or, with None, the single call; the generator seeded with
+    ODO_SEED."""
+    ref_pyr, cur_pyr, track, cam = inputs
+    gen = torch.Generator(device=track.pts2d.device).manual_seed(ODO_SEED)
+    args = (ref_pyr, cur_pyr, track, gen, cam, cfg.pnp.thresh_px, cfg.frontend, cfg.pnp)
+    if mesh is None:
+        return frontend.odometry_step(*args)
+    return dist_frontend.odometry_step_sharded(mesh, *args)
 
 
 def ba_problem(W: int, N: int, seed: int, device) -> tuple:
@@ -148,20 +194,36 @@ def run(mesh: Mesh) -> dict:
     D, dev = mesh.size, mesh.device
     out = {}
 
-    # 1) landmark-sharded BA
+    # 1) points-sharded odometry step, against the single call
+    cfg, inputs = odometry_problem(D, dev)
+    odo = run_odometry(mesh, cfg, inputs)
+    one = run_odometry(None, cfg, inputs)
+    blk = slice(mesh.rank * odo.mask.shape[0], (mesh.rank + 1) * odo.mask.shape[0])
+    _check(bool(torch.isfinite(odo.T_wc).all()), "non-finite pose from the sharded step")
+    _check(int(odo.n_inliers) == int(one.n_inliers) > 0
+           and int(odo.n_tracked) == int(one.n_tracked)
+           and torch.equal(odo.mask, one.mask[blk]) and torch.equal(odo.tracked, one.tracked[blk]),
+           "the sharded odometry step's inliers differ from the single call's")
+    diff = float((odo.T_cw - one.T_cw).abs().max())
+    _check(diff == 0.0 if D == 1 else diff <= ODO_ATOL,
+           f"the sharded odometry pose {diff} from the single call's")
+    out.update(odo_T_cw=odo.T_cw, odo_tracked=odo.tracked, odo_mask=odo.mask,
+               odo_n_inliers=odo.n_inliers, odo_n_tracked=odo.n_tracked)
+
+    # 2) landmark-sharded BA
     res = dist_ba.ba_solve_sharded(mesh, *ba_problem(4, 64 * D, 1, dev), iters=2)
     _check(bool(torch.isfinite(res.T_cw).all() & torch.isfinite(res.landmarks).all()),
            "non-finite BA result")
     out.update(ba_T_cw=res.T_cw, ba_landmarks=res.landmarks, ba_rms=res.rms_after)
 
-    # 2) edge-sharded PGO
+    # 3) edge-sharded PGO
     F = max(16, 2 * D)
     F = -(-F // D) * D
     args = chain_problem(F, dev)
     edge = dist_pgo.optimize_sharded(mesh, *args, iters=2, cg_iters=16)
     _check(bool(torch.isfinite(edge).all()), "non-finite edge-sharded PGO")
 
-    # 3) chain-sharded PGO (O(F/D) per rank) against the edge-sharded result
+    # 4) chain-sharded PGO (O(F/D) per rank) against the edge-sharded result
     blk = dist_pgo.optimize_chain_sharded(mesh, *args, iters=2, cg_iters=16)
     _check(blk.shape == (F // D, 4, 4), f"chain-sharded block {tuple(blk.shape)}")
     chain = all_gather(blk, mesh)
@@ -169,7 +231,7 @@ def run(mesh: Mesh) -> dict:
     _check(diff <= 1e-3, f"chain-sharded PGO {diff} from the edge-sharded")
     out.update(pgo_edge=edge, pgo_chain=chain)
 
-    # 4) the sharded store and its block-local rewrite
+    # 5) the sharded store and its block-local rewrite
     K = 2 * D
     kf = KeyframeStore.empty(K, 32, dev)
     g = torch.Generator().manual_seed(3)
@@ -184,7 +246,7 @@ def run(mesh: Mesh) -> dict:
            "the sharded rewrite differs from the whole store's")
     out.update(rewrite=pts)
 
-    # 5) fleet lanes over the ranks
+    # 6) fleet lanes over the ranks
     B = LANES_PER_RANK * D
     cfg, L, R = lanes_problem(B, dev)
     lanes = range(mesh.rank * LANES_PER_RANK, (mesh.rank + 1) * LANES_PER_RANK)

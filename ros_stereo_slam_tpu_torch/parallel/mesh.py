@@ -13,18 +13,24 @@ package's ``axis_name`` and ``lax.axis_index`` become the mesh itself and
 ``mesh.rank``.  On the card the group must be NCCL's, one GPU per rank;
 on the CPU (tests, the dry run) gloo's.  Nothing falls back from one to
 the other: a mismatch raises.
+
+``COLLECTIVES`` counts the calls each collective made (a ``ppermute`` at
+world size 1 makes none), as the kernel wrappers count launches.
 """
 
 from __future__ import annotations
 
 import math
 import os
+from collections import Counter
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
 
 from ros_stereo_slam_tpu_torch.config import ParallelConfig
+
+COLLECTIVES: Counter = Counter()  # calls per collective ("all_reduce", ...)
 
 
 @dataclass(frozen=True)
@@ -78,6 +84,7 @@ def psum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     rank reaches every call, in the same order; at world size 1 the sum of
     one term is `x` itself, bit for bit."""
     y = x.clone(memory_format=torch.contiguous_format)
+    COLLECTIVES["all_reduce"] += 1
     dist.all_reduce(y)
     return y
 
@@ -97,6 +104,7 @@ def ppermute(x: torch.Tensor, mesh: Mesh, shift: int = 1) -> torch.Tensor:
         return x
     send = x.contiguous()
     recv = torch.empty_like(send)
+    COLLECTIVES["ppermute"] += 1
     ops = [dist.P2POp(dist.isend, send, (mesh.rank + shift) % mesh.size),
            dist.P2POp(dist.irecv, recv, (mesh.rank - shift) % mesh.size)]
     for work in dist.batch_isend_irecv(ops):
@@ -109,6 +117,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     axis shard made whole).  bool travels as uint8."""
     wire = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
     parts = [torch.empty_like(wire) for _ in range(mesh.size)]
+    COLLECTIVES["all_gather"] += 1
     dist.all_gather(parts, wire)
     out = torch.cat(parts)
     return out.to(torch.bool) if x.dtype == torch.bool else out

@@ -33,6 +33,9 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
   interior points and on points whose walk converges next to the right or
   bottom border, where the polish anchor clamps and the clamped sample
   must still move them; NaN guard rows around border points.
+- The points-sharded odometry step (``parallel/dist_frontend.py``) on a
+  one-rank NCCL group at the corridor's shapes (1241x376, 768 points):
+  bitwise ``frontend.odometry_step`` with the same seed, through K1.
 """
 
 import numpy as np
@@ -564,3 +567,34 @@ def test_polish_batch_kernel_matches_plain_version(cuda_device):
     for b in range(3):  # each lane: the single-lane entry point, bitwise
         sg, sr, sok = lk_cuda.track_level(*(t[b] for t in args), params)
         assert torch.equal(sg, kg[b]) and torch.equal(sr, kr[b]) and torch.equal(sok, kok[b])
+
+
+def test_points_sharded_odometry_on_one_rank_is_single_bitwise(cuda_device):
+    import torch.distributed as dist
+
+    from ros_stereo_slam_tpu_torch.config import preset_distributed
+    from ros_stereo_slam_tpu_torch.data.synthetic import small_world
+    from ros_stereo_slam_tpu_torch.parallel import dryrun
+    from ros_stereo_slam_tpu_torch.parallel.mesh import mesh_from_config
+
+    world = small_world(n_frames=2, seed=11, scale=1)
+    cfg = preset_distributed(1).replace(camera=world.camera)
+    (l0, r0, _), (l1, _, _) = world.render(0), world.render(1)
+    inputs = dryrun.odometry_inputs(cfg, l0, r0, l1, cuda_device)
+    assert inputs[2].pts2d.shape == (768, 2) and l0.shape == (376, 1241)
+    torch.cuda.set_device(cuda_device)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=cuda_device)
+    try:
+        mesh = mesh_from_config(cfg.parallel, cuda_device)
+        before = lk_cuda.LAUNCHES
+        sharded = dryrun.run_odometry(mesh, cfg, inputs)
+        torch.cuda.synchronize()
+        launched = lk_cuda.LAUNCHES - before
+    finally:
+        dist.destroy_process_group()
+    single = dryrun.run_odometry(None, cfg, inputs)
+    assert launched > 0
+    assert int(single.n_inliers) > 100
+    for a, b in zip(sharded, single, strict=True):
+        assert torch.equal(a, b)

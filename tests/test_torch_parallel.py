@@ -8,7 +8,13 @@ results; the JAX package runs its counterparts on ``make_mesh(4)`` of the
 run here.  Bounds, those of tests/test_parallel.py: BA poses 1e-4,
 landmarks 1e-3, RMS 1e-3; PGO 2e-3, and 5e-3 at F = 4608 (a sharded sum
 rounds differently from one sum); the rewrite, the store round trip and
-the lanes bitwise; StereoSLAM's trajectory 1e-3.  At world size 1 every
+the lanes bitwise; StereoSLAM's trajectory 1e-3.  The points-sharded
+odometry step (tests/test_torch_pnp.py's frames 0 -> 1 after JAX's stereo
+bootstrap, 1,024 points): against the port's single call with the same
+generator, counts, inliers and tracked points exact and the pose within
+1e-5; on the minimal sets JAX draws, against JAX's stages (whose sharded
+jit is its single call's), the bounds of
+test_odometry_step_from_jax_sets_matches_jax.  At world size 1 every
 sharded function is its single-device call bit for bit.
 """
 
@@ -27,16 +33,20 @@ from ros_stereo_slam_tpu.parallel import dist_ba as jdist_ba
 from ros_stereo_slam_tpu.parallel import dist_map as jdist_map
 from ros_stereo_slam_tpu.parallel import dist_pgo as jdist_pgo
 from ros_stereo_slam_tpu.parallel.mesh import make_mesh as j_make_mesh
-from ros_stereo_slam_tpu_torch.config import PipelineConfig
+from ros_stereo_slam_tpu_torch.config import PipelineConfig, PnPConfig
 from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
 from ros_stereo_slam_tpu_torch.models import pose_graph as pg
 from ros_stereo_slam_tpu_torch.models import slam
 from ros_stereo_slam_tpu_torch.models.slam import StereoSLAM
-from ros_stereo_slam_tpu_torch.parallel import dryrun
+from ros_stereo_slam_tpu_torch.models.state import TrackState
+from ros_stereo_slam_tpu_torch.ops import lk as tlk
+from ros_stereo_slam_tpu_torch.parallel import dist_frontend, dryrun
+from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
 
 from test_ba import _problem
 from test_pose_graph import _circle_trajectory, _drifted
+from test_torch_pnp import _frontend_pair, _jax_bootstrap, _jax_odometry_after_lk
 
 ROOT = Path(__file__).resolve().parents[1]
 RANKS = ROOT / "tests" / "torch_parallel_ranks.py"
@@ -46,6 +56,8 @@ import torch_parallel_ranks as ranks  # noqa: E402
 D = 4
 RANK_TIMEOUT_S = 300
 BIG_N = 4500
+ODO_KEY = 5  # the JAX key of test_odometry_step_from_jax_sets_matches_jax
+ODO_ATOL = 1e-5
 
 
 def _chain_inputs(n: int, F: int, drift: float, loops, L: int = 8, gt_loops=False):
@@ -70,8 +82,31 @@ def _chain_inputs(n: int, F: int, drift: float, loops, L: int = 8, gt_loops=Fals
                 loop_Z=loop_Z, loop_valid=loop_valid)
 
 
+def _odometry_inputs() -> dict:
+    """test_torch_pnp.py's frames 0 and 1 and JAX's stereo bootstrap of
+    frame 0 (odo_*); the minimal sets JAX draws from ODO_KEY over the port's
+    single-device LK mask, and JAX's stages on that LK output (odo_ref_*)."""
+    d = _frontend_pair()
+    (jstate_, _), _ = _jax_bootstrap(d, jax.random.PRNGKey(3))
+    track = TrackState(*(torch.from_numpy(np.array(x)) for x in jstate_))
+    tres = tlk.track(d["pyr_t"][0][0], d["pyr_t"][1][0], track.pts2d, None,
+                     d["tfe"]._lk_params(d["fe"]))
+    pres, n_trk, fidx, pidx = _jax_odometry_after_lk(
+        d, jstate_, jnp.asarray(tres.points.numpy()), jnp.asarray(tres.valid.numpy()),
+        jax.random.PRNGKey(ODO_KEY), PnPConfig())
+    (l0, _), (l1, _) = d["frames"]
+    z = dict(odo_left0=l0, odo_left1=l1, odo_cam=np.array(d["cam_t"], np.float64),
+             odo_fidx=np.asarray(fidx).astype(np.int64), odo_pidx=np.asarray(pidx).astype(np.int64),
+             odo_ref_T_cw=np.asarray(pres.T_cw), odo_ref_inliers=np.asarray(pres.inliers),
+             odo_ref_n_inliers=np.asarray(pres.n_inliers), odo_ref_n_tracked=np.int64(n_trk),
+             odo_ref_tracked=tres.points.numpy())
+    z.update({f"odo_{k}": v.numpy() for k, v in track._asdict().items()})
+    return z
+
+
 def _inputs() -> dict:
-    """tests/test_parallel.py's problems, as numpy arrays."""
+    """tests/test_parallel.py's problems and the odometry step's inputs, as
+    numpy arrays."""
     cam, T_cw, X, obs, mask = _problem(W=4, N=64, noise_px=0.3, seed=11)
     z = dict(ba_cam=np.array([float(v) for v in (cam.fx, cam.fy, cam.cx, cam.cy)]),
              ba_T=np.asarray(T_cw), ba_X=np.asarray(X), ba_obs=np.asarray(obs),
@@ -94,6 +129,7 @@ def _inputs() -> dict:
     rng = np.random.default_rng(29)
     z.update(rt_points=rng.normal(0, 1, (16, 32, 3)).astype(np.float32),
              rt_valid=rng.random(16) > 0.5)
+    z.update(_odometry_inputs())
     return z
 
 
@@ -327,11 +363,122 @@ def test_closure_corrects_sharded_ring_that_wraps(runs):
                                               err_msg=k)
 
 
+def _odo_checks(res, one, prefix: str, atol: float) -> None:
+    """The sharded step's results on every rank against the world-size-1
+    group's single call: counts the same on every rank and equal, the
+    blocks (N / D each) gathered equal, the pose within `atol`."""
+    n = one[f"single_{prefix}_mask"].shape[0]
+    for r in res:
+        assert r[f"{prefix}_mask"].shape == (n // len(res),)
+        assert r[f"{prefix}_tracked"].shape == (n // len(res), 2)
+    for k in ("n_tracked", "n_inliers"):
+        assert int(_same_on_every_rank(res, f"{prefix}_{k}")) == int(one[f"single_{prefix}_{k}"])
+    np.testing.assert_array_equal(_cat(res, f"{prefix}_mask"), one[f"single_{prefix}_mask"])
+    np.testing.assert_array_equal(_cat(res, f"{prefix}_tracked"),
+                                  one[f"single_{prefix}_tracked"])
+    np.testing.assert_allclose(_same_on_every_rank(res, f"{prefix}_T_cw"),
+                               one[f"single_{prefix}_T_cw"], rtol=0, atol=atol)
+
+
+def test_odometry_sharded_matches_single(runs):
+    """odometry_step_sharded at D = 4 against the port's odometry_step
+    with the same generator seed; every rank drew the same minimal sets
+    (two draws: the F-gate's, then PnP's); the step made 2 all_gathers and
+    3 + 2 x refine_iters all-reduces, at D = 4 and at D = 1."""
+    _, res, one, _ = runs
+    _odo_checks(res, one, "odo", ODO_ATOL)
+    assert int(one["single_odo_n_inliers"]) > 100
+    for r in res + [one]:
+        assert bool(r["odo_draws_equal"]) and int(r["odo_n_sets"]) == 2
+        assert bool(r["odo_recorded_same"])
+        assert int(r["odo_all_gather"]) == 2 and int(r["odo_other"]) == 0
+        assert int(r["odo_all_reduce"]) == 3 + 2 * PnPConfig().refine_iters
+
+
+def test_odometry_sharded_from_jax_sets_matches_jax(runs):
+    """odometry_from_sets_sharded at D = 4 on the minimal sets JAX draws
+    over the port's LK output, against JAX's stages on that output: equal
+    tracked and inlier sets and counts, pose within 1e-4 / 1e-3 m; and the
+    port's single call on the same sets."""
+    z, res, one, _ = runs
+    _odo_checks(res, one, "odo_j", ODO_ATOL)
+    np.testing.assert_array_equal(_cat(res, "odo_j_tracked"), z["odo_ref_tracked"])
+    assert int(_same_on_every_rank(res, "odo_j_n_tracked")) == int(z["odo_ref_n_tracked"]) > 100
+    assert int(_same_on_every_rank(res, "odo_j_n_inliers")) == int(z["odo_ref_n_inliers"])
+    np.testing.assert_array_equal(_cat(res, "odo_j_mask"), z["odo_ref_inliers"])
+    T, Tj = _same_on_every_rank(res, "odo_j_T_cw"), z["odo_ref_T_cw"]
+    np.testing.assert_allclose(T[:3, :3], Tj[:3, :3], atol=1e-4)
+    np.testing.assert_allclose(T[:3, 3], Tj[:3, 3], atol=1e-3)
+
+
+def test_jax_points_sharded_odometry_is_its_single_call(runs, jmesh):
+    """The reference itself: JAX's odometry_step under jax.jit with the
+    points sharded over 4 devices, as __graft_entry__.dryrun_multichip's
+    step 1 shards it, against the same jit unsharded.  XLA's partitioner
+    sums over points in another order, so the JAX call is its single call
+    only to the port-vs-JAX bounds: equal counts, at most 2 of the 1,024
+    inlier flags differ (2 here: points the F-gate keeps in one call and
+    drops in the other), rotation within 1e-4, translation within 1e-3 m
+    (2.7e-5 and 4.4e-4 here).  The port's sharded step keeps every float32
+    decision replicated and is its single call's to 1e-5 with no flag
+    changed (test_odometry_sharded_matches_single)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from ros_stereo_slam_tpu.config import PipelineConfig as JPipelineConfig
+    from ros_stereo_slam_tpu.config import PnPConfig as JPnPConfig
+    from ros_stereo_slam_tpu.models import frontend as jfe
+    from ros_stereo_slam_tpu.models.state import TrackState as JTrackState
+    from ros_stereo_slam_tpu.utils.camera import Pinhole as JPinhole
+
+    z = runs[0]
+    fe = JPipelineConfig().frontend
+    cam = JPinhole(*(jnp.float32(v) for v in z["odo_cam"]))
+
+    def step(ref_img, cur_img, pts2d, pts3d, mask, key):
+        ref_pyr = jfe.preprocess(ref_img, fe.lk_levels)
+        cur_pyr = jfe.preprocess(cur_img, fe.lk_levels)
+        track = JTrackState(pts2d=pts2d, pts3d=pts3d, colors=jnp.zeros_like(pts3d), mask=mask)
+        out = jfe.odometry_step(ref_pyr, cur_pyr, track, key, cam,
+                                jnp.float32(ranks.ODO_PNP_PX), fe, JPnPConfig())
+        return out.T_wc, out.n_inliers, out.mask, out.n_tracked
+
+    rep, pts_sh = NamedSharding(jmesh, P()), NamedSharding(jmesh, P("shard"))
+    args = (z["odo_left0"], z["odo_left1"], z["odo_pts2d"], z["odo_pts3d"], z["odo_mask"],
+            jax.random.PRNGKey(ODO_KEY))
+    sharded = jax.jit(step, in_shardings=(rep, rep, pts_sh, pts_sh, pts_sh, rep),
+                      out_shardings=(rep, rep, pts_sh, rep))
+    got = sharded(*(jax.device_put(jnp.asarray(a), sh) for a, sh in
+                    zip(args, (rep, rep, pts_sh, pts_sh, pts_sh, rep))))
+    want = jax.jit(step)(*(jnp.asarray(a) for a in args))
+    assert int(got[1]) == int(want[1]) > 100 and int(got[3]) == int(want[3])
+    assert int((np.asarray(got[2]) != np.asarray(want[2])).sum()) <= 2
+    T, Tj = np.linalg.inv(np.asarray(got[0])), np.linalg.inv(np.asarray(want[0]))
+    np.testing.assert_allclose(T[:3, :3], Tj[:3, :3], atol=1e-4)
+    np.testing.assert_allclose(T[:3, 3], Tj[:3, 3], atol=1e-3)
+
+
+@pytest.mark.parametrize("case", ["not_a_mesh", "indivisible"])
+def test_odometry_sharded_rejects(runs, case):
+    """A non-Mesh raises TypeError; N = 1,024 points on 3 ranks raise
+    ValueError (shard_bounds: no padding path), before any collective."""
+    f = {k: torch.from_numpy(np.array(v)) for k, v in runs[0].items() if k.startswith("odo_")}
+    ref, cur, track, *rest = ranks.odometry_setup(f)
+    mesh, exc = ((object(), TypeError) if case == "not_a_mesh"
+                 else (Mesh(rank=0, size=3, device=torch.device("cpu")), ValueError))
+    with pytest.raises(exc):
+        dist_frontend.odometry_step_sharded(mesh, ref, cur, track, torch.Generator(), *rest)
+
+
 def test_dryrun_at_four_ranks(runs):
-    """The dry run's steps on 4 ranks; its lanes are the unsharded B-lane
-    run's bit for bit, its BA and PGO the single-device calls'."""
+    """The dry run's steps on 4 ranks; its odometry step is the single
+    call's (counts and inliers exact, pose within 1e-5), its lanes are the
+    unsharded B-lane run's bit for bit, its BA and PGO the single-device
+    calls'."""
     _, res, _, _ = runs
     dev = torch.device("cpu")
+    one = dryrun.run_odometry(None, *dryrun.odometry_problem(D, dev))
+    single = {f"single_dry_odo_{k}": getattr(one, k).numpy() for k in one._fields}
+    _odo_checks(res, single, "dry_odo", dryrun.ODO_ATOL)
     single = ba.ba_solve(*dryrun.ba_problem(4, 64 * D, 1, dev), iters=2)
     np.testing.assert_allclose(_same_on_every_rank(res, "dry_ba_T_cw"), single.T_cw.numpy(),
                                rtol=0, atol=1e-4)
@@ -352,6 +499,8 @@ def test_dryrun_at_four_ranks(runs):
     "ba_T_cw", "ba_landmarks", "ba_rms_before", "ba_rms_after", "edge_small", "edge_close",
     "chain_small", "chain_big", "rewrite", "slam_traj", "dry_ba_T_cw", "dry_ba_landmarks",
     "dry_pgo_edge", "dry_pgo_chain", "dry_lanes_T_wc",
+    *(f"{p}_{k}" for p in ("odo", "odo_j", "dry_odo")
+      for k in ("T_cw", "tracked", "mask", "n_tracked", "n_inliers")),
 ])
 def test_world_size_one_is_single_bitwise(runs, key):
     _, _, one, _ = runs

@@ -210,6 +210,10 @@ def test_trajectory_store_matches_jax():
 
 @pytest.fixture(scope="module")
 def frontend_pair():
+    return _frontend_pair()
+
+
+def _frontend_pair():
     """Frames 0 and 1 of the quarter-size world, both packages' pyramids and
     the config's profiles."""
     from ros_stereo_slam_tpu.config import PipelineConfig as JPipelineConfig
@@ -231,7 +235,7 @@ def frontend_pair():
     cam_t = tcam.Pinhole(fx=c.fx, fy=c.fy, cx=c.cx, cy=c.cy)
     cam_j = jcam.Pinhole(**{k: jnp.float32(getattr(c, k)) for k in ("fx", "fy", "cx", "cy")})
     return dict(jfe=jfe, tfe=tfe, fe=fe, jfe_cfg=jfe_cfg, pyr_t=pyr_t, pyr_j=pyr_j, pts=pts,
-                mask=mask, cam_t=cam_t, cam_j=cam_j, baseline=c.baseline)
+                mask=mask, cam_t=cam_t, cam_j=cam_j, baseline=c.baseline, frames=frames)
 
 
 def _feeder(sets):

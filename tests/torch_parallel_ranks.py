@@ -23,16 +23,19 @@ import torch.distributed as dist
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from ros_stereo_slam_tpu_torch.config import (  # noqa: E402
-    FrontendConfig, KeyframeConfig, PGOConfig, preset_odometry,
+    FrontendConfig, KeyframeConfig, PGOConfig, PipelineConfig, PnPConfig, preset_odometry,
 )
 from ros_stereo_slam_tpu_torch.data.synthetic import small_world  # noqa: E402
-from ros_stereo_slam_tpu_torch.models import bundle_adjust, pose_graph, slam  # noqa: E402
-from ros_stereo_slam_tpu_torch.models.slam import StereoSLAM  # noqa: E402
-from ros_stereo_slam_tpu_torch.models.state import KeyframeStore  # noqa: E402
-from ros_stereo_slam_tpu_torch.parallel import (  # noqa: E402
-    dist_ba, dist_map, dist_pgo, dryrun,
+from ros_stereo_slam_tpu_torch.models import (  # noqa: E402
+    bundle_adjust, frontend, pose_graph, slam,
 )
-from ros_stereo_slam_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from ros_stereo_slam_tpu_torch.models.slam import StereoSLAM  # noqa: E402
+from ros_stereo_slam_tpu_torch.models.state import KeyframeStore, TrackState  # noqa: E402
+from ros_stereo_slam_tpu_torch.ops import ransac  # noqa: E402
+from ros_stereo_slam_tpu_torch.parallel import (  # noqa: E402
+    dist_ba, dist_frontend, dist_map, dist_pgo, dryrun,
+)
+from ros_stereo_slam_tpu_torch.parallel.mesh import COLLECTIVES, make_mesh, psum  # noqa: E402
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole  # noqa: E402
 
 # (input prefix, iters, cg_iters) of each PGO case
@@ -45,6 +48,10 @@ SLAM_CKPT_AT = 4
 # passes WRAP_K and the ring wraps across the ranks.
 WRAP_K = 4
 WRAP_CLOSURES = 3
+# The points-sharded odometry step: tests/test_torch_pnp.py's frames,
+# config and PnP gate; the generator's seed.
+ODO_PNP_PX = 2.0
+ODO_SEED = 1
 
 
 def slam_config(world, max_keyframes: int = 16):
@@ -90,6 +97,58 @@ def _slam_run(cfg, frames, mesh, ckpt: Path | None = None):
         if ckpt is not None and i == SLAM_CKPT_AT:
             s.save_checkpoint(str(ckpt))
     return s, np.stack(traj)
+
+
+def odometry_setup(f: dict) -> tuple:
+    """odometry_step's arguments but the generator, from the inputs' odo_*
+    arrays (frames 0 and 1 and the JAX bootstrap's track)."""
+    fe, pc = PipelineConfig().frontend, PnPConfig()
+    ref, cur = (frontend.preprocess(f[k], fe.lk_levels) for k in ("odo_left0", "odo_left1"))
+    track = TrackState(f["odo_pts2d"], f["odo_pts3d"], f["odo_colors"], f["odo_mask"])
+    return ref, cur, track, Pinhole(*(float(v) for v in f["odo_cam"])), ODO_PNP_PX, fe, pc
+
+
+def _feed(*sets):
+    """A draw that hands out the given index sets in order."""
+    it = iter(sets)
+    return lambda mask, k_hyp, m: next(it).long()
+
+
+def _odo(prefix: str, o) -> dict:
+    return {f"{prefix}_{k}": getattr(o, k) for k in ("T_cw", "tracked", "mask", "n_tracked",
+                                                      "n_inliers")}
+
+
+def odometry_cases(mesh, f: dict) -> dict:
+    """The points-sharded step from ODO_SEED's generator (with the
+    collectives it made), the same step drawing through a recorder (its
+    draws checked equal on every rank), and the step on the JAX sets."""
+    ref, cur, track, *rest = odometry_setup(f)
+    before = COLLECTIVES.copy()
+    o = dist_frontend.odometry_step_sharded(mesh, ref, cur, track,
+                                            torch.Generator().manual_seed(ODO_SEED), *rest)
+    used = COLLECTIVES - before
+    out = _odo("odo", o)
+    out.update(odo_all_gather=torch.tensor(used["all_gather"]),
+               odo_all_reduce=torch.tensor(used["all_reduce"]),
+               odo_other=torch.tensor(sum(used.values()) - used["all_gather"]
+                                      - used["all_reduce"]))
+    gen, sets = torch.Generator().manual_seed(ODO_SEED), []
+
+    def record(m, k_hyp, n):
+        sets.append(ransac._sample_minimal_sets(gen, m, k_hyp, n))
+        return sets[-1]
+
+    rec = dist_frontend.odometry_from_sets_sharded(mesh, ref, cur, track, record, *rest)
+    out["odo_recorded_same"] = torch.tensor(all(torch.equal(a, b) for a, b in
+                                                zip(rec, o, strict=True)))
+    own = sum((s * torch.arange(1, s.numel() + 1).view(s.shape)).sum() for s in sets)
+    out.update(odo_n_sets=torch.tensor(len(sets)),
+               odo_draws_equal=psum(own, mesh) == mesh.size * own)
+    j = dist_frontend.odometry_from_sets_sharded(mesh, ref, cur, track,
+                                                 _feed(f["odo_fidx"], f["odo_pidx"]), *rest)
+    out.update(_odo("odo_j", j))
+    return out
 
 
 def run_cases(mesh, d: Path) -> dict:
@@ -165,6 +224,7 @@ def run_cases(mesh, d: Path) -> dict:
                wrap_shard_valid=carry.keyframes.valid,
                **{f"wrap_kf_{k}": getattr(full, k) for k in full._fields})
 
+    out.update(odometry_cases(mesh, f))
     out.update({f"dry_{k}": torch.from_numpy(v) for k, v in dryrun.run(mesh).items()})
     return out
 
@@ -196,6 +256,12 @@ def single_cases(d: Path) -> dict:
     cfg, L, R = dryrun.lanes_problem(1, dev)
     _, stats = dryrun.run_lanes(cfg, L, R, range(1), 1)
     out.update(dry_lanes_T_wc=stats.T_wc, dry_lanes_is_kf=stats.is_keyframe)
+    ref, cur, track, *rest = odometry_setup(f)
+    out.update(_odo("odo", frontend.odometry_step(ref, cur, track,
+                                                  torch.Generator().manual_seed(ODO_SEED), *rest)))
+    out.update(_odo("odo_j", frontend.odometry_from_sets(
+        ref, cur, track, _feed(f["odo_fidx"], f["odo_pidx"]), *rest)))
+    out.update(_odo("dry_odo", dryrun.run_odometry(None, *dryrun.odometry_problem(1, dev))))
     return out
 
 

@@ -12,7 +12,9 @@ Phases (any failure exits non-zero and prints no result line):
    together (timed);
 3. render (host, worker processes): the bench corridor and two jittered
    two-lap revisit worlds (A, the bench's, and B, other seeds), all at
-   full KITTI geometry (1241x376);
+   full KITTI geometry (1241x376); phase endurance's lap then renders in
+   a pool of two processes fewer than the host's CPUs while the phases
+   below run;
 4. vocab: the full-width vocabulary (k = 9, L = 6: 531,441 words) trained
    on the card with ``train_batched`` from every 8th revisit frame;
 5. kernels: each kernel (K1, K2, K3 and the lane-gridded K1b, K2b)
@@ -105,7 +107,16 @@ Phases (any failure exits non-zero and prints no result line):
     ``run_synthetic --preset loop_closure --orbit --mode chunked``, whose
     vocabulary (``vocab.train`` on the card) equals the CPU's bitwise;
     ``python -m ...stereo_depth`` in a child that imports no JAX.  K1/K2/K3
-    launches per run (``--no-plots`` where matplotlib is absent).
+    launches per run (``--no-plots`` where matplotlib is absent);
+21. endurance: the endurance CLI's functions
+    (``ros_stereo_slam_tpu_torch.tools.endurance_run``) at full width and
+    reduced depth: its plain 512-pose lap (rendered in the background
+    from phase render on) tiled to 1,024 frames, its k = 9,
+    L = 6 vocabulary trained on the lap, ``preset_loop_closure()`` with
+    detection on every frame, 192 keyframe slots and a 960-frame database
+    (both rings wrap), through the scan posture: at least 4 closures, each
+    at an exact revisit, post-PGO ATE below odometry-only, every frame
+    tracked, K1/K2/K3 launches (K3: one per frame).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -172,7 +183,7 @@ ALIGN_WINDOW = 2
 # within LANE_TOL_M (the bound of tests/test_batched.py).
 LANES = 2
 LANE_TOL_M = 1e-4
-SLAM_WARM_RUNS = 2  # phases slam and batched_slam
+SLAM_WARM_RUNS = 1  # phases slam and batched_slam
 # Revisit worlds: (plan seed, world seed); A is bench.py's.  Frame 256
 # starts a third lap with a fresh jitter and brightness, a jump that some
 # seed pairs leave with under 10 PnP inliers; B's pair keeps >= 44 there.
@@ -180,7 +191,7 @@ REVISIT_SEEDS = {"A": (17, 11), "B": (53, 59)}
 # The online postures (phase online): warm runs per driver, the chunk, the
 # frame after which the streaming run is checkpointed, and how far a
 # keyframe's pose may lie from the live trajectory (test_chunked_online_driver).
-ONLINE_WARM_RUNS = 2
+ONLINE_WARM_RUNS = 1
 ONLINE_CHUNK = 32
 CKPT_FRAME = LAP
 KF_POSE_TOL_M = 1e-4
@@ -240,6 +251,22 @@ PEAK_INT8_S = 1979e12
 # A spin of this many cycles (~25 us) spaces the launches that
 # device_ms_spaced times without touching memory.
 SPIN_CYCLES = 50_000
+# Phase endurance: the endurance CLI's plain regime (the 512-pose lap of
+# radius 20 m rendered once, tiled to 1,024 frames) through the scan
+# posture, detecting on every frame, with rings that wrap within the run:
+# 192 keyframe slots, and a database of 960 frames.  A database must span
+# the lap (512 frames back) to hold a revisit's match at query time; the
+# scan verifies its candidates after the run on the rows then in the
+# ring (ROADMAP F6), so the revisits whose match row frames 960-1,023
+# overwrite (queries 512-575) cannot close here and the first closes at
+# 576: about 5 closures (every 101 frames after the cooldown).
+ENDURANCE_FRAMES = 1024
+ENDURANCE_LAP = 512
+ENDURANCE_RADIUS = 20.0
+ENDURANCE_KF = 192
+ENDURANCE_DB = 960
+ENDURANCE_MIN_CLOSURES = 4
+
 # Phase cli: the KITTI-layout trees it writes (under build/, git-ignored),
 # the frames of each run and the vocabulary the CLI trains from sequence 01.
 KITTI_DIR = ROOT / "build" / "kitti_smoke"
@@ -392,16 +419,42 @@ def revisit_frames(seeds: tuple[int, int], frames: list, camera=None, noise_seed
     return np.stack(lefts).astype(np.float32), np.stack(rights).astype(np.float32)
 
 
+class PendingRender:
+    """Phase endurance's frames, rendering in a pool of `workers` processes
+    while the phases before it run."""
+
+    def __init__(self, pool, result, gt: list, workers: int):
+        self.pool, self.result, self.gt, self.workers = pool, result, gt, workers
+
+    def frames(self):
+        """(left, right, ground truth, first lap's left frames), uint8;
+        the pool is closed after."""
+        from ros_stereo_slam_tpu_torch.tools import endurance_run as er
+
+        parts = self.result.get()
+        self.close()
+        return er.assemble(parts, self.gt, ENDURANCE_FRAMES, ENDURANCE_LAP, False)
+
+    def close(self) -> None:
+        self.pool.terminate()
+        self.pool.join()
+
+
 def phase_render():
     """The corridor (with its RGB frames) and both revisit worlds at full
     KITTI geometry, rendered by worker processes.
 
     Returns ((corridor left, right, depths {0, 24}, poses, camera, RGB
-    uint8), {"A": (revisit left, right, poses), "B": ...}, workers)."""
+    uint8), {"A": (revisit left, right, poses), "B": ...}, workers, the
+    endurance lap still rendering (a PendingRender)).  The lap renders in
+    a pool of two processes fewer than the host has CPUs, so the timed
+    phases that overlap it keep two CPUs for the process that drives the
+    card."""
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.config import CameraConfig
     from ros_stereo_slam_tpu_torch.data.synthetic import SyntheticWorld
+    from ros_stereo_slam_tpu_torch.tools import endurance_run as er
 
     cam = CameraConfig()
     # The bench corridor (bench.py::_render_world): seed 11, half_w 18 m.
@@ -415,9 +468,17 @@ def phase_render():
         chunks += [(kw, idx[i:i + 8], False) for i in range(0, len(idx), 8)]
     rgb_chunks = [(corridor_kw, list(range(i, min(i + 8, FRAMES + 1))), True)
                   for i in range(0, FRAMES + 1, 8)]
+    ctx = multiprocessing.get_context("spawn")
     workers = max(1, min(8, os.cpu_count() or 1))
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+    with ctx.Pool(workers) as pool:
         parts = pool.starmap(_render_job, chunks + rgb_chunks)
+    # phase endurance's lap renders in the background while the phases run
+    lap_workers = max(1, (os.cpu_count() or 1) - 2)
+    lap_pool = ctx.Pool(lap_workers)
+    gt = []
+    lap = lap_pool.map_async(er._job, list(er.render_plan(
+        ENDURANCE_FRAMES, ENDURANCE_LAP, ENDURANCE_RADIUS, gt=gt)))
+    pending = PendingRender(lap_pool, lap, gt, lap_workers)
     frames = [f for part in parts[:len(chunks)] for f in part]
     rgb = np.stack([f for part in parts[len(chunks):] for f in part])
     corridor, rest = frames[:FRAMES + 1], frames[FRAMES + 1:]
@@ -436,7 +497,7 @@ def phase_render():
     per = FRAMES // LANES
     return ((np.stack([f[0] for f in corridor]), np.stack([f[1] for f in corridor]),
              {0: corridor[0][2], per: corridor[per][2]}, corridor_poses, cam, rgb),
-            worlds, workers)
+            worlds, workers, pending)
 
 
 def cuda_ms(torch, fn, reps: int = 25) -> float:
@@ -3047,6 +3108,66 @@ def phase_cli(torch, left, right, rgb8, poses, rl, rr, rgt, dev, smi: str) -> di
     return {"counts": total, "runs": out}
 
 
+def phase_endurance(torch, pending: PendingRender, dev, smi: str) -> dict:
+    """The endurance CLI's functions at full width (1241x376, the k = 9,
+    L = 6 vocabulary trained on the lap, preset_loop_closure()) at reduced
+    depth: the plain lap tiled to ENDURANCE_FRAMES frames, detection on
+    every frame, the scan posture, with both rings wrapping.  K1/K2/K3
+    launches from the scan (counters set to 0 just before it)."""
+    import dataclasses
+
+    import numpy as np
+
+    from ros_stereo_slam_tpu_torch.config import KeyframeConfig
+    from ros_stereo_slam_tpu_torch.tools import endurance_run as er
+
+    t0 = time.perf_counter()
+    left, right, gt, lap_left = pending.frames()
+    wait_s = time.perf_counter() - t0
+    F, cam = left.shape[0], er.camera(1)
+    check(left.shape == (ENDURANCE_FRAMES, cam.height, cam.width) and left.dtype == np.uint8,
+          f"endurance frames {left.shape} {left.dtype}")
+    check(bool((left[ENDURANCE_LAP] == left[0]).all()), "the tiled lap does not repeat")
+    cfg = er.loop_config(1, ENDURANCE_DB, detect_every=1).replace(
+        keyframes=dataclasses.replace(KeyframeConfig(), max_keyframes=ENDURANCE_KF))
+    t0 = time.perf_counter()
+    voc = er.train_vocab(lap_left, cfg, dev)
+    torch.cuda.synchronize()
+    vocab_s = time.perf_counter() - t0
+    sc = er.run_postures(cfg, voc, left, right, gt, dev, ENDURANCE_LAP)["scan"]
+    ring = er.bow_ring(F, cfg)
+    events = [tuple(e) for e in sc["loop_events"]]
+    offsets = [er.revisit_offset(q, m, ENDURANCE_LAP) for q, m, _ in events]
+    counts = sc["launches"]
+    log(f"endurance [{smi}]: {F} frames (lap {ENDURANCE_LAP} tiled) at {cam.width}x"
+        f"{cam.height}, {wait_s:.1f} s waited for the render; vocabulary {voc.n_words} words "
+        f"trained on the card in {vocab_s:.2f} s; scan {sc['wall_s']:.3f} s -> {sc['fps']:.2f} fps; loop events "
+        f"(query, match, inliers) {events}, offsets {offsets}; ATE post-PGO "
+        f"{sc['ate_rmse_m']:.4f} m, odometry only {sc['ate_rmse_odometry_m']:.4f} m; "
+        f"keyframes inserted {sc['keyframes_inserted']} into {ENDURANCE_KF} slots "
+        f"({sc['keyframe_ring_wraps']} wraps); BoW {ring}; tracking "
+        f"{sc['tracking_ok_fraction']:.4f}; launches K1 {counts['k1']}, K2 {counts['k2']}, "
+        f"K3 {counts['k3']}")
+    check(len(events) >= ENDURANCE_MIN_CLOSURES,
+          f"{len(events)} closures, fewer than {ENDURANCE_MIN_CLOSURES}")
+    check(all(o <= REVISIT_TOL for o in offsets),
+          f"closures {events} not all within {REVISIT_TOL} frames of a true revisit")
+    check(sc["keyframes_inserted"] > ENDURANCE_KF,
+          f"{sc['keyframes_inserted']} keyframes: the ring of {ENDURANCE_KF} did not wrap")
+    check(ring["bow_inserts"] > ENDURANCE_DB and ring["bow_rows_overwritten"] > 0,
+          f"BoW {ring}: the database of {ENDURANCE_DB} did not wrap")
+    check(sc["ate_rmse_m"] < sc["ate_rmse_odometry_m"],
+          f"post-PGO ATE {sc['ate_rmse_m']} m is not below odometry-only "
+          f"{sc['ate_rmse_odometry_m']} m")
+    check(bool(sc["tracking_ok"].all()),
+          f"tracking lost on frames {np.nonzero(~sc['tracking_ok'])[0] + 1}")
+    for k in ("k1", "k2", "k3"):
+        check(counts[k] > 0, f"the endurance scan launched no {k} kernel")
+    check(counts["k3"] == ring["bow_inserts"],
+          f"K3 launched {counts['k3']} times over {ring['bow_inserts']} detection frames")
+    return {"counts": counts}
+
+
 def main() -> int:
     if not (ROOT / PKG / "__init__.py").is_file():
         log(f"FAIL: package {PKG}/ not found beside chip_smoke.py")
@@ -3074,13 +3195,16 @@ def main() -> int:
         log(f"phase {name}: {phase_s[name]:.1f} s")
         return out
 
+    pending = None
     try:
         smi = timed("toolchain", phase_toolchain, torch)
         timed("build", phase_build)
-        (left, right, depths, poses, cam, rgb8), worlds, workers = timed("render", phase_render)
+        (left, right, depths, poses, cam, rgb8), worlds, workers, pending = timed(
+            "render", phase_render)
         rl, rr, rgt = worlds["A"]
         log(f"rendered {left.shape[0]} corridor + {len(worlds)} x {rl.shape[0]} revisit "
-            f"frames with {workers} worker processes (host)")
+            f"frames with {workers} worker processes (host); the endurance lap renders "
+            f"behind the phases in {pending.workers} processes of {os.cpu_count()} CPUs")
         slam_cfg = slam_cfg.replace(camera=cam)
         voc = timed("vocab", phase_vocab, torch, rl, slam_cfg, dev)
         from ros_stereo_slam_tpu_torch.ops import lk_cuda
@@ -3122,9 +3246,13 @@ def main() -> int:
         mc = timed("multichip", phase_multichip, torch, voc, rl, rr, cam, dev, ba["stream"], smi,
                    (left[:2], right[:2]))
         cl = timed("cli", phase_cli, torch, left, right, rgb8, poses, rl, rr, rgt, dev, smi)
+        en = timed("endurance", phase_endurance, torch, pending, dev, smi)
     except SmokeFailure as e:
         log(f"FAIL: {e}")
         return 1
+    finally:
+        if pending is not None:
+            pending.close()
     log(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in phase_s.items()})}, "
         f"total {sum(phase_s.values()):.1f} s")
     log(f"single-lane vs batched on this card: odometry {sl['fps']:.2f} fps vs "
@@ -3158,7 +3286,8 @@ def main() -> int:
     # No single PyTorch call computes any of them, so library_ms is null.
     # launches_by_path: each path's count, its counters set to 0 before it;
     # multichip adds phase multichip's two paths (StereoSLAM(mesh=) and the
-    # points-sharded odometry step, multichip_odometry on its own).
+    # points-sharded odometry step, multichip_odometry on its own);
+    # endurance is phase endurance's 1,024-frame scan.
     # ms is the time of a wrapper call (CUDA events around it, host work
     # included), device_ms the kernel's own (bare launches back to back),
     # launch_floor_ms an empty kernel's, taken the same way; device_ms_spaced_hot
@@ -3174,17 +3303,19 @@ def main() -> int:
           "essential": es["k1"],
           "multichip": mc["counts"]["k1"] + mc["odometry_counts"]["k1"],
           "multichip_odometry": mc["odometry_counts"]["k1"], "cli": cl["counts"]["k1"],
-          "polish": po["counts"]["k1"], "lane_cadences": lcd["counts"]["k1"]}),
+          "polish": po["counts"]["k1"], "lane_cadences": lcd["counts"]["k1"],
+          "endurance": en["counts"]["k1"]}),
         ("orb_desc", "orb_desc", "orb_pallas.py:84", sm["counts"]["orb_desc"], k2,
          {"slam": sm["counts"]["orb_desc"], "online_stream": on["stream"]["counts"]["k2"],
           "ba_stream": ba["stream"]["counts"]["k2"], "orb_stereo": ob["counts"]["k2"],
           "multichip": mc["counts"]["k2"], "cli": cl["counts"]["k2"],
-          "lane_cadences": lcd["counts"]["k2"]}),
+          "lane_cadences": lcd["counts"]["k2"], "endurance": en["counts"]["k2"]}),
         ("vocab_descend", "vocab_descend", "vocab_pallas.py:72",
          sm["counts"]["vocab_descend"], k3,
          {"slam": sm["counts"]["vocab_descend"], "online_stream": on["stream"]["counts"]["k3"],
           "ba_stream": ba["stream"]["counts"]["k3"], "multichip": mc["counts"]["k3"],
-          "cli": cl["counts"]["k3"], "lane_cadences": lcd["counts"]["k3"]}),
+          "cli": cl["counts"]["k3"], "lane_cadences": lcd["counts"]["k3"],
+          "endurance": en["counts"]["k3"]}),
         ("lk_level_batch", "lk_level", "lk_pallas.py:361", bo["launches"], k1b,
          {"batched_odo": bo["launches"], "batched_slam": bs["counts"]["k1b"],
           "ba_lanes": ba["lanes"]["k1b"], "orb_stereo_lanes": obl["counts"]["k1b"],

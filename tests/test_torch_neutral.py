@@ -91,7 +91,7 @@ def test_port_import_pulls_in_no_jax():
         "from ros_stereo_slam_tpu_torch.data import kitti, loader, png\n"
         "from ros_stereo_slam_tpu_torch.viz import web\n"
         "from ros_stereo_slam_tpu_torch.tools import build_vocab, run_kitti, run_synthetic\n"
-        "from ros_stereo_slam_tpu_torch.tools import stereo_depth\n"
+        "from ros_stereo_slam_tpu_torch.tools import endurance_run, stereo_depth\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"

@@ -34,6 +34,7 @@ from ros_stereo_slam_tpu_torch.models.step import _generator
 from ros_stereo_slam_tpu_torch.ops import orb as orb_mod
 from ros_stereo_slam_tpu_torch.ops import ransac, vocab_cuda
 from ros_stereo_slam_tpu_torch.ops.topk import top_k
+from ros_stereo_slam_tpu_torch.utils import profiling
 
 _GEOM_SEED = 77
 _EDGE_SEED = 4321
@@ -320,38 +321,49 @@ class LoopDetector:
 
     def add(self, frame_id: int, feats: orb_mod.OrbFeatures, bow=None) -> None:
         """Insert the frame's BoW and features into the database."""
-        uw, uv = self._bow_of(feats) if bow is None else bow
-        self.lc = _db_insert(self.lc, frame_id, feats, uw, uv,
-                             vocab_mod.bin_of_sparse(uw, uv, self.config.n_bins))
+        if bow is None:
+            with profiling.span("detect.bow"):
+                bow = self._bow_of(feats)
+        uw, uv = bow
+        with profiling.span("detect.insert"):
+            self.lc = _db_insert(self.lc, frame_id, feats, uw, uv,
+                                 vocab_mod.bin_of_sparse(uw, uv, self.config.n_bins))
         self.has_last = True
 
     def detect(self, frame_id: int, feats: orb_mod.OrbFeatures) -> LoopCandidate | None:
         """Query the database with the frame, gate, verify the geometry of a
         survivor, then add the frame to the database."""
         cfg, lc = self.config, self.lc
-        uw, uv = self._bow_of(feats)
+        with profiling.span("detect.bow"):
+            uw, uv = self._bow_of(feats)
         result = None
         if self.has_last and frame_id > cfg.dislocal:
-            ns = float(vocab_mod.score_pair_min(uw, uv, lc.last_words, lc.last_wvals))
-            ids, scores = _query_scores(
-                uw, uv, vocab_mod.bin_of_sparse(uw, uv, cfg.n_bins), lc.db_words, lc.db_wvals,
-                lc.db_bins, lc.db_valid, frame_id - cfg.dislocal - 1, lc.db_ids,
-                cfg.max_db_results, cfg.shortlist)
-            gated = self._gater.gate(frame_id, ids.cpu().numpy(), scores.cpu().numpy(), ns)
+            with profiling.span("detect.query"):
+                ns = vocab_mod.score_pair_min(uw, uv, lc.last_words, lc.last_wvals)
+                ids, scores = _query_scores(
+                    uw, uv, vocab_mod.bin_of_sparse(uw, uv, cfg.n_bins), lc.db_words,
+                    lc.db_wvals, lc.db_bins, lc.db_valid, frame_id - cfg.dislocal - 1,
+                    lc.db_ids, cfg.max_db_results, cfg.shortlist)
+                with profiling.span("host_read", site="detect.query"):
+                    ns, ids, scores = float(ns), ids.cpu().numpy(), scores.cpu().numpy()
+                gated = self._gater.gate(frame_id, ids, scores, ns)
             # the separation rule: a candidate failing it is never accepted,
             # so it gets no geometric check
             if gated is not None and gated[0] < frame_id - cfg.min_separation:
                 best_id, best_score, consistent = gated
                 slot = best_id % cfg.db_capacity
-                n_inl, best, meas = _geom_match(
-                    feats.desc_bits, feats.pts, feats.valid, lc.db_bits[slot], lc.db_pts[slot],
-                    lc.db_pt_valid[slot], geom_key(frame_id, best_id, lc.db_bits.device),
-                    cfg.geom_thresh_px, cfg.neigh_ratio, iters=cfg.geom_ransac_iters)
-                n_inl = int(n_inl)
-                if n_inl >= cfg.geom_min_points:
-                    result = LoopCandidate(
-                        query=frame_id, match=best_id, score=best_score, n_inliers=n_inl,
-                        consistent=consistent, match_idx=best.cpu().numpy(),
-                        match_inliers=meas.cpu().numpy())
+                with profiling.span("detect.geom"):
+                    n_inl, best, meas = _geom_match(
+                        feats.desc_bits, feats.pts, feats.valid, lc.db_bits[slot],
+                        lc.db_pts[slot], lc.db_pt_valid[slot],
+                        geom_key(frame_id, best_id, lc.db_bits.device),
+                        cfg.geom_thresh_px, cfg.neigh_ratio, iters=cfg.geom_ransac_iters)
+                    with profiling.span("host_read", site="detect.geom"):
+                        n_inl = int(n_inl)
+                        if n_inl >= cfg.geom_min_points:
+                            result = LoopCandidate(
+                                query=frame_id, match=best_id, score=best_score,
+                                n_inliers=n_inl, consistent=consistent,
+                                match_idx=best.cpu().numpy(), match_inliers=meas.cpu().numpy())
         self.add(frame_id, feats, (uw, uv))
         return result

@@ -19,6 +19,7 @@ from ros_stereo_slam_tpu_torch.config import PipelineConfig
 from ros_stereo_slam_tpu_torch.models import step as step_mod
 from ros_stereo_slam_tpu_torch.models.state import KeyframeStore
 from ros_stereo_slam_tpu_torch.ops import grid
+from ros_stereo_slam_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -170,25 +171,28 @@ def run_offline(
     the host always waits for the device.
     """
     del block
-    grid_pts, grid_mask = _grid_for(cfg, device)
-    left = _stage(left_seq, device)
-    right = _stage(right_seq, device)
-    rgb = rgb_frame(rgb_seq, device)
-    carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg,
-                                None if rgb is None else rgb[0])
-    carry, stats = step_mod.run_sequence(
-        left[1:], right[1:], carry, grid_pts, grid_mask, cfg,
-        None if rgb is None else rgb[1:])
-    host = [f.cpu().numpy() for f in stats]
-    stats = step_mod.FrameStats(*host)
-    traj = np.concatenate([np.eye(4, dtype=np.float32)[None], stats.T_wc], axis=0)
-    return OfflineResult(
-        trajectory=traj,
-        n_tracked=stats.n_tracked,
-        n_inliers=stats.n_inliers,
-        is_keyframe=stats.is_keyframe,
-        tracking_ok=stats.tracking_ok,
-        used_retry=stats.used_retry,
-        keyframes=carry.keyframes,
-        ba_rms=stats.ba_rms,
-    )
+    with profiling.span("driver.session", driver="run_offline", frames=len(left_seq),
+                        lanes=1):
+        grid_pts, grid_mask = _grid_for(cfg, device)
+        left = _stage(left_seq, device)
+        right = _stage(right_seq, device)
+        rgb = rgb_frame(rgb_seq, device)
+        carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg,
+                                    None if rgb is None else rgb[0])
+        carry, stats = step_mod.run_sequence(
+            left[1:], right[1:], carry, grid_pts, grid_mask, cfg,
+            None if rgb is None else rgb[1:])
+        with profiling.span("host_read", site="run_offline.stats"):
+            host = [f.cpu().numpy() for f in stats]
+        stats = step_mod.FrameStats(*host)
+        traj = np.concatenate([np.eye(4, dtype=np.float32)[None], stats.T_wc], axis=0)
+        return OfflineResult(
+            trajectory=traj,
+            n_tracked=stats.n_tracked,
+            n_inliers=stats.n_inliers,
+            is_keyframe=stats.is_keyframe,
+            tracking_ok=stats.tracking_ok,
+            used_retry=stats.used_retry,
+            keyframes=carry.keyframes,
+            ba_rms=stats.ba_rms,
+        )

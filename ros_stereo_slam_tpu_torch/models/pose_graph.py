@@ -25,7 +25,7 @@ from ros_stereo_slam_tpu_torch.config import PGOConfig
 from ros_stereo_slam_tpu_torch.ops import linalg
 from ros_stereo_slam_tpu_torch.parallel.mesh import (Mesh, all_gather, check_mesh, psum,
                                                      shard_bounds)
-from ros_stereo_slam_tpu_torch.utils import lie
+from ros_stereo_slam_tpu_torch.utils import lie, profiling
 
 
 def _ad_se3(xi: torch.Tensor) -> torch.Tensor:
@@ -63,7 +63,8 @@ def gauss_newton(T, odo_Z, loop_Z, w_o, w_l, ok, free, ends, scatter, dot,
     layout's vertex rows, summed over the ranks that share the graph;
     ``dot(a, b)`` is the whole inner product.  `w_o`/`w_l` weigh the
     edges, `ok` holds the (E, 1, 1) masks of the four ends' free vertices
-    and `free` the rows' gauge mask.
+    and `free` the rows' gauge mask.  The GN iterations and CG steps
+    (neither stops early) go to the innermost open span's attributes.
     """
     dt, dev = T.dtype, T.device
     eye6 = torch.eye(6, dtype=dt, device=dev)
@@ -121,6 +122,7 @@ def gauss_newton(T, odo_Z, loop_Z, w_o, w_l, ok, free, ends, scatter, dot,
             rz = rz_new
         # right update: T <- T exp(x^)
         T = T @ lie.exp_se3(x * free[:, None])
+    profiling.annotate(gn_iters=iters, cg_steps=iters * cg_iters)  # no early exit
     return T
 
 

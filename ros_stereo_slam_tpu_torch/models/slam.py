@@ -53,7 +53,7 @@ from ros_stereo_slam_tpu_torch.models.state import KeyframeShard, TrackState
 from ros_stereo_slam_tpu_torch.ops import orb, pyramid
 from ros_stereo_slam_tpu_torch.parallel import dist_map
 from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, barrier, check_mesh
-from ros_stereo_slam_tpu_torch.utils import lie
+from ros_stereo_slam_tpu_torch.utils import lie, profiling
 
 
 def corrected_carry(carry: step_mod.SlamCarry, new_poses: torch.Tensor,
@@ -168,7 +168,10 @@ class StereoSLAM:
         already drops candidates within ``min_separation`` frames."""
         if self.detector is None:
             return None
-        cand = self.detector.detect(self.frame_count, self._orb(left))
+        with profiling.span("detect.frame", frame=self.frame_count, lanes=1):
+            with profiling.span("detect.orb"):
+                feats = self._orb(left)
+            cand = self.detector.detect(self.frame_count, feats)
         if suppressed or cand is None:
             return None
         self.cooldown = self.config.loop.cooldown
@@ -200,7 +203,10 @@ class StereoSLAM:
                                         device=self.device).repeat(cfg.pgo.max_poses, 1, 1)
         self.graph.initialize()
         if self.detector is not None:
-            self.detector.add(0, self._orb(left))
+            with profiling.span("detect.frame", frame=0, lanes=1):
+                with profiling.span("detect.orb"):
+                    feats = self._orb(left)
+                self.detector.add(0, feats)
         n = int(self._carry.track.mask.sum())
         self.keyframe_frames.append(0)
         self.frame_count = 1
@@ -211,6 +217,7 @@ class StereoSLAM:
         """One frame: the step, detection, and on an accepted closure the
         correction; `left_rgb` colours the points of a keyframe."""
         cfg = self.config
+        frame_idx = self.frame_count
         left, right = self._frame(left), self._frame(right)
         rgb = rgb_frame(left_rgb, self.device)
         prev_T = self._carry.T_wc
@@ -229,18 +236,22 @@ class StereoSLAM:
         if cand is not None:
             self.graph.add_loop(*self._measure_loop_edge(cand, left, right))
             old_poses = self.trajectory_dev
-            self.trajectory_dev = self.graph.optimize(old_poses, mesh=self.mesh)
-            self._carry = corrected_carry(self._carry, self.trajectory_dev, old_poses, right,
-                                          self.grid_pts, self.grid_mask, cfg, rgb,
-                                          self._kf_shard)
+            with profiling.span("slam.optimize", poses=self.graph.count,
+                                loop_edges=self.graph.n_loops):
+                self.trajectory_dev = self.graph.optimize(old_poses, mesh=self.mesh)
+            with profiling.span("slam.corrected_carry", frame=frame_idx):
+                self._carry = corrected_carry(self._carry, self.trajectory_dev, old_poses,
+                                              right, self.grid_pts, self.grid_mask, cfg, rgb,
+                                              self._kf_shard)
             self.loop_events.append(LoopEvent(cand.query, cand.match, cand.n_inliers))
 
-        frame_idx = self.frame_count
         self.frame_count += 1
-        n_trk, n_inl, is_kf, ok, retry = torch.stack(
-            [s.long() for s in (stats.n_tracked, stats.n_inliers, stats.is_keyframe,
-                                stats.tracking_ok, stats.used_retry)]).tolist()
-        info = FrameInfo(frame=frame_idx, T_wc=self._carry.T_wc.cpu().numpy(), n_tracked=n_trk,
+        with profiling.span("host_read", site="slam.frame_info"):
+            n_trk, n_inl, is_kf, ok, retry = torch.stack(
+                [s.long() for s in (stats.n_tracked, stats.n_inliers, stats.is_keyframe,
+                                    stats.tracking_ok, stats.used_retry)]).tolist()
+            T_wc_host = self._carry.T_wc.cpu().numpy()
+        info = FrameInfo(frame=frame_idx, T_wc=T_wc_host, n_tracked=n_trk,
                          n_inliers=n_inl, is_keyframe=bool(is_kf) or cand is not None,
                          tracking_ok=bool(ok), used_retry=bool(retry))
         if info.is_keyframe:

@@ -42,6 +42,7 @@ from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage, map_poi
 from ros_stereo_slam_tpu_torch.models.pose_graph import PoseGraph
 from ros_stereo_slam_tpu_torch.models.slam import corrected_carry
 from ros_stereo_slam_tpu_torch.models.state import KeyframeStore
+from ros_stereo_slam_tpu_torch.utils import profiling
 
 
 class ChunkInfo(NamedTuple):
@@ -178,9 +179,10 @@ class ChunkedSLAM:
         cfg = self.config
         pos, n = pending.pos, pending.n
         fs, ls = pending.fstats, pending.lstats
-        T_np, n_trk, n_inl, is_kf, ok = (x.cpu().numpy() for x in (
-            fs.T_wc, fs.n_tracked, fs.n_inliers, fs.is_keyframe, fs.tracking_ok))
-        top_ids, top_scores, ns = (x.cpu().numpy() for x in ls)
+        with profiling.span("host_read", site="chunked.stats"):
+            T_np, n_trk, n_inl, is_kf, ok = (x.cpu().numpy() for x in (
+                fs.T_wc, fs.n_tracked, fs.n_inliers, fs.is_keyframe, fs.tracking_ok))
+            top_ids, top_scores, ns = (x.cpu().numpy() for x in ls)
         self._in_flight -= 1
         self._n_inl.append(n_inl)
         self._is_kf.append(is_kf)
@@ -204,10 +206,13 @@ class ChunkedSLAM:
             for i, j, Z in edges:
                 self.graph.add_loop(i, j, Z)
             old_poses = self.trajectory_dev
-            self.trajectory_dev = self.graph.optimize(old_poses)
-            self._carry = self._corrected_carry(
-                pending.carry_after, self.trajectory_dev, old_poses, pending.rights[-1],
-                None if pending.rgbs is None else pending.rgbs[-1])
+            with profiling.span("slam.optimize", poses=self.graph.count,
+                                loop_edges=self.graph.n_loops):
+                self.trajectory_dev = self.graph.optimize(old_poses)
+            with profiling.span("slam.corrected_carry", frame=pos + n - 1):
+                self._carry = self._corrected_carry(
+                    pending.carry_after, self.trajectory_dev, old_poses, pending.rights[-1],
+                    None if pending.rgbs is None else pending.rgbs[-1])
             # roll the frontier back to this (corrected) chunk boundary
             self._lc = pending.lc_after
             self._disp_pos = pos + n

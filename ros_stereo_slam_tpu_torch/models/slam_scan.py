@@ -52,7 +52,7 @@ from ros_stereo_slam_tpu_torch.models import step as step_mod
 from ros_stereo_slam_tpu_torch.models import step_batched
 from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
 from ros_stereo_slam_tpu_torch.ops import lk, orb as orb_mod, pnp, pyramid, triangulate
-from ros_stereo_slam_tpu_torch.utils import lie
+from ros_stereo_slam_tpu_torch.utils import lie, profiling
 
 
 LCScanState = lc_mod.LCScanState
@@ -110,23 +110,29 @@ def _lc_scan_step(
     detection per lane, all lanes on frame `frame_id`); every lane writes
     its own row, and the stats gain a leading lane axis.
     """
-    left_img = step_mod._to_unit(left_img).contiguous()
-    lcc = cfg.loop
-    feats = orb_mod.detect_and_compute(
-        left_img, lcc.orb_features, cfg.frontend.fast_thresh / 255.0,
-        n_levels=lcc.orb_levels,
-    )
-    uw, uv = lc_mod.bow_of(feats, tree, idf, vocab_k)
-    q_bins = vocab_mod.bin_of_sparse(uw, uv, lcc.n_bins)
-    ns = vocab_mod.score_pair_min(uw, uv, lc.last_words, lc.last_wvals)
-    top_ids, top_scores = lc_mod._query_scores(
-        uw, uv, q_bins, lc.db_words, lc.db_wvals, lc.db_bins, lc.db_valid,
-        frame_id - lcc.dislocal - 1, lc.db_ids, _top_k_count(lcc), lcc.shortlist)
-    # The reference masks ns with `have_last` AFTER setting it, so a
-    # detection frame always reports the raw score (0 on the first frame);
-    # only skipped frames carry ns = -1 (_null_stats).
-    stats = LCScanStats(top_ids=top_ids, top_scores=top_scores, ns=ns)
-    return lc_mod._db_insert(lc, frame_id, feats, uw, uv, q_bins), stats
+    with profiling.span("detect.frame", frame=frame_id, lanes=left_img.shape[0]
+                        if left_img.dim() == 3 else 1):
+        left_img = step_mod._to_unit(left_img).contiguous()
+        lcc = cfg.loop
+        with profiling.span("detect.orb"):
+            feats = orb_mod.detect_and_compute(
+                left_img, lcc.orb_features, cfg.frontend.fast_thresh / 255.0,
+                n_levels=lcc.orb_levels,
+            )
+        with profiling.span("detect.bow"):
+            uw, uv = lc_mod.bow_of(feats, tree, idf, vocab_k)
+            q_bins = vocab_mod.bin_of_sparse(uw, uv, lcc.n_bins)
+        with profiling.span("detect.query"):
+            ns = vocab_mod.score_pair_min(uw, uv, lc.last_words, lc.last_wvals)
+            top_ids, top_scores = lc_mod._query_scores(
+                uw, uv, q_bins, lc.db_words, lc.db_wvals, lc.db_bins, lc.db_valid,
+                frame_id - lcc.dislocal - 1, lc.db_ids, _top_k_count(lcc), lcc.shortlist)
+        # The reference masks ns with `have_last` AFTER setting it, so a
+        # detection frame always reports the raw score (0 on the first
+        # frame); only skipped frames carry ns = -1 (_null_stats).
+        stats = LCScanStats(top_ids=top_ids, top_scores=top_scores, ns=ns)
+        with profiling.span("detect.insert"):
+            return lc_mod._db_insert(lc, frame_id, feats, uw, uv, q_bins), stats
 
 
 def _stack(rows: list):
@@ -324,31 +330,36 @@ class EpilogueGater:
         n = top_ids.shape[0]
         suppress_until = fid_start + self.cooldown - 1
         cands = []
-        for i in range(n):
-            fid = fid_start + i
-            if fid % self.every != self.phase or fid <= lcc.dislocal:
-                continue
-            gated = self.gater.gate(fid, top_ids[i], top_scores[i], float(ns_arr[i]))
-            if gated is None or fid <= suppress_until:
-                continue
-            best_id = gated[0]
-            if fid - best_id <= lcc.min_separation:
-                continue
-            cands.append((fid, best_id))
+        with profiling.span("epilogue.gates", frames=n) as sp:
+            for i in range(n):
+                fid = fid_start + i
+                if fid % self.every != self.phase or fid <= lcc.dislocal:
+                    continue
+                gated = self.gater.gate(fid, top_ids[i], top_scores[i], float(ns_arr[i]))
+                if gated is None or fid <= suppress_until:
+                    continue
+                best_id = gated[0]
+                if fid - best_id <= lcc.min_separation:
+                    continue
+                cands.append((fid, best_id))
+            sp.set(candidates=len(cands))
 
         accepted = []
         if cands:
-            n_inl_d, bi_d, im_d = lc_mod._geom_match_many(
-                lc.db_bits, lc.db_pts, lc.db_pt_valid,
-                [q for q, _ in cands], [m for _, m in cands],
-                lcc.geom_thresh_px, lcc.neigh_ratio, iters=lcc.geom_ransac_iters,
-            )
-            n_inl_b, bi_b, im_b = (t.cpu().numpy() for t in (n_inl_d, bi_d, im_d))
-            for ci, (fid, best_id) in enumerate(cands):
-                if fid <= suppress_until or int(n_inl_b[ci]) < lcc.geom_min_points:
-                    continue
-                suppress_until = fid + lcc.cooldown
-                accepted.append((fid, best_id, bi_b[ci], im_b[ci], int(n_inl_b[ci])))
+            with profiling.span("epilogue.geom", candidates=len(cands)) as sp:
+                n_inl_d, bi_d, im_d = lc_mod._geom_match_many(
+                    lc.db_bits, lc.db_pts, lc.db_pt_valid,
+                    [q for q, _ in cands], [m for _, m in cands],
+                    lcc.geom_thresh_px, lcc.neigh_ratio, iters=lcc.geom_ransac_iters,
+                )
+                with profiling.span("host_read", site="epilogue.geom"):
+                    n_inl_b, bi_b, im_b = (t.cpu().numpy() for t in (n_inl_d, bi_d, im_d))
+                for ci, (fid, best_id) in enumerate(cands):
+                    if fid <= suppress_until or int(n_inl_b[ci]) < lcc.geom_min_points:
+                        continue
+                    suppress_until = fid + lcc.cooldown
+                    accepted.append((fid, best_id, bi_b[ci], im_b[ci], int(n_inl_b[ci])))
+                sp.set(accepted=len(accepted))
         self.cooldown = max(0, suppress_until - (fid_start + n - 1))
         return accepted
 
@@ -403,7 +414,8 @@ def _measure_edges_pnp(lc_arrays, cands, geom, frame_of, cfg: PipelineConfig):
         torch.as_tensor(np.asarray(inl_mask), device=dev),
         [q for q, _ in cands], [m for _, m in cands], cfg,
     )
-    n_ok, Ts = n_ok.cpu().numpy(), Ts.cpu().numpy()
+    with profiling.span("host_read", site="epilogue.edges"):
+        n_ok, Ts = n_ok.cpu().numpy(), Ts.cpu().numpy()
     return [Ts[ci] if int(n_ok[ci]) >= cfg.loop.geom_min_points else None
             for ci in range(len(cands))]
 
@@ -422,20 +434,22 @@ def measure_loop_edges(accepted: list, lc: LCScanState, frame_of,
     loop_events, loop_edges = [], []
     if not accepted:
         return loop_events, loop_edges
-    if cfg.loop.edge_measurement == "pnp":
-        sel = [(q, m) for q, m, _, _, _ in accepted]
-        geom = (np.asarray([a[4] for a in accepted]),
-                np.stack([a[2] for a in accepted]),
-                np.stack([a[3] for a in accepted]))
-        Zs = _measure_edges_pnp((lc.db_pts, lc.db_pt_valid), sel, geom, frame_of, cfg)
-    else:
-        Zs = [None] * len(accepted)
-    for (q, m, _, _, n_inl), Z in zip(accepted, Zs):
-        loop_events.append((q, m, n_inl))
-        if Z is None:
-            loop_edges.append((q, max(m - 1, 0), np.eye(4)))
+    with profiling.span("epilogue.edges", closures=len(accepted)) as sp:
+        if cfg.loop.edge_measurement == "pnp":
+            sel = [(q, m) for q, m, _, _, _ in accepted]
+            geom = (np.asarray([a[4] for a in accepted]),
+                    np.stack([a[2] for a in accepted]),
+                    np.stack([a[3] for a in accepted]))
+            Zs = _measure_edges_pnp((lc.db_pts, lc.db_pt_valid), sel, geom, frame_of, cfg)
         else:
-            loop_edges.append((q, m, Z))
+            Zs = [None] * len(accepted)
+        for (q, m, _, _, n_inl), Z in zip(accepted, Zs):
+            loop_events.append((q, m, n_inl))
+            if Z is None:
+                loop_edges.append((q, max(m - 1, 0), np.eye(4)))
+            else:
+                loop_edges.append((q, m, Z))
+        sp.set(measured=sum(Z is not None for Z in Zs))
     return loop_events, loop_edges
 
 
@@ -456,39 +470,45 @@ def _epilogue_one(cfg: PipelineConfig, lc, top_ids, top_scores, ns, fstats, keyf
     """Host epilogue: gates -> geometric check -> accept -> PnP loop edges
     -> one PGO -> keyframe map rewrite.  `fstats` holds host arrays;
     `phase` is the lane's detection phase (:class:`EpilogueGater`)."""
-    traj_odo = np.concatenate([np.eye(4, dtype=np.float32)[None],
-                               np.asarray(fstats.T_wc)], axis=0)
-    gate = EpilogueGater(cfg, phase=phase)
-    accepted = gate.process(lc, top_ids, top_scores, ns, fid_start=1)
-    loop_events, loop_edges = measure_loop_edges(accepted, lc, frame_of, cfg)
+    with profiling.span("epilogue") as sp:
+        traj_odo = np.concatenate([np.eye(4, dtype=np.float32)[None],
+                                   np.asarray(fstats.T_wc)], axis=0)
+        gate = EpilogueGater(cfg, phase=phase)
+        accepted = gate.process(lc, top_ids, top_scores, ns, fid_start=1)
+        loop_events, loop_edges = measure_loop_edges(accepted, lc, frame_of, cfg)
+        sp.set(closures=len(loop_events))
 
-    trajectory = traj_odo
-    if loop_edges:
-        dev = keyframes.points.device
-        poses = torch.from_numpy(traj_odo).to(dev)
-        lZ = torch.from_numpy(np.stack([Z for _, _, Z in loop_edges]).astype(np.float32))
-        opt = pg_mod.optimize(
-            poses, traj_odo.shape[0], pg_mod.chain_measurements(poses),
-            torch.tensor([i for i, _, _ in loop_edges], device=dev),
-            torch.tensor([j for _, j, _ in loop_edges], device=dev),
-            lZ.to(dev), torch.ones((len(loop_edges),), dtype=torch.bool, device=dev),
-            iters=cfg.pgo.iters, cg_iters=cfg.pgo.cg_iters, damping=cfg.pgo.damping,
+        trajectory = traj_odo
+        if loop_edges:
+            dev = keyframes.points.device
+            with profiling.span("epilogue.pgo", poses=traj_odo.shape[0],
+                                loop_edges=len(loop_edges)):
+                poses = torch.from_numpy(traj_odo).to(dev)
+                lZ = torch.from_numpy(np.stack([Z for _, _, Z in loop_edges]).astype(np.float32))
+                opt = pg_mod.optimize(
+                    poses, traj_odo.shape[0], pg_mod.chain_measurements(poses),
+                    torch.tensor([i for i, _, _ in loop_edges], device=dev),
+                    torch.tensor([j for _, j, _ in loop_edges], device=dev),
+                    lZ.to(dev), torch.ones((len(loop_edges),), dtype=torch.bool, device=dev),
+                    iters=cfg.pgo.iters, cg_iters=cfg.pgo.cg_iters, damping=cfg.pgo.damping,
+                )
+                with profiling.span("host_read", site="epilogue.pgo"):
+                    trajectory = opt.cpu().numpy()
+            # Post-PGO map consistency (the reference's updateOdometry): every
+            # keyframe cloud is re-expressed at its optimized pose.
+            with profiling.span("epilogue.rewrite"):
+                fi = keyframes.frame_idx.to(torch.int64)
+                keyframes = keyframes._replace(
+                    points=pg_mod.rewrite_points(keyframes.points, keyframes.frame_idx, poses, opt),
+                    poses=opt[fi],
+                    retrack=keyframes.retrack | keyframes.valid,
+                )
+        return ScanSlamResult(
+            trajectory=trajectory, trajectory_odo=traj_odo, loop_events=loop_events,
+            n_inliers=np.asarray(fstats.n_inliers), is_keyframe=np.asarray(fstats.is_keyframe),
+            tracking_ok=np.asarray(fstats.tracking_ok), keyframes=keyframes,
+            loop_edges=loop_edges,
         )
-        trajectory = opt.cpu().numpy()
-        # Post-PGO map consistency (the reference's updateOdometry): every
-        # keyframe cloud is re-expressed at its optimized pose.
-        fi = keyframes.frame_idx.to(torch.int64)
-        keyframes = keyframes._replace(
-            points=pg_mod.rewrite_points(keyframes.points, keyframes.frame_idx, poses, opt),
-            poses=opt[fi],
-            retrack=keyframes.retrack | keyframes.valid,
-        )
-    return ScanSlamResult(
-        trajectory=trajectory, trajectory_odo=traj_odo, loop_events=loop_events,
-        n_inliers=np.asarray(fstats.n_inliers), is_keyframe=np.asarray(fstats.is_keyframe),
-        tracking_ok=np.asarray(fstats.tracking_ok), keyframes=keyframes,
-        loop_edges=loop_edges,
-    )
 
 
 def _lane(tree, b: int):
@@ -513,32 +533,35 @@ def run_offline_slam_batched(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, l
     """
     from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage, rgb_frame
 
-    step_batched.check_batched(cfg)
-    grid_pts, grid_mask = _grid_for(cfg, device)
-    left, right = _stage(left_seqs, device), _stage(right_seqs, device)
-    rgb = rgb_frame(rgb_seqs, device)
-    B = left.shape[0]
-    tree, idf = vocab.packed().to(device), vocab.idf.to(device)
-    carry = step_mod.init_carry_batched(left[:, 0], right[:, 0], grid_pts, grid_mask,
-                                        step_batched.lane_keys(cfg.seed, B), cfg,
-                                        None if rgb is None else rgb[:, 0])
-    # frame 0 enters every lane's database, whatever its phase
-    lc, _ = _lc_scan_step(init_lc_state(cfg, vocab.n_words, device, lanes=B), left[:, 0], 0,
-                          tree, idf, cfg, vocab.k)
-    (carry, lc), (fstats, lstats) = run_sequence_slam_batched(
-        left[:, 1:], right[:, 1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k,
-        None if rgb is None else rgb[:, 1:], interleave=interleave)
-    fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
-    top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
-    every = max(cfg.loop.detect_every, 1)
-    return [
-        _epilogue_one(cfg, _lane(lc, b), top_ids[:, b], top_scores[:, b], ns[:, b],
-                      step_mod.FrameStats(*(f[:, b] for f in fstats_h)),
-                      _lane(carry.keyframes, b),
-                      lambda fid, b=b: (left[b, fid], right[b, fid]),
-                      phase=lane_phase(b, every) if _interleaved(interleave, B, cfg) else 0)
-        for b in range(B)
-    ]
+    with profiling.span("driver.session", driver="run_offline_slam_batched",
+                        frames=left_seqs.shape[1], lanes=left_seqs.shape[0]):
+        step_batched.check_batched(cfg)
+        grid_pts, grid_mask = _grid_for(cfg, device)
+        left, right = _stage(left_seqs, device), _stage(right_seqs, device)
+        rgb = rgb_frame(rgb_seqs, device)
+        B = left.shape[0]
+        tree, idf = vocab.packed().to(device), vocab.idf.to(device)
+        carry = step_mod.init_carry_batched(left[:, 0], right[:, 0], grid_pts, grid_mask,
+                                            step_batched.lane_keys(cfg.seed, B), cfg,
+                                            None if rgb is None else rgb[:, 0])
+        # frame 0 enters every lane's database, whatever its phase
+        lc, _ = _lc_scan_step(init_lc_state(cfg, vocab.n_words, device, lanes=B), left[:, 0], 0,
+                              tree, idf, cfg, vocab.k)
+        (carry, lc), (fstats, lstats) = run_sequence_slam_batched(
+            left[:, 1:], right[:, 1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k,
+            None if rgb is None else rgb[:, 1:], interleave=interleave)
+        with profiling.span("host_read", site="slam.stats"):
+            fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
+            top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
+        every = max(cfg.loop.detect_every, 1)
+        return [
+            _epilogue_one(cfg, _lane(lc, b), top_ids[:, b], top_scores[:, b], ns[:, b],
+                          step_mod.FrameStats(*(f[:, b] for f in fstats_h)),
+                          _lane(carry.keyframes, b),
+                          lambda fid, b=b: (left[b, fid], right[b, fid]),
+                          phase=lane_phase(b, every) if _interleaved(interleave, B, cfg) else 0)
+            for b in range(B)
+        ]
 
 
 def run_offline_slam(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, left_seq, right_seq,
@@ -553,19 +576,22 @@ def run_offline_slam(cfg: PipelineConfig, vocab: vocab_mod.Vocabulary, left_seq,
     """
     from ros_stereo_slam_tpu_torch.models.pipeline import _grid_for, _stage, rgb_frame
 
-    grid_pts, grid_mask = _grid_for(cfg, device)
-    left, right = _stage(left_seq, device), _stage(right_seq, device)
-    rgb = rgb_frame(rgb_seq, device)
-    tree, idf = vocab.packed().to(device), vocab.idf.to(device)
-    carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg,
-                                None if rgb is None else rgb[0])
-    # frame 0 enters the database too (0 % detect_every == 0)
-    lc, _ = _lc_scan_step(init_lc_state(cfg, vocab.n_words, device), left[0], 0, tree, idf,
-                          cfg, vocab.k)
-    (carry, lc), (fstats, lstats) = run_sequence_slam(
-        left[1:], right[1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k,
-        rgb_seq=None if rgb is None else rgb[1:])
-    fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
-    top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
-    return _epilogue_one(cfg, lc, top_ids, top_scores, ns, fstats_h, carry.keyframes,
-                         lambda fid: (left[fid], right[fid]))
+    with profiling.span("driver.session", driver="run_offline_slam", frames=len(left_seq),
+                        lanes=1):
+        grid_pts, grid_mask = _grid_for(cfg, device)
+        left, right = _stage(left_seq, device), _stage(right_seq, device)
+        rgb = rgb_frame(rgb_seq, device)
+        tree, idf = vocab.packed().to(device), vocab.idf.to(device)
+        carry = step_mod.init_carry(left[0], right[0], grid_pts, grid_mask, cfg.seed, cfg,
+                                    None if rgb is None else rgb[0])
+        # frame 0 enters the database too (0 % detect_every == 0)
+        lc, _ = _lc_scan_step(init_lc_state(cfg, vocab.n_words, device), left[0], 0, tree, idf,
+                              cfg, vocab.k)
+        (carry, lc), (fstats, lstats) = run_sequence_slam(
+            left[1:], right[1:], carry, lc, grid_pts, grid_mask, tree, idf, cfg, vocab.k,
+            rgb_seq=None if rgb is None else rgb[1:])
+        with profiling.span("host_read", site="slam.stats"):
+            fstats_h = step_mod.FrameStats(*(f.cpu().numpy() for f in fstats))
+            top_ids, top_scores, ns = (x.cpu().numpy() for x in lstats)
+        return _epilogue_one(cfg, lc, top_ids, top_scores, ns, fstats_h, carry.keyframes,
+                             lambda fid: (left[fid], right[fid]))

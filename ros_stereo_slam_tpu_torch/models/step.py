@@ -8,7 +8,10 @@ PyTorch on the device that holds the frames:
   the device once (:func:`run_sequence`);
 - the two ``lax.cond``s become host branches that read one device scalar
   each: the rescue re-track and the keyframe branch.  Every such read is
-  counted in ``HOST_READS``;
+  counted in ``HOST_READS`` and held by a ``host_read`` span
+  (:mod:`..utils.profiling`; the step's others: ``step.frame`` around
+  each frame, ``step.track``, ``step.pnp``, ``step.rescue``,
+  ``step.keyframe``, ``step.ba``);
 - ``jax.random.split(carry.key, ...)`` becomes a generator per frame and
   stream, seeded from (``carry.key``, frame index, stream), so one seed
   gives a bitwise-identical trajectory on one device.  The streams are not
@@ -48,7 +51,7 @@ from ros_stereo_slam_tpu_torch.models import bundle_adjust, frontend
 from ros_stereo_slam_tpu_torch.models.state import KeyframeShard, KeyframeStore, TrackState
 from ros_stereo_slam_tpu_torch.ops import (anms, fast, interp, lk, match, orb, pnp, pyramid,
                                            ransac, sor, triangulate)
-from ros_stereo_slam_tpu_torch.utils import lie
+from ros_stereo_slam_tpu_torch.utils import lie, profiling
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole, project
 
 # Device -> host scalar reads made by the frame step in this process, and
@@ -125,10 +128,11 @@ class SlamCarry(NamedTuple):
     ba: BAState | None = None  # present iff cfg.ba_enabled
 
 
-def _host_read(flag: torch.Tensor) -> bool:
+def _host_read(flag: torch.Tensor, site: str) -> bool:
     global HOST_READS
     HOST_READS += 1
-    return bool(flag.item())
+    with profiling.span("host_read", site=site):
+        return bool(flag.item())
 
 
 def _generator(key: int, frame_idx: int, stream: int, device) -> torch.Generator:
@@ -282,18 +286,20 @@ def _track_and_pnp(carry: SlamCarry, ref_pyr, c_pyr, init_flow, lk_params,
     the folded retry ladder; the previous pose seeds the GN hypothesis
     family."""
     fe, pc = cfg.frontend, cfg.pnp
-    r = lk.track(ref_pyr, c_pyr, carry.track.pts2d, init_flow, lk_params)
-    mm = carry.track.mask & r.valid
-    if fe.fmat_gate == "ransac":
-        mm = mm & _fgate(fgens, carry.track.pts2d, r.points, mm, fe.fmat_thresh_px,
-                         fe.fmat_iters)
-    pp = pnp.pnp_ransac(
-        gen, cam, carry.track.pts3d, r.points, mm,
-        thresh_px=pc.thresh_px, iters=pc.iters,
-        refine_iters=pc.refine_iters,
-        T_init=T_prior, retry_thresh_px=pc.retry_thresh_px,
-        min_inliers=pc.min_inliers, huber_px=pc.refine_huber_px,
-    )
+    with profiling.span("step.track"):
+        r = lk.track(ref_pyr, c_pyr, carry.track.pts2d, init_flow, lk_params)
+        mm = carry.track.mask & r.valid
+        if fe.fmat_gate == "ransac":
+            mm = mm & _fgate(fgens, carry.track.pts2d, r.points, mm, fe.fmat_thresh_px,
+                             fe.fmat_iters)
+    with profiling.span("step.pnp"):
+        pp = pnp.pnp_ransac(
+            gen, cam, carry.track.pts3d, r.points, mm,
+            thresh_px=pc.thresh_px, iters=pc.iters,
+            refine_iters=pc.refine_iters,
+            T_init=T_prior, retry_thresh_px=pc.retry_thresh_px,
+            min_inliers=pc.min_inliers, huber_px=pc.refine_huber_px,
+        )
     return r.points, mm, pp
 
 
@@ -477,10 +483,11 @@ def slam_frame_step(
     rounds exactly as this step does.  `kf_shard`: the carry's keyframe
     store is that shard of a ring sharded over a mesh.
     """
-    new, stats = _step_lanes(_one_lane(carry), left_img[None], right_img[None], grid_pts,
-                             grid_mask, cfg, None if left_rgb is None else left_rgb[None],
-                             kf_shard)
-    return _drop_lane(new), FrameStats(*(s[0] for s in stats))
+    with profiling.span("step.frame", frame=carry.frame_idx, lanes=1):
+        new, stats = _step_lanes(_one_lane(carry), left_img[None], right_img[None], grid_pts,
+                                 grid_mask, cfg, None if left_rgb is None else left_rgb[None],
+                                 kf_shard)
+        return _drop_lane(new), FrameStats(*(s[0] for s in stats))
 
 
 def _step_lanes(
@@ -550,13 +557,14 @@ def _step_lanes(
         # Rescue: a wrong velocity prior starves PnP — re-track unseeded on
         # the full pyramid (coarse levels of both frames built only here).
         need_rescue = (tracked[2].n_inliers < fe.lk_rescue_min_inliers) | ~carry.dT_valid
-        if _host_read(need_rescue.any()):
+        if _host_read(need_rescue.any(), "step.rescue"):
             RESCUES += 1
-            ref_full = tuple(pyramid.build_pyramid(carry.ref_pyr[0], fe.lk_levels))
-            cur_full = tuple(pyramid.build_pyramid(left_img, fe.lk_levels))
-            rescued = track_and_pnp(ref_full, cur_full, None, frontend._lk_params(fe),
-                                    _STREAM_RESCUE, _STREAM_FGATE_RESCUE)
-            tracked = _where_lanes(need_rescue, rescued, tracked)
+            with profiling.span("step.rescue"):
+                ref_full = tuple(pyramid.build_pyramid(carry.ref_pyr[0], fe.lk_levels))
+                cur_full = tuple(pyramid.build_pyramid(left_img, fe.lk_levels))
+                rescued = track_and_pnp(ref_full, cur_full, None, frontend._lk_params(fe),
+                                        _STREAM_RESCUE, _STREAM_FGATE_RESCUE)
+                tracked = _where_lanes(need_rescue, rescued, tracked)
     else:
         tracked = track_and_pnp(carry.ref_pyr, cur_pyr, None, frontend._lk_params(fe),
                                 _STREAM_TRACK, _STREAM_FGATE_TRACK)
@@ -570,7 +578,9 @@ def _step_lanes(
     track, ba = carry.track, carry.ba
     ba_rms = torch.zeros((B,), dtype=torch.float32, device=dev)
     if cfg.ba_enabled:
-        ba, T_wc, track, ba_rms = _ba_refine(ba, track, T_wc, tracked_pts, p.inliers & m, cfg)
+        with profiling.span("step.ba"):
+            ba, T_wc, track, ba_rms = _ba_refine(ba, track, T_wc, tracked_pts, p.inliers & m,
+                                                 cfg)
     track = track._replace(pts2d=tracked_pts, mask=p.inliers & m)
     flow = carry.stereo_flow
     keyframes = carry.keyframes
@@ -582,30 +592,32 @@ def _step_lanes(
         # tracking failures fire at once.  frame_idx is lockstep across
         # lanes, so on window frames every due lane fires together.
         is_kf = ~tracking_ok
-    if _host_read(is_kf.any()):
-        gp = grid_pts.expand(B, -1, -1).contiguous()
-        gm = grid_mask.expand(B, -1)
-        gens = _stereo_gate_generators(cfg, carry.key, carry.frame_idx, _STREAM_KEYFRAME, dev)
-        if stereo_seeded:
-            n_lvl = min(fe.lk_stereo_seeded_levels, fe.lk_levels)
-            right_pyr = tuple(pyramid.build_pyramid(right_img, n_lvl))
-            kf_track, r_uv, r_mask = _bootstrap_track(
-                cur_pyr[:n_lvl], right_pyr, gp, gm, T_wc, cfg, gens,
-                stereo_flow=carry.stereo_flow, left_rgb=left_rgb,
-            )
-            flow = _where_lanes(is_kf, torch.where(kf_track.mask[..., None], r_uv - gp,
-                                                   carry.stereo_flow), flow)
-        else:
-            # Unseeded on the full pyramid; the grid's disparity prior is
-            # left as it is.  ORB stereo reads level 0 of the right view only.
-            right_pyr = tuple(pyramid.build_pyramid(right_img, _right_levels(fe)))
-            kf_track, r_uv, r_mask = _bootstrap_track(cur_pyr, right_pyr, gp, gm, T_wc, cfg,
-                                                      gens, left_rgb=left_rgb)
-        if cfg.ba_enabled:
-            ba = _where_lanes(is_kf, _ba_reset(kf_track, r_uv, r_mask, T_wc, cfg), ba)
-        track = _where_lanes(is_kf, kf_track, track)
-        keyframes = _insert_keyframe(keyframes, track, T_wc, carry.frame_idx,
-                                     is_kf if B > 1 else None, kf_shard)
+    if _host_read(is_kf.any(), "step.keyframe"):
+        with profiling.span("step.keyframe"):
+            gp = grid_pts.expand(B, -1, -1).contiguous()
+            gm = grid_mask.expand(B, -1)
+            gens = _stereo_gate_generators(cfg, carry.key, carry.frame_idx, _STREAM_KEYFRAME,
+                                           dev)
+            if stereo_seeded:
+                n_lvl = min(fe.lk_stereo_seeded_levels, fe.lk_levels)
+                right_pyr = tuple(pyramid.build_pyramid(right_img, n_lvl))
+                kf_track, r_uv, r_mask = _bootstrap_track(
+                    cur_pyr[:n_lvl], right_pyr, gp, gm, T_wc, cfg, gens,
+                    stereo_flow=carry.stereo_flow, left_rgb=left_rgb,
+                )
+                flow = _where_lanes(is_kf, torch.where(kf_track.mask[..., None], r_uv - gp,
+                                                       carry.stereo_flow), flow)
+            else:
+                # Unseeded on the full pyramid; the grid's disparity prior is
+                # left as it is.  ORB stereo reads level 0 of the right view only.
+                right_pyr = tuple(pyramid.build_pyramid(right_img, _right_levels(fe)))
+                kf_track, r_uv, r_mask = _bootstrap_track(cur_pyr, right_pyr, gp, gm, T_wc, cfg,
+                                                          gens, left_rgb=left_rgb)
+            if cfg.ba_enabled:
+                ba = _where_lanes(is_kf, _ba_reset(kf_track, r_uv, r_mask, T_wc, cfg), ba)
+            track = _where_lanes(is_kf, kf_track, track)
+            keyframes = _insert_keyframe(keyframes, track, T_wc, carry.frame_idx,
+                                         is_kf if B > 1 else None, kf_shard)
 
     # Velocity update: keep the last good estimate through a tracking
     # failure (the held pose would otherwise zero the prior).
@@ -646,9 +658,10 @@ def init_carry(
 ) -> SlamCarry:
     """Frame-0 bootstrap: stereo-triangulate the grid, insert keyframe 0
     (coloured from `left_rgb` (H, W, 3) if given), open the BA window."""
-    return _drop_lane(init_carry_batched(left_img[None], right_img[None], grid_pts, grid_mask,
-                                         (int(key),), cfg,
-                                         None if left_rgb is None else left_rgb[None]))
+    with profiling.span("step.frame", frame=0, lanes=1):
+        return _drop_lane(_init_lanes(left_img[None], right_img[None], grid_pts, grid_mask,
+                                      (int(key),), cfg,
+                                      None if left_rgb is None else left_rgb[None]))
 
 
 def init_carry_batched(
@@ -667,6 +680,13 @@ def init_carry_batched(
     stays one int (lanes step in lockstep).  Lane b equals
     ``init_carry(..., key=keys[b], ...)``.
     """
+    with profiling.span("step.frame", frame=0, lanes=left_imgs.shape[0]):
+        return _init_lanes(left_imgs, right_imgs, grid_pts, grid_mask, keys, cfg, left_rgbs)
+
+
+def _init_lanes(left_imgs, right_imgs, grid_pts, grid_mask, keys, cfg: PipelineConfig,
+                left_rgbs=None) -> SlamCarry:
+    """The body of :func:`init_carry_batched`."""
     B = left_imgs.shape[0]
     if left_imgs.dim() != 3 or right_imgs.shape != left_imgs.shape or len(keys) != B:
         raise ValueError(f"expected (B, H, W) images and B keys: {tuple(left_imgs.shape)}, "

@@ -42,6 +42,7 @@ import torch
 from ros_stereo_slam_tpu_torch.config import PipelineConfig
 from ros_stereo_slam_tpu_torch.models import step as step_mod
 from ros_stereo_slam_tpu_torch.models.step import FrameStats, SlamCarry
+from ros_stereo_slam_tpu_torch.utils import profiling
 
 
 def lane_keys(seed: int, lanes: int) -> tuple[int, ...]:
@@ -89,8 +90,9 @@ def slam_frame_step_batched(
             or len(carry.key) != left_img.shape[0]:
         raise ValueError(f"expected (B, H, W) frames for {len(carry.key)} lanes, got "
                          f"{tuple(left_img.shape)} and {tuple(right_img.shape)}")
-    return step_mod._step_lanes(carry, left_img, right_img, grid_pts, grid_mask, cfg, left_rgb,
-                                kf_window=max(cfg.keyframes.batch_align_window, 1))
+    with profiling.span("step.frame", frame=carry.frame_idx, lanes=left_img.shape[0]):
+        return step_mod._step_lanes(carry, left_img, right_img, grid_pts, grid_mask, cfg,
+                                    left_rgb, kf_window=max(cfg.keyframes.batch_align_window, 1))
 
 
 def run_sequence_batched(

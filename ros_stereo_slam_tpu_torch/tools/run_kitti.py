@@ -41,8 +41,17 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = _parser().parse_args(argv)
+    """Run the CLI; the program's spans record throughout, and their
+    summary per name goes to ``stages.json`` in the run's directory."""
+    from ros_stereo_slam_tpu_torch.utils import profiling
 
+    args = _parser().parse_args(argv)
+    profiling.reset()
+    with profiling.tracing():
+        return _main(args)
+
+
+def _main(args) -> int:
     import numpy as np
     import torch
 
@@ -52,7 +61,7 @@ def main(argv=None) -> int:
     from ros_stereo_slam_tpu_torch.models.pipeline import FrameInfo
     from ros_stereo_slam_tpu_torch.tools import device_of
     from ros_stereo_slam_tpu_torch.utils.outputs import RunOutputs, ScanRun
-    from ros_stereo_slam_tpu_torch.utils.profiling import FpsMeter, StageTimer
+    from ros_stereo_slam_tpu_torch.utils import profiling
 
     dev = device_of(args.device)
     if dev is None:
@@ -77,14 +86,13 @@ def main(argv=None) -> int:
           f"{'' if seq.rgb_available else ' (no image_2: gray replicated)'}")
 
     out = RunOutputs(args.out or f"runs/kitti_{args.seq}_{args.preset}")
-    timer = StageTimer()
-    fps = FpsMeter()
+    fps = profiling.FpsMeter()
 
     def on_dev(pair):
         return tuple(torch.as_tensor(x).to(dev) for x in pair)
 
     if args.mode == "scan":
-        with timer.stage("io"):
+        with profiling.span("io"):
             # uint8 staging: 4x less device memory than f32
             fr = [seq.frame(i) for i in range(n)]
             lefts = np.stack([
@@ -96,7 +104,7 @@ def main(argv=None) -> int:
                 np.clip(seq.frame_rgb(i) * 255.0, 0, 255).astype(np.uint8)
                 for i in range(n)])
                 if (cfg.export_map and seq.rgb_available) else None)
-        with timer.stage("scan"):
+        with profiling.span("scan"):
             if cfg.loop.enabled:
                 from ros_stereo_slam_tpu_torch.models.slam_scan import run_offline_slam
 
@@ -118,7 +126,7 @@ def main(argv=None) -> int:
         from ros_stereo_slam_tpu_torch.models.slam_chunked import ChunkedSLAM
 
         slam = ChunkedSLAM(cfg, vocab, dev)
-        with timer.stage("initialize"):
+        with profiling.span("initialize"):
             l0, r0 = seq.frame(0)
             rgb0 = seq.frame_rgb(0) if seq.rgb_available else None
             slam.initialize(l0, r0, rgb0=rgb0)
@@ -130,14 +138,14 @@ def main(argv=None) -> int:
         C = args.chunk
         for s in range(1, n, C):
             e = min(s + C, n)
-            with timer.stage("io"):
+            with profiling.span("io"):
                 fr = [seq.frame(i) for i in range(s, e)]
                 lefts = np.stack([f[0] for f in fr])
                 rights = np.stack([f[1] for f in fr])
                 rg = (np.stack([seq.frame_rgb(i) for i in range(s, e)])
                       if seq.rgb_available else None)
             t0 = time.perf_counter()
-            with timer.stage("chunk"):
+            with profiling.span("chunk"):
                 info = slam.process_chunk(
                     lefts, rights, rgbs=rg,
                     query_frames=lambda fid: on_dev(seq.frame(fid)),
@@ -163,16 +171,16 @@ def main(argv=None) -> int:
         from ros_stereo_slam_tpu_torch.models.slam import StereoSLAM
 
         slam = StereoSLAM(cfg, vocab=vocab, device=dev)
-        with timer.stage("initialize"):
+        with profiling.span("initialize"):
             l0, r0 = seq.frame(0)
             rgb0 = seq.frame_rgb(0) if seq.rgb_available else None
             info = slam.initialize(l0, r0, left_rgb=rgb0)
         out.log_frame(info)
         for i in range(1, n):
-            with timer.stage("io"):
+            with profiling.span("io"):
                 left, right = seq.frame(i)
                 rgb = seq.frame_rgb(i) if seq.rgb_available else None
-            with timer.stage("frame"):
+            with profiling.span("frame"):
                 info = slam.process_frame(left, right, left_rgb=rgb)
             out.log_frame(info, {"fps": round(fps.tick(), 2)})
             if i % 100 == 0:
@@ -183,7 +191,7 @@ def main(argv=None) -> int:
                   f"({ev.n_inliers} inliers)")
 
     summary = out.finalize(slam, gt_poses=seq.gt_poses(), plots=not args.no_plots)
-    timer.dump(os.path.join(out.out_dir, "stages.json"))
+    profiling.dump(os.path.join(out.out_dir, "stages.json"))
     print(f"[kitti] summary: {summary}")
     return 0
 

@@ -99,15 +99,24 @@ def sequence_descriptors(lefts: list, cfg, device):
 
 
 def main(argv=None) -> int:
-    args = _parser().parse_args(argv)
+    """Run the CLI; the program's spans record throughout, and their
+    summary per name goes to ``stages.json`` in the run's directory."""
+    from ros_stereo_slam_tpu_torch.utils import profiling
 
+    args = _parser().parse_args(argv)
+    profiling.reset()
+    with profiling.tracing():
+        return _main(args)
+
+
+def _main(args) -> int:
     import numpy as np
 
     from ros_stereo_slam_tpu_torch.models import vocab as vocab_mod
     from ros_stereo_slam_tpu_torch.models.pipeline import FrameInfo
     from ros_stereo_slam_tpu_torch.tools import device_of
     from ros_stereo_slam_tpu_torch.utils.outputs import RunOutputs, ScanRun
-    from ros_stereo_slam_tpu_torch.utils.profiling import FpsMeter, StageTimer
+    from ros_stereo_slam_tpu_torch.utils import profiling
 
     dev = device_of(args.device)
     if dev is None:
@@ -138,14 +147,13 @@ def main(argv=None) -> int:
     out = RunOutputs(args.out)
     if vocab is not None:
         vocab.save(os.path.join(args.out, "vocab.npz"))
-    timer = StageTimer()
-    fps = FpsMeter()
+    fps = profiling.FpsMeter()
 
     if args.mode == "scan":
         lefts = np.stack([f[0] for f in frames])
         rights = np.stack([f[1] for f in frames])
         rgb = (np.stack(rgbs) if rgbs[0] is not None else None)
-        with timer.stage("scan"):
+        with profiling.span("scan"):
             if cfg.loop.enabled:
                 from ros_stereo_slam_tpu_torch.models.slam_scan import run_offline_slam
 
@@ -165,7 +173,7 @@ def main(argv=None) -> int:
         from ros_stereo_slam_tpu_torch.models.slam_chunked import ChunkedSLAM
 
         slam = ChunkedSLAM(cfg, vocab, dev)
-        with timer.stage("initialize"):
+        with profiling.span("initialize"):
             slam.initialize(frames[0][0], frames[0][1], rgb0=rgbs[0])
         out.log_frame(FrameInfo(
             frame=0, T_wc=np.eye(4, dtype=np.float32), n_tracked=0,
@@ -179,7 +187,7 @@ def main(argv=None) -> int:
             rights = np.stack([frames[i][1] for i in range(s, e)])
             rg = (np.stack([rgbs[i] for i in range(s, e)])
                   if rgbs[0] is not None else None)
-            with timer.stage("chunk"):
+            with profiling.span("chunk"):
                 info = slam.process_chunk(
                     lefts, rights, rgbs=rg,
                     query_frames=lambda fid: tuple(
@@ -204,11 +212,11 @@ def main(argv=None) -> int:
         from ros_stereo_slam_tpu_torch.models.slam import StereoSLAM
 
         slam = StereoSLAM(cfg, vocab=vocab, device=dev)
-        with timer.stage("initialize"):
+        with profiling.span("initialize"):
             info = slam.initialize(*frames[0], left_rgb=rgbs[0])
         out.log_frame(info)
         for i in range(1, world.n_frames):
-            with timer.stage("frame"):
+            with profiling.span("frame"):
                 info = slam.process_frame(*frames[i], left_rgb=rgbs[i])
             out.log_frame(info, {"fps": round(fps.tick(), 2)})
             if info.is_keyframe or not info.tracking_ok:
@@ -219,7 +227,7 @@ def main(argv=None) -> int:
                   f"({ev.n_inliers} inliers)")
 
     summary = out.finalize(slam, gt_poses=world.poses, plots=not args.no_plots)
-    timer.dump(os.path.join(args.out, "stages.json"))
+    profiling.dump(os.path.join(args.out, "stages.json"))
     print(f"[run] summary: {summary}")
     return 0
 

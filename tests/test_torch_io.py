@@ -421,17 +421,32 @@ def test_scan_run_of_offline_result(tmp_path):
 
 
 def test_profiling_stage_timer_and_trace(tmp_path):
-    timer = profiling.StageTimer()
-    with timer.stage("a"):
+    """The spans' summary (the CLIs' ``stages.json``, which replaced the
+    stage timer's) and the Chrome trace with the spans on its time base."""
+    profiling.reset()
+    with profiling.tracing(), profiling.span("a"):
         with profiling.trace(str(tmp_path / "tr")) as prof:
-            torch.ones(8).sum()
-    assert timer.summary()["a"]["calls"] == 1
+            with profiling.span("b"):
+                torch.ones(8).sum()
+    summary = profiling.summary()
+    assert summary["a"]["calls"] == summary["b"]["calls"] == 1
+    assert set(summary["a"]) == {"total_s", "calls", "mean_ms", "self_ms"}
+    assert 0 <= summary["a"]["self_ms"] <= summary["a"]["total_s"] * 1e3 + 0.05  # total_s: 4 places
+    profiling.dump(str(tmp_path / "stages.json"))
+    with open(tmp_path / "stages.json") as f:
+        assert json.load(f) == summary
     with open(tmp_path / "tr" / "trace.json") as f:
-        assert "traceEvents" in json.load(f)
+        events = json.load(f)["traceEvents"]
+    span, = [e for e in events if e.get("cat") == "program_span"]
+    ops = [e for e in events if e.get("name") == "aten::sum"]
+    assert span["name"] == "b" and span["pid"] == "program spans" and ops
+    assert all(span["ts"] <= op["ts"] and op["ts"] + op["dur"] <= span["ts"] + span["dur"]
+               for op in ops)
     assert prof.key_averages() is not None
     fps = profiling.FpsMeter()
     fps.tick()
     assert fps.tick() > 0
+    profiling.reset()
 
 
 def test_native_library_that_does_not_load(tmp_path, monkeypatch):

@@ -34,6 +34,8 @@ NO_NAME = {
     ("parallel/mesh.py", "AXIS"): "a one-axis torch.distributed group has no axis name",
     ("parallel/mesh.py", "replicated"): "a NamedSharding; torch tensors have no sharding",
     ("parallel/mesh.py", "sharded_leading"): "a NamedSharding; torch tensors have no sharding",
+    ("utils/profiling.py", "StageTimer"): "the port's spans replace it: `span` times a stage, "
+                                          "`summary`/`dump` give its totals",
 }
 
 # Keywords the port does not take: (module, name) -> {keyword: reason}.

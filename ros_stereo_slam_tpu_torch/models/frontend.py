@@ -94,7 +94,7 @@ def odometry_from_sets(ref_pyr: tuple, cur_pyr: tuple, track: TrackState, draw: 
                                   thresh_px=fe.fmat_thresh_px)
     m = m & fres.inliers
     n_tracked = m.sum()
-    pres = pnp._pnp_from_sets(
+    pres = pnp._solve(
         draw(m, pc.iters, 6), None, cam, track.pts3d, res.points, m,
         thresh_px=pnp_thresh, refine_iters=pc.refine_iters, huber_px=pc.refine_huber_px,
     )

@@ -19,6 +19,13 @@ its own index sets, as its single-lane run would) and
 Points sharded over a mesh (config 5, ``parallel/dist_frontend.py``):
 :func:`_pnp_from_sets` with a `mesh` splits the scoring and the
 Gauss-Newton normal equations by points; see its docstring.
+
+Every solve goes through :func:`_solve`.  A lane-form solve on the card
+with no mesh replays a CUDA graph of :func:`_pnp_from_sets`, captured once
+per input signature (:class:`_PnPGraph`): the same kernels on the same
+shapes, one launch for some 2,900.  Every other solve runs eagerly: the
+CPU, a mesh (collectives inside), and the single-lane form, whose
+``_rows`` indexes with a 0-d device tensor (a host sync, not capturable).
 """
 
 from __future__ import annotations
@@ -32,6 +39,12 @@ from ros_stereo_slam_tpu_torch.ops.ransac import _sample_minimal_sets
 from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, psum, psum_many, shard_bounds
 from ros_stereo_slam_tpu_torch.utils import lie
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
+
+
+# Solves of this process: CUDA graphs captured and replayed, and eager solves.
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
+EAGER_SOLVES = 0
 
 
 class PnPResult(NamedTuple):
@@ -274,6 +287,87 @@ def _pnp_from_sets(
     )
 
 
+_GRAPHS: dict = {}  # graph key -> _PnPGraph
+_POOL = None  # the graphs' memory pool: they replay one at a time on one stream
+
+
+class _PnPGraph:
+    """One :func:`_pnp_from_sets` signature captured as a CUDA graph over
+    static input buffers (idx, idx2, pts3d, uv, mask, T_init).  A call
+    copies its inputs in, replays, and returns clones of the outputs: the
+    step's rescue solves again while it holds the first result."""
+
+    WARMUP = 3  # eager calls on the capture stream first: cuBLAS handles and workspaces
+
+    def __init__(self, tensors: tuple, cam: Pinhole, kw: dict):
+        global GRAPH_CAPTURES, _POOL
+        dev = tensors[2].device
+        self.inputs = tuple(None if t is None else t.clone() for t in tensors)
+        idx, idx2, pts3d, uv, mask, T_init = self.inputs
+
+        def solve():
+            return _pnp_from_sets(idx, idx2, cam, pts3d, uv, mask, T_init=T_init, **kw)
+
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(self.WARMUP):
+                solve()
+        if _POOL is None:
+            _POOL = torch.cuda.graph_pool_handle()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=_POOL, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.out = solve()
+        GRAPH_CAPTURES += 1
+
+    def __call__(self, tensors: tuple) -> PnPResult:
+        global GRAPH_REPLAYS
+        for dst, src in zip(self.inputs, tensors, strict=True):
+            if dst is not None:
+                dst.copy_(src)
+        self.graph.replay()
+        GRAPH_REPLAYS += 1
+        return PnPResult(*(t.clone() for t in self.out))
+
+
+def _use_graph(device: torch.device, lanes: bool, mesh: Mesh | None) -> bool:
+    """A solve replays a graph on the card, in lane form, without a mesh."""
+    return device.type == "cuda" and lanes and mesh is None
+
+
+def _graph_key(tensors: tuple, cam: Pinhole, kw: dict) -> tuple:
+    """What a graph bakes in: every input's shape and dtype (B, N, K, K2,
+    T_init given or not), the device, the camera and the scalars."""
+    return (tuple(None if t is None else (tuple(t.shape), t.dtype) for t in tensors),
+            tensors[2].device.index, tuple(cam), tuple(sorted(kw.items())))
+
+
+def _solve(
+    idx: torch.Tensor,
+    idx2: torch.Tensor | None,
+    cam: Pinhole,
+    pts3d: torch.Tensor,
+    uv: torch.Tensor,
+    mask: torch.Tensor,
+    T_init: torch.Tensor | None = None,
+    mesh: Mesh | None = None,
+    **kw,
+) -> PnPResult:
+    """:func:`_pnp_from_sets` (its scalars as keywords), replayed from a
+    graph where :func:`_use_graph` allows it (captured on a signature's
+    first call), else eager."""
+    global EAGER_SOLVES
+    if not _use_graph(pts3d.device, mask.dim() == 2, mesh):
+        EAGER_SOLVES += 1
+        return _pnp_from_sets(idx, idx2, cam, pts3d, uv, mask, T_init=T_init, mesh=mesh, **kw)
+    tensors = (idx, idx2, pts3d, uv, mask, T_init)
+    key = _graph_key(tensors, cam, kw)
+    if key not in _GRAPHS:
+        _GRAPHS[key] = _PnPGraph(tensors, cam, kw)
+    return _GRAPHS[key](tensors)
+
+
 def pnp_ransac(
     gen: torch.Generator | list,
     cam: Pinhole,
@@ -308,7 +402,7 @@ def pnp_ransac(
         idx2 = torch.stack([b for _, b in sets]) if T_init is not None else None
     else:
         idx, idx2 = draw(gen, mask)
-    return _pnp_from_sets(
+    return _solve(
         idx, idx2, cam, pts3d, uv, mask, thresh_px=thresh_px,
         refine_iters=refine_iters, T_init=T_init,
         retry_thresh_px=retry_thresh_px, min_inliers=min_inliers,

@@ -70,7 +70,7 @@ def odometry_from_sets_sharded(mesh: Mesh, ref_pyr: tuple, cur_pyr: tuple, track
                                   thresh_px=fe.fmat_thresh_px, mesh=mesh)
     m = m & fres.inliers
     n_tracked = m.sum()
-    pres = pnp._pnp_from_sets(
+    pres = pnp._solve(
         draw(m, pc.iters, 6), None, cam, track.pts3d, tracked, m,
         thresh_px=pnp_thresh, refine_iters=pc.refine_iters, huber_px=pc.refine_huber_px,
         mesh=mesh,

@@ -36,6 +36,12 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
 - The points-sharded odometry step (``parallel/dist_frontend.py``) on a
   one-rank NCCL group at the corridor's shapes (1241x376, 768 points):
   bitwise ``frontend.odometry_step`` with the same seed, through K1.
+- PnP's CUDA graph (``ops/pnp.py::_solve``): the replayed solve equals
+  the eager ``_pnp_from_sets`` bitwise (the same kernels on the same
+  shapes) over 16 draws of 1 and 2 lanes, with and without the prior,
+  and with the 8 px retry ladder engaged; one capture per signature; a
+  first result keeps its values through a second replay; the 97-frame
+  bench corridor through ``run_offline`` gives the eager run's poses.
 - The endurance CLI's scan posture (``tools/endurance_run.py``) at
   1241x376 over a tiled 160-pose lap with both rings wrapping: at least
   3 closures at exact revisits, post-PGO ATE below odometry-only, K3 once
@@ -631,3 +637,132 @@ def test_endurance_scan_posture_with_cut_capacities(cuda_device):
     assert sc["tracking_ok_fraction"] == 1.0
     assert sc["launches"]["k1"] > 0 and sc["launches"]["k2"] > 0
     assert sc["launches"]["k3"] == ring["bow_inserts"]
+
+
+def _pnp_scene(lanes: int, draw: int, dev, n: int = 768):
+    """`lanes` scenes of `n` points seen from a random pose, with pixel
+    noise, 20 % gross outliers and 10 % masked points; a nearby prior."""
+    from ros_stereo_slam_tpu_torch.utils import lie
+
+    rng = np.random.default_rng(1000 * lanes + draw)
+    X = np.stack([rng.uniform(-15, 15, (lanes, n)), rng.uniform(-3, 3, (lanes, n)),
+                  rng.uniform(5, 60, (lanes, n))], -1)
+    xi = np.concatenate([rng.normal(scale=0.3, size=(lanes, 3)),
+                         rng.normal(scale=0.02, size=(lanes, 3))], -1)
+    T = lie.exp_se3(torch.from_numpy(xi)).numpy()
+    pc = np.einsum("bij,bnj->bni", T[:, :3, :3], X) + T[:, None, :3, 3]
+    uv = np.stack([718.856 * pc[..., 0] / pc[..., 2] + 607.1928,
+                   718.856 * pc[..., 1] / pc[..., 2] + 185.2157], -1)
+    uv += rng.normal(scale=0.3, size=uv.shape)
+    bad = rng.random((lanes, n)) < 0.2
+    uv[bad] += rng.uniform(15, 60, (bad.sum(), 2)) * rng.choice([-1, 1], (bad.sum(), 2))
+    prior = lie.exp_se3(torch.from_numpy(xi + 0.01)).float()
+    return (torch.from_numpy(X).float().to(dev), torch.from_numpy(uv).float().to(dev),
+            torch.from_numpy(rng.random((lanes, n)) > 0.1).to(dev), prior.to(dev))
+
+
+def _pnp_sets(mask, prior: bool, seed: int, K: int = 128, K2: int = 32):
+    from ros_stereo_slam_tpu_torch.ops.ransac import _sample_minimal_sets
+
+    gens = [torch.Generator(device=mask.device).manual_seed(seed + b)
+            for b in range(mask.shape[0])]
+    idx = torch.stack([_sample_minimal_sets(g, m, K, 6) for g, m in zip(gens, mask)])
+    idx2 = (torch.stack([_sample_minimal_sets(g, m, K2, 8) for g, m in zip(gens, mask)])
+            if prior else None)
+    return idx, idx2
+
+
+def _assert_bitwise(got, want):
+    for name, a, b in zip(want._fields, got, want, strict=True):
+        diff = (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+        assert torch.equal(a, b), f"{name}: largest difference {diff}"
+
+
+_PNP_KW = dict(thresh_px=1.0, refine_iters=4, retry_thresh_px=8.0, min_inliers=15,
+               huber_px=0.5)
+
+
+@pytest.mark.parametrize("case", ["one_lane", "two_lanes", "starved_retry", "no_prior"])
+def test_pnp_graph_replays_the_eager_solve_bitwise(cuda_device, monkeypatch, case):
+    from ros_stereo_slam_tpu_torch.ops import pnp
+    from ros_stereo_slam_tpu_torch.utils.camera import kitti_default
+
+    monkeypatch.setattr(pnp, "_GRAPHS", {})
+    lanes = 2 if case == "two_lanes" else 1
+    prior = case != "no_prior"
+    kw = dict(_PNP_KW, **({"thresh_px": 0.02, "min_inliers": 600}
+                          if case == "starved_retry" else {}))
+    cam = kitti_default()
+    captures, replays = pnp.GRAPH_CAPTURES, pnp.GRAPH_REPLAYS
+    for draw in range(16):
+        X, uv, mask, T_prior = _pnp_scene(lanes, draw, cuda_device)
+        idx, idx2 = _pnp_sets(mask, prior, draw)
+        T_init = T_prior if prior else None
+        got = pnp._solve(idx, idx2, cam, X, uv, mask, T_init=T_init, **kw)
+        want = pnp._pnp_from_sets(idx, idx2, cam, X, uv, mask, T_init=T_init, **kw)
+        torch.cuda.synchronize()
+        _assert_bitwise(got, want)
+        if case == "starved_retry":
+            assert bool(got.used_retry.all())
+        elif prior:  # the DLT family alone may starve at 1 px on some draws
+            assert not bool(got.used_retry.any())
+        assert int(got.n_inliers.min()) > 400
+    assert pnp.GRAPH_CAPTURES == captures + 1 and len(pnp._GRAPHS) == 1
+    assert pnp.GRAPH_REPLAYS == replays + 16
+
+
+def test_pnp_graph_first_result_survives_a_second_replay(cuda_device, monkeypatch):
+    """The rescue's case: a second solve of the same signature replays the
+    same graph while the first result is still held."""
+    from ros_stereo_slam_tpu_torch.ops import pnp
+    from ros_stereo_slam_tpu_torch.utils.camera import kitti_default
+
+    monkeypatch.setattr(pnp, "_GRAPHS", {})
+    cam = kitti_default()
+    inputs = []
+    for draw in (0, 1):
+        X, uv, mask, T_prior = _pnp_scene(1, draw, cuda_device)
+        inputs.append((*_pnp_sets(mask, True, draw), cam, X, uv, mask))
+    first = pnp._solve(*inputs[0], T_init=T_prior, **_PNP_KW)
+    kept = tuple(t.clone() for t in first)
+    second = pnp._solve(*inputs[1], T_init=T_prior, **_PNP_KW)
+    torch.cuda.synchronize()
+    assert len(pnp._GRAPHS) == 1
+    assert not torch.equal(first.T_cw, second.T_cw)
+    for a, b in zip(first, kept, strict=True):
+        assert torch.equal(a, b)
+    _assert_bitwise(first, pnp._pnp_from_sets(*inputs[0], T_init=T_prior, **_PNP_KW))
+
+
+def test_run_offline_corridor_graph_equals_eager(cuda_device, monkeypatch):
+    """The benchmark's 97-frame corridor (odo.corridor.offline's mix and
+    configuration) through ``run_offline``: the same poses, inlier counts
+    and retry flags with PnP replayed from its graph as with every solve
+    eager; every step PnP call replays (frames 1.. and each rescue)."""
+    from pathlib import Path
+
+    from ros_stereo_slam_tpu_torch.models import pipeline, step
+    from ros_stereo_slam_tpu_torch.ops import pnp
+    from slambench import drivers, manifest, world
+
+    man = manifest.Manifest(Path(__file__).resolve().parents[1])
+    cell = man.cell("odo.corridor.offline")
+    conf, mix = man.config(cell["config"]), man.traffic(cell["traffic"])
+    seeds = world.draw(6400000017)
+    frames = world.make_frames(mix["world"], conf["camera"], cuda_device, seeds)
+    left, right = frames.left.cpu().numpy(), frames.right.cpu().numpy()
+    assert left.shape == (97, 376, 1241)
+    cfg = drivers.pipeline_config(conf, mix["overrides"], seeds["program"])
+    replays, rescues = pnp.GRAPH_REPLAYS, step.RESCUES
+    graph = pipeline.run_offline(cfg, left, right, device=cuda_device)
+    n_calls = len(left) - 1 + step.RESCUES - rescues
+    assert pnp.GRAPH_REPLAYS - replays == n_calls
+    monkeypatch.setattr(pnp, "_use_graph", lambda device, lanes, mesh: False)
+    eager_before = pnp.EAGER_SOLVES
+    eager = pipeline.run_offline(cfg, left, right, device=cuda_device)
+    assert pnp.EAGER_SOLVES - eager_before == n_calls
+    for name in ("trajectory", "n_inliers", "tracking_ok", "used_retry", "is_keyframe"):
+        a, b = getattr(graph, name), getattr(eager, name)
+        assert np.array_equal(a, b), (name, float(np.abs(a.astype(np.float64)
+                                                         - b.astype(np.float64)).max()))
+    assert graph.tracking_ok.all()

@@ -28,6 +28,7 @@ from ros_stereo_slam_tpu_torch.ops import pnp as tpnp
 from ros_stereo_slam_tpu_torch.ops import ransac as transac
 from ros_stereo_slam_tpu_torch.ops import sor as tsor
 from ros_stereo_slam_tpu_torch.ops import triangulate as ttri
+from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh
 from ros_stereo_slam_tpu_torch.utils import camera as tcam
 
 CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157)
@@ -117,6 +118,68 @@ def test_sample_minimal_sets_rows_are_distinct_valid_points():
     assert idx.shape == (64, 8)
     assert bool(mask[idx].all())
     assert all(len(set(row.tolist())) == 8 for row in idx)
+
+
+def _solve_inputs(lanes: int, prior: bool, K: int = 32, K2: int = 16):
+    """`_pnp_from_sets`' tensors for `lanes` scenes (0: single-lane form)."""
+    scenes = [_scene(seed=10 + b) for b in range(max(lanes, 1))]
+    gen = torch.Generator().manual_seed(5)
+    X, uv, mask, prior_T = (torch.from_numpy(np.stack([s[i] for s in scenes]))
+                            for i in (0, 1, 2, 4))
+    idx = torch.stack([transac._sample_minimal_sets(gen, m, K, 6) for m in mask])
+    idx2 = torch.stack([transac._sample_minimal_sets(gen, m, K2, 8) for m in mask])
+    out = (idx, idx2 if prior else None, X, uv, mask, prior_T if prior else None)
+    return out if lanes else tuple(None if t is None else t[0] for t in out)
+
+
+@pytest.mark.parametrize("lanes,prior", [(0, True), (0, False), (2, True), (2, False)])
+def test_solve_on_cpu_is_the_eager_solve_bitwise(lanes, prior):
+    idx, idx2, X, uv, mask, T_init = _solve_inputs(lanes, prior)
+    kw = dict(thresh_px=1.0, refine_iters=4, T_init=T_init, retry_thresh_px=8.0,
+              min_inliers=10, huber_px=0.5)
+    before = tpnp.EAGER_SOLVES
+    got = tpnp._solve(idx, idx2, CAM_T, X, uv, mask, **kw)
+    assert tpnp.EAGER_SOLVES == before + 1
+    assert tpnp.GRAPH_CAPTURES == 0 and tpnp.GRAPH_REPLAYS == 0 and not tpnp._GRAPHS
+    want = tpnp._pnp_from_sets(idx, idx2, CAM_T, X, uv, mask, **kw)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+    assert int(got.n_inliers.min()) > 100
+
+
+_KEY_KW = dict(thresh_px=1.0, refine_iters=8, retry_thresh_px=8.0, min_inliers=15,
+               huber_px=0.5)
+
+
+def _key(lanes=1, N=400, K=32, K2=16, prior=True, cam=CAM_T, **kw):
+    idx = torch.zeros((lanes, K, 6), dtype=torch.long)
+    idx2 = torch.zeros((lanes, K2, 8), dtype=torch.long) if prior else None
+    tensors = (idx, idx2, torch.zeros((lanes, N, 3)), torch.zeros((lanes, N, 2)),
+               torch.zeros((lanes, N), dtype=torch.bool),
+               torch.eye(4).expand(lanes, 4, 4) if prior else None)
+    return tpnp._graph_key(tensors, cam, {**_KEY_KW, **kw})
+
+
+@pytest.mark.parametrize("change", [
+    {}, {"thresh_px": 2.0}, {"retry_thresh_px": None}, {"retry_thresh_px": 4.0},
+    {"min_inliers": 16}, {"refine_iters": 4}, {"huber_px": 1.0},
+    {"cam": CAM_T._replace(fx=700.0)}, {"cam": CAM_T._replace(cy=180.0)},
+    {"lanes": 2}, {"N": 768}, {"K": 128}, {"K2": 32}, {"prior": False},
+])
+def test_graph_key_separates_every_baked_in_scalar_and_shape(change):
+    """Equal inputs (fresh tensors of the same signature) share one key;
+    any scalar or shape the graph bakes in gives another."""
+    assert (_key(**change) == _key()) == (not change)
+
+
+@pytest.mark.parametrize("device,lanes,mesh,graph", [
+    ("cuda", True, None, True),
+    ("cuda", True, Mesh(rank=0, size=1, device=torch.device("cuda:0")), False),
+    ("cuda", False, None, False),
+    ("cpu", True, None, False),
+])
+def test_graph_engages_only_for_lanes_on_the_card_without_a_mesh(device, lanes, mesh, graph):
+    assert tpnp._use_graph(torch.device(device), lanes, mesh) is graph
 
 
 def test_triangulate_rectified_matches_jax():

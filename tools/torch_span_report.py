@@ -23,6 +23,9 @@ inside the session it prints, and writes to ``DIR/<workload>.<seed>.json``
   the device), the session window a frame, and the two sums they must
   meet (layers to the ``driver.session`` span, that to the window);
 - the benchmark's device-trace metrics of the cell but K1's roofline;
+- PnP's solves (``ops/pnp.py``'s counters): CUDA graphs captured in the
+  set-up and in the session, replays and eager solves in the session,
+  the session's ``step.pnp`` calls, and the share of those replayed;
 - ``--overhead n``: n pairs of sessions under the same capture without
   the recorder, one with spans on and one with them forced off, and each
   session's seconds;
@@ -129,6 +132,21 @@ def report(st, got: dict, frames: int) -> dict:
             "session_over_window": session_ms / (got["window_s"] * 1e3 / frames)}
 
 
+def pnp_counts() -> tuple:
+    from ros_stereo_slam_tpu_torch.ops import pnp
+
+    return pnp.GRAPH_CAPTURES, pnp.GRAPH_REPLAYS, pnp.EAGER_SOLVES
+
+
+def pnp_solves(before: tuple, after: tuple, rows: dict) -> dict:
+    """The session's PnP solves from the counters before and after it."""
+    captures, replays, eager = (a - b for a, b in zip(after, before))
+    calls = rows.get("step.pnp", {}).get("calls", 0)
+    return {"captures_before_session": before[0], "captures_session": captures, "replays": replays,
+            "eager_solves": eager, "step_pnp_calls": calls,
+            "replayed_share": replays / calls if calls else None}
+
+
 def captured_session(st) -> float:
     """One session under the benchmark's capture (no recorder); seconds."""
     from slambench import drivers, trace
@@ -210,9 +228,11 @@ def main(argv=None) -> int:
         st = run.Setup(run.parse(["--workload", args.workload, "--seed", str(seed),
                                   "--seconds", "0", "--trace", "1"]), args.device, ROOT)
         profiling.reset()
+        before = pnp_counts()
         _, _, got, _, _ = st.measure(0.0, traced=True)
         out = {"workload": args.workload, "seed": seed, "card": run.smi_line(),
                **report(st, got, len(st.frames))}
+        out["pnp"] = pnp_solves(before, pnp_counts(), out["rows"])
         if args.overhead:
             out["overhead"] = overhead(st, args.overhead)
         if args.syncs:

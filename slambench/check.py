@@ -33,20 +33,11 @@ does not produce is left out:
   directions a truncated solve sits metres from the optimum at a cost
   within a few parts in ten thousand of it (the log gives that distance
   as ``pgo_gap_m``);
-- ``k1_unmatched`` / ``k2_unmatched``: sampled K1 / K2 calls whose
-  full-size image is none of the session's frames as the benchmark made
-  them (0): the start of the chain the reference does not follow;
-- ``k1_gap_px``: the widest gap between a sampled K1 call's tracked points
-  and the reference's on the same frames, points and guesses, over points
-  both call tracked, that keep `reference.lk.BORDER_PX` inside the image
-  and that converged in the reference (a point still moving after the
-  last step walks where rounding takes it, on either side);
-  ``k1_ok_flips``: the share of the points inside whose gate differs;
-- ``k2_bits_differ``: the share of the valid corners' descriptor bits of
-  the sampled K2 calls that differ from the reference's;
-  ``k2_corner_bits_max``: the most bits of any one corner that differ;
-- ``k3_words_differ``: sampled K3 words that differ from the reference
-  descent over the benchmark's vocabulary tables (0).
+- the numbers of each sampled call site the cell installs
+  (``slambench/sites/<name>.py``, :mod:`slambench.record`), which its file
+  describes: K1's ``k1_*``, K2's ``k2_*``, K3's ``k3_words_differ``.
+
+Every lane of a lane driver's session is a session here.
 
 The reference follows the program from its own state where the program's
 choices are not the benchmark's to make: the points and guesses K1 is
@@ -59,14 +50,14 @@ held to the ground truth by itself (``step_err_p50_m``,
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from slambench.reference import lk as lk_ref
-from slambench.reference import orb as orb_ref
+from slambench.drivers import flatten
 from slambench.reference import pose_graph as pgo_ref
 from slambench.reference import trajectory
-from slambench.reference import vocab as vocab_ref
 
 FINGERPRINT = (slice(None, None, 37), slice(None, None, 41))
 
@@ -95,57 +86,13 @@ def unit(frame: torch.Tensor, device) -> torch.Tensor:
     return frame.to(device).float() / 255.0
 
 
-def k1_numbers(samples, index) -> dict:
-    unmatched, gaps, flips, n = 0, [0.0], 0, 0
-    for s in samples:
-        ref, cur = index.find(s["ref_img"]), index.find(s["cur_img"])
-        if ref is None or cur is None:
-            unmatched += 1
-            continue
-        dev = s["ref_pts"].device
-        p = s["params"]
-        pts, _, ok, conv = lk_ref.track_level(unit(ref, dev), unit(cur, dev), s["ref_pts"],
-                                              s["guesses"], p.window, p.iters, p.walk_iters,
-                                              p.eps, p.min_eig)
-        kp, _, kok = s["out"]
-        H, W = ref.shape
-        inner = (lk_ref.interior(pts, H, W) & lk_ref.interior(kp, H, W)
-                 & lk_ref.interior(s["guesses"], H, W) & lk_ref.interior(s["ref_pts"], H, W))
-        both = inner & ok & kok & conv
-        if bool(both.any()):
-            gaps.append(float((pts - kp)[both].abs().max()))
-        flips += int((ok != kok)[inner].sum())
-        n += int(inner.sum())
-    return {"k1_unmatched": unmatched, "k1_gap_px": max(gaps),
-            "k1_ok_flips": flips / max(n, 1)}
+class Context(NamedTuple):
+    """What a site's ``numbers`` may read besides its samples."""
 
-
-def k2_numbers(samples, index) -> dict:
-    unmatched, differ, bits, worst = 0, 0, 0, 0
-    for s in samples:
-        img = index.find(s["img"])
-        if img is None:
-            unmatched += 1
-            continue
-        dev = s["pts"].device
-        ref = orb_ref.signs(unit(img, dev), s["pts"], s["valid"])
-        v = s["valid"]
-        per_corner = (ref[v] != s["out"][0][v]).sum(1)
-        if per_corner.numel():
-            differ += int(per_corner.sum())
-            worst = max(worst, int(per_corner.max()))
-        bits += int(v.sum()) * orb_ref.N_BITS
-    return {"k2_unmatched": unmatched, "k2_bits_differ": differ / max(bits, 1),
-            "k2_corner_bits_max": worst}
-
-
-def k3_numbers(samples, centers) -> dict:
-    differ = 0
-    for s in samples:
-        cs = [c.to(s["q_bits"].device) for c in centers[: s["upto"]]]
-        ref = vocab_ref.words(s["q_bits"], s["valid"], cs, s["k"])
-        differ += int((ref != s["out"]).sum())
-    return {"k3_words_differ": differ}
+    index: FrameIndex  # the benchmark's frames, found from a program's image
+    centers: list | None  # the vocabulary's centres by level (full SLAM)
+    conf: dict | None  # the configuration file
+    device: str
 
 
 def _rel(T: np.ndarray) -> np.ndarray:
@@ -162,7 +109,8 @@ def step_errors(est: np.ndarray, gt: np.ndarray) -> np.ndarray:
 
 def session_numbers(sessions, gt: np.ndarray, n_frames: int, conf: dict, device="cpu"):
     """The compared numbers of the sessions' poses, closures, loop edges
-    and pose graph, and what the log shows beside them."""
+    and pose graph, and what the log shows beside them; a lane driver's
+    session is each of its lanes."""
     revisit_m = conf.get("revisit_m")
     nums = {"sessions_raised": 0, "poses_missing": 0, "ate_session_max_m": 0.0,
             "step_err_p50_m": 0.0}
@@ -170,7 +118,7 @@ def session_numbers(sessions, gt: np.ndarray, n_frames: int, conf: dict, device=
             "identity_edges": 0, "pgo_gap_m": []}
     if revisit_m is not None:
         nums.update(closures_off_revisit=0, loop_edge_err_m=0.0, pgo_cost_left=0.0)
-    for s in sessions:
+    for s in flatten(sessions):
         nums["sessions_raised"] += s.error is not None
         n = len(s.trajectory)
         nums["poses_missing"] += max(n_frames - n, 0)
@@ -211,16 +159,13 @@ def session_numbers(sessions, gt: np.ndarray, n_frames: int, conf: dict, device=
 
 
 def compare(sessions, frames, recorder, centers, conf: dict, device="cpu"):
-    """All compared numbers of a run, and what the log shows beside them."""
+    """All compared numbers of a run, and what the log shows beside them:
+    the sessions', then each installed site's over its sample."""
     nums, info = session_numbers(sessions, frames.gt, len(frames), conf, device)
-    index = FrameIndex(frames)
-    s = recorder.samples
-    if s["k1"].items:
-        nums.update(k1_numbers(s["k1"].items, index))
-    if s["k2"].items:
-        nums.update(k2_numbers(s["k2"].items, index))
-    if s["k3"].items and centers is not None:
-        nums.update(k3_numbers(s["k3"].items, centers))
+    ctx = Context(FrameIndex(frames), centers, conf, device)
+    for tap in recorder.taps.values():
+        if tap.sample.items:
+            nums.update(tap.site.numbers(tap.sample.items, ctx))
     return nums, info
 
 

@@ -48,13 +48,13 @@ def control_numbers(rec, frames) -> dict:
     from slambench import check
 
     index = check.FrameIndex(frames)
-    s, out = rec.samples, {}
-    if s["k1"].items:
-        out.update(check.k1_numbers([dict(x, out=_ref_k1(x, index, torch.bfloat16))
-                                     for x in s["k1"].items], index))
-    if s["k2"].items:
-        out.update(check.k2_numbers([dict(x, out=_ref_k2(x, index, torch.bfloat16))
-                                     for x in s["k2"].items], index))
+    ctx = check.Context(index, None, None, "cpu")
+    out = {}
+    for name, ref in (("k1", _ref_k1), ("k2", _ref_k2)):
+        tap = rec.taps.get(name)
+        if tap is not None and tap.sample.items:
+            out.update(tap.site.numbers([dict(x, out=ref(x, index, torch.bfloat16))
+                                         for x in tap.sample.items], ctx))
     return out
 
 

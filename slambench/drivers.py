@@ -1,20 +1,28 @@
-"""The program's entry points that a traffic mix drives, found by name.
+"""The program's entry points that a traffic mix drives, found by name,
+and what they share.
 
-A mix's ``driver`` names one of :data:`DRIVERS`.  Each takes the pipeline
-configuration, the vocabulary (or None) and the device, and runs whole
-sessions (:meth:`session`).  A session gives a :class:`Session`: every
-frame's pose, whether it was tracked, and, for full SLAM, the closures
-accepted, the odometry chain before the pose graph and the loop edges
-the pose graph was given.
+A mix's ``driver`` names a file, ``slambench/entries/<driver>.py``, that
+exposes ``Driver(cfg, voc, device)``: it takes the pipeline configuration,
+the vocabulary (or None) and the device, and runs whole sessions
+(``session(left, right)``) over the mix's (F, H, W) uint8 frames.  A
+session gives a :class:`Session`: every frame's pose, whether it was
+tracked, and, for full SLAM, the closures accepted, the odometry chain
+before the pose graph and the loop edges the pose graph was given.  A
+driver that runs lanes (one drive of the mix's frames each) gives a list
+of Sessions, one a lane, and sets ``lanes`` to their number; every lane
+is counted and checked as a session of its own (:func:`flatten`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import torch
+
+HERE = Path(__file__).resolve().parent
 
 
 @dataclass
@@ -51,44 +59,19 @@ def program_vocabulary(centers, idf, k: int):
     return vocab.Vocabulary(k=k, levels=len(centers), centers=list(centers), idf=idf)
 
 
-class RunOffline:
-    """``models/pipeline.py::run_offline``: odometry over a recorded drive."""
+def make(name: str, cfg, voc, device, bench_dir: Path = HERE):
+    """The driver of ``<bench_dir>/entries/<name>.py`` on `cfg`, the
+    vocabulary `voc` (or None) and `device`; for a name with no file, an
+    error that lists the files."""
+    from slambench import manifest
 
-    def __init__(self, cfg, voc, device):
-        self.cfg, self.device = cfg, device
-
-    def session(self, left, right) -> Session:
-        from ros_stereo_slam_tpu_torch.models import pipeline
-
-        res = pipeline.run_offline(self.cfg, left, right, device=self.device)
-        return Session(res.trajectory, np.concatenate([[True], res.tracking_ok]))
+    return manifest.find(Path(bench_dir) / "entries", name, "driver").Driver(cfg, voc, device)
 
 
-class RunOfflineSlam:
-    """``models/slam_scan.py::run_offline_slam``: the scan posture of full
-    SLAM over a recorded drive (frame loop, then the closures' epilogue)."""
-
-    def __init__(self, cfg, voc, device):
-        self.cfg, self.voc, self.device = cfg, voc, device
-
-    def session(self, left, right) -> Session:
-        from ros_stereo_slam_tpu_torch.models import slam_scan
-
-        res = slam_scan.run_offline_slam(self.cfg, self.voc, left, right, device=self.device)
-        return Session(res.trajectory, np.concatenate([[True], res.tracking_ok]),
-                       [(int(q), int(m)) for q, m, _ in res.loop_events],
-                       trajectory_odo=res.trajectory_odo,
-                       loop_edges=[(int(i), int(j), np.asarray(Z)) for i, j, Z in
-                                   (res.loop_edges or [])])
-
-
-DRIVERS = {"run_offline": RunOffline, "run_offline_slam": RunOfflineSlam}
-
-
-def make(name: str, cfg, voc, device):
-    if name not in DRIVERS:
-        raise ValueError(f"unknown driver {name!r}; known: {sorted(DRIVERS)}")
-    return DRIVERS[name](cfg, voc, device)
+def flatten(results) -> list[Session]:
+    """Every :class:`Session` of driver sessions' results, in order: a
+    result is one Session, or a lane driver's list of them."""
+    return [s for r in results for s in (r if isinstance(r, list) else [r])]
 
 
 def synchronize(device) -> None:

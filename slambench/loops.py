@@ -2,7 +2,8 @@
 
 Sessions run back to back, each a fresh run of the driver over the mix's
 frames; the window ends at the first session end at or after `seconds`,
-so it always holds whole sessions.
+so it always holds whole sessions.  A session that raises counts as a
+failed session for each of the driver's lanes.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 
 @dataclass
 class Window:
-    sessions: list  # drivers.Session, in order
+    sessions: list  # each session's drivers.Session (a lane driver's: a list of them), in order
     seconds: float  # from the first session's start to the last one's end
     session_ends: list = field(default_factory=list)  # seconds at each end
 
@@ -33,9 +34,11 @@ def closed_loop(driver, left, right, seconds: float, hooks) -> Window:
             try:
                 s = driver.session(left, right)
             except Exception:  # the session's frames count as failed
-                n = len(left)
+                n, lanes = len(left), getattr(driver, "lanes", 1)
                 s = Session(np.zeros((0, 4, 4)), np.zeros(n, bool), [],
                             traceback.format_exc(limit=8))
+                if lanes > 1:
+                    s = [s] * lanes
         sessions.append(s)
         ends.append(time.perf_counter() - t0)
         if ends[-1] >= seconds:

@@ -1,6 +1,11 @@
 """The share of the traced session in which no operation ran on the
 device: 100 minus the union of all device activity over the session."""
 
+from slambench import example
+
+EXAMPLE = example.record
+EXPECTED = 70.0  # busy 30 ms of 100
+
 
 def read(rec):
     t = rec["trace"]

@@ -1,18 +1,26 @@
-"""What the timed path's kernels produced, taken where they are called.
+"""What the timed path's calls produced, taken where they are called.
 
-:class:`Recorder` wraps the three kernel entry points of the program under
-test (``ops/lk_cuda.track_level`` for K1, ``ops/orb_cuda.level_describe``
-for K2, ``ops/vocab_cuda.descend`` for K3) in place, for the measured
-window only.  Each wrapper calls the original and keeps a sample of its
-calls, inputs and outputs copied: a reservoir of ``quota`` calls per
-kernel drawn from the run's seed, so a run holds the same number of
-samples however long it is and the choice does not depend on timing.  K1
-and K2 samples are single-lane calls on full-size images (pyramid level
-0), whose images the reference can trace back to a frame.
+A cell's file names, under ``samples``, the call sites it samples, each a
+file ``slambench/sites/<name>.py`` (found by :mod:`slambench.manifest`)
+that holds:
 
-With ``trace_k1`` on (traced runs only) every K1 call is also kept, with
-its inputs, up to ``TRACE_K1_CAP`` calls, for the operation and byte
-counts of ``k1_roofline_pct``.
+- ``TARGET``: (module under ``ros_stereo_slam_tpu_torch``, function name),
+  the entry point the site wraps;
+- ``wrap(orig, tap)``: the wrapper put in its place.  It calls `orig`
+  and, while ``tap.active``, counts the call (``tap.calls``), offers a
+  copy of its inputs and outputs to the site's sample (``tap.offer``;
+  ``tap.full(img)`` says whether an image is full-size, pyramid level 0)
+  and, in a traced session, may keep every call (``tap.keep``);
+- ``numbers(items, ctx)``: the compared numbers of the sampled items
+  (:func:`slambench.check.compare`; ``ctx`` is a ``check.Context``);
+- optionally ``work(orig, call)``: the operations and bytes of one kept
+  call (or None), which a roofline reader takes as ``<name>_work``.
+
+:class:`Recorder` installs every named site in place, for the measured
+window only.  Each sample is a reservoir of the cell's ``quota`` calls,
+drawn from the run's seed (one generator for all sites, in the order the
+calls come), so a run holds the same number of samples however long it
+is and the choice does not depend on timing.
 """
 
 from __future__ import annotations
@@ -23,12 +31,10 @@ import numpy as np
 import torch
 
 PKG = "ros_stereo_slam_tpu_torch"
-TRACE_K1_CAP = 512
-SITES = {"k1": ("ops.lk_cuda", "track_level"), "k2": ("ops.orb_cuda", "level_describe"),
-         "k3": ("ops.vocab_cuda", "descend")}
+KEEP_CAP = 512  # calls a site keeps of a traced session
 
 
-def _copy(x):
+def copy(x):
     return x.detach().clone() if isinstance(x, torch.Tensor) else x
 
 
@@ -49,77 +55,61 @@ class Reservoir:
                 self.items[j] = make()
 
 
-class Recorder:
-    """Install with :meth:`install`, take out with :meth:`uninstall`."""
+class Tap:
+    """One installed site: its module, the function it wraps, its sample,
+    its calls in the window and what it kept of a traced session."""
 
-    def __init__(self, shape: tuple[int, int], seed: int, quota: dict):
+    def __init__(self, recorder: Recorder, site, sample: Reservoir):
+        self.recorder, self.site, self.sample = recorder, site, sample
+        self.orig = None
+        self.calls = 0
+        self.kept: list = []
+
+    @property
+    def active(self) -> bool:
+        return self.recorder.active
+
+    def full(self, img) -> bool:
+        return img.dim() == 2 and tuple(img.shape) == self.recorder.shape
+
+    def offer(self, make) -> None:
+        self.sample.offer(make)
+
+    def keep(self, make) -> None:
+        if self.recorder.tracing and len(self.kept) < KEEP_CAP:
+            self.kept.append(make())
+
+    def target(self):
+        mod, name = self.site.TARGET
+        return importlib.import_module(f"{PKG}.{mod}"), name
+
+
+class Recorder:
+    """Install with :meth:`install`, take out with :meth:`uninstall`.
+    `sites` maps a site's name to its module, `quota` to its sample size;
+    `shape` is a full-size frame's (H, W)."""
+
+    def __init__(self, shape: tuple[int, int], seed: int, sites: dict, quota: dict):
         rng = np.random.default_rng(seed)
         self.shape = tuple(shape)
-        self.samples = {k: Reservoir(int(quota.get(k, 0)), rng) for k in SITES}
-        self.trace_k1 = False  # on while a traced session runs
-        self.k1_calls: list = []  # every K1 call in a traced window (inputs, iters)
-        self.calls = {k: 0 for k in SITES}  # calls made in the window
-        self._saved: dict = {}
+        self.taps = {k: Tap(self, site, Reservoir(int(quota.get(k, 0)), rng))
+                     for k, site in sites.items()}
+        self.tracing = False  # on while a traced session runs
         self.active = False
 
-    def _full(self, img) -> bool:
-        return img.dim() == 2 and tuple(img.shape) == self.shape
-
-    def _k1(self, orig):
-        def track_level(ref_img, cur_img, ref_pts, guesses, params):
-            out = orig(ref_img, cur_img, ref_pts, guesses, params)
-            if self.active:
-                self.calls["k1"] += 1
-                if self.trace_k1 and len(self.k1_calls) < TRACE_K1_CAP:
-                    self.k1_calls.append(tuple(_copy(t) for t in
-                                               (ref_img, cur_img, ref_pts, guesses, out[0]))
-                                         + (params,))
-                if self._full(ref_img):
-                    self.samples["k1"].offer(lambda: dict(
-                        ref_img=_copy(ref_img), cur_img=_copy(cur_img), ref_pts=_copy(ref_pts),
-                        guesses=_copy(guesses), params=params,
-                        out=tuple(_copy(t) for t in out)))
-            return out
-        return track_level
-
-    def _k2(self, orig):
-        def level_describe(img, pts, valid):
-            out = orig(img, pts, valid)
-            if self.active:
-                self.calls["k2"] += 1
-                if self._full(img):
-                    self.samples["k2"].offer(lambda: dict(
-                        img=_copy(img), pts=_copy(pts), valid=_copy(valid),
-                        out=tuple(_copy(t) for t in out)))
-            return out
-        return level_describe
-
-    def _k3(self, orig):
-        def descend(q_bits, valid, tree, k, upto):
-            out = orig(q_bits, valid, tree, k, upto)
-            if self.active:
-                self.calls["k3"] += 1
-                self.samples["k3"].offer(lambda: dict(
-                    q_bits=_copy(q_bits), valid=_copy(valid), k=k, upto=upto, out=_copy(out)))
-            return out
-        return descend
+    @property
+    def calls(self) -> dict:
+        """Calls made in the window, by site."""
+        return {k: t.calls for k, t in self.taps.items()}
 
     def install(self) -> None:
-        wrap = {"k1": self._k1, "k2": self._k2, "k3": self._k3}
-        for key, (mod, name) in SITES.items():
-            m = importlib.import_module(f"{PKG}.{mod}")
-            orig = getattr(m, name)
-            self._saved[key] = (m, name, orig)
-            setattr(m, name, wrap[key](orig))
+        for tap in self.taps.values():
+            m, name = tap.target()
+            tap.orig = getattr(m, name)
+            setattr(m, name, tap.site.wrap(tap.orig, tap))
 
     def uninstall(self) -> None:
-        for m, name, orig in self._saved.values():
-            setattr(m, name, orig)
-        self._saved.clear()
-
-    def original(self, key: str):
-        """The unwrapped entry point of `key` (installed or not)."""
-        if key in self._saved:
-            return self._saved[key][2]
-        mod, name = SITES[key]
-        return getattr(importlib.import_module(f"{PKG}.{mod}"), name)
+        for tap in self.taps.values():
+            if tap.orig is not None:
+                m, name = tap.target()
+                setattr(m, name, tap.orig)

@@ -10,13 +10,20 @@ full SLAM, loads the vocabulary (trained and kept under
 the cell's own frames, measures whole sessions for `--seconds`, then
 holds what the timed path produced against the plain reference and the
 ground truth (poses, closures, loop edges, the pose graph, and a sample
-of kernel calls drawn from `--seed`) and prints one JSON line as the last
-line of standard output: ``correct``, ``attempted``, ``failed``,
-``metrics`` (the cell's end-to-end metrics; with ``--trace 1`` its
-per-layer metrics, from a ``torch.profiler`` capture of the window's
-first session), ``device``, with ``--trace 1`` a ``breakdown``, and last
-``checks``: each number compared with its limit (also the last lines of
-standard error).  Progress goes to standard error.
+of the calls of each site the cell names, drawn from `--seed`) and
+prints one JSON line as the last line of standard output: ``correct``,
+``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics;
+with ``--trace 1`` its per-layer metrics, from a ``torch.profiler``
+capture of the window's first session and the program's spans in it),
+``device``, with ``--trace 1`` a ``breakdown``, and last ``checks``:
+each number compared with its limit (also the last lines of standard
+error).  Progress goes to standard error.
+
+The readers of the per-layer metrics take one record: ``trace`` (the
+capture, :mod:`slambench.trace`), ``spans`` (the program's spans in the
+traced session), ``frames`` (the frames of the traced session, every
+lane's) and ``<site>_work`` (the operations and bytes of each call a
+site kept, where the site counts them).
 
 It exits non-zero without a result when no card is present, when the
 card count is below the cell's, or when a module of JAX or of the JAX
@@ -118,7 +125,7 @@ class Setup:
                 f"{time.perf_counter() - t:.2f} s")
         cfg = drivers.pipeline_config(self.conf, self.mix.get("overrides", {}),
                                       self.seeds["program"])
-        self.driver = drivers.make(self.mix["driver"], cfg, voc, device)
+        self.driver = drivers.make(self.mix["driver"], cfg, voc, device, self.man.dir)
         t = time.perf_counter()
         n_warm = int(self.mix["warm_frames"])
         self.driver.session(self.left[:n_warm], self.right[:n_warm])
@@ -126,16 +133,17 @@ class Setup:
         log(f"warm-up: {n_warm} frames in {time.perf_counter() - t:.2f} s")
 
     def measure(self, seconds: float, traced: bool = False):
-        """Sessions for `seconds` with the kernels' outputs sampled (and, if
+        """Sessions for `seconds` with the sites' calls sampled (and, if
         `traced`, the first session captured): (window, recorder, trace
-        record, K1 work, peak device bytes)."""
+        record, {site: its kept calls' work}, peak device bytes)."""
         import torch
 
         from slambench import drivers, loops, record, trace
 
         device = self.device
+        quota = self.cell_file["samples"]
         rec = record.Recorder(self.left.shape[1:], self.seeds["sample"],
-                              self.cell_file["samples"])
+                              {k: self.man.site(k) for k in quota}, quota)
         rec.install()
         capture = trace.Capture() if traced else None
         got: dict = {}
@@ -146,13 +154,13 @@ class Setup:
                 yield
                 return
             drivers.synchronize(device)
-            rec.trace_k1 = True
+            rec.tracing = True
             capture.start()
             with capture.span(trace.SESSION_SPAN):
                 yield
                 drivers.synchronize(device)
             got.update(capture.stop())
-            rec.trace_k1 = False
+            rec.tracing = False
 
         if self.cuda:
             torch.cuda.reset_peak_memory_stats(device)
@@ -167,21 +175,25 @@ class Setup:
             rec.active = False
             gc.unfreeze()
         peak = torch.cuda.max_memory_allocated(device) if self.cuda else 0
-        k1_work = []
-        if traced:
-            k1 = rec.original("k1")
-            k1_work = [w for w in (_k1_work(k1, c) for c in rec.k1_calls) if w is not None]
-            log(f"K1 work: {len(k1_work)} launches recorded, bound by "
-                f"{sorted({w['bound_by'] for w in k1_work})}")
+        work = {}
+        for name, tap in rec.taps.items():
+            if traced and hasattr(tap.site, "work"):
+                work[name] = [w for w in (tap.site.work(tap.orig, c) for c in tap.kept)
+                              if w is not None]
+                log(f"{name} work: {len(work[name])} launches recorded, bound by "
+                    f"{sorted({w['bound_by'] for w in work[name]})}")
         rec.uninstall()
-        return window, rec, got, k1_work, peak
+        return window, rec, got, work, peak
 
     def counts(self, window) -> tuple[int, int]:
-        """(frames offered, frames failed) of the window's sessions."""
+        """(frames offered, frames failed) of the window's sessions, every
+        lane's."""
+        from slambench import drivers
+
         n = len(self.frames)
-        failed = sum(n - int(s.tracking_ok.sum()) if s.error is None else n
-                     for s in window.sessions)
-        return len(window.sessions) * n, failed
+        sessions = drivers.flatten(window.sessions)
+        failed = sum(n - int(s.tracking_ok.sum()) if s.error is None else n for s in sessions)
+        return len(sessions) * n, failed
 
     def judge(self, window, rec):
         """(correct, checks, what the log shows beside them): the window's
@@ -203,7 +215,7 @@ def run(args, device, root: Path = ROOT, faults=None) -> int:
     controls, :mod:`slambench.faults`)."""
     import torch
 
-    from slambench import trace
+    from slambench import drivers, trace
 
     st = Setup(args, device, root)
     if faults is not None:
@@ -211,15 +223,15 @@ def run(args, device, root: Path = ROOT, faults=None) -> int:
     setup_s = time.perf_counter() - _T0
     log(f"set-up {setup_s:.3f} s; window of {args.seconds} s starts")
     cpu = time.process_time()
-    window, rec, traced, k1_work, peak = st.measure(args.seconds, bool(args.trace))
+    window, rec, traced, work, peak = st.measure(args.seconds, bool(args.trace))
     log(f"sessions ended at {[round(t, 3) for t in window.session_ends]} s; process CPU "
         f"{time.process_time() - cpu:.3f} s")
     attempted, failed = st.counts(window)
-    for s in window.sessions:
+    for s in drivers.flatten(window.sessions):
         if s.error:
             log(f"a session raised:\n{s.error}")
     log(f"window: {len(window.sessions)} sessions, {attempted} frames, {failed} failed, "
-        f"{window.seconds:.3f} s; kernel calls {rec.calls}")
+        f"{window.seconds:.3f} s; site calls {rec.calls}")
     st.driver = None
     if st.cuda:
         torch.cuda.empty_cache()
@@ -229,7 +241,9 @@ def run(args, device, root: Path = ROOT, faults=None) -> int:
     out = {"correct": ok, "attempted": attempted, "failed": failed}
     cell, man = st.cell, st.man
     if args.trace:
-        record_in = {"trace": traced, "frames": len(st.frames), "k1_work": k1_work}
+        record_in = {"trace": traced, "spans": traced["spans"],
+                     "frames": len(drivers.flatten(window.sessions[:1])) * len(st.frames),
+                     **{f"{k}_work": w for k, w in work.items()}}
         values = {m["name"]: (m, man.reader(m["name"])(record_in))
                   for m in man.metrics(cell["name"], "per_layer")}
     else:
@@ -256,16 +270,6 @@ def run(args, device, root: Path = ROOT, faults=None) -> int:
     sys.stderr.flush()
     print(json.dumps(out), flush=True)
     return 0
-
-
-def _k1_work(track_level, call):
-    """The bound of one recorded K1 call, or None for a call with no point
-    (it launches nothing)."""
-    from slambench import work
-
-    if call[2].numel() == 0:
-        return None
-    return work.k1_call_work(track_level, call)
 
 
 def main(argv=None) -> int:

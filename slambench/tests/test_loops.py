@@ -4,7 +4,7 @@ import time
 
 import numpy as np
 
-from slambench import loops
+from slambench import drivers, loops
 from slambench.drivers import Session
 
 
@@ -36,3 +36,16 @@ def test_a_session_that_raises_counts_as_failed():
     w = loops.closed_loop(Raises(), [None] * 5, [None] * 5, 0.0, _nohook)
     s = w.sessions[0]
     assert "boom" in s.error and len(s.trajectory) == 0 and not s.tracking_ok.any()
+
+
+def test_a_lane_driver_that_raises_fails_every_lane():
+    class RaisesLanes(Stub):
+        lanes = 3
+
+        def session(self, left, right):
+            raise RuntimeError("boom")
+
+    w = loops.closed_loop(RaisesLanes(), [None] * 5, [None] * 5, 0.0, _nohook)
+    lanes = drivers.flatten(w.sessions)
+    assert len(w.sessions) == 1 and len(lanes) == 3
+    assert all("boom" in s.error and not s.tracking_ok.any() for s in lanes)

@@ -1,12 +1,13 @@
 """BENCHMARK.json against the benchmark's contract, and every name it
 gives against the files the harness finds by name."""
 
+import importlib
 import json
 import re
 
 import pytest
 
-from slambench import manifest
+from slambench import manifest, record
 from slambench.tests.conftest import ROOT
 
 DATA = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -98,6 +99,33 @@ def test_every_name_finds_its_files():
         assert set(cell) == {"samples", "limits"}
     for m in DATA["per_layer"]:
         assert callable(man.reader(m["name"]))
+
+
+@pytest.mark.parametrize("mix", sorted(p.name[:-5] for p in (ROOT / "slambench" / "traffic")
+                                        .glob("*.json")))
+def test_each_mix_finds_its_driver_file(mix):
+    man = manifest.Manifest(ROOT)
+    driver = man.traffic(mix)["driver"]
+    assert (man.dir / "entries" / f"{driver}.py").is_file()
+    assert callable(manifest.find(man.dir / "entries", driver, "driver").Driver)
+
+
+def test_an_unknown_driver_is_refused_with_the_files_listed():
+    from slambench import drivers
+
+    with pytest.raises(KeyError, match="run_offline_slam"):
+        drivers.make("run_nowhere", None, None, "cpu")
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in DATA["workloads"]])
+def test_each_cells_samples_find_their_site_files(cell):
+    man = manifest.Manifest(ROOT)
+    for name in man.cell_file(cell)["samples"]:
+        assert (man.dir / "sites" / f"{name}.py").is_file(), name
+        site = man.site(name)
+        mod, fn = site.TARGET
+        assert callable(getattr(importlib.import_module(f"{record.PKG}.{mod}"), fn))
+        assert callable(site.wrap) and callable(site.numbers)
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(ROOT).as_posix()

@@ -7,7 +7,7 @@ import json
 import pytest
 
 from slambench import faults, run
-from slambench.tests.conftest import small_root
+from slambench.tests.conftest import ROOT, small_root
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 # A seed whose small revisit world closes a loop, at (60, 0): the
@@ -98,6 +98,131 @@ def test_a_cell_and_a_metric_are_added_by_files_alone(tmp_path, capsys):
     out = _run(tmp_path, capsys, "odo.short.offline", trace=1, root=root)
     assert out["metrics"]["frames_traced"]["value"] == 9.0
     assert out["attempted"] % 9 == 0
+
+
+TWO_LANES = '''"""Two lanes of ``run_offline``, each a drive of the mix's frames."""
+
+import numpy as np
+
+from slambench.drivers import Session
+
+
+class Driver:
+    lanes = 2
+
+    def __init__(self, cfg, voc, device):
+        self.cfg, self.device = cfg, device
+
+    def session(self, left, right):
+        from ros_stereo_slam_tpu_torch.models import pipeline
+
+        out = []
+        for _ in range(self.lanes):
+            res = pipeline.run_offline(self.cfg, left, right, device=self.device)
+            out.append(Session(res.trajectory, np.concatenate([[True], res.tracking_ok])))
+        return out
+'''
+
+TRI_SITE = '''"""Stereo triangulation (``ops/triangulate.triangulate_rectified``).
+Number: ``tri_depth_gap``, the widest relative gap of a valid point's
+depth from fx * baseline / disparity."""
+
+from slambench.record import copy
+
+TARGET = ("ops.triangulate", "triangulate_rectified")
+
+
+def wrap(orig, tap):
+    def triangulate_rectified(cam, baseline, uv_left, uv_right, mask, *a, **k):
+        out = orig(cam, baseline, uv_left, uv_right, mask, *a, **k)
+        if tap.active:
+            tap.calls += 1
+            tap.offer(lambda: dict(fb=float(cam.fx) * float(baseline),
+                                   d=copy(uv_left[..., 0] - uv_right[..., 0]),
+                                   valid=copy(out.valid), z=copy(out.depth)))
+        return out
+    return triangulate_rectified
+
+
+def numbers(items, ctx):
+    gap = 0.0
+    for s in items:
+        v = s["valid"]
+        if bool(v.any()):
+            ref = s["fb"] / s["d"][v].double()
+            gap = max(gap, float(((s["z"][v].double() - ref).abs() / ref).max()))
+    return {"tri_depth_gap": gap}
+'''
+
+STEP_CALLS = '''"""``step.frame`` spans a frame of the traced session."""
+
+from slambench import example
+
+EXAMPLE = example.record
+EXPECTED = 1.5  # 3 step.frame spans over 2 frames
+
+
+def read(rec):
+    n = sum(s.name == "step.frame" for s in rec.get("spans") or [])
+    return n / rec["frames"] if n and rec.get("frames") else None
+'''
+
+
+def _files(root):
+    return {p.relative_to(root).as_posix(): p.read_bytes() for p in root.rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_lane_driver_a_site_and_a_span_reader_join_by_files_alone(tmp_path, capsys):
+    """A queued cell's kinds of file: a two-lane driver, a sampled call site
+    with its number and limit, and a reader of the program's spans, added
+    as new files and manifest entries; no file the checkout had changes."""
+    from slambench.tests.test_metrics import reader_case
+
+    root = small_root(tmp_path, SMALL)
+    before = _files(root)
+    d = root / "slambench"
+    (d / "entries" / "run_offline_lanes2.py").write_text(TWO_LANES)
+    (d / "sites" / "tri.py").write_text(TRI_SITE)
+    (d / "metrics" / "step_calls.py").write_text(STEP_CALLS)
+    mix = json.loads((d / "traffic" / "corridor_closed.json").read_text())
+    mix["world"]["frames"], mix["driver"] = 9, "run_offline_lanes2"
+    (d / "traffic" / "corridor_lanes2.json").write_text(json.dumps(mix))
+    cell = json.loads((d / "cells" / "odo.corridor.offline.json").read_text())
+    cell["samples"]["tri"] = 4
+    cell["limits"]["tri_depth_gap"] = 1e-5
+    (d / "cells" / "odo.lanes2.offline.json").write_text(json.dumps(cell))
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    old = json.loads(json.dumps(bench))
+    bench["workloads"].append({"name": "odo.lanes2.offline", "config": "kitti_odometry",
+                              "traffic": "corridor_lanes2", "chips": 1, "why": "two lanes"})
+    for m in bench["end_to_end"]:
+        if "workloads" in m:
+            m["workloads"].append("odo.lanes2.offline")
+    bench["per_layer"].append({"name": "step_calls", "unit": "calls/frame", "better": "lower",
+                               "source": "program_span", "layer": "frame step", "moves": "fps",
+                               "workloads": ["odo.lanes2.offline"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    read, ex, expected = reader_case(d / "metrics" / "step_calls.py")
+    assert read(ex) == expected
+    out = _run(tmp_path, capsys, "odo.lanes2.offline", trace=1, seconds=0.0, root=root)
+    assert out["attempted"] == 2 * 9  # one session of two lanes
+    assert out["correct"] is True, out["checks"]
+    assert out["checks"]["tri_depth_gap"]["limit"] == 1e-5
+    assert out["checks"]["poses_missing"]["value"] == 0
+    assert out["metrics"]["step_calls"]["value"] == 1.0  # frame 0 and each step, both lanes
+
+    after = _files(root)
+    changed = {p for p in before if after[p] != before[p]}
+    assert changed == {"BENCHMARK.json"}
+    new = json.loads(after["BENCHMARK.json"])
+    for key, entries in old.items():
+        if isinstance(entries, list) and key != "command" and key != "paths":
+            assert [e["name"] for e in new[key][: len(entries)]] == [e["name"] for e in entries]
+    for path, data in after.items():
+        if path.endswith(".py") and path in before:
+            assert data == (ROOT / path).read_bytes(), path
 
 
 def test_the_control_judged_by_the_cells_limits_is_not_correct(tmp_path):

@@ -14,7 +14,12 @@ the clock the profiler gives its events in.  The record holds:
   counts), ``copies``: how many copies and sets there were;
 - ``busy``: the union of all device activity, as merged intervals;
 - ``host_ops``: the host-side events (runtime calls), for the idle gaps'
-  attribution.
+  attribution;
+- ``spans``: the program's own spans inside the session span
+  (``ros_stereo_slam_tpu_torch/utils/profiling.py``: ``Span`` tuples with
+  their ids, parents and attributes), which record while the capture is
+  active; a count the program takes at a boundary reaches the readers as
+  a span attribute.
 """
 
 from __future__ import annotations
@@ -46,9 +51,12 @@ class Capture:
         self.prof.__enter__()
 
     def stop(self) -> dict:
+        from ros_stereo_slam_tpu_torch.utils import profiling
+
         self.prof.__exit__(None, None, None)
         rec = reduce(self.prof.profiler.kineto_results.events(), self.spans)
         self.prof = None
+        rec["spans"] = profiling.spans(*rec["window_ns"])
         return rec
 
     @contextlib.contextmanager

@@ -42,6 +42,14 @@ of the landmarks) are all-reduced, so the step and the accept decision
 are the same on every rank, while the landmark blocks, their inverses and
 the back-substitution stay local
 (:mod:`ros_stereo_slam_tpu_torch.parallel.dist_ba`).
+
+Spans (:mod:`ros_stereo_slam_tpu_torch.utils.profiling`; they record only
+under a capture and never synchronise): ``ba.linearize`` (residuals,
+Jacobians and weights), ``ba.reduce`` (the blocks, the landmark inverses,
+the reduced camera system) and ``ba.factor`` (the factorisation, the
+triangular solves, back-substitution and the update), each once an
+iteration, then ``ba.accept`` (the final RMS and the keep-or-refine
+select).
 """
 
 from __future__ import annotations
@@ -53,9 +61,15 @@ import torch
 
 from ros_stereo_slam_tpu_torch.ops import linalg
 from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, psum, psum_many
+from ros_stereo_slam_tpu_torch.utils import profiling
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
 
 _F64 = torch.float64
+# Host counters: solves begun and Gauss-Newton iterations asked for
+# (:func:`ba_solve` adds 1 and `iters` a call; nothing is read from the
+# device).  ``tools/torch_span_report.py`` prints them per traced session.
+SOLVES = 0
+ITERATIONS = 0
 
 
 class BAResult(NamedTuple):
@@ -160,13 +174,11 @@ def _rms(m: torch.Tensor, r: torch.Tensor, mesh: Mesh | None = None) -> torch.Te
     return (sq / m.sum().clamp(min=1)).sqrt()
 
 
-def _gn_step(pb: _Problem, R, t, X, res, damping: float, huber_px: float,
-             mesh: Mesh | None = None):
-    """One Gauss-Newton step from the poses (R, t) and landmarks X, given
-    their `res`iduals; returns the new (R, t, X).  With a `mesh` the sums
-    over landmarks are taken over every rank's."""
+def _linearize(pb: _Problem, R: torch.Tensor, res, huber_px: float):
+    """Jacobians and Huber weights of the observations at their `res`iduals:
+    (W, N, 2, 10) blocks (6 pose, 3 landmark columns, the residual last)
+    and (W, N) IRLS weights, 0 where an observation does not count."""
     p, inv_z, m, qf, r = res
-    W, N = qf.shape[:2]
     # Row k of d(u, v)/dp is (f_k e_k - qf_k e_z) / z; the pose columns are
     # that times [I | -hat(p)] (row x -hat(p) = p x row), the landmark
     # columns that times R.
@@ -176,7 +188,24 @@ def _gn_step(pb: _Problem, R, t, X, res, damping: float, huber_px: float,
                    dim=-1)  # (W, N, 2, 10)
     # Huber IRLS weight: min(1, huber / |r|), 0 where unobserved.
     wh = (huber_px / torch.linalg.vector_norm(r, dim=-1).clamp(min=1e-9)).clamp(max=1.0)
-    wgt = torch.where(m, wh, pb.k.zero)
+    return Ja, torch.where(m, wh, pb.k.zero)
+
+
+class _Reduced(NamedTuple):
+    """The reduced camera system of one step and what back-substitution needs."""
+
+    S: torch.Tensor  # (6W, 6W) U - W V^-1 W^T, damped
+    rhs: torch.Tensor  # (6W,) W V^-1 bl - bp
+    Bm: torch.Tensor  # (6W, 3N) the pose-landmark blocks W
+    bl: torch.Tensor  # (N, 3)
+    V_inv: torch.Tensor  # (N, 3, 3) damped landmark blocks inverted, 0 where unseen
+
+
+def _reduce(pb: _Problem, Ja: torch.Tensor, wgt: torch.Tensor, damping: float,
+            mesh: Mesh | None = None) -> _Reduced:
+    """The normal equations' blocks, the landmark blocks eliminated (Schur).
+    With a `mesh` the sums over landmarks are taken over every rank's."""
+    W, N = wgt.shape
     HG = (Ja * wgt[..., None, None]).transpose(-1, -2) @ Ja  # (W, N, 10, 10)
     Ub = HG[:, :, :6].sum(1)  # (W, 6, 10): U = [..., :6], bp = [..., 9]
     Vb = HG[:, :, 6:9].sum(0)  # (N, 3, 10): V = [..., 6:9], bl = [..., 9]
@@ -198,15 +227,21 @@ def _gn_step(pb: _Problem, R, t, X, res, damping: float, huber_px: float,
     U, bp = Ub[..., :6], Ub[..., 9]
     U.diagonal(dim1=-2, dim2=-1).mul_(1.0 + damping).add_(1e-6)
     S = (U[:, :, None, :] * pb.eye_w).reshape(6 * W, 6 * W) - AB
-    rhs = Abl - bp.reshape(-1)
+    return _Reduced(S, Abl - bp.reshape(-1), Bm, bl, V_inv)
+
+
+def _factor(pb: _Problem, R, t, X, red: _Reduced):
+    """Solve the reduced system, back-substitute the landmarks and apply
+    the step to the poses (R, t) and landmarks X; returns the new (R, t, X)."""
+    W, N = R.shape[0], X.shape[0]
     # Gauge (the fixed poses' rows and columns become identity, rhs 0) and
     # symmetric diagonal equilibration in one product, then the direct
     # factorisation.  A fixed row's e multiplies a zero.
-    e = S.diagonal().clamp(min=1e-12).rsqrt()
+    e = red.S.diagonal().clamp(min=1e-12).rsqrt()
     fe = e * pb.free6
-    S = torch.addcmul(pb.gauge_eye, S, fe[:, None] * fe[None, :])
+    S = torch.addcmul(pb.gauge_eye, red.S, fe[:, None] * fe[None, :])
     L, info = torch.linalg.cholesky_ex(S)
-    y = torch.linalg.solve_triangular(L, (rhs * fe)[:, None], upper=False)
+    y = torch.linalg.solve_triangular(L, (red.rhs * fe)[:, None], upper=False)
     y = torch.linalg.solve_triangular(L.T, y, upper=True)
     dp = (y[:, 0] * e).view(W, 6)
     # A degenerate window (or a failed factorisation) gives no step: a nan
@@ -214,8 +249,8 @@ def _gn_step(pb: _Problem, R, t, X, res, damping: float, huber_px: float,
     dp = torch.where(_finite(dp).all() & (info == 0), dp, pb.k.zero) * pb.free[:, None]
 
     # Back-substitution dx = V^-1 (-bl - W^T dp); unseen landmarks stay.
-    tmp = -(bl + (Bm.T @ dp.reshape(-1)).view(N, 3))
-    dx = (V_inv @ tmp[..., None])[..., 0]
+    tmp = -(red.bl + (red.Bm.T @ dp.reshape(-1)).view(N, 3))
+    dx = (red.V_inv @ tmp[..., None])[..., 0]
     dx = torch.where(_finite(dx), dx, pb.k.zero)
 
     R_d, t_d = _exp_se3(dp, pb.k)
@@ -240,6 +275,9 @@ def ba_solve(
     device: no host read).  With a `mesh`, `landmarks`, `obs` and
     `obs_mask` are this rank's shard of the landmark axis and the sums over
     landmarks run over every rank's (each rank must call this)."""
+    global SOLVES, ITERATIONS
+    SOLVES += 1
+    ITERATIONS += iters
     k = _consts(cam, T_cw.device)
     W = T_cw.shape[0]
     free = (~fixed).to(_F64)
@@ -252,27 +290,36 @@ def ba_solve(
         free6=free6,
     )
     R, t, X = T_cw[:, :3, :3].to(_F64), T_cw[:, :3, 3].to(_F64), landmarks.to(_F64)
-    res = _residuals(pb, R, t, X)
-    rms0 = _rms(res[2], res[4], mesh)
-    for it in range(iters):
-        if it:
+    rms0 = None
+    for _ in range(iters):
+        with profiling.span("ba.linearize"):
             res = _residuals(pb, R, t, X)
-        R, t, X = _gn_step(pb, R, t, X, res, damping, huber_px, mesh)
-    _, _, m, _, r = _residuals(pb, R, t, X)
-    rms1 = _rms(m, r, mesh)
-    T_fin = torch.cat([torch.cat([R, t[:, :, None]], dim=2).to(T_cw.dtype), T_cw[:, 3:]], dim=1)
-    X_fin = X.to(landmarks.dtype)
-    X_ok = (_finite(X_fin).all() if mesh is None
-            else psum((~_finite(X_fin)).sum(), mesh) == 0)
-    # Keep the input if the refinement diverged (rare, ill-conditioned
-    # windows).
-    better = (rms1 <= rms0) & _finite(T_fin).all() & X_ok
-    return BAResult(
-        T_cw=torch.where(better, T_fin, T_cw),
-        landmarks=torch.where(better, X_fin, landmarks),
-        rms_before=rms0.to(torch.float32),
-        rms_after=torch.minimum(rms1, rms0).to(torch.float32),
-    )
+            if rms0 is None:
+                rms0 = _rms(res[2], res[4], mesh)
+            Ja, wgt = _linearize(pb, R, res, huber_px)
+        with profiling.span("ba.reduce"):
+            red = _reduce(pb, Ja, wgt, damping, mesh)
+        with profiling.span("ba.factor"):
+            R, t, X = _factor(pb, R, t, X, red)
+    with profiling.span("ba.accept"):
+        _, _, m, _, r = _residuals(pb, R, t, X)
+        rms1 = _rms(m, r, mesh)
+        if rms0 is None:  # no iteration: the input is the result
+            rms0 = rms1
+        T_fin = torch.cat([torch.cat([R, t[:, :, None]], dim=2).to(T_cw.dtype), T_cw[:, 3:]],
+                          dim=1)
+        X_fin = X.to(landmarks.dtype)
+        X_ok = (_finite(X_fin).all() if mesh is None
+                else psum((~_finite(X_fin)).sum(), mesh) == 0)
+        # Keep the input if the refinement diverged (rare, ill-conditioned
+        # windows).
+        better = (rms1 <= rms0) & _finite(T_fin).all() & X_ok
+        return BAResult(
+            T_cw=torch.where(better, T_fin, T_cw),
+            landmarks=torch.where(better, X_fin, landmarks),
+            rms_before=rms0.to(torch.float32),
+            rms_after=torch.minimum(rms1, rms0).to(torch.float32),
+        )
 
 
 def dense_solve_reference(cam: Pinhole, T_cw, landmarks, obs, obs_mask, fixed,

@@ -11,7 +11,9 @@ PyTorch on the device that holds the frames:
   counted in ``HOST_READS`` and held by a ``host_read`` span
   (:mod:`..utils.profiling`; the step's others: ``step.frame`` around
   each frame, ``step.track``, ``step.pnp``, ``step.rescue``,
-  ``step.keyframe``, ``step.ba``);
+  ``step.keyframe``, ``step.ba`` with each solve's lanes, poses ``W``,
+  landmark slots ``N`` and ``iters``, and the solves' ``ba.*`` spans in
+  it);
 - ``jax.random.split(carry.key, ...)`` becomes a generator per frame and
   stream, seeded from (``carry.key``, frame index, stream), so one seed
   gives a bitwise-identical trajectory on one device.  The streams are not
@@ -578,7 +580,8 @@ def _step_lanes(
     track, ba = carry.track, carry.ba
     ba_rms = torch.zeros((B,), dtype=torch.float32, device=dev)
     if cfg.ba_enabled:
-        with profiling.span("step.ba"):
+        with profiling.span("step.ba", lanes=B, W=cfg.ba.window + 1, N=track.pts3d.shape[1],
+                            iters=cfg.ba.iters):
             ba, T_wc, track, ba_rms = _ba_refine(ba, track, T_wc, tracked_pts, p.inliers & m,
                                                  cfg)
     track = track._replace(pts2d=tracked_pts, mask=p.inliers & m)

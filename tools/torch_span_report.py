@@ -26,6 +26,10 @@ inside the session it prints, and writes to ``DIR/<workload>.<seed>.json``
 - PnP's solves (``ops/pnp.py``'s counters): CUDA graphs captured in the
   set-up and in the session, replays and eager solves in the session,
   the session's ``step.pnp`` calls, and the share of those replayed;
+- BA's solves (``models/bundle_adjust.py``'s ``SOLVES`` and
+  ``ITERATIONS``, a cell with BA on): solves and Gauss-Newton iterations
+  in the session, the session's ``step.ba`` calls and the iterations a
+  solve;
 - ``--overhead n``: n pairs of sessions under the same capture without
   the recorder, one with spans on and one with them forced off, and each
   session's seconds;
@@ -118,7 +122,7 @@ def report(st, got: dict, frames: int) -> dict:
                    "self_ms": ns * per, "idle_ms": idle * per,
                    "idle_pct": 100.0 * idle / ns if ns else None}
             for name, (ns, idle) in sorted(own.items(), key=lambda kv: -kv[1][0])}
-    rec = {"trace": got, "frames": frames, "k1_work": []}
+    rec = {"trace": got, "spans": got["spans"], "frames": frames, "k1_work": []}
     metrics = {m["name"]: st.man.reader(m["name"])(rec)
                for m in st.man.metrics(st.cell["name"], "per_layer")
                if m["name"] != "k1_roofline_pct"}
@@ -145,6 +149,20 @@ def pnp_solves(before: tuple, after: tuple, rows: dict) -> dict:
     return {"captures_before_session": before[0], "captures_session": captures, "replays": replays,
             "eager_solves": eager, "step_pnp_calls": calls,
             "replayed_share": replays / calls if calls else None}
+
+
+def ba_counts() -> tuple:
+    from ros_stereo_slam_tpu_torch.models import bundle_adjust
+
+    return bundle_adjust.SOLVES, bundle_adjust.ITERATIONS
+
+
+def ba_solves(before: tuple, after: tuple, rows: dict) -> dict:
+    """The session's BA solves from the counters before and after it."""
+    solves, iterations = (a - b for a, b in zip(after, before))
+    return {"solves": solves, "iterations": iterations,
+            "step_ba_calls": rows.get("step.ba", {}).get("calls", 0),
+            "iterations_per_solve": iterations / solves if solves else None}
 
 
 def captured_session(st) -> float:
@@ -228,11 +246,12 @@ def main(argv=None) -> int:
         st = run.Setup(run.parse(["--workload", args.workload, "--seed", str(seed),
                                   "--seconds", "0", "--trace", "1"]), args.device, ROOT)
         profiling.reset()
-        before = pnp_counts()
+        before, ba_before = pnp_counts(), ba_counts()
         _, _, got, _, _ = st.measure(0.0, traced=True)
         out = {"workload": args.workload, "seed": seed, "card": run.smi_line(),
                **report(st, got, len(st.frames))}
         out["pnp"] = pnp_solves(before, pnp_counts(), out["rows"])
+        out["ba"] = ba_solves(ba_before, ba_counts(), out["rows"])
         if args.overhead:
             out["overhead"] = overhead(st, args.overhead)
         if args.syncs:

@@ -43,13 +43,24 @@ are the same on every rank, while the landmark blocks, their inverses and
 the back-substitution stay local
 (:mod:`ros_stereo_slam_tpu_torch.parallel.dist_ba`).
 
+A solve on the card without a mesh replays a CUDA graph of the eager
+solve (:func:`_solve`), captured once per window signature (shapes and
+dtypes, the device, the camera, `iters`, `damping`, `huber_px`;
+:class:`..utils.cuda_graph.GraphedCall`): the same kernels on the same
+shapes, one launch for some 1,150.  The solve reads nothing back to the
+host, so the whole of it captures.  The CPU and a mesh (collectives
+inside) solve eagerly.
+
 Spans (:mod:`ros_stereo_slam_tpu_torch.utils.profiling`; they record only
 under a capture and never synchronise): ``ba.linearize`` (residuals,
 Jacobians and weights), ``ba.reduce`` (the blocks, the landmark inverses,
 the reduced camera system) and ``ba.factor`` (the factorisation, the
 triangular solves, back-substitution and the update), each once an
 iteration, then ``ba.accept`` (the final RMS and the keep-or-refine
-select).
+select).  They are host spans of the eager solve: a replay records none,
+so on the card they appear only in the call that captures a signature
+(its warm-up calls and the capture), and the caller's ``step.ba`` span
+holds the replays.
 """
 
 from __future__ import annotations
@@ -63,13 +74,18 @@ from ros_stereo_slam_tpu_torch.ops import linalg
 from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, psum, psum_many
 from ros_stereo_slam_tpu_torch.utils import profiling
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
+from ros_stereo_slam_tpu_torch.utils.cuda_graph import GraphedCall
 
 _F64 = torch.float64
 # Host counters: solves begun and Gauss-Newton iterations asked for
-# (:func:`ba_solve` adds 1 and `iters` a call; nothing is read from the
-# device).  ``tools/torch_span_report.py`` prints them per traced session.
+# (:func:`ba_solve` adds 1 and `iters` a call, replayed or eager; nothing is
+# read from the device), then CUDA graphs captured and replayed, and eager
+# solves.  ``tools/torch_span_report.py`` prints them per traced session.
 SOLVES = 0
 ITERATIONS = 0
+GRAPH_CAPTURES = 0
+GRAPH_REPLAYS = 0
+EAGER_SOLVES = 0
 
 
 class BAResult(NamedTuple):
@@ -257,27 +273,9 @@ def _factor(pb: _Problem, R, t, X, red: _Reduced):
     return R_d @ R, torch.baddbmm(t_d[..., None], R_d, t[..., None])[..., 0], X + dx
 
 
-def ba_solve(
-    cam: Pinhole,
-    T_cw: torch.Tensor,  # (W, 4, 4)
-    landmarks: torch.Tensor,  # (N, 3)
-    obs: torch.Tensor,  # (W, N, 2)
-    obs_mask: torch.Tensor,  # (W, N) bool
-    fixed: torch.Tensor,  # (W,) bool: poses excluded from optimization
-    iters: int = 10,
-    damping: float = 1e-4,
-    huber_px: float = 2.0,
-    mesh: Mesh | None = None,
-) -> BAResult:
-    """`iters` damped Gauss-Newton steps on the window; float32 in and out,
-    float64 inside.  Returns the input unchanged when the final RMS is
-    above the initial one or anything is non-finite (selected on the
-    device: no host read).  With a `mesh`, `landmarks`, `obs` and
-    `obs_mask` are this rank's shard of the landmark axis and the sums over
-    landmarks run over every rank's (each rank must call this)."""
-    global SOLVES, ITERATIONS
-    SOLVES += 1
-    ITERATIONS += iters
+def _solve(cam: Pinhole, T_cw, landmarks, obs, obs_mask, fixed, iters: int, damping: float,
+           huber_px: float, mesh: Mesh | None = None) -> BAResult:
+    """The solve of :func:`ba_solve`, eagerly."""
     k = _consts(cam, T_cw.device)
     W = T_cw.shape[0]
     free = (~fixed).to(_F64)
@@ -320,6 +318,61 @@ def ba_solve(
             rms_before=rms0.to(torch.float32),
             rms_after=torch.minimum(rms1, rms0).to(torch.float32),
         )
+
+
+_GRAPHS: dict = {}  # graph key -> GraphedCall of _solve
+_POOL = None  # BA's own memory pool: its graphs replay one at a time on one stream
+
+
+def _use_graph(device: torch.device, mesh: Mesh | None) -> bool:
+    """A solve replays a graph on the card without a mesh."""
+    return device.type == "cuda" and mesh is None
+
+
+def _graph_key(tensors: tuple, cam: Pinhole, kw: dict) -> tuple:
+    """What a graph bakes in: every input's shape and dtype (W, N), the
+    device, the camera and the scalars (`iters`, `damping`, `huber_px`)."""
+    return (tuple((tuple(t.shape), t.dtype) for t in tensors), tensors[0].device, tuple(cam),
+            tuple(sorted(kw.items())))
+
+
+def ba_solve(
+    cam: Pinhole,
+    T_cw: torch.Tensor,  # (W, 4, 4)
+    landmarks: torch.Tensor,  # (N, 3)
+    obs: torch.Tensor,  # (W, N, 2)
+    obs_mask: torch.Tensor,  # (W, N) bool
+    fixed: torch.Tensor,  # (W,) bool: poses excluded from optimization
+    iters: int = 10,
+    damping: float = 1e-4,
+    huber_px: float = 2.0,
+    mesh: Mesh | None = None,
+) -> BAResult:
+    """`iters` damped Gauss-Newton steps on the window; float32 in and out,
+    float64 inside.  Returns the input unchanged when the final RMS is
+    above the initial one or anything is non-finite (selected on the
+    device: no host read).  With a `mesh`, `landmarks`, `obs` and
+    `obs_mask` are this rank's shard of the landmark axis and the sums over
+    landmarks run over every rank's (each rank must call this).
+
+    Replayed from a CUDA graph where :func:`_use_graph` allows it (captured
+    on a signature's first call), else eager."""
+    global SOLVES, ITERATIONS, EAGER_SOLVES, GRAPH_CAPTURES, GRAPH_REPLAYS, _POOL
+    SOLVES += 1
+    ITERATIONS += iters
+    kw = dict(iters=iters, damping=damping, huber_px=huber_px)
+    if not _use_graph(T_cw.device, mesh):
+        EAGER_SOLVES += 1
+        return _solve(cam, T_cw, landmarks, obs, obs_mask, fixed, mesh=mesh, **kw)
+    tensors = (T_cw, landmarks, obs, obs_mask, fixed)
+    key = _graph_key(tensors, cam, kw)
+    if key not in _GRAPHS:
+        if _POOL is None:
+            _POOL = torch.cuda.graph_pool_handle()
+        _GRAPHS[key] = GraphedCall(lambda *t: _solve(cam, *t, **kw), tensors, _POOL)
+        GRAPH_CAPTURES += 1
+    GRAPH_REPLAYS += 1
+    return _GRAPHS[key](tensors)
 
 
 def dense_solve_reference(cam: Pinhole, T_cw, landmarks, obs, obs_mask, fixed,

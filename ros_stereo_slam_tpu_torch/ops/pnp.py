@@ -22,10 +22,11 @@ Gauss-Newton normal equations by points; see its docstring.
 
 Every solve goes through :func:`_solve`.  A lane-form solve on the card
 with no mesh replays a CUDA graph of :func:`_pnp_from_sets`, captured once
-per input signature (:class:`_PnPGraph`): the same kernels on the same
-shapes, one launch for some 2,900.  Every other solve runs eagerly: the
-CPU, a mesh (collectives inside), and the single-lane form, whose
-``_rows`` indexes with a 0-d device tensor (a host sync, not capturable).
+per input signature (:class:`..utils.cuda_graph.GraphedCall`): the same
+kernels on the same shapes, one launch for some 2,900.  Every other solve
+runs eagerly: the CPU, a mesh (collectives inside), and the single-lane
+form, whose ``_rows`` indexes with a 0-d device tensor (a host sync, not
+capturable).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ros_stereo_slam_tpu_torch.ops.ransac import _sample_minimal_sets
 from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, psum, psum_many, shard_bounds
 from ros_stereo_slam_tpu_torch.utils import lie
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
+from ros_stereo_slam_tpu_torch.utils.cuda_graph import GraphedCall
 
 
 # Solves of this process: CUDA graphs captured and replayed, and eager solves.
@@ -287,48 +289,8 @@ def _pnp_from_sets(
     )
 
 
-_GRAPHS: dict = {}  # graph key -> _PnPGraph
+_GRAPHS: dict = {}  # graph key -> GraphedCall of _pnp_from_sets
 _POOL = None  # the graphs' memory pool: they replay one at a time on one stream
-
-
-class _PnPGraph:
-    """One :func:`_pnp_from_sets` signature captured as a CUDA graph over
-    static input buffers (idx, idx2, pts3d, uv, mask, T_init).  A call
-    copies its inputs in, replays, and returns clones of the outputs: the
-    step's rescue solves again while it holds the first result."""
-
-    WARMUP = 3  # eager calls on the capture stream first: cuBLAS handles and workspaces
-
-    def __init__(self, tensors: tuple, cam: Pinhole, kw: dict):
-        global GRAPH_CAPTURES, _POOL
-        dev = tensors[2].device
-        self.inputs = tuple(None if t is None else t.clone() for t in tensors)
-        idx, idx2, pts3d, uv, mask, T_init = self.inputs
-
-        def solve():
-            return _pnp_from_sets(idx, idx2, cam, pts3d, uv, mask, T_init=T_init, **kw)
-
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            for _ in range(self.WARMUP):
-                solve()
-        if _POOL is None:
-            _POOL = torch.cuda.graph_pool_handle()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=_POOL, stream=stream,
-                              capture_error_mode="thread_local"):
-            self.out = solve()
-        GRAPH_CAPTURES += 1
-
-    def __call__(self, tensors: tuple) -> PnPResult:
-        global GRAPH_REPLAYS
-        for dst, src in zip(self.inputs, tensors, strict=True):
-            if dst is not None:
-                dst.copy_(src)
-        self.graph.replay()
-        GRAPH_REPLAYS += 1
-        return PnPResult(*(t.clone() for t in self.out))
 
 
 def _use_graph(device: torch.device, lanes: bool, mesh: Mesh | None) -> bool:
@@ -357,14 +319,22 @@ def _solve(
     """:func:`_pnp_from_sets` (its scalars as keywords), replayed from a
     graph where :func:`_use_graph` allows it (captured on a signature's
     first call), else eager."""
-    global EAGER_SOLVES
+    global EAGER_SOLVES, GRAPH_CAPTURES, GRAPH_REPLAYS, _POOL
     if not _use_graph(pts3d.device, mask.dim() == 2, mesh):
         EAGER_SOLVES += 1
         return _pnp_from_sets(idx, idx2, cam, pts3d, uv, mask, T_init=T_init, mesh=mesh, **kw)
     tensors = (idx, idx2, pts3d, uv, mask, T_init)
     key = _graph_key(tensors, cam, kw)
     if key not in _GRAPHS:
-        _GRAPHS[key] = _PnPGraph(tensors, cam, kw)
+        if _POOL is None:
+            _POOL = torch.cuda.graph_pool_handle()
+
+        def solve(idx, idx2, pts3d, uv, mask, T_init):
+            return _pnp_from_sets(idx, idx2, cam, pts3d, uv, mask, T_init=T_init, **kw)
+
+        _GRAPHS[key] = GraphedCall(solve, tensors, _POOL)
+        GRAPH_CAPTURES += 1
+    GRAPH_REPLAYS += 1
     return _GRAPHS[key](tensors)
 
 

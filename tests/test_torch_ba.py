@@ -50,6 +50,7 @@ from ros_stereo_slam_tpu_torch.config import (
 from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
 from ros_stereo_slam_tpu_torch.models import convert, pipeline, step, step_batched
 from ros_stereo_slam_tpu_torch.ops import linalg
+from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh
 from ros_stereo_slam_tpu_torch.utils import checkpoint, lie, metrics
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
 
@@ -206,6 +207,57 @@ def test_ba_no_op_when_diverging(case):
         jres = jba.ba_solve(cam, *(jnp.asarray(a) for a in (T_cw, X, obs, mask, fixed)), **kw)
         np.testing.assert_allclose(np.asarray(jres.T_cw), T_cw, atol=1e-6)
         np.testing.assert_allclose(np.asarray(jres.landmarks), X, atol=1e-6)
+
+
+_KEY_CAM = Pinhole(707.0912, 707.0912, 601.8873, 183.1104)
+
+
+def _key(W=9, N=768, cam=_KEY_CAM, device="cpu", obs_dtype=torch.float32, iters=10,
+         damping=1e-4, huber_px=2.0):
+    tensors = (torch.zeros((W, 4, 4), device=device), torch.zeros((N, 3), device=device),
+               torch.zeros((W, N, 2), dtype=obs_dtype, device=device),
+               torch.zeros((W, N), dtype=torch.bool, device=device),
+               torch.zeros((W,), dtype=torch.bool, device=device))
+    return ba._graph_key(tensors, cam, dict(iters=iters, damping=damping, huber_px=huber_px))
+
+
+@pytest.mark.parametrize("change", [
+    {}, {"W": 7}, {"N": 512}, {"iters": 1}, {"damping": 0.0}, {"huber_px": 1e9},
+    {"cam": _KEY_CAM._replace(fx=718.856)}, {"cam": _KEY_CAM._replace(cy=185.2157)},
+    {"device": "meta"}, {"obs_dtype": torch.float64},
+])
+def test_graph_key_separates_every_baked_in_scalar_and_shape(change):
+    """Equal inputs (fresh tensors of the same signature) share one key;
+    any shape, dtype, scalar, camera or device the graph bakes in gives
+    another."""
+    assert (_key(**change) == _key()) == (not change)
+
+
+@pytest.mark.parametrize("device,mesh,graph", [
+    ("cuda", None, True),
+    ("cuda", Mesh(rank=0, size=1, device=torch.device("cuda:0")), False),
+    ("cpu", None, False),
+    ("cpu", Mesh(rank=0, size=1, device=torch.device("cpu")), False),
+])
+def test_graph_engages_only_on_the_card_without_a_mesh(device, mesh, graph):
+    assert ba._use_graph(torch.device(device), mesh) is graph
+
+
+def test_a_cpu_solve_is_eager_and_counted(monkeypatch):
+    """On the CPU ``ba_solve`` runs the eager solve (bitwise) and counts
+    it as a solve, its iterations and an eager solve; nothing is captured
+    or replayed."""
+    monkeypatch.setattr(ba, "_GRAPHS", {})
+    _, tcam, T_cw, X, obs, mask = _problem(W=3, N=12, seed=8)
+    args = (tcam, _t(T_cw), _t(X), _t(obs), _t(mask), _t(np.array([True, False, False])))
+    before = (ba.SOLVES, ba.ITERATIONS, ba.EAGER_SOLVES, ba.GRAPH_CAPTURES, ba.GRAPH_REPLAYS)
+    got = ba.ba_solve(*args, iters=3)
+    after = (ba.SOLVES, ba.ITERATIONS, ba.EAGER_SOLVES, ba.GRAPH_CAPTURES, ba.GRAPH_REPLAYS)
+    assert [a - b for a, b in zip(after, before)] == [1, 3, 1, 0, 0]
+    assert not ba._GRAPHS
+    want = ba._solve(*args, iters=3, damping=1e-4, huber_px=2.0)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
 
 
 def _world_cfgs(window=6, iters=6):

@@ -104,10 +104,14 @@ def _span_report():
 def test_ba_solves_reads_the_counters():
     tool = _span_report()
     rows = {"step.ba": {"calls": 12}}
-    assert tool.ba_solves((3, 30), (15, 150), rows) == {
-        "solves": 12, "iterations": 120, "step_ba_calls": 12, "iterations_per_solve": 10.0}
-    assert tool.ba_solves((3, 30), (3, 30), {}) == {
-        "solves": 0, "iterations": 0, "step_ba_calls": 0, "iterations_per_solve": None}
+    assert tool.ba_solves((3, 30, 1, 2, 1), (15, 150, 1, 11, 4), rows) == {
+        "solves": 12, "iterations": 120, "step_ba_calls": 12, "iterations_per_solve": 10.0,
+        "captures_before_session": 1, "captures_session": 0, "replays": 9, "eager_solves": 3,
+        "replayed_share": 0.75}
+    assert tool.ba_solves((3, 30, 1, 2, 1), (3, 30, 1, 2, 1), {}) == {
+        "solves": 0, "iterations": 0, "step_ba_calls": 0, "iterations_per_solve": None,
+        "captures_before_session": 1, "captures_session": 0, "replays": 0, "eager_solves": 0,
+        "replayed_share": None}
 
 
 def test_the_span_report_prints_the_ba_counters(tmp_path, monkeypatch, capsys):
@@ -123,6 +127,7 @@ def test_the_span_report_prints_the_ba_counters(tmp_path, monkeypatch, capsys):
     ba = line["ba"]
     assert ba["solves"] == ba["step_ba_calls"] == 12  # frames 1-12 of the 13-frame corridor
     assert ba["iterations"] == 120 and ba["iterations_per_solve"] == pytest.approx(10.0)
+    assert ba["eager_solves"] == 12 and ba["replays"] == ba["captures_session"] == 0
     assert line["metrics"]["ba_host_ms.offline"] > 0
     saved = json.loads((tmp_path / "spans" / f"{CELL}.{SEED}.json").read_text())
     assert saved["ba"] == ba

@@ -42,6 +42,15 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
   and with the 8 px retry ladder engaged; one capture per signature; a
   first result keeps its values through a second replay; the 97-frame
   bench corridor through ``run_offline`` gives the eager run's poses.
+- BA's CUDA graph (``models/bundle_adjust.py::ba_solve``): the replayed
+  solve equals the eager ``_solve`` bit for bit over 6 windows at the
+  cell's shapes (9 poses, 768 landmarks), 6 diverging windows that keep
+  their input (the RMS grows) and 6 degenerate ones whose factorisation
+  fails (a non-finite observation); one capture per signature; two
+  replays of one window equal; lane 0's result keeps its values through
+  lane 1's replay; the BA cell's 97-frame corridor through
+  ``run_offline`` gives the eager run's poses and BA RMS, every solve
+  after the capture replayed.
 - The endurance CLI's scan posture (``tools/endurance_run.py``) at
   1241x376 over a tiled 160-pose lap with both rings wrapping: at least
   3 closures at exact revisits, post-PGO ATE below odometry-only, K3 once
@@ -762,6 +771,171 @@ def test_run_offline_corridor_graph_equals_eager(cuda_device, monkeypatch):
     eager = pipeline.run_offline(cfg, left, right, device=cuda_device)
     assert pnp.EAGER_SOLVES - eager_before == n_calls
     for name in ("trajectory", "n_inliers", "tracking_ok", "used_retry", "is_keyframe"):
+        a, b = getattr(graph, name), getattr(eager, name)
+        assert np.array_equal(a, b), (name, float(np.abs(a.astype(np.float64)
+                                                         - b.astype(np.float64)).max()))
+    assert graph.tracking_ok.all()
+
+
+def _ba_window(case: str, seed: int, dev):
+    """A BA window on `dev` and the solve's keywords.  "corridor": the
+    cell's shapes (9 poses 0.8 m apart along z, the first two fixed, 768
+    landmarks 5-60 m ahead, 0.3 px of noise, a tenth unobserved in each
+    view), poses and landmarks perturbed; "rms_grows": the undamped step
+    of tests/test_torch_ba.py's diverging case (a free pose turned 1 rad
+    away, no Huber, one step), which raises the RMS on some draws, so the
+    input is kept;
+    "degenerate": the corridor window with one non-finite observation,
+    which makes the reduced system and the RMS non-finite, so the
+    factorisation fails and the input is kept."""
+    from ros_stereo_slam_tpu_torch.utils import lie
+    from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
+
+    rng = np.random.default_rng(seed)
+    cam = Pinhole(707.0912, 707.0912, 601.8873, 183.1104)
+    W, N = (3, 12) if case == "rms_grows" else (9, 768)
+    X = np.stack([rng.uniform(-6, 6, N), rng.uniform(-3, 3, N), rng.uniform(5, 14, N)], 1)
+    if case != "rms_grows":
+        X = np.stack([rng.uniform(-20, 20, N), rng.uniform(-3, 3, N), rng.uniform(10, 60, N)],
+                     1)
+    T = np.tile(np.eye(4), (W, 1, 1))
+    T[:, 2, 3] = -0.8 * np.arange(W)
+    T[:, 0, 3] = -1.5 * np.arange(W) if case == "rms_grows" else 0.0
+    p = np.einsum("wij,nj->wni", T[:, :3, :3], X) + T[:, None, :3, 3]
+    obs = p[..., :2] / p[..., 2:] * cam.fx + [cam.cx, cam.cy] + rng.normal(0, 0.3, (W, N, 2))
+    mask = rng.random((W, N)) > (0.0 if case == "rms_grows" else 0.1)
+    fixed = np.arange(W) < 2
+    kw = dict(iters=10, damping=1e-4, huber_px=2.0)
+    if case == "rms_grows":
+        T[2] = lie.exp_se3(torch.tensor([0.0, 0.0, 0.0, 0.0, 1.0, 0.0],
+                                        dtype=torch.float64)).numpy() @ T[2]
+        kw = dict(iters=1, damping=0.0, huber_px=1e9)
+    else:
+        xi = np.concatenate([rng.normal(0, 0.05, (W, 3)), rng.normal(0, 0.005, (W, 3))], 1)
+        xi[fixed] = 0.0
+        T = lie.exp_se3(torch.from_numpy(xi)).numpy() @ T
+        X = X + rng.normal(0, 0.2, X.shape)
+    if case == "degenerate":
+        obs[3, 5, 0], mask[3, 5] = np.nan, True
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (cam, torch.tensor(T, **f32), torch.tensor(X, **f32), torch.tensor(obs, **f32),
+            torch.tensor(mask, device=dev), torch.tensor(fixed, device=dev)), kw
+
+
+def _assert_same_bits(got, want):
+    """Every output bit for bit (NaN included: the kept input of a
+    degenerate window may hold one)."""
+    for name, a, b in zip(want._fields, got, want, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        assert torch.equal(a.view(ints), b.view(ints)), name
+
+
+@pytest.mark.parametrize("case", ["corridor", "rms_grows", "degenerate"])
+def test_ba_graph_replays_the_eager_solve_bitwise(cuda_device, monkeypatch, case):
+    """``ba_solve`` on the card replays one graph per window signature,
+    bitwise the eager solve, over 6 windows of each case; the diverging
+    and the degenerate windows keep their input, and the degenerate one's
+    factorisation fails in the eager solve."""
+    from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
+
+    monkeypatch.setattr(ba, "_GRAPHS", {})
+    infos = []
+    factor = torch.linalg.cholesky_ex
+
+    def recording(S):
+        L, info = factor(S)
+        infos.append((info != 0) | ~torch.isfinite(L).all())
+        return L, info
+
+    captures, replays = ba.GRAPH_CAPTURES, ba.GRAPH_REPLAYS
+    # the diverging case's draws whose undamped step raises the RMS (on
+    # other draws the step lowers it, and the window is refined)
+    for seed in (0, 1, 2, 3, 8, 14) if case == "rms_grows" else range(6):
+        args, kw = _ba_window(case, seed, cuda_device)
+        got = ba.ba_solve(*args, **kw)
+        with monkeypatch.context() as mp:
+            mp.setattr(torch.linalg, "cholesky_ex", recording)
+            want = ba._solve(*args, **kw)
+        torch.cuda.synchronize()
+        _assert_same_bits(got, want)
+        kept = torch.equal(got.T_cw, args[1])
+        if case == "corridor":
+            assert not kept and float(got.rms_after) < float(got.rms_before)
+        else:
+            assert kept and torch.equal(got.landmarks, args[2])
+        if case == "rms_grows":
+            assert float(got.rms_after) == float(got.rms_before) > 100.0
+        if case == "degenerate":
+            assert bool(torch.stack(infos).all())
+        infos.clear()
+    assert ba.GRAPH_CAPTURES == captures + 1 and len(ba._GRAPHS) == 1
+    assert ba.GRAPH_REPLAYS == replays + 6
+
+
+def test_ba_graph_repeats_bitwise(cuda_device, monkeypatch):
+    """Two replays of one window give the same bits (no atomics, H10)."""
+    from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
+
+    monkeypatch.setattr(ba, "_GRAPHS", {})
+    args, kw = _ba_window("corridor", 7, cuda_device)
+    first = ba.ba_solve(*args, **kw)
+    second = ba.ba_solve(*args, **kw)
+    torch.cuda.synchronize()
+    assert len(ba._GRAPHS) == 1
+    _assert_same_bits(first, second)
+
+
+def test_ba_graph_first_lane_survives_the_second_lanes_replay(cuda_device, monkeypatch):
+    """``_ba_refine``'s case: lane 1's solve replays the graph of lane 0's
+    while lane 0's result is still held."""
+    from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
+
+    monkeypatch.setattr(ba, "_GRAPHS", {})
+    (args0, kw), (args1, _) = (_ba_window("corridor", s, cuda_device) for s in (8, 9))
+    first = ba.ba_solve(*args0, **kw)
+    kept = tuple(t.clone() for t in first)
+    second = ba.ba_solve(*args1, **kw)
+    torch.cuda.synchronize()
+    assert len(ba._GRAPHS) == 1
+    assert not torch.equal(first.T_cw, second.T_cw)
+    for a, b in zip(first, kept, strict=True):
+        assert torch.equal(a, b)
+    _assert_same_bits(first, ba._solve(*args0, **kw))
+
+
+def test_run_offline_ba_graph_equals_eager(cuda_device, monkeypatch):
+    """The benchmark's BA cell (``ba.corridor.offline``: ``kitti08_ba``
+    over the 97-frame corridor) through ``run_offline``: the same poses,
+    inliers, keyframes and BA RMS with ``ba_solve`` replayed from its graph
+    as with every solve eager; one capture, then every solve replays."""
+    from pathlib import Path
+
+    from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
+    from ros_stereo_slam_tpu_torch.models import pipeline
+    from slambench import drivers, manifest, world
+
+    monkeypatch.setattr(ba, "_GRAPHS", {})
+    man = manifest.Manifest(Path(__file__).resolve().parents[1])
+    cell = man.cell("ba.corridor.offline")
+    conf, mix = man.config(cell["config"]), man.traffic(cell["traffic"])
+    seeds = world.draw(6400000023)
+    frames = world.make_frames(mix["world"], conf["camera"], cuda_device, seeds)
+    left, right = frames.left.cpu().numpy(), frames.right.cpu().numpy()
+    assert left.shape == (97, 370, 1226)
+    cfg = drivers.pipeline_config(conf, mix["overrides"], seeds["program"])
+    assert cfg.ba_enabled
+    solves, captures, replays = ba.SOLVES, ba.GRAPH_CAPTURES, ba.GRAPH_REPLAYS
+    graph = pipeline.run_offline(cfg, left, right, device=cuda_device)
+    n_solves = ba.SOLVES - solves
+    assert n_solves == len(left) - 1
+    assert ba.GRAPH_CAPTURES - captures == 1 and ba.GRAPH_REPLAYS - replays == n_solves
+    monkeypatch.setattr(ba, "_use_graph", lambda device, mesh: False)
+    eager_before = ba.EAGER_SOLVES
+    eager = pipeline.run_offline(cfg, left, right, device=cuda_device)
+    assert ba.EAGER_SOLVES - eager_before == n_solves
+    for name in ("trajectory", "n_inliers", "tracking_ok", "used_retry", "is_keyframe",
+                 "ba_rms"):
         a, b = getattr(graph, name), getattr(eager, name)
         assert np.array_equal(a, b), (name, float(np.abs(a.astype(np.float64)
                                                          - b.astype(np.float64)).max()))

@@ -26,10 +26,13 @@ inside the session it prints, and writes to ``DIR/<workload>.<seed>.json``
 - PnP's solves (``ops/pnp.py``'s counters): CUDA graphs captured in the
   set-up and in the session, replays and eager solves in the session,
   the session's ``step.pnp`` calls, and the share of those replayed;
-- BA's solves (``models/bundle_adjust.py``'s ``SOLVES`` and
-  ``ITERATIONS``, a cell with BA on): solves and Gauss-Newton iterations
-  in the session, the session's ``step.ba`` calls and the iterations a
-  solve;
+- BA's solves (``models/bundle_adjust.py``'s counters, a cell with BA
+  on): solves and Gauss-Newton iterations in the session, the session's
+  ``step.ba`` calls and the iterations a solve; CUDA graphs captured in
+  the set-up and in the session, replays and eager solves in the
+  session, and the share of solves replayed.  A replay records no
+  ``ba.*`` span: on the card those rows appear only in a session that
+  captured;
 - ``--overhead n``: n pairs of sessions under the same capture without
   the recorder, one with spans on and one with them forced off, and each
   session's seconds;
@@ -152,17 +155,20 @@ def pnp_solves(before: tuple, after: tuple, rows: dict) -> dict:
 
 
 def ba_counts() -> tuple:
-    from ros_stereo_slam_tpu_torch.models import bundle_adjust
+    from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
 
-    return bundle_adjust.SOLVES, bundle_adjust.ITERATIONS
+    return ba.SOLVES, ba.ITERATIONS, ba.GRAPH_CAPTURES, ba.GRAPH_REPLAYS, ba.EAGER_SOLVES
 
 
 def ba_solves(before: tuple, after: tuple, rows: dict) -> dict:
     """The session's BA solves from the counters before and after it."""
-    solves, iterations = (a - b for a, b in zip(after, before))
+    solves, iterations, captures, replays, eager = (a - b for a, b in zip(after, before))
     return {"solves": solves, "iterations": iterations,
             "step_ba_calls": rows.get("step.ba", {}).get("calls", 0),
-            "iterations_per_solve": iterations / solves if solves else None}
+            "iterations_per_solve": iterations / solves if solves else None,
+            "captures_before_session": before[2], "captures_session": captures,
+            "replays": replays, "eager_solves": eager,
+            "replayed_share": replays / solves if solves else None}
 
 
 def captured_session(st) -> float:

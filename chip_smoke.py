@@ -824,13 +824,13 @@ def k1_border_case(torch, img, params) -> None:
 
 def k1b_phase(torch, left, depths, poses, cam, dev,
               runs=((K1_N, 6, None), (K1_N_ORB, 10, None)), tag: str = "K1b") -> dict:
-    """K1b (``lk_level_batch_f32``) against its plain version (a loop of
+    """K1b (``lk_level_f32`` on B lanes) against its plain version (a loop of
     lk._track_level over lanes) on the card: the batched odometry's two
     lanes, corridor frames 0 -> 1 and 24 -> 25 at level 0 (1241x376), N =
     768 points each (the grid) and N = 1,152 (the ORB route's keypoints),
     guesses within 1 px of the truth, 6 and 10 iterations (the grid's and
     the ORB route's seeded track); K1's bounds.  Each lane must also equal
-    the single-lane kernel's result bitwise (one kernel body).  The
+    the single-lane call's result bitwise (one entry point).  The
     headline numbers are the first run's (the grid's); `runs` holds (points
     per lane, iters, walk_iters or None for a walk of every step)."""
     import numpy as np
@@ -979,15 +979,14 @@ def k2_phase(torch, img, cfg, stereo_img) -> dict:
     `stereo_img` (1241x376) on the 1,152 corners per lane that
     ``detect_and_compute`` picks, as the route calls it.  Besides the bit and
     moment bounds: the packed words must be pack_bits of the kernel's own
-    signs, invalid rows zero, valid rows +-1 and equal to the two-output
-    entry point's, two runs bitwise equal, each lane bitwise equal to the
+    signs, invalid rows zero, valid rows +-1 and equal to those of the same
+    call with every corner valid, two runs bitwise equal, each lane bitwise equal to the
     single-lane entry point, and (one image only) the border case at the
     largest and the smallest level."""
     from ros_stereo_slam_tpu_torch.ops import orb, orb_cuda
 
     lanes = img.dim() == 3
     tag, nl = ("K2b", img.shape[0]) if lanes else ("K2", 1)
-    two_outputs = orb_cuda.orb_descriptors_batch if lanes else orb_cuda.orb_descriptors
     lcc = cfg.loop
     budgets = orb._level_budgets(lcc.orb_features, lcc.orb_levels, 1.25)
     levels = orb.level_images(img, lcc.orb_levels, 1.25)
@@ -999,10 +998,11 @@ def k2_phase(torch, img, cfg, stereo_img) -> dict:
     cases.append(("ORB stereo level 0", stereo_img, fe.max_points, (f.pts, f.valid)))
     worst, n_bits, n_diff, rows = 0.0, 0, 0, []
     for label, lvl, budget, (pts, valid) in cases:
+        every = torch.ones_like(valid)  # every corner valid: the kernel's raw signs
         ks, km, kw = orb_cuda.level_describe(lvl, pts, valid)
         again = orb_cuda.level_describe(lvl, pts, valid)
         ps, pm, pw = orb._level_describe_plain(lvl, pts, valid)
-        raw_s, raw_m = two_outputs(lvl, pts)
+        raw_s, raw_m, _ = orb_cuda.level_describe(lvl, pts, every)
         singles = ([orb_cuda.level_describe(lvl[b], pts[b], valid[b]) for b in range(nl)]
                    if lanes else [])
         torch.cuda.synchronize()
@@ -1016,14 +1016,14 @@ def k2_phase(torch, img, cfg, stereo_img) -> dict:
                    for x, y in zip((ks, km, kw), s))
         ms = cuda_ms(torch, lambda: orb_cuda.level_describe(lvl, pts, valid))
         plain_ms = cuda_ms(torch, lambda: orb._level_describe_plain(lvl, pts, valid))
-        two_ms = cuda_ms(torch, lambda: two_outputs(lvl, pts))
+        every_ms = cuda_ms(torch, lambda: orb_cuda.level_describe(lvl, pts, every))
         launch = orb_cuda.bare_launch(lvl, pts, valid)
         dev_ms = device_ms(torch, launch)
         H, W = lvl.shape[-2:]
         log(f"{tag} {label} {nl}x{W}x{H}: N={budget} per lane, valid={nv} bits differing "
             f"{diff}/{nv * 256} (at most {corner_max} in one corner) max|dm|={merr:.3e}"
             + (f"; lanes equal the single-lane kernel: {same}" if lanes else "")
-            + f"; wrapper {ms:.4f} ms (two outputs only: {two_ms:.4f} ms), kernel alone "
+            + f"; wrapper {ms:.4f} ms (every corner valid: {every_ms:.4f} ms), kernel alone "
             f"{dev_ms:.4f} ms, plain {plain_ms:.4f} ms")
         check(nv > nl * budget // 2, f"{tag} {label}: only {nv} valid corners")
         check(m_ok, f"{tag} {label}: moments differ by {merr}")
@@ -1033,7 +1033,7 @@ def k2_phase(torch, img, cfg, stereo_img) -> dict:
               f"{tag} {label}: signs not +-1")
         check(torch.equal(ks[valid], raw_s[valid]) and not bool(ks[~valid].any())
               and torch.equal(km, raw_m),
-              f"{tag} {label}: masked signs are not the two-output signs times valid")
+              f"{tag} {label}: masked signs are not the all-valid signs times valid")
         check(torch.equal(kw, orb.pack_bits(ks > 0)),
               f"{tag} {label}: packed words are not pack_bits of the kernel's signs")
         check(all(torch.equal(x, y) for x, y in zip((ks, km, kw), again)),

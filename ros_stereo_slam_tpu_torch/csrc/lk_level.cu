@@ -19,11 +19,10 @@
 // against the clamped start (the reference's _select_tile), so reads never
 // leave the image.  All arithmetic is f32.
 //
-// Lanes (the batched entry point lk_level_batch_f32, replacing the TPU entry
-// point track_level_batch): blockIdx.y is the lane; lane b reads images at
-// offset b * H * W and points at offset b * n_pts * 2, and writes its n_pts
-// output rows after those of lane b - 1.  The single-lane entry point
-// lk_level_f32 is the same kernel with one lane.
+// Lanes (the entry point lk_level_f32 takes n_lanes, replacing also the TPU
+// entry point track_level_batch; one image pair is one lane): blockIdx.y is
+// the lane; lane b reads images at offset b * H * W and points at offset
+// b * n_pts * 2, and writes its n_pts output rows after those of lane b - 1.
 //
 // What bounds it on an H100: bytes.  A call touches the sectors under the
 // (S+3)^2 template tiles and the (S+1)^2 sample tiles (tens of thousands of
@@ -374,30 +373,21 @@ int lk_level_lanes(const void* ref, const void* cur, int n_lanes, int H, int W,
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes).  Images (H, W) f32 row-major;
-// ref_pts, guesses, out_pts (n_pts, 2) f32 row-major; out_resid (n_pts,) f32;
-// out_ok (n_pts,) bytes, 1 where min_eig > min_eig_thresh; where it is 0,
+// The plain C entry point (loaded with ctypes), for n_lanes independent
+// lanes stacked on a leading axis (1 <= n_lanes <= 65535; one image pair is
+// one lane).  Images (n_lanes, H, W) f32 row-major; ref_pts, guesses, out_pts
+// (n_lanes, n_pts, 2) f32 row-major; out_resid (n_lanes, n_pts) f32; out_ok
+// (n_lanes, n_pts) bytes, 1 where min_eig > min_eig_thresh; where it is 0,
 // out_pts holds the input guess.  The first min(iters, walk_iters) steps
 // resample, the rest polish.  Requires 1 <= S <= 32, H >= S + 3, W >= S + 3,
-// iters >= 0, walk_iters >= 0 (the caller checks).  Launch on `stream` and
-// return cudaGetLastError().
-extern "C" int lk_level_f32(const void* ref, const void* cur, int H, int W, const void* ref_pts,
-                            const void* guesses, int n_pts, int S, int iters, int walk_iters,
-                            float eps, float min_eig_thresh, void* out_pts, void* out_resid,
-                            void* out_ok, void* stream) {
-  return lk_level_lanes(ref, cur, 1, H, W, ref_pts, guesses, n_pts, S, iters, walk_iters, eps,
-                        min_eig_thresh, out_pts, out_resid, out_ok, stream);
-}
-
-// The same for n_lanes independent lanes stacked on a leading axis: images
-// (n_lanes, H, W), points (n_lanes, n_pts, 2), outputs (n_lanes, n_pts, ...);
-// one launch, lanes on blockIdx.y (1 <= n_lanes <= 65535).
-extern "C" int lk_level_batch_f32(const void* ref, const void* cur, int n_lanes, int H, int W,
-                                  const void* ref_pts, const void* guesses, int n_pts, int S,
-                                  int iters, int walk_iters, float eps, float min_eig_thresh,
-                                  void* out_pts, void* out_resid, void* out_ok, void* stream) {
-  return lk_level_lanes(ref, cur, n_lanes, H, W, ref_pts, guesses, n_pts, S, iters,
-                        walk_iters, eps, min_eig_thresh, out_pts, out_resid, out_ok, stream);
+// iters >= 0, walk_iters >= 0 (the caller checks).  One launch on `stream`,
+// lanes on blockIdx.y; returns cudaGetLastError().
+extern "C" int lk_level_f32(const void* ref, const void* cur, int n_lanes, int H, int W,
+                            const void* ref_pts, const void* guesses, int n_pts, int S,
+                            int iters, int walk_iters, float eps, float min_eig_thresh,
+                            void* out_pts, void* out_resid, void* out_ok, void* stream) {
+  return lk_level_lanes(ref, cur, n_lanes, H, W, ref_pts, guesses, n_pts, S, iters, walk_iters,
+                        eps, min_eig_thresh, out_pts, out_resid, out_ok, stream);
 }
 
 // One empty kernel (one thread, no work) on `stream`.

@@ -19,11 +19,10 @@
 // contraction), so the two differ only through the moments' summation order
 // and cos/sin from m / r instead of cos(atan2(m01, m10)).
 //
-// Lanes (the batched entry point orb_desc_batch_f32, replacing the TPU entry
-// point orb_descriptors_batch): blockIdx.y is the lane; lane b reads its image
-// at offset b * H * W and its corners at b * n_pts * 2, and writes its n_pts
-// output rows after those of lane b - 1.  The single-lane entry point
-// orb_desc_f32 is the same kernel with one lane.
+// Lanes (the entry point orb_desc_f32 takes n_lanes, replacing also the TPU
+// entry point orb_descriptors_batch; one image is one lane): blockIdx.y is
+// the lane; lane b reads its image at offset b * H * W and its corners at
+// b * n_pts * 2, and writes its n_pts output rows after those of lane b - 1.
 //
 // What bounds it on an H100: bytes.  A corner needs the ~2,000 pixels under
 // its patch (L2-resident: a 1241x376 f32 level is 1.9 MB) and writes 1 KB of
@@ -238,28 +237,20 @@ int orb_desc_lanes(const void* img, int n_lanes, int H, int W, const void* pts,
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes).  img (H, W) f32 row-major with
-// H, W >= 2; pts (n_pts, 2) f32 xy; valid (n_pts,) bytes, or null for "all
-// valid"; cent (n_cent, 2) integer-valued f32 offsets within the radius-15
-// mask, pat_p and pat_q (256, 2) f32 offsets, all three 8-byte aligned;
-// out_sign (n_pts, 256) f32 (+-1, 0 where not valid); out_moments (n_pts, 2)
-// f32 (m10, m01); out_bits (n_pts, 8) int32 packed bits (0 where not valid).
-// Launch on `stream` and return cudaGetLastError().
-extern "C" int orb_desc_f32(const void* img, int H, int W, const void* pts, const void* valid,
-                            int n_pts, const void* cent, int n_cent, const void* pat_p,
-                            const void* pat_q, void* out_sign, void* out_moments,
-                            void* out_bits, void* stream) {
-  return orb_desc_lanes(img, 1, H, W, pts, valid, n_pts, cent, n_cent, pat_p, pat_q, out_sign,
-                        out_moments, out_bits, stream);
-}
-
-// The same for n_lanes lanes stacked on a leading axis: img (n_lanes, H, W),
-// pts (n_lanes, n_pts, 2), valid (n_lanes, n_pts), outputs (n_lanes, n_pts,
-// ...); one launch, lanes on blockIdx.y (1 <= n_lanes <= 65535).
-extern "C" int orb_desc_batch_f32(const void* img, int n_lanes, int H, int W, const void* pts,
-                                  const void* valid, int n_pts, const void* cent, int n_cent,
-                                  const void* pat_p, const void* pat_q, void* out_sign,
-                                  void* out_moments, void* out_bits, void* stream) {
+// The plain C entry point (loaded with ctypes), for n_lanes lanes stacked on
+// a leading axis (1 <= n_lanes <= 65535; one image is one lane).  img
+// (n_lanes, H, W) f32 row-major with H, W >= 2; pts (n_lanes, n_pts, 2) f32
+// xy; valid (n_lanes, n_pts) bytes, or null for "all valid"; cent (n_cent, 2)
+// integer-valued f32 offsets within the radius-15 mask, pat_p and pat_q
+// (256, 2) f32 offsets, all three 8-byte aligned; out_sign (n_lanes, n_pts,
+// 256) f32 (+-1, 0 where not valid); out_moments (n_lanes, n_pts, 2) f32
+// (m10, m01); out_bits (n_lanes, n_pts, 8) int32 packed bits (0 where not
+// valid).  One launch on `stream`, lanes on blockIdx.y; returns
+// cudaGetLastError().
+extern "C" int orb_desc_f32(const void* img, int n_lanes, int H, int W, const void* pts,
+                            const void* valid, int n_pts, const void* cent, int n_cent,
+                            const void* pat_p, const void* pat_q, void* out_sign,
+                            void* out_moments, void* out_bits, void* stream) {
   return orb_desc_lanes(img, n_lanes, H, W, pts, valid, n_pts, cent, n_cent, pat_p, pat_q,
                         out_sign, out_moments, out_bits, stream);
 }

@@ -43,11 +43,12 @@ are the same on every rank, while the landmark blocks, their inverses and
 the back-substitution stay local
 (:mod:`ros_stereo_slam_tpu_torch.parallel.dist_ba`).
 
-A solve on the card without a mesh replays a CUDA graph of the eager
-solve (:func:`_solve`), captured once per window signature (shapes and
-dtypes, the device, the camera, `iters`, `damping`, `huber_px`;
-:class:`..utils.cuda_graph.GraphedCall`): the same kernels on the same
-shapes, one launch for some 1,150.  The solve reads nothing back to the
+Every solve goes through BA's graph family
+(:data:`..utils.cuda_graph.BA`): on the card without a mesh it replays a
+CUDA graph of the eager solve (:func:`_solve`), captured once per window
+signature (shapes and dtypes, the device, the camera, `iters`, `damping`,
+`huber_px`): the same kernels on the same shapes, one launch for some
+1,150.  The solve reads nothing back to the
 host, so the whole of it captures.  The CPU and a mesh (collectives
 inside) solve eagerly.
 
@@ -72,20 +73,16 @@ import torch
 
 from ros_stereo_slam_tpu_torch.ops import linalg
 from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, psum, psum_many
-from ros_stereo_slam_tpu_torch.utils import profiling
+from ros_stereo_slam_tpu_torch.utils import cuda_graph, profiling
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
-from ros_stereo_slam_tpu_torch.utils.cuda_graph import GraphedCall
 
 _F64 = torch.float64
 # Host counters: solves begun and Gauss-Newton iterations asked for
 # (:func:`ba_solve` adds 1 and `iters` a call, replayed or eager; nothing is
-# read from the device), then CUDA graphs captured and replayed, and eager
-# solves.  ``tools/torch_span_report.py`` prints them per traced session.
+# read from the device).  ``tools/torch_span_report.py`` prints them per
+# traced session, beside the graph family's.
 SOLVES = 0
 ITERATIONS = 0
-GRAPH_CAPTURES = 0
-GRAPH_REPLAYS = 0
-EAGER_SOLVES = 0
 
 
 class BAResult(NamedTuple):
@@ -320,22 +317,6 @@ def _solve(cam: Pinhole, T_cw, landmarks, obs, obs_mask, fixed, iters: int, damp
         )
 
 
-_GRAPHS: dict = {}  # graph key -> GraphedCall of _solve
-_POOL = None  # BA's own memory pool: its graphs replay one at a time on one stream
-
-
-def _use_graph(device: torch.device, mesh: Mesh | None) -> bool:
-    """A solve replays a graph on the card without a mesh."""
-    return device.type == "cuda" and mesh is None
-
-
-def _graph_key(tensors: tuple, cam: Pinhole, kw: dict) -> tuple:
-    """What a graph bakes in: every input's shape and dtype (W, N), the
-    device, the camera and the scalars (`iters`, `damping`, `huber_px`)."""
-    return (tuple((tuple(t.shape), t.dtype) for t in tensors), tensors[0].device, tuple(cam),
-            tuple(sorted(kw.items())))
-
-
 def ba_solve(
     cam: Pinhole,
     T_cw: torch.Tensor,  # (W, 4, 4)
@@ -355,24 +336,14 @@ def ba_solve(
     `obs_mask` are this rank's shard of the landmark axis and the sums over
     landmarks run over every rank's (each rank must call this).
 
-    Replayed from a CUDA graph where :func:`_use_graph` allows it (captured
-    on a signature's first call), else eager."""
-    global SOLVES, ITERATIONS, EAGER_SOLVES, GRAPH_CAPTURES, GRAPH_REPLAYS, _POOL
+    Replayed through BA's graph family on the card without a mesh, else
+    eager."""
+    global SOLVES, ITERATIONS
     SOLVES += 1
     ITERATIONS += iters
-    kw = dict(iters=iters, damping=damping, huber_px=huber_px)
-    if not _use_graph(T_cw.device, mesh):
-        EAGER_SOLVES += 1
-        return _solve(cam, T_cw, landmarks, obs, obs_mask, fixed, mesh=mesh, **kw)
-    tensors = (T_cw, landmarks, obs, obs_mask, fixed)
-    key = _graph_key(tensors, cam, kw)
-    if key not in _GRAPHS:
-        if _POOL is None:
-            _POOL = torch.cuda.graph_pool_handle()
-        _GRAPHS[key] = GraphedCall(lambda *t: _solve(cam, *t, **kw), tensors, _POOL)
-        GRAPH_CAPTURES += 1
-    GRAPH_REPLAYS += 1
-    return _GRAPHS[key](tensors)
+    return cuda_graph.BA(_solve, mesh=mesh, cam=cam, T_cw=T_cw, landmarks=landmarks, obs=obs,
+                         obs_mask=obs_mask, fixed=fixed, iters=iters, damping=damping,
+                         huber_px=huber_px)
 
 
 def dense_solve_reference(cam: Pinhole, T_cw, landmarks, obs, obs_mask, fixed,

@@ -127,8 +127,8 @@ def _dispatch_level(ref_img, cur_img, ref_pts, guesses, params: LKParams):
     """One level through ``lk_cuda.track_level`` ((H, W) images, or a stack
     of one lane) or ``lk_cuda.track_level_batch`` ((B, H, W) lanes, B > 1):
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
-    Both entry points run one kernel body, so a lane's result does not
-    depend on the route."""
+    Both launch the kernel's one lane-form entry point, so a lane's result
+    does not depend on the route."""
     from ros_stereo_slam_tpu_torch.ops import lk_cuda
 
     if ref_img.dim() == 2:

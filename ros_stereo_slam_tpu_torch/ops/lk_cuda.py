@@ -1,13 +1,13 @@
 """One LK pyramid level through the hand-written CUDA kernel.
 
 ``csrc/lk_level.cu`` replaces the TPU kernel
-``ros_stereo_slam_tpu/ops/lk_pallas.py::_lk_level_kernel``: its entry
-point ``lk_level_f32`` replaces ``track_level`` (one lane) and
-``lk_level_batch_f32`` replaces ``track_level_batch`` (B lanes in one
-launch, lanes on the grid's second axis).  :func:`track_level` has the
-contract of :func:`lk._track_level` and :func:`track_level_batch` that of
-:func:`track_level_batch_plain`, a loop of :func:`lk._track_level` over
-lanes:
+``ros_stereo_slam_tpu/ops/lk_pallas.py::_lk_level_kernel``: its one entry
+point ``lk_level_f32`` takes B lanes in one launch (lanes on the grid's
+second axis), and replaces both ``track_level`` (one lane) and
+``track_level_batch``.  :func:`track_level` passes its (H, W) pair as one
+lane and has the contract of :func:`lk._track_level`;
+:func:`track_level_batch` has that of :func:`track_level_batch_plain`, a
+loop of :func:`lk._track_level` over lanes:
 
 - CUDA tensors launch the kernel (built at first use by
   :mod:`ros_stereo_slam_tpu_torch.kernels.build`), one launch per call:
@@ -31,9 +31,9 @@ import torch
 
 from ros_stereo_slam_tpu_torch.ops import lk
 
-# Kernel launches made in this process by track_level (LAUNCHES) and by
-# track_level_batch (BATCH_LAUNCHES), counted only where the kernel itself
-# is launched.
+# Kernel launches made in this process by track_level (LAUNCHES, one lane)
+# and by track_level_batch (BATCH_LAUNCHES), counted only where the kernel
+# itself is launched.
 LAUNCHES = 0
 BATCH_LAUNCHES = 0
 
@@ -52,8 +52,7 @@ def _fn(name: str):
         fn = getattr(build.load("lk_level"), name)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = {
-            "lk_level_f32": [p, p, i, i, p, p, i, i, i, i, f, f, p, p, p, p],
-            "lk_level_batch_f32": [p, p, i, i, i, p, p, i, i, i, i, f, f, p, p, p, p],
+            "lk_level_f32": [p, p, i, i, i, p, p, i, i, i, i, f, f, p, p, p, p],
             "empty_launch": [p],
         }[name]
         fn.restype = ctypes.c_int
@@ -61,9 +60,9 @@ def _fn(name: str):
     return fn
 
 
-def _check(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, lanes: bool) -> None:
+def _check(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams) -> None:
     """Device, type, contiguity and shapes: (B, H, W) images and (B, N, 2)
-    points with `lanes`, else (H, W) and (N, 2)."""
+    points."""
     dev = ref_img.device
     for name, t in (("cur_img", cur_img), ("ref_pts", ref_pts), ("guesses", guesses)):
         if t.device != dev:
@@ -74,25 +73,21 @@ def _check(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, lanes: bool)
     if not (ref_img.is_contiguous() and cur_img.is_contiguous() and ref_pts.is_contiguous()
             and guesses.is_contiguous()):
         raise ValueError("images and points must be contiguous")
-    nd = 3 if lanes else 2
-    if ref_img.dim() != nd or cur_img.shape != ref_img.shape:
+    if ref_img.dim() != 3 or cur_img.shape != ref_img.shape:
         raise ValueError(
-            f"images must be equal {'(B, H, W)' if lanes else '(H, W)'}: "
-            f"{tuple(ref_img.shape)} vs {tuple(cur_img.shape)}"
-        )
-    if (ref_pts.dim() != nd or ref_pts.shape[-1] != 2 or guesses.shape != ref_pts.shape
-            or ref_pts.shape[:-2] != ref_img.shape[:-2]):
+            f"images must be equal (B, H, W): {tuple(ref_img.shape)} vs {tuple(cur_img.shape)}")
+    if (ref_pts.dim() != 3 or ref_pts.shape[-1] != 2 or guesses.shape != ref_pts.shape
+            or ref_pts.shape[0] != ref_img.shape[0]):
         raise ValueError(
-            f"ref_pts and guesses must be {'(B, N, 2)' if lanes else '(N, 2)'}: "
-            f"{tuple(ref_pts.shape)}, {tuple(guesses.shape)}"
-        )
+            f"ref_pts and guesses must be (B, N, 2): {tuple(ref_pts.shape)}, "
+            f"{tuple(guesses.shape)}")
     S = params.window
     H, W = ref_img.shape[-2:]
     if not 1 <= S <= _MAX_WINDOW:
         raise ValueError(f"window {S} outside [1, {_MAX_WINDOW}]")
     if H < S + 3 or W < S + 3:
         raise ValueError(f"image {H}x{W} smaller than window + 3 = {S + 3}")
-    if lanes and ref_img.shape[0] > _MAX_LANES:
+    if ref_img.shape[0] > _MAX_LANES:
         raise ValueError(f"{ref_img.shape[0]} lanes > {_MAX_LANES} (the grid's second axis)")
     lk.check_params(params)
 
@@ -110,12 +105,10 @@ def _outputs(ref_pts: torch.Tensor):
 
 def _launcher(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, outs):
     """A zero-argument callable that launches the kernel once into `outs` on
-    the current stream (the batched entry point for (B, H, W) images) and
-    returns its cudaError."""
-    batch = ref_img.dim() == 3
-    fn = _fn("lk_level_batch_f32" if batch else "lk_level_f32")
-    H, W = ref_img.shape[-2:]
-    args = (ref_img.data_ptr(), cur_img.data_ptr(), *ref_img.shape[:-2], H, W,
+    the current stream and returns its cudaError."""
+    fn = _fn("lk_level_f32")
+    B, H, W = ref_img.shape
+    args = (ref_img.data_ptr(), cur_img.data_ptr(), B, H, W,
             ref_pts.data_ptr(), guesses.data_ptr(), ref_pts.shape[-2], params.window,
             params.iters, params.walk_iters, float(params.eps), float(params.min_eig), outs[0].data_ptr(),
             outs[1].data_ptr(), outs[2].data_ptr(),
@@ -128,9 +121,10 @@ def _launcher(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, outs):
     return launch
 
 
-def _run(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams, lanes: bool):
-    """Check, allocate, launch once: ((points, resid, ok), launched)."""
-    _check(ref_img, cur_img, ref_pts, guesses, params, lanes)
+def _run(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams):
+    """Check, allocate, launch once on (B, H, W) lanes: ((points, resid,
+    ok), launched)."""
+    _check(ref_img, cur_img, ref_pts, guesses, params)
     outs = _outputs(ref_pts)
     if ref_pts.numel() == 0:  # no points (or no lanes): nothing to launch
         return outs, False
@@ -158,9 +152,9 @@ def track_level(
         return lk._track_level(ref_img, cur_img, ref_pts, guesses, params)
     if ref_img.device.type != "cuda":
         raise ValueError(f"lk_cuda.track_level: unsupported device {ref_img.device}")
-    outs, launched = _run(ref_img, cur_img, ref_pts, guesses, params, lanes=False)
+    outs, launched = _run(ref_img[None], cur_img[None], ref_pts[None], guesses[None], params)
     LAUNCHES += launched
-    return outs
+    return tuple(t[0] for t in outs)
 
 
 def track_level_batch_plain(
@@ -191,17 +185,20 @@ def track_level_batch(
         return track_level_batch_plain(ref_imgs, cur_imgs, ref_pts, guesses, params)
     if ref_imgs.device.type != "cuda":
         raise ValueError(f"lk_cuda.track_level_batch: unsupported device {ref_imgs.device}")
-    outs, launched = _run(ref_imgs, cur_imgs, ref_pts, guesses, params, lanes=True)
+    outs, launched = _run(ref_imgs, cur_imgs, ref_pts, guesses, params)
     BATCH_LAUNCHES += launched
     return outs
 
 
 def bare_launch(ref_img, cur_img, ref_pts, guesses, params: lk.LKParams):
     """A zero-argument callable that launches the kernel once on outputs
-    allocated here (the batched entry point for (B, H, W) images, else the
-    single-lane one) and returns its cudaError: the kernel alone, without
-    the wrapper's checks and allocation, for timing.  It counts no launch."""
-    _check(ref_img, cur_img, ref_pts, guesses, params, lanes=ref_img.dim() == 3)
+    allocated here ((H, W) images as one lane, or (B, H, W) lanes) and
+    returns its cudaError: the kernel alone, without the wrapper's checks
+    and allocation, for timing.  It counts no launch."""
+    if ref_img.dim() == 2:
+        ref_img, cur_img, ref_pts, guesses = (t[None] for t in (ref_img, cur_img, ref_pts,
+                                                                 guesses))
+    _check(ref_img, cur_img, ref_pts, guesses, params)
     return _launcher(ref_img, cur_img, ref_pts, guesses, params, _outputs(ref_pts))
 
 

@@ -1,21 +1,19 @@
 """ORB orientation and rotated-BRIEF bits through the hand-written CUDA kernel.
 
 ``csrc/orb_desc.cu`` (kernel K2) replaces the TPU kernel
-``ros_stereo_slam_tpu/ops/orb_pallas.py::_orb_desc_kernel``: its entry
-point ``orb_desc_f32`` replaces ``orb_descriptors`` (one lane) and
-``orb_desc_batch_f32`` replaces ``orb_descriptors_batch`` (B lanes in one
-launch, lanes on the grid's second axis).  :func:`orb_descriptors` has the
-contract of :func:`orb._descriptors_plain` and
-:func:`orb_descriptors_batch` that of :func:`orb_descriptors_batch_plain`,
-a loop of :func:`orb._descriptors_plain` over lanes.  :func:`level_describe`
-is the same launch with the epilogue of ``orb._level_features`` folded in:
-given each corner's validity it also returns the packed words and writes
-zero signs for invalid corners; its contract is that of
+``ros_stereo_slam_tpu/ops/orb_pallas.py::_orb_desc_kernel`` and its lane
+form ``orb_descriptors_batch``: its one entry point ``orb_desc_f32`` takes
+B lanes in one launch (lanes on the grid's second axis).
+:func:`level_describe` launches it on one image (one lane) or a stack,
+with the epilogue of ``orb._level_features`` folded in: given each
+corner's validity it also returns the packed words and writes zero signs
+for invalid corners; its contract is that of
 :func:`orb._level_describe_plain`.
 
 - CUDA tensors launch the kernel (built at first use by
   :mod:`ros_stereo_slam_tpu_torch.kernels.build`);
-- CPU tensors take the plain version, :func:`orb._descriptors_plain`;
+- CPU tensors take the plain version, :func:`orb._level_describe_plain`
+  over :func:`orb._descriptors_plain`;
 - anything else raises.  There is no fallback from the kernel.
 
 The kernel samples at absolute image positions with ``bilinear_at``'s
@@ -34,9 +32,9 @@ import torch
 
 from ros_stereo_slam_tpu_torch.ops import orb
 
-# Kernel launches made in this process on one image (LAUNCHES) and on a
-# (B, H, W) stack (BATCH_LAUNCHES), counted only where the kernel itself is
-# launched.
+# Kernel launches made in this process on one (H, W) image (LAUNCHES) and
+# on a (B, H, W) stack (BATCH_LAUNCHES), counted only where the kernel
+# itself is launched.
 LAUNCHES = 0
 BATCH_LAUNCHES = 0
 
@@ -53,31 +51,26 @@ def _fn(name: str):
 
         fn = getattr(build.load("orb_desc"), name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lanes = [i] if name == "orb_desc_batch_f32" else []
-        fn.argtypes = [p, *lanes, i, i, p, p, i, p, i, p, p, p, p, p, p]
+        fn.argtypes = [p, i, i, i, p, p, i, p, i, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
 
 
-def _check(img: torch.Tensor, pts: torch.Tensor, valid, lanes: bool) -> None:
+def _check(img: torch.Tensor, pts: torch.Tensor, valid) -> None:
     """Device, type, contiguity and shapes: a (B, H, W) stack, (B, N, 2)
-    corners and (B, N) bool flags with `lanes`, else (H, W), (N, 2), (N,);
-    `valid` may be None."""
+    corners and (B, N) bool flags; `valid` may be None."""
     if pts.device != img.device:
         raise ValueError(f"pts is on {pts.device}, img on {img.device}")
     if img.dtype != torch.float32 or pts.dtype != torch.float32:
         raise TypeError(f"img and pts must be float32, got {img.dtype}, {pts.dtype}")
     if not (img.is_contiguous() and pts.is_contiguous()):
         raise ValueError("img and pts must be contiguous")
-    nd = 3 if lanes else 2
-    if img.dim() != nd or img.shape[-2] < 2 or img.shape[-1] < 2:
-        raise ValueError(f"img must be {'(B, H, W)' if lanes else '(H, W)'} with H, W >= 2: "
-                         f"{tuple(img.shape)}")
-    if pts.dim() != nd or pts.shape[:-2] != img.shape[:-2] or pts.shape[-1] != 2:
-        raise ValueError(f"pts must be {'(B, N, 2)' if lanes else '(N, 2)'}: "
-                         f"{tuple(pts.shape)}")
-    if lanes and img.shape[0] > _MAX_LANES:
+    if img.dim() != 3 or img.shape[-2] < 2 or img.shape[-1] < 2:
+        raise ValueError(f"img must be (B, H, W) with H, W >= 2: {tuple(img.shape)}")
+    if pts.dim() != 3 or pts.shape[0] != img.shape[0] or pts.shape[-1] != 2:
+        raise ValueError(f"pts must be (B, N, 2): {tuple(pts.shape)}")
+    if img.shape[0] > _MAX_LANES:
         raise ValueError(f"{img.shape[0]} lanes > {_MAX_LANES} (the grid's second axis)")
     if valid is not None and (valid.dtype != torch.bool or valid.shape != pts.shape[:-1]
                               or valid.device != img.device or not valid.is_contiguous()):
@@ -98,12 +91,11 @@ def _outputs(pts: torch.Tensor):
 
 def _launcher(img: torch.Tensor, pts: torch.Tensor, valid, outs):
     """A zero-argument callable that launches the kernel once into `outs` on
-    the current stream (the batched entry point for a (B, H, W) stack) and
-    returns its cudaError."""
-    fn = _fn("orb_desc_batch_f32" if img.dim() == 3 else "orb_desc_f32")
+    the current stream and returns its cudaError."""
+    fn = _fn("orb_desc_f32")
     cent, pat_p, pat_q = orb._consts(img.device)
-    H, W = img.shape[-2:]
-    args = (img.data_ptr(), *img.shape[:-2], H, W, pts.data_ptr(),
+    B, H, W = img.shape
+    args = (img.data_ptr(), B, H, W, pts.data_ptr(),
             None if valid is None else valid.data_ptr(), pts.shape[-2], cent.data_ptr(),
             cent.shape[0], pat_p.data_ptr(), pat_q.data_ptr(), outs[0].data_ptr(),
             outs[1].data_ptr(), outs[2].data_ptr(),
@@ -116,13 +108,13 @@ def _launcher(img: torch.Tensor, pts: torch.Tensor, valid, outs):
     return launch
 
 
-def _run(img: torch.Tensor, pts: torch.Tensor, valid, lanes: bool):
-    """Check, allocate, launch once and count it: (signs, moments, words)."""
-    global LAUNCHES, BATCH_LAUNCHES
-    _check(img, pts, valid, lanes)
+def _run(img: torch.Tensor, pts: torch.Tensor, valid):
+    """Check, allocate, launch once on (B, H, W) lanes: ((signs, moments,
+    words), launched)."""
+    _check(img, pts, valid)
     outs = _outputs(pts)
     if pts.numel() == 0:  # no corners (or no lanes): nothing to launch
-        return outs
+        return outs, False
     launch = _launcher(img, pts, valid, outs)
     if img.device.index == torch.cuda.current_device():
         err = launch()
@@ -131,43 +123,7 @@ def _run(img: torch.Tensor, pts: torch.Tensor, valid, lanes: bool):
             err = launch()
     if err != 0:
         raise RuntimeError(f"orb_desc launch failed: cudaError {err}")
-    if lanes:
-        BATCH_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    return outs
-
-
-def _route(name: str, img: torch.Tensor) -> bool:
-    """True for a CUDA tensor (the kernel), False for a CPU tensor (the plain
-    version); anything else raises."""
-    if img.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"orb_cuda.{name}: unsupported device {img.device}")
-    return img.device.type == "cuda"
-
-
-def orb_descriptors(img: torch.Tensor, pts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(N, 2) corners on an (H, W) image -> ((N, 256) +-1 signs, (N, 2) moments)."""
-    if not _route("orb_descriptors", img):
-        return orb._descriptors_plain(img, pts)
-    return _run(img, pts, None, lanes=False)[:2]
-
-
-def orb_descriptors_batch_plain(imgs: torch.Tensor,
-                                pts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the lane kernel: :func:`orb._descriptors_plain` on
-    each lane of a (B, H, W) stack and (B, N, 2) corners, stacked."""
-    outs = [orb._descriptors_plain(imgs[b], pts[b]) for b in range(imgs.shape[0])]
-    return tuple(torch.stack(o) for o in zip(*outs))
-
-
-def orb_descriptors_batch(imgs: torch.Tensor,
-                          pts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, N, 2) corners on a (B, H, W) stack in one launch -> ((B, N, 256)
-    +-1 signs, (B, N, 2) moments)."""
-    if not _route("orb_descriptors_batch", imgs):
-        return orb_descriptors_batch_plain(imgs, pts)
-    return _run(imgs, pts, None, lanes=True)[:2]
+    return outs, True
 
 
 def level_describe(img: torch.Tensor, pts: torch.Tensor,
@@ -176,15 +132,26 @@ def level_describe(img: torch.Tensor, pts: torch.Tensor,
     with (N,) bool `valid` on an (H, W) image, or (B, N, 2) and (B, N) on a
     (B, H, W) stack -> ((..., 256) signs, +-1 and 0 where not valid, (..., 2)
     moments, (..., 8) int32 packed bits, 0 where not valid)."""
-    if not _route("level_describe", img):
+    global LAUNCHES, BATCH_LAUNCHES
+    if img.device.type == "cpu":
         return orb._level_describe_plain(img, pts, valid)
-    return _run(img, pts, valid, lanes=img.dim() == 3)
+    if img.device.type != "cuda":
+        raise ValueError(f"orb_cuda.level_describe: unsupported device {img.device}")
+    if img.dim() == 3:
+        outs, launched = _run(img, pts, valid)
+        BATCH_LAUNCHES += launched
+        return outs
+    outs, launched = _run(img[None], pts[None], valid[None])
+    LAUNCHES += launched
+    return tuple(t[0] for t in outs)
 
 
 def bare_launch(img: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor | None = None):
     """A zero-argument callable that launches the kernel once on outputs
-    allocated here (the batched entry point for a (B, H, W) stack, else the
-    single-lane one) and returns its cudaError: the kernel alone, without
-    the wrapper's checks and allocation, for timing.  It counts no launch."""
-    _check(img, pts, valid, lanes=img.dim() == 3)
+    allocated here (an (H, W) image as one lane, or a (B, H, W) stack) and
+    returns its cudaError: the kernel alone, without the wrapper's checks
+    and allocation, for timing.  It counts no launch."""
+    if img.dim() == 2:
+        img, pts, valid = (None if t is None else t[None] for t in (img, pts, valid))
+    _check(img, pts, valid)
     return _launcher(img, pts, valid, _outputs(pts))

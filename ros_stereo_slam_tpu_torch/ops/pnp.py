@@ -10,23 +10,21 @@ Sampling is split from solving: :func:`pnp_ransac` draws the index sets
 from a ``torch.Generator`` and hands them to :func:`_pnp_from_sets`, so a
 test can feed the solver index sets drawn by the JAX reference.
 
-Lane form (the batched-lane drivers): every input gains a leading lane
-axis B, :func:`pnp_ransac` takes one generator per lane (each lane draws
-its own index sets, as its single-lane run would) and
-:func:`_pnp_from_sets` solves all lanes at once; the retry ladder and
-``used_retry`` are per lane.
+Lanes: :func:`_pnp_from_sets` solves B lanes at once (every input has a
+leading lane axis; the retry ladder and ``used_retry`` are per lane), and
+:func:`_solve` hands it a single-lane call as B = 1.  In lane form
+:func:`pnp_ransac` takes one generator per lane, and each lane draws its
+own index sets, as its single-lane call would.
 
 Points sharded over a mesh (config 5, ``parallel/dist_frontend.py``):
 :func:`_pnp_from_sets` with a `mesh` splits the scoring and the
 Gauss-Newton normal equations by points; see its docstring.
 
-Every solve goes through :func:`_solve`.  A lane-form solve on the card
-with no mesh replays a CUDA graph of :func:`_pnp_from_sets`, captured once
-per input signature (:class:`..utils.cuda_graph.GraphedCall`): the same
-kernels on the same shapes, one launch for some 2,900.  Every other solve
-runs eagerly: the CPU, a mesh (collectives inside), and the single-lane
-form, whose ``_rows`` indexes with a 0-d device tensor (a host sync, not
-capturable).
+Every solve goes through :func:`_solve` and PnP's graph family
+(:data:`..utils.cuda_graph.PNP`): on the card without a mesh it replays a
+CUDA graph of :func:`_pnp_from_sets`, captured once per input signature
+(the same kernels on the same shapes, one launch for some 2,900); the CPU
+and a mesh (collectives inside) solve eagerly.
 """
 
 from __future__ import annotations
@@ -38,18 +36,11 @@ import torch
 from ros_stereo_slam_tpu_torch.ops import linalg
 from ros_stereo_slam_tpu_torch.ops.ransac import _sample_minimal_sets
 from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh, psum, psum_many, shard_bounds
-from ros_stereo_slam_tpu_torch.utils import lie
+from ros_stereo_slam_tpu_torch.utils import cuda_graph, lie
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
-from ros_stereo_slam_tpu_torch.utils.cuda_graph import GraphedCall
 
 
-# Solves of this process: CUDA graphs captured and replayed, and eager solves.
-GRAPH_CAPTURES = 0
-GRAPH_REPLAYS = 0
-EAGER_SOLVES = 0
-
-
-class PnPResult(NamedTuple):
+class PnPResult(NamedTuple):  # single-lane shapes; lane form adds a leading B
     T_cw: torch.Tensor  # (4, 4) cam-from-world
     inliers: torch.Tensor  # (N,) bool
     n_inliers: torch.Tensor  # () int
@@ -57,11 +48,9 @@ class PnPResult(NamedTuple):
     used_retry: torch.Tensor  # () bool — loose-threshold ladder engaged
 
 
-def _rows(x: torch.Tensor, idx: torch.Tensor, lanes: bool) -> torch.Tensor:
-    """x[idx] along the point (or hypothesis) axis; with `lanes`, x has a
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along the point (or hypothesis) axis, lane by lane: x has a
     leading lane axis and lane b of `idx` indexes lane b of x."""
-    if not lanes:
-        return x[idx]
     flat = idx.reshape((x.shape[0], -1) + (1,) * (x.dim() - 2))
     flat = flat.expand(flat.shape[:2] + x.shape[2:])
     return torch.gather(x, 1, flat).reshape(idx.shape + x.shape[2:])
@@ -213,17 +202,16 @@ def _pnp_from_sets(
     huber_px: float = 0.5,
     mesh: Mesh | None = None,
 ) -> PnPResult:
-    """The PnP solve on given minimal sets: `idx` (K, 6) for the DLT
-    family, `idx2` (K2, 8) for the prior-seeded GN family (used iff
-    `T_init` is given).  Lane form: idx (B, K, 6), idx2 (B, K2, 8), pts3d
-    (B, N, 3), uv (B, N, 2), mask (B, N), T_init (B, 4, 4).
+    """The PnP solve of B lanes on given minimal sets: `idx` (B, K, 6) for
+    the DLT family, `idx2` (B, K2, 8) for the prior-seeded GN family (used
+    iff `T_init` is given), pts3d (B, N, 3), uv (B, N, 2), mask (B, N),
+    T_init (B, 4, 4).
 
     With a `mesh` every rank passes the whole point set; the hypotheses
     are fitted replicated, each rank scores and refines on its block of
     points (``shard_bounds``), the counts are summed over the ranks, and
     `inliers` and `errors` are this rank's block.
     """
-    lanes = mask.dim() == 2
     cols = slice(None) if mesh is None else shard_bounds(mask.shape[-1], mesh, "points")
     # this rank's points (all of them without a mesh)
     X, x2, m = pts3d[..., cols, :], uv[..., cols, :], mask[..., cols]
@@ -231,21 +219,18 @@ def _pnp_from_sets(
     X64, uv64 = pts3d.to(torch.float64), uv.to(torch.float64)
     xn = torch.stack([(uv[..., 0] - cam.cx) / cam.fx,
                       (uv[..., 1] - cam.cy) / cam.fy], dim=-1)
-    Rk, tk = _p6p_dlt(_rows(pts3d, idx, lanes), _rows(xn, idx, lanes))  # (K, 3, 3), (K, 3)
+    Rk, tk = _p6p_dlt(_rows(pts3d, idx), _rows(xn, idx))  # (B, K, 3, 3), (B, K, 3)
     if T_init is not None:
         T_gn = _gn_refine(
             cam, T_init.unsqueeze(-3).expand(idx2.shape[:-1] + (4, 4)),
-            _rows(X64, idx2, lanes), _rows(uv64, idx2, lanes),
+            _rows(X64, idx2), _rows(uv64, idx2),
             torch.ones(idx2.shape, dtype=torch.float64, device=pts3d.device), 5,
         )
         Rk = torch.cat([Rk, T_gn[..., :3, :3]], dim=-3)
         tk = torch.cat([tk, T_gn[..., :3, 3]], dim=-2)
 
-    # (K, N) errors of every hypothesis at every point
-    if lanes:
-        err = _reproj_errors(cam, Rk, tk, X[:, None], x2[:, None])
-    else:
-        err = _reproj_errors(cam, Rk, tk, X, x2)
+    # (B, K, N) errors of every hypothesis at every point
+    err = _reproj_errors(cam, Rk, tk, X[:, None], x2[:, None])
     inl = (err < thresh_px) & m[..., None, :]
     counts = inl.sum(-1)
     if mesh is not None:
@@ -261,17 +246,17 @@ def _pnp_from_sets(
         if mesh is not None:
             counts_r = psum(counts_r, mesh)
         best_r = torch.argmax(counts_r, dim=-1)
-        starved = _rows(counts, best, lanes) < min_inliers
+        starved = _rows(counts, best) < min_inliers
         best = torch.where(starved, best_r, best)
         use_thresh = torch.where(starved, float(retry_thresh_px),
                                  float(thresh_px)).unsqueeze(-1)
         inl = torch.where(starved[..., None, None], inl_r, inl)
-    T = lie.make_se3(_rows(Rk, best, lanes), _rows(tk, best, lanes))
+    T = lie.make_se3(_rows(Rk, best), _rows(tk, best))
 
     # GN polish on the best hypothesis' inliers (Huber tighter than the
     # gate), re-score, one more round on the expanded set, final score.
     X64, uv64 = X64[..., cols, :], uv64[..., cols, :]
-    T = _gn_refine(cam, T, X64, uv64, _rows(inl, best, lanes).to(torch.float64), refine_iters,
+    T = _gn_refine(cam, T, X64, uv64, _rows(inl, best).to(torch.float64), refine_iters,
                    huber_px=huber_px, mesh=mesh)
     final_err = _reproj_errors(cam, T[..., :3, :3], T[..., :3, 3], X, x2)
     final_inl = (final_err < use_thresh) & m
@@ -289,22 +274,6 @@ def _pnp_from_sets(
     )
 
 
-_GRAPHS: dict = {}  # graph key -> GraphedCall of _pnp_from_sets
-_POOL = None  # the graphs' memory pool: they replay one at a time on one stream
-
-
-def _use_graph(device: torch.device, lanes: bool, mesh: Mesh | None) -> bool:
-    """A solve replays a graph on the card, in lane form, without a mesh."""
-    return device.type == "cuda" and lanes and mesh is None
-
-
-def _graph_key(tensors: tuple, cam: Pinhole, kw: dict) -> tuple:
-    """What a graph bakes in: every input's shape and dtype (B, N, K, K2,
-    T_init given or not), the device, the camera and the scalars."""
-    return (tuple(None if t is None else (tuple(t.shape), t.dtype) for t in tensors),
-            tensors[2].device.index, tuple(cam), tuple(sorted(kw.items())))
-
-
 def _solve(
     idx: torch.Tensor,
     idx2: torch.Tensor | None,
@@ -316,26 +285,16 @@ def _solve(
     mesh: Mesh | None = None,
     **kw,
 ) -> PnPResult:
-    """:func:`_pnp_from_sets` (its scalars as keywords), replayed from a
-    graph where :func:`_use_graph` allows it (captured on a signature's
-    first call), else eager."""
-    global EAGER_SOLVES, GRAPH_CAPTURES, GRAPH_REPLAYS, _POOL
-    if not _use_graph(pts3d.device, mask.dim() == 2, mesh):
-        EAGER_SOLVES += 1
-        return _pnp_from_sets(idx, idx2, cam, pts3d, uv, mask, T_init=T_init, mesh=mesh, **kw)
-    tensors = (idx, idx2, pts3d, uv, mask, T_init)
-    key = _graph_key(tensors, cam, kw)
-    if key not in _GRAPHS:
-        if _POOL is None:
-            _POOL = torch.cuda.graph_pool_handle()
-
-        def solve(idx, idx2, pts3d, uv, mask, T_init):
-            return _pnp_from_sets(idx, idx2, cam, pts3d, uv, mask, T_init=T_init, **kw)
-
-        _GRAPHS[key] = GraphedCall(solve, tensors, _POOL)
-        GRAPH_CAPTURES += 1
-    GRAPH_REPLAYS += 1
-    return _GRAPHS[key](tensors)
+    """:func:`_pnp_from_sets` (its scalars as keywords) through PnP's graph
+    family: replayed on the card without a mesh, else eager.  A single-lane
+    call (mask (N,)) solves as one lane and returns that lane."""
+    one = mask.dim() == 1
+    if one:
+        idx, idx2, pts3d, uv, mask, T_init = (
+            None if t is None else t[None] for t in (idx, idx2, pts3d, uv, mask, T_init))
+    res = cuda_graph.PNP(_pnp_from_sets, mesh=mesh, idx=idx, idx2=idx2, cam=cam, pts3d=pts3d,
+                         uv=uv, mask=mask, T_init=T_init, **kw)
+    return PnPResult(*(t[0] for t in res)) if one else res
 
 
 def pnp_ransac(

@@ -1,13 +1,18 @@
-"""One function's calls replayed from a CUDA graph.
+"""Solves replayed from CUDA graphs, one family of graphs per solver.
 
 The port's solves that read nothing back to the host (PnP-RANSAC's,
 ``ops/pnp.py::_solve``; bundle adjustment's,
 ``models/bundle_adjust.py::ba_solve``) run at fixed shapes, so each input
 signature is captured once and replayed: the same kernels on the same
-shapes, one launch where eager PyTorch makes one per ATen op.  Each
-caller keys its own graphs, counts its own captures and replays, and
-holds its own memory pool (``torch.cuda.graph_pool_handle()``), so no
-family's replays depend on the order of another's.
+shapes, one launch where eager PyTorch makes one per ATen op.
+
+One rule decides for every family (:meth:`GraphFamily.replays_on`): a call
+on a CUDA device without a mesh replays; the CPU and a mesh (collectives
+inside) run eagerly.  Each family keys its own graphs, counts its own
+captures, replays and eager calls, and holds its own memory pool
+(``torch.cuda.graph_pool_handle()``), so no family's replays depend on the
+order of another's.  A new graphed solve is one more family here and one
+call in its solver.
 """
 
 from __future__ import annotations
@@ -42,3 +47,62 @@ class GraphedCall:
                 dst.copy_(src)
         self.graph.replay()
         return type(self.out)(*(t.clone() for t in self.out))
+
+
+def _is_input(v) -> bool:
+    """A graph's input (copied in on every replay): a tensor, or None in a
+    tensor's place.  Every other argument is baked into the graph."""
+    return v is None or isinstance(v, torch.Tensor)
+
+
+class GraphFamily:
+    """One solver's graphs, one per signature, captured on its first call,
+    with the family's pool and counters (``captures``, ``replays`` and
+    ``eager`` calls of this process)."""
+
+    def __init__(self):
+        self.graphs: dict = {}  # signature -> GraphedCall
+        self.pool = None  # the family's graphs replay one at a time on one stream
+        self.captures = self.replays = self.eager = 0
+
+    def replays_on(self, device: torch.device, mesh) -> bool:
+        """The rule: replay on a CUDA device without a mesh."""
+        return device.type == "cuda" and mesh is None
+
+    @staticmethod
+    def key(args: dict) -> tuple:
+        """What a graph bakes in: every input's shape and dtype (None kept as
+        None), the device, and every other argument by value (the camera,
+        the scalars)."""
+        device = next(v.device for v in args.values() if isinstance(v, torch.Tensor))
+        return device, tuple(
+            (name, (tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) else v)
+            for name, v in sorted(args.items()))
+
+    def __call__(self, fn, mesh=None, **args):
+        """``fn(**args, mesh=mesh)``: replayed from the graph of `args`'
+        signature where :meth:`replays_on` allows it (captured first if it
+        is new), else eager.  Tensors and Nones are the graph's inputs;
+        every other argument is baked in and keys the graph."""
+        key = self.key(args)
+        if not self.replays_on(key[0], mesh):
+            self.eager += 1
+            return fn(mesh=mesh, **args)
+        names = [n for n, v in args.items() if _is_input(v)]
+        tensors = tuple(args[n] for n in names)
+        graph = self.graphs.get(key)
+        if graph is None:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            baked = {n: v for n, v in args.items() if not _is_input(v)}
+            graph = GraphedCall(lambda *t: fn(**dict(zip(names, t)), **baked), tensors,
+                                self.pool)
+            self.graphs[key] = graph
+            self.captures += 1
+        self.replays += 1
+        return graph(tensors)
+
+
+PNP = GraphFamily()  # ops/pnp.py::_solve
+BA = GraphFamily()  # models/bundle_adjust.py::ba_solve
+FAMILIES = {"pnp": PNP, "ba": BA}

@@ -51,7 +51,7 @@ from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
 from ros_stereo_slam_tpu_torch.models import convert, pipeline, step, step_batched
 from ros_stereo_slam_tpu_torch.ops import linalg
 from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh
-from ros_stereo_slam_tpu_torch.utils import checkpoint, lie, metrics
+from ros_stereo_slam_tpu_torch.utils import checkpoint, cuda_graph, lie, metrics
 from ros_stereo_slam_tpu_torch.utils.camera import Pinhole
 
 REFINE_POS_TOL_M = 1e-5
@@ -214,11 +214,13 @@ _KEY_CAM = Pinhole(707.0912, 707.0912, 601.8873, 183.1104)
 
 def _key(W=9, N=768, cam=_KEY_CAM, device="cpu", obs_dtype=torch.float32, iters=10,
          damping=1e-4, huber_px=2.0):
-    tensors = (torch.zeros((W, 4, 4), device=device), torch.zeros((N, 3), device=device),
-               torch.zeros((W, N, 2), dtype=obs_dtype, device=device),
-               torch.zeros((W, N), dtype=torch.bool, device=device),
-               torch.zeros((W,), dtype=torch.bool, device=device))
-    return ba._graph_key(tensors, cam, dict(iters=iters, damping=damping, huber_px=huber_px))
+    return cuda_graph.BA.key(dict(
+        cam=cam, T_cw=torch.zeros((W, 4, 4), device=device),
+        landmarks=torch.zeros((N, 3), device=device),
+        obs=torch.zeros((W, N, 2), dtype=obs_dtype, device=device),
+        obs_mask=torch.zeros((W, N), dtype=torch.bool, device=device),
+        fixed=torch.zeros((W,), dtype=torch.bool, device=device),
+        iters=iters, damping=damping, huber_px=huber_px))
 
 
 @pytest.mark.parametrize("change", [
@@ -240,21 +242,22 @@ def test_graph_key_separates_every_baked_in_scalar_and_shape(change):
     ("cpu", Mesh(rank=0, size=1, device=torch.device("cpu")), False),
 ])
 def test_graph_engages_only_on_the_card_without_a_mesh(device, mesh, graph):
-    assert ba._use_graph(torch.device(device), mesh) is graph
+    assert cuda_graph.BA.replays_on(torch.device(device), mesh) is graph
 
 
 def test_a_cpu_solve_is_eager_and_counted(monkeypatch):
     """On the CPU ``ba_solve`` runs the eager solve (bitwise) and counts
     it as a solve, its iterations and an eager solve; nothing is captured
     or replayed."""
-    monkeypatch.setattr(ba, "_GRAPHS", {})
+    fam = cuda_graph.BA
+    monkeypatch.setattr(fam, "graphs", {})
     _, tcam, T_cw, X, obs, mask = _problem(W=3, N=12, seed=8)
     args = (tcam, _t(T_cw), _t(X), _t(obs), _t(mask), _t(np.array([True, False, False])))
-    before = (ba.SOLVES, ba.ITERATIONS, ba.EAGER_SOLVES, ba.GRAPH_CAPTURES, ba.GRAPH_REPLAYS)
+    before = (ba.SOLVES, ba.ITERATIONS, fam.eager, fam.captures, fam.replays)
     got = ba.ba_solve(*args, iters=3)
-    after = (ba.SOLVES, ba.ITERATIONS, ba.EAGER_SOLVES, ba.GRAPH_CAPTURES, ba.GRAPH_REPLAYS)
+    after = (ba.SOLVES, ba.ITERATIONS, fam.eager, fam.captures, fam.replays)
     assert [a - b for a, b in zip(after, before)] == [1, 3, 1, 0, 0]
-    assert not ba._GRAPHS
+    assert not fam.graphs
     want = ba._solve(*args, iters=3, damping=1e-4, huber_px=2.0)
     for a, b in zip(got, want, strict=True):
         assert torch.equal(a, b)

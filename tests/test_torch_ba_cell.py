@@ -102,13 +102,22 @@ def _span_report():
 
 
 def test_ba_solves_reads_the_counters():
+    """The tool's one reader over the graph families' counters: BA's
+    solves, iterations and replays, and PnP's by the same keys."""
     tool = _span_report()
-    rows = {"step.ba": {"calls": 12}}
-    assert tool.ba_solves((3, 30, 1, 2, 1), (15, 150, 1, 11, 4), rows) == {
-        "solves": 12, "iterations": 120, "step_ba_calls": 12, "iterations_per_solve": 10.0,
-        "captures_before_session": 1, "captures_session": 0, "replays": 9, "eager_solves": 3,
-        "replayed_share": 0.75}
-    assert tool.ba_solves((3, 30, 1, 2, 1), (3, 30, 1, 2, 1), {}) == {
+    rows = {"step.ba": {"calls": 12}, "step.pnp": {"calls": 13}}
+    before = {"pnp": {"captures": 1, "replays": 5, "eager": 0},
+              "ba": {"captures": 1, "replays": 2, "eager": 1, "iterations": 30}}
+    after = {"pnp": {"captures": 2, "replays": 19, "eager": 0},
+             "ba": {"captures": 1, "replays": 11, "eager": 4, "iterations": 150}}
+    assert tool.graph_solves(before, after, rows) == {
+        "pnp": {"solves": 14, "step_pnp_calls": 13, "captures_before_session": 1,
+                "captures_session": 1, "replays": 14, "eager_solves": 0, "replayed_share": 1.0},
+        "ba": {"solves": 12, "iterations": 120, "step_ba_calls": 12,
+               "iterations_per_solve": 10.0, "captures_before_session": 1,
+               "captures_session": 0, "replays": 9, "eager_solves": 3,
+               "replayed_share": 0.75}}
+    assert tool.graph_solves(before, before, {})["ba"] == {
         "solves": 0, "iterations": 0, "step_ba_calls": 0, "iterations_per_solve": None,
         "captures_before_session": 1, "captures_session": 0, "replays": 0, "eager_solves": 0,
         "replayed_share": None}

@@ -11,7 +11,8 @@ tests/test_lk_pallas.py.  Bounds:
   the image (the Pallas kernel differentiates the sampled patch, the plain
   version samples gradient images: they agree away from borders, H6); the
   same with freeze-polish (walk 3 of 8 iterations).
-- K2b's plain version against ``orb_pallas.orb_descriptors_batch(
+- K2b's plain version (``orb_cuda.level_describe`` on CPU tensors, every
+  corner valid) against ``orb_pallas.orb_descriptors_batch(
   select_dtype="f32", interpret=True)`` on corners >= 30 px inside
   (clear of fault F3): >= 99.5 % of bits equal, moments within 2e-3 +
   1e-5 relative (K2's tolerance: f32 sums of 709 terms in another order).
@@ -116,12 +117,14 @@ def test_k2b_plain_matches_pallas_batch():
                              axis=1) for _ in range(nb)]).astype(np.float32)
     js, jm = orb_pallas.orb_descriptors_batch(jnp.asarray(imgs), jnp.asarray(pts),
                                               select_dtype="f32", interpret=True)
-    ts, tm = orb_cuda.orb_descriptors_batch(torch.from_numpy(imgs), torch.from_numpy(pts))
+    every = torch.ones((nb, n), dtype=torch.bool)  # every corner valid: the raw signs
+    ts, tm, _ = orb_cuda.level_describe(torch.from_numpy(imgs), torch.from_numpy(pts), every)
     assert ts.shape == (nb, n, 256) and tm.shape == (nb, n, 2)
     assert (ts.numpy() == np.asarray(js)).mean() >= 0.995
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), atol=2e-3, rtol=1e-5)
     for b in range(nb):  # each lane is the single-lane function of its own image
-        s1, m1 = orb_cuda.orb_descriptors(torch.from_numpy(imgs[b]), torch.from_numpy(pts[b]))
+        s1, m1, _ = orb_cuda.level_describe(torch.from_numpy(imgs[b]), torch.from_numpy(pts[b]),
+                                            every[b])
         assert torch.equal(s1, ts[b]) and torch.equal(m1, tm[b])
 
 

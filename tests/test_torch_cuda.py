@@ -18,7 +18,7 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
   of 709 terms in another order).
   The folded outputs of ``level_describe`` are exact: the packed words are
   ``pack_bits`` of the kernel's own signs, invalid rows are zero, valid rows
-  equal the two-output entry point's; corners 17..21 px from a border (the
+  equal those of the call with every corner valid; corners 17..21 px from a border (the
   staged patch hangs over it) keep the bit bound.  K1's folded gate: a
   point whose ``ok`` is false returns its guess, bit for bit; points within
   a window of a border read nothing outside the image (NaN guard rows).
@@ -26,9 +26,9 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
 - K3 (``csrc/vocab_descend.cu``): word ids equal to the plain version on
   every row (exact): full width, ties, invalid rows, two sibling passes
   (k = 20), two runs bitwise equal.
-- K1b and K2b (the batched entry points of the same sources): K1's and
+- K1b and K2b (B lanes through each source's one entry point): K1's and
   K2's bounds against the lane loops of the plain versions, and bitwise
-  equal, lane by lane, to the single-lane entry points (one kernel body).
+  equal, lane by lane, to the single-lane calls.
 - K1 and K1b with freeze-polish (``walk_iters < iters``): K1's bounds, on
   interior points and on points whose walk converges next to the right or
   bottom border, where the polish anchor clamps and the clamped sample
@@ -40,7 +40,9 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
   the eager ``_pnp_from_sets`` bitwise (the same kernels on the same
   shapes) over 16 draws of 1 and 2 lanes, with and without the prior,
   and with the 8 px retry ladder engaged; one capture per signature; a
-  first result keeps its values through a second replay; the 97-frame
+  first result keeps its values through a second replay; a single-lane
+  solve at the loop edge's shapes replays too, bitwise the eager solve of
+  its sets as one lane; the 97-frame
   bench corridor through ``run_offline`` gives the eager run's poses.
 - BA's CUDA graph (``models/bundle_adjust.py::ba_solve``): the replayed
   solve equals the eager ``_solve`` bit for bit over 6 windows at the
@@ -64,6 +66,7 @@ import torch
 from ros_stereo_slam_tpu_torch.data.synthetic import _smooth_noise_2d
 from ros_stereo_slam_tpu_torch.models import vocab
 from ros_stereo_slam_tpu_torch.ops import lk, lk_cuda, orb, orb_cuda, vocab_cuda
+from ros_stereo_slam_tpu_torch.utils import cuda_graph
 
 pytestmark = pytest.mark.cuda
 
@@ -73,6 +76,11 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda:0")
+
+
+def _every(pts):
+    """Every corner of `pts` valid: ``level_describe``'s raw signs."""
+    return torch.ones(pts.shape[:-1], dtype=torch.bool, device=pts.device)
 
 
 def _setup(seed, n, shape=(192, 256), shift=(-2, 3)):
@@ -168,7 +176,7 @@ def test_orb_kernel_matches_plain_version(cuda_device, shape, budget):
     img = img.to(cuda_device)
     pts, valid = orb._level_corners(img, budget, 12.0 / 255.0)
     before = orb_cuda.LAUNCHES
-    ks, km = orb_cuda.orb_descriptors(img, pts)
+    ks, km, _ = orb_cuda.level_describe(img, pts, _every(pts))
     ps, pm = orb._descriptors_plain(img, pts)
     torch.cuda.synchronize()
     assert orb_cuda.LAUNCHES == before + 1
@@ -188,7 +196,7 @@ def test_orb_kernel_border_corners_stay_in_bounds(cuda_device):
     img = torch.from_numpy(_smooth_noise_2d((64, 96), rng)).to(cuda_device)
     pts = torch.tensor([[0.0, 0.0], [95.0, 63.0], [18.0, 30.0], [-5.0, 70.0],
                         [float("nan"), 10.0]], device=cuda_device)
-    ks, km = orb_cuda.orb_descriptors(img, pts)
+    ks, km, _ = orb_cuda.level_describe(img, pts, _every(pts))
     ps, pm = orb._descriptors_plain(img, pts)
     torch.cuda.synchronize()
     assert torch.isfinite(km).all()
@@ -227,7 +235,7 @@ def test_orb_kernel_non_integer_corners(cuda_device):
     img = img.to(cuda_device)
     pts = torch.from_numpy(np.stack([rng.uniform(17, 110, 40), rng.uniform(17, 78, 40)],
                                     1).astype(np.float32)).to(cuda_device)
-    ks, km = orb_cuda.orb_descriptors(img, pts)
+    ks, km, _ = orb_cuda.level_describe(img, pts, _every(pts))
     ps, pm = orb._descriptors_plain(img, pts)
     assert int((ks != ps).sum(dim=1).max()) <= 4
     np.testing.assert_allclose(km.cpu().numpy(), pm.cpu().numpy(), atol=2e-3, rtol=1e-5)
@@ -237,7 +245,8 @@ def test_orb_kernel_non_integer_corners(cuda_device):
 def test_level_describe_folds_the_epilogue(cuda_device, lanes):
     """level_describe: one launch; the packed words are pack_bits of the
     kernel's own signs, invalid rows are zero, valid rows and the moments are
-    the two-output entry point's, and a second run gives the same bits."""
+    those of the same call with every corner valid, and a second run gives
+    the same bits."""
     rng = np.random.default_rng(21 + lanes)
     shape, budget = (241, 794), 111
     imgs = torch.from_numpy(np.stack([_smooth_noise_2d(shape, rng, octaves=5, base_period=24)
@@ -251,8 +260,7 @@ def test_level_describe_folds_the_epilogue(cuda_device, lanes):
     assert (orb_cuda.LAUNCHES, orb_cuda.BATCH_LAUNCHES) == (
         before[0] + (lanes == 0), before[1] + (lanes > 0))
     again = orb_cuda.level_describe(img, pts, valid)
-    raw_s, raw_m = (orb_cuda.orb_descriptors_batch if lanes else orb_cuda.orb_descriptors)(
-        img, pts)
+    raw_s, raw_m, _ = orb_cuda.level_describe(img, pts, _every(pts))
     ps, pm, pw = orb._level_describe_plain(img, pts, valid)
     torch.cuda.synchronize()
     assert kw.dtype == torch.int32 and kw.shape == (*pts.shape[:-1], 8)
@@ -263,7 +271,7 @@ def test_level_describe_folds_the_epilogue(cuda_device, lanes):
     assert int((ks != ps)[valid].sum(dim=-1).max()) <= 4
     same_rows = (ks == ps).all(dim=-1)
     assert torch.equal(kw[same_rows], pw[same_rows])
-    for b in range(lanes):  # each lane: the single-lane entry point, bitwise
+    for b in range(lanes):  # each lane: the single-lane call, bitwise
         for x, y in zip((ks, km, kw), orb_cuda.level_describe(img[b], pts[b], valid[b])):
             assert torch.equal(x[b], y)
     with pytest.raises(ValueError, match="valid"):
@@ -273,14 +281,16 @@ def test_level_describe_folds_the_epilogue(cuda_device, lanes):
 def test_orb_kernel_wrapper_checks_inputs(cuda_device):
     img = torch.rand((64, 96), device=cuda_device)
     pts = torch.full((4, 2), 32.0, device=cuda_device)
+    valid = _every(pts)
     with pytest.raises(TypeError, match="float32"):
-        orb_cuda.orb_descriptors(img.double(), pts)
+        orb_cuda.level_describe(img.double(), pts, valid)
     with pytest.raises(ValueError, match="contiguous"):
-        orb_cuda.orb_descriptors(img.t(), pts)
+        orb_cuda.level_describe(img.t(), pts, valid)
     with pytest.raises(ValueError, match="is on"):
-        orb_cuda.orb_descriptors(img, pts.cpu())
-    sign, m = orb_cuda.orb_descriptors(img, torch.empty((0, 2), device=cuda_device))
-    assert sign.shape == (0, 256) and m.shape == (0, 2)
+        orb_cuda.level_describe(img, pts.cpu(), valid)
+    empty = torch.empty((0, 2), device=cuda_device)
+    sign, m, words = orb_cuda.level_describe(img, empty, _every(empty))
+    assert sign.shape == (0, 256) and m.shape == (0, 2) and words.shape == (0, 8)
 
 
 def _sign_tables(rng, k, first, last):
@@ -448,10 +458,11 @@ def test_orb_batch_kernel_matches_plain_version(cuda_device):
     pts, valid = orb._level_corners(imgs[:2], budget, 12.0 / 255.0)
     pts = torch.cat([pts, pts[:1]]).contiguous()
     valid = torch.cat([valid, valid[:1]])
+    every = _every(pts)
     before, before_1 = orb_cuda.BATCH_LAUNCHES, orb_cuda.LAUNCHES
-    ks, km = orb_cuda.orb_descriptors_batch(imgs, pts)
+    ks, km, _ = orb_cuda.level_describe(imgs, pts, every)
     assert (orb_cuda.BATCH_LAUNCHES, orb_cuda.LAUNCHES) == (before + 1, before_1)
-    ps, pm = orb_cuda.orb_descriptors_batch_plain(imgs, pts)
+    ps, pm, _ = orb._level_describe_plain(imgs, pts, every)
     torch.cuda.synchronize()
     assert int(valid[:2].sum()) > budget
     assert (ks == ps)[:2][valid[:2]].float().mean().item() >= 0.995
@@ -459,25 +470,27 @@ def test_orb_batch_kernel_matches_plain_version(cuda_device):
     np.testing.assert_allclose(km.cpu().numpy(), pm.cpu().numpy(), atol=2e-3, rtol=1e-5)
     assert bool((ks[2] == -1.0).all()) and torch.equal(ks[2], ps[2])  # ties
     for b in range(3):
-        s1, m1 = orb_cuda.orb_descriptors(imgs[b], pts[b])
+        s1, m1, _ = orb_cuda.level_describe(imgs[b], pts[b], every[b])
         assert torch.equal(s1, ks[b]) and torch.equal(m1, km[b])
-    one = orb_cuda.orb_descriptors_batch(imgs[:1], pts[:1])  # B = 1
+    one = orb_cuda.level_describe(imgs[:1], pts[:1], every[:1])  # B = 1
     assert torch.equal(one[0][0], ks[0]) and torch.equal(one[1][0], km[0])
 
 
 def test_orb_batch_kernel_wrapper_checks_inputs(cuda_device):
     imgs = torch.rand((2, 64, 96), device=cuda_device)
     pts = torch.full((2, 4, 2), 32.0, device=cuda_device)
+    valid = _every(pts)
     with pytest.raises(ValueError, match="B, N, 2"):
-        orb_cuda.orb_descriptors_batch(imgs, pts[:1])
+        orb_cuda.level_describe(imgs, pts[:1], valid[:1])
     with pytest.raises(TypeError, match="float32"):
-        orb_cuda.orb_descriptors_batch(imgs.double(), pts)
+        orb_cuda.level_describe(imgs.double(), pts, valid)
     with pytest.raises(ValueError, match="contiguous"):
-        orb_cuda.orb_descriptors_batch(imgs.transpose(1, 2), pts)
-    with pytest.raises(ValueError, match="B, H, W"):
-        orb_cuda.orb_descriptors_batch(imgs[0], pts[0])
-    sign, m = orb_cuda.orb_descriptors_batch(imgs, torch.empty((2, 0, 2), device=cuda_device))
-    assert sign.shape == (2, 0, 256) and m.shape == (2, 0, 2)
+        orb_cuda.level_describe(imgs.transpose(1, 2), pts, valid)
+    with pytest.raises(ValueError, match="B, H, W"):  # neither an image nor a stack
+        orb_cuda.level_describe(imgs[None], pts[None], valid[None])
+    empty = torch.empty((2, 0, 2), device=cuda_device)
+    sign, m, words = orb_cuda.level_describe(imgs, empty, _every(empty))
+    assert sign.shape == (2, 0, 256) and m.shape == (2, 0, 2) and words.shape == (2, 0, 8)
 
 
 def test_vocab_train_on_card_equals_cpu(cuda_device):
@@ -696,13 +709,13 @@ def test_pnp_graph_replays_the_eager_solve_bitwise(cuda_device, monkeypatch, cas
     from ros_stereo_slam_tpu_torch.ops import pnp
     from ros_stereo_slam_tpu_torch.utils.camera import kitti_default
 
-    monkeypatch.setattr(pnp, "_GRAPHS", {})
+    monkeypatch.setattr(cuda_graph.PNP, "graphs", {})
     lanes = 2 if case == "two_lanes" else 1
     prior = case != "no_prior"
     kw = dict(_PNP_KW, **({"thresh_px": 0.02, "min_inliers": 600}
                           if case == "starved_retry" else {}))
     cam = kitti_default()
-    captures, replays = pnp.GRAPH_CAPTURES, pnp.GRAPH_REPLAYS
+    captures, replays = cuda_graph.PNP.captures, cuda_graph.PNP.replays
     for draw in range(16):
         X, uv, mask, T_prior = _pnp_scene(lanes, draw, cuda_device)
         idx, idx2 = _pnp_sets(mask, prior, draw)
@@ -716,8 +729,8 @@ def test_pnp_graph_replays_the_eager_solve_bitwise(cuda_device, monkeypatch, cas
         elif prior:  # the DLT family alone may starve at 1 px on some draws
             assert not bool(got.used_retry.any())
         assert int(got.n_inliers.min()) > 400
-    assert pnp.GRAPH_CAPTURES == captures + 1 and len(pnp._GRAPHS) == 1
-    assert pnp.GRAPH_REPLAYS == replays + 16
+    assert cuda_graph.PNP.captures == captures + 1 and len(cuda_graph.PNP.graphs) == 1
+    assert cuda_graph.PNP.replays == replays + 16
 
 
 def test_pnp_graph_first_result_survives_a_second_replay(cuda_device, monkeypatch):
@@ -726,7 +739,7 @@ def test_pnp_graph_first_result_survives_a_second_replay(cuda_device, monkeypatc
     from ros_stereo_slam_tpu_torch.ops import pnp
     from ros_stereo_slam_tpu_torch.utils.camera import kitti_default
 
-    monkeypatch.setattr(pnp, "_GRAPHS", {})
+    monkeypatch.setattr(cuda_graph.PNP, "graphs", {})
     cam = kitti_default()
     inputs = []
     for draw in (0, 1):
@@ -736,11 +749,36 @@ def test_pnp_graph_first_result_survives_a_second_replay(cuda_device, monkeypatc
     kept = tuple(t.clone() for t in first)
     second = pnp._solve(*inputs[1], T_init=T_prior, **_PNP_KW)
     torch.cuda.synchronize()
-    assert len(pnp._GRAPHS) == 1
+    assert len(cuda_graph.PNP.graphs) == 1
     assert not torch.equal(first.T_cw, second.T_cw)
     for a, b in zip(first, kept, strict=True):
         assert torch.equal(a, b)
     _assert_bitwise(first, pnp._pnp_from_sets(*inputs[0], T_init=T_prior, **_PNP_KW))
+
+
+def test_pnp_single_lane_loop_edge_replays_the_eager_lane_form_bitwise(cuda_device,
+                                                                      monkeypatch):
+    """The loop edge's solve (``slam_scan._edges_pnp_batch``: one lane, N =
+    512, K = 128, K2 = 32, the identity prior, no retry ladder) replays
+    PnP's graph, bitwise the eager solve of its sets as one lane."""
+    from ros_stereo_slam_tpu_torch.ops import pnp
+    from ros_stereo_slam_tpu_torch.utils.camera import kitti_default
+
+    monkeypatch.setattr(cuda_graph.PNP, "graphs", {})
+    cam, eye = kitti_default(), torch.eye(4, device=cuda_device)
+    kw = dict(thresh_px=2.0, refine_iters=4)
+    captures, replays = cuda_graph.PNP.captures, cuda_graph.PNP.replays
+    for draw in range(8):
+        X, uv, mask, _ = _pnp_scene(1, draw, cuda_device, n=512)
+        idx, idx2 = _pnp_sets(mask, True, draw)
+        got = pnp._solve(idx[0], idx2[0], cam, X[0], uv[0], mask[0], T_init=eye, **kw)
+        want = pnp._pnp_from_sets(idx, idx2, cam, X, uv, mask, T_init=eye[None], **kw)
+        torch.cuda.synchronize()
+        assert got.T_cw.shape == (4, 4) and got.inliers.shape == (512,)
+        _assert_bitwise(got, pnp.PnPResult(*(t[0] for t in want)))
+        assert int(got.n_inliers) > 250
+    assert cuda_graph.PNP.captures == captures + 1 and len(cuda_graph.PNP.graphs) == 1
+    assert cuda_graph.PNP.replays == replays + 8
 
 
 def test_run_offline_corridor_graph_equals_eager(cuda_device, monkeypatch):
@@ -751,7 +789,6 @@ def test_run_offline_corridor_graph_equals_eager(cuda_device, monkeypatch):
     from pathlib import Path
 
     from ros_stereo_slam_tpu_torch.models import pipeline, step
-    from ros_stereo_slam_tpu_torch.ops import pnp
     from slambench import drivers, manifest, world
 
     man = manifest.Manifest(Path(__file__).resolve().parents[1])
@@ -762,14 +799,15 @@ def test_run_offline_corridor_graph_equals_eager(cuda_device, monkeypatch):
     left, right = frames.left.cpu().numpy(), frames.right.cpu().numpy()
     assert left.shape == (97, 376, 1241)
     cfg = drivers.pipeline_config(conf, mix["overrides"], seeds["program"])
-    replays, rescues = pnp.GRAPH_REPLAYS, step.RESCUES
+    fam = cuda_graph.PNP
+    replays, rescues = fam.replays, step.RESCUES
     graph = pipeline.run_offline(cfg, left, right, device=cuda_device)
     n_calls = len(left) - 1 + step.RESCUES - rescues
-    assert pnp.GRAPH_REPLAYS - replays == n_calls
-    monkeypatch.setattr(pnp, "_use_graph", lambda device, lanes, mesh: False)
-    eager_before = pnp.EAGER_SOLVES
+    assert fam.replays - replays == n_calls
+    monkeypatch.setattr(fam, "replays_on", lambda device, mesh: False)
+    eager_before = fam.eager
     eager = pipeline.run_offline(cfg, left, right, device=cuda_device)
-    assert pnp.EAGER_SOLVES - eager_before == n_calls
+    assert fam.eager - eager_before == n_calls
     for name in ("trajectory", "n_inliers", "tracking_ok", "used_retry", "is_keyframe"):
         a, b = getattr(graph, name), getattr(eager, name)
         assert np.array_equal(a, b), (name, float(np.abs(a.astype(np.float64)
@@ -839,7 +877,7 @@ def test_ba_graph_replays_the_eager_solve_bitwise(cuda_device, monkeypatch, case
     factorisation fails in the eager solve."""
     from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
 
-    monkeypatch.setattr(ba, "_GRAPHS", {})
+    monkeypatch.setattr(cuda_graph.BA, "graphs", {})
     infos = []
     factor = torch.linalg.cholesky_ex
 
@@ -848,7 +886,7 @@ def test_ba_graph_replays_the_eager_solve_bitwise(cuda_device, monkeypatch, case
         infos.append((info != 0) | ~torch.isfinite(L).all())
         return L, info
 
-    captures, replays = ba.GRAPH_CAPTURES, ba.GRAPH_REPLAYS
+    captures, replays = cuda_graph.BA.captures, cuda_graph.BA.replays
     # the diverging case's draws whose undamped step raises the RMS (on
     # other draws the step lowers it, and the window is refined)
     for seed in (0, 1, 2, 3, 8, 14) if case == "rms_grows" else range(6):
@@ -869,20 +907,20 @@ def test_ba_graph_replays_the_eager_solve_bitwise(cuda_device, monkeypatch, case
         if case == "degenerate":
             assert bool(torch.stack(infos).all())
         infos.clear()
-    assert ba.GRAPH_CAPTURES == captures + 1 and len(ba._GRAPHS) == 1
-    assert ba.GRAPH_REPLAYS == replays + 6
+    assert cuda_graph.BA.captures == captures + 1 and len(cuda_graph.BA.graphs) == 1
+    assert cuda_graph.BA.replays == replays + 6
 
 
 def test_ba_graph_repeats_bitwise(cuda_device, monkeypatch):
     """Two replays of one window give the same bits (no atomics, H10)."""
     from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
 
-    monkeypatch.setattr(ba, "_GRAPHS", {})
+    monkeypatch.setattr(cuda_graph.BA, "graphs", {})
     args, kw = _ba_window("corridor", 7, cuda_device)
     first = ba.ba_solve(*args, **kw)
     second = ba.ba_solve(*args, **kw)
     torch.cuda.synchronize()
-    assert len(ba._GRAPHS) == 1
+    assert len(cuda_graph.BA.graphs) == 1
     _assert_same_bits(first, second)
 
 
@@ -891,13 +929,13 @@ def test_ba_graph_first_lane_survives_the_second_lanes_replay(cuda_device, monke
     while lane 0's result is still held."""
     from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
 
-    monkeypatch.setattr(ba, "_GRAPHS", {})
+    monkeypatch.setattr(cuda_graph.BA, "graphs", {})
     (args0, kw), (args1, _) = (_ba_window("corridor", s, cuda_device) for s in (8, 9))
     first = ba.ba_solve(*args0, **kw)
     kept = tuple(t.clone() for t in first)
     second = ba.ba_solve(*args1, **kw)
     torch.cuda.synchronize()
-    assert len(ba._GRAPHS) == 1
+    assert len(cuda_graph.BA.graphs) == 1
     assert not torch.equal(first.T_cw, second.T_cw)
     for a, b in zip(first, kept, strict=True):
         assert torch.equal(a, b)
@@ -915,7 +953,7 @@ def test_run_offline_ba_graph_equals_eager(cuda_device, monkeypatch):
     from ros_stereo_slam_tpu_torch.models import pipeline
     from slambench import drivers, manifest, world
 
-    monkeypatch.setattr(ba, "_GRAPHS", {})
+    monkeypatch.setattr(cuda_graph.BA, "graphs", {})
     man = manifest.Manifest(Path(__file__).resolve().parents[1])
     cell = man.cell("ba.corridor.offline")
     conf, mix = man.config(cell["config"]), man.traffic(cell["traffic"])
@@ -925,15 +963,16 @@ def test_run_offline_ba_graph_equals_eager(cuda_device, monkeypatch):
     assert left.shape == (97, 370, 1226)
     cfg = drivers.pipeline_config(conf, mix["overrides"], seeds["program"])
     assert cfg.ba_enabled
-    solves, captures, replays = ba.SOLVES, ba.GRAPH_CAPTURES, ba.GRAPH_REPLAYS
+    fam = cuda_graph.BA
+    solves, captures, replays = ba.SOLVES, fam.captures, fam.replays
     graph = pipeline.run_offline(cfg, left, right, device=cuda_device)
     n_solves = ba.SOLVES - solves
     assert n_solves == len(left) - 1
-    assert ba.GRAPH_CAPTURES - captures == 1 and ba.GRAPH_REPLAYS - replays == n_solves
-    monkeypatch.setattr(ba, "_use_graph", lambda device, mesh: False)
-    eager_before = ba.EAGER_SOLVES
+    assert fam.captures - captures == 1 and fam.replays - replays == n_solves
+    monkeypatch.setattr(fam, "replays_on", lambda device, mesh: False)
+    eager_before = fam.eager
     eager = pipeline.run_offline(cfg, left, right, device=cuda_device)
-    assert ba.EAGER_SOLVES - eager_before == n_solves
+    assert fam.eager - eager_before == n_solves
     for name in ("trajectory", "n_inliers", "tracking_ok", "used_retry", "is_keyframe",
                  "ba_rms"):
         a, b = getattr(graph, name), getattr(eager, name)

@@ -2,7 +2,8 @@
 
 The PnP solve is compared on the SAME minimal sets: JAX draws them with its
 own ``_sample_minimal_sets`` (exactly as its ``pnp_ransac`` does from the
-key), and the port's ``_pnp_from_sets`` takes them as given.  Tolerances:
+key), and the port's ``_solve`` (one lane of ``_pnp_from_sets``) takes them
+as given.  Tolerances:
 pose entries 1e-4 (rotation) and 1e-3 m (translation) after 2 x 4 float32
 Gauss-Newton rounds; inlier sets and counts must be equal.
 """
@@ -30,6 +31,7 @@ from ros_stereo_slam_tpu_torch.ops import sor as tsor
 from ros_stereo_slam_tpu_torch.ops import triangulate as ttri
 from ros_stereo_slam_tpu_torch.parallel.mesh import Mesh
 from ros_stereo_slam_tpu_torch.utils import camera as tcam
+from ros_stereo_slam_tpu_torch.utils import cuda_graph
 
 CAM = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157)
 CAM_T = tcam.Pinhole(**CAM)
@@ -85,7 +87,7 @@ def test_pnp_from_jax_sets_matches_jax(case):
     idx = jransac._sample_minimal_sets(k_dlt, jnp.asarray(mask), iters, 6)
     idx2 = (jransac._sample_minimal_sets(k_gn, jnp.asarray(mask), max(iters // 4, 16), 8)
             if T_init is not None else None)
-    tres = tpnp._pnp_from_sets(
+    tres = tpnp._solve(
         torch.from_numpy(np.array(idx)).long(),
         None if idx2 is None else torch.from_numpy(np.array(idx2)).long(),
         CAM_T, torch.from_numpy(X), torch.from_numpy(uv), torch.from_numpy(mask),
@@ -137,14 +139,36 @@ def test_solve_on_cpu_is_the_eager_solve_bitwise(lanes, prior):
     idx, idx2, X, uv, mask, T_init = _solve_inputs(lanes, prior)
     kw = dict(thresh_px=1.0, refine_iters=4, T_init=T_init, retry_thresh_px=8.0,
               min_inliers=10, huber_px=0.5)
-    before = tpnp.EAGER_SOLVES
+    fam = cuda_graph.PNP
+    before = fam.eager
     got = tpnp._solve(idx, idx2, CAM_T, X, uv, mask, **kw)
-    assert tpnp.EAGER_SOLVES == before + 1
-    assert tpnp.GRAPH_CAPTURES == 0 and tpnp.GRAPH_REPLAYS == 0 and not tpnp._GRAPHS
-    want = tpnp._pnp_from_sets(idx, idx2, CAM_T, X, uv, mask, **kw)
+    assert fam.eager == before + 1
+    assert fam.captures == 0 and fam.replays == 0 and not fam.graphs
+    if lanes:
+        want = tpnp._pnp_from_sets(idx, idx2, CAM_T, X, uv, mask, **kw)
+    else:  # the single-lane form is lane 0 of a B = 1 solve
+        one = [None if t is None else t[None] for t in (idx, idx2, X, uv, mask, T_init)]
+        want = tpnp._pnp_from_sets(*one[:2], CAM_T, *one[2:5], **dict(kw, T_init=one[5]))
+        want = tpnp.PnPResult(*(t[0] for t in want))
     for a, b in zip(got, want, strict=True):
-        assert torch.equal(a, b)
+        assert a.shape == b.shape and torch.equal(a, b)
     assert int(got.n_inliers.min()) > 100
+
+
+@pytest.mark.parametrize("prior", [True, False])
+def test_single_lane_solve_is_lane_0_of_two_bitwise(prior):
+    """A single-lane solve and lane 0 of a two-lane solve of the same sets
+    give the same bits: a lane's result does not depend on the lanes beside
+    it (the float64 Gauss-Newton steps, ``_gn_refine``)."""
+    idx, idx2, X, uv, mask, T_init = _solve_inputs(2, prior)
+    kw = dict(thresh_px=1.0, refine_iters=4, retry_thresh_px=8.0, min_inliers=10,
+              huber_px=0.5)
+    two = tpnp._solve(idx, idx2, CAM_T, X, uv, mask, T_init=T_init, **kw)
+    lane0 = [None if t is None else t[0] for t in (idx, idx2, X, uv, mask, T_init)]
+    one = tpnp._solve(*lane0[:2], CAM_T, *lane0[2:5], T_init=lane0[5], **kw)
+    for name, a, b in zip(one._fields, one, two, strict=True):
+        assert a.shape == b[0].shape and torch.equal(a, b[0]), name
+    assert int(one.n_inliers) > 100
 
 
 _KEY_KW = dict(thresh_px=1.0, refine_iters=8, retry_thresh_px=8.0, min_inliers=15,
@@ -152,12 +176,12 @@ _KEY_KW = dict(thresh_px=1.0, refine_iters=8, retry_thresh_px=8.0, min_inliers=1
 
 
 def _key(lanes=1, N=400, K=32, K2=16, prior=True, cam=CAM_T, **kw):
-    idx = torch.zeros((lanes, K, 6), dtype=torch.long)
-    idx2 = torch.zeros((lanes, K2, 8), dtype=torch.long) if prior else None
-    tensors = (idx, idx2, torch.zeros((lanes, N, 3)), torch.zeros((lanes, N, 2)),
-               torch.zeros((lanes, N), dtype=torch.bool),
-               torch.eye(4).expand(lanes, 4, 4) if prior else None)
-    return tpnp._graph_key(tensors, cam, {**_KEY_KW, **kw})
+    return cuda_graph.PNP.key(dict(
+        idx=torch.zeros((lanes, K, 6), dtype=torch.long),
+        idx2=torch.zeros((lanes, K2, 8), dtype=torch.long) if prior else None, cam=cam,
+        pts3d=torch.zeros((lanes, N, 3)), uv=torch.zeros((lanes, N, 2)),
+        mask=torch.zeros((lanes, N), dtype=torch.bool),
+        T_init=torch.eye(4).expand(lanes, 4, 4) if prior else None, **{**_KEY_KW, **kw}))
 
 
 @pytest.mark.parametrize("change", [
@@ -175,11 +199,25 @@ def test_graph_key_separates_every_baked_in_scalar_and_shape(change):
 @pytest.mark.parametrize("device,lanes,mesh,graph", [
     ("cuda", True, None, True),
     ("cuda", True, Mesh(rank=0, size=1, device=torch.device("cuda:0")), False),
-    ("cuda", False, None, False),
+    ("cuda", False, None, True),
     ("cpu", True, None, False),
 ])
-def test_graph_engages_only_for_lanes_on_the_card_without_a_mesh(device, lanes, mesh, graph):
-    assert tpnp._use_graph(torch.device(device), lanes, mesh) is graph
+def test_graph_engages_only_for_lanes_on_the_card_without_a_mesh(device, lanes, mesh, graph,
+                                                                 monkeypatch):
+    """Every solve reaches PnP's family in lane form (a single-lane call as
+    B = 1), so the family's rule, which sees the device and the mesh only,
+    replays single-lane solves on the card too."""
+    seen = []
+
+    def family(fn, mesh=None, **args):
+        seen.append(tuple(args["mask"].shape))
+        return fn(mesh=mesh, **args)
+
+    monkeypatch.setattr(cuda_graph, "PNP", family)
+    idx, idx2, X, uv, mask, T_init = _solve_inputs(2 if lanes else 0, True)
+    tpnp._solve(idx, idx2, CAM_T, X, uv, mask, T_init=T_init, **_KEY_KW)
+    assert seen == [(2 if lanes else 1, 400)]
+    assert cuda_graph.GraphFamily().replays_on(torch.device(device), mesh) is graph
 
 
 def test_triangulate_rectified_matches_jax():

@@ -27,8 +27,8 @@ TREE must offer ``bare_launch`` in its wrappers.
 
 Shapes: K1 768 points, window 15, 6 iterations on a 1241x376 level (the
 seeded temporal track), K1b the same on 2 lanes; K2 the corners FAST + ANMS
-pick on a 1241x376 noise image (budget 173) through the two-output entry
-point, K2b on 2 lanes; K3 512 random sign descriptors (every ninth
+pick on a 1241x376 noise image (budget 173), every corner valid, through
+``level_describe``, K2b on 2 lanes; K3 512 random sign descriptors (every ninth
 invalid) through random +-1 tables of k = 9, L = 6 (the old kernel: the
 59,049- and 531,441-row levels from the nodes the dense levels reach; the
 packed kernel: all six levels).  The images are smooth noise, not
@@ -79,6 +79,7 @@ def main() -> None:
     ref, cur, pts, guess = (torch.from_numpy(a).to(dev) for a in (ref, cur, pts, guess))
     params = lk.LKParams(window=15, levels=4, iters=6)
     corners, _ = orb._level_corners(ref, BUDGET, 12.0 / 255.0)
+    every = torch.ones(corners.shape[:-1], dtype=torch.bool, device=dev)  # all corners valid
     centers = [torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), size=(K ** l, 256)))
                .to(dev) for l in range(1, LEVELS + 1)]
     q = rng.choice(np.array([-1.0, 1.0], np.float32), size=(512, 256))
@@ -105,9 +106,9 @@ def main() -> None:
         "lk_level_batch": (lambda: lk_cuda.bare_launch(ref, cur, pts, guess, params),
                            lambda: lk_cuda.track_level_batch(ref, cur, pts, guess, params)),
         "orb_desc": (lambda: orb_cuda.bare_launch(ref[0], corners[0]),
-                     lambda: orb_cuda.orb_descriptors(ref[0], corners[0])),
+                     lambda: orb_cuda.level_describe(ref[0], corners[0], every[0])),
         "orb_desc_batch": (lambda: orb_cuda.bare_launch(ref, corners),
-                           lambda: orb_cuda.orb_descriptors_batch(ref, corners)),
+                           lambda: orb_cuda.level_describe(ref, corners, every)),
         "vocab_descend": k3,
     }
     card = chip_smoke.run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",

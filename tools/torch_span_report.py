@@ -18,19 +18,18 @@ inside the session it prints, and writes to ``DIR/<workload>.<seed>.json``
 - per span name: calls, total and self host time in ms a frame, and the
   device's idle time inside the self time (every moment charged to the
   innermost span open then, on the capture's clock), ms a frame and %;
-- the host time a frame of each layer (``profiling.per_frame``: the
-  frame step, detection, the epilogue, the driver's own, the reads of
-  the device), the session window a frame, and the two sums they must
-  meet (layers to the ``driver.session`` span, that to the window);
+- the host time a frame of each layer (``slambench/spans.py::per_frame``,
+  the benchmark's own arithmetic: the frame step, detection, the
+  epilogue, the driver's own, the reads of the device), the session window
+  a frame, and the two sums they must meet (layers to the
+  ``driver.session`` span, that to the window);
 - the benchmark's device-trace metrics of the cell but K1's roofline;
-- PnP's solves (``ops/pnp.py``'s counters): CUDA graphs captured in the
-  set-up and in the session, replays and eager solves in the session,
-  the session's ``step.pnp`` calls, and the share of those replayed;
-- BA's solves (``models/bundle_adjust.py``'s counters, a cell with BA
-  on): solves and Gauss-Newton iterations in the session, the session's
-  ``step.ba`` calls and the iterations a solve; CUDA graphs captured in
-  the set-up and in the session, replays and eager solves in the
-  session, and the share of solves replayed.  A replay records no
+- per CUDA-graph family (``utils/cuda_graph.py``: ``pnp``, ``ba``): graphs
+  captured in the set-up and in the session, the session's replays, eager
+  solves and solves, the session's calls of the family's step span
+  (``step.pnp``, ``step.ba``), and the share of solves replayed; for BA
+  also the Gauss-Newton iterations (``models/bundle_adjust.py``'s
+  ``ITERATIONS``) and the iterations a solve.  A BA replay records no
   ``ba.*`` span: on the card those rows appear only in a session that
   captured;
 - ``--overhead n``: n pairs of sessions under the same capture without
@@ -112,6 +111,7 @@ def innermost(spans: list, busy: np.ndarray, lo: int, hi: int) -> dict:
 
 def report(st, got: dict, frames: int) -> dict:
     from ros_stereo_slam_tpu_torch.utils import profiling
+    from slambench import spans as layer_spans
 
     lo, hi = got["window_ns"]
     spans = profiling.spans(lo, hi)
@@ -129,9 +129,9 @@ def report(st, got: dict, frames: int) -> dict:
     metrics = {m["name"]: st.man.reader(m["name"])(rec)
                for m in st.man.metrics(st.cell["name"], "per_layer")
                if m["name"] != "k1_roofline_pct"}
-    layers = profiling.per_frame(spans, frames)
+    layers = layer_spans.per_frame(spans, frames)
     session_ms = layers.get("driver.session", 0.0)
-    summed = sum(layers.get(n, 0.0) for n in (*profiling.LAYERS, "driver.self"))
+    summed = sum(layers.get(n, 0.0) for n in (*layer_spans.LAYERS, "driver.self"))
     return {"frames": frames, "spans": len(spans), "dropped": profiling.dropped(),
             "spans_per_frame": len(spans) / frames, "rows": rows, "metrics": metrics,
             "layers_ms": layers, "window_ms": got["window_s"] * 1e3 / frames,
@@ -139,36 +139,33 @@ def report(st, got: dict, frames: int) -> dict:
             "session_over_window": session_ms / (got["window_s"] * 1e3 / frames)}
 
 
-def pnp_counts() -> tuple:
-    from ros_stereo_slam_tpu_torch.ops import pnp
-
-    return pnp.GRAPH_CAPTURES, pnp.GRAPH_REPLAYS, pnp.EAGER_SOLVES
-
-
-def pnp_solves(before: tuple, after: tuple, rows: dict) -> dict:
-    """The session's PnP solves from the counters before and after it."""
-    captures, replays, eager = (a - b for a, b in zip(after, before))
-    calls = rows.get("step.pnp", {}).get("calls", 0)
-    return {"captures_before_session": before[0], "captures_session": captures, "replays": replays,
-            "eager_solves": eager, "step_pnp_calls": calls,
-            "replayed_share": replays / calls if calls else None}
-
-
-def ba_counts() -> tuple:
+def graph_counts() -> dict:
+    """Every graph family's counters, and BA's iterations asked for."""
     from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
+    from ros_stereo_slam_tpu_torch.utils import cuda_graph
 
-    return ba.SOLVES, ba.ITERATIONS, ba.GRAPH_CAPTURES, ba.GRAPH_REPLAYS, ba.EAGER_SOLVES
+    out = {name: {"captures": f.captures, "replays": f.replays, "eager": f.eager}
+           for name, f in cuda_graph.FAMILIES.items()}
+    out["ba"]["iterations"] = ba.ITERATIONS
+    return out
 
 
-def ba_solves(before: tuple, after: tuple, rows: dict) -> dict:
-    """The session's BA solves from the counters before and after it."""
-    solves, iterations, captures, replays, eager = (a - b for a, b in zip(after, before))
-    return {"solves": solves, "iterations": iterations,
-            "step_ba_calls": rows.get("step.ba", {}).get("calls", 0),
-            "iterations_per_solve": iterations / solves if solves else None,
-            "captures_before_session": before[2], "captures_session": captures,
-            "replays": replays, "eager_solves": eager,
-            "replayed_share": replays / solves if solves else None}
+def graph_solves(before: dict, after: dict, rows: dict) -> dict:
+    """Each family's solves in the session, from the counters before and
+    after it."""
+    out = {}
+    for name, b in before.items():
+        d = {k: after[name][k] - v for k, v in b.items()}
+        solves = d["replays"] + d["eager"]
+        out[name] = {"solves": solves,
+                     f"step_{name}_calls": rows.get(f"step.{name}", {}).get("calls", 0),
+                     "captures_before_session": b["captures"], "captures_session": d["captures"],
+                     "replays": d["replays"], "eager_solves": d["eager"],
+                     "replayed_share": d["replays"] / solves if solves else None}
+        if "iterations" in d:
+            out[name].update(iterations=d["iterations"],
+                             iterations_per_solve=d["iterations"] / solves if solves else None)
+    return out
 
 
 def captured_session(st) -> float:
@@ -252,12 +249,11 @@ def main(argv=None) -> int:
         st = run.Setup(run.parse(["--workload", args.workload, "--seed", str(seed),
                                   "--seconds", "0", "--trace", "1"]), args.device, ROOT)
         profiling.reset()
-        before, ba_before = pnp_counts(), ba_counts()
+        before = graph_counts()
         _, _, got, _, _ = st.measure(0.0, traced=True)
         out = {"workload": args.workload, "seed": seed, "card": run.smi_line(),
                **report(st, got, len(st.frames))}
-        out["pnp"] = pnp_solves(before, pnp_counts(), out["rows"])
-        out["ba"] = ba_solves(ba_before, ba_counts(), out["rows"])
+        out.update(graph_solves(before, graph_counts(), out["rows"]))
         if args.overhead:
             out["overhead"] = overhead(st, args.overhead)
         if args.syncs:

@@ -13,6 +13,15 @@ masking of invalid corners and the bit packing folded into its launch),
 The pyramid levels are resized with the reference's bilinear resize
 matrices, as two matmuls.
 
+The corner stage (:func:`_corner_stage`: the pyramid, then FAST-9, the
+exact top corners and ANMS on every level) reads nothing back to the host
+and runs at shapes fixed by the image and the ORB parameters, so it goes
+through ORB's graph family (:data:`..utils.cuda_graph.ORB`): on the card
+one CUDA graph per image signature replays it, and the CPU runs it
+eagerly.  K2 stays an eager call on the replay's outputs, one launch a
+level, so a Python wrapper of ``orb_cuda.level_describe`` still sees
+every call.
+
 Packed descriptors are (N, 8) int32 holding the reference's uint32 bit
 patterns (torch has no full uint32 support): bit j of word w is
 descriptor bit 32 w + j.
@@ -32,6 +41,7 @@ import numpy as np
 import torch
 
 from ros_stereo_slam_tpu_torch.ops import anms, fast, interp
+from ros_stereo_slam_tpu_torch.utils import cuda_graph
 
 N_BITS = 256
 PATCH = 31  # descriptor patch diameter
@@ -165,20 +175,6 @@ def _level_corners(img: torch.Tensor, budget: int, fast_thresh: float):
     return pts.contiguous(), valid & interp.in_bounds(pts, h, w, PATCH // 2 + 2)
 
 
-def _level_features(img: torch.Tensor, budget: int, fast_thresh: float):
-    """Detection + description on ONE pyramid level (level coordinates).
-
-    Returns (pts, angle, packed bits, sign, valid) with `budget` rows
-    (per lane for a (B, h, w) stack).
-    """
-    from ros_stereo_slam_tpu_torch.ops import orb_cuda
-
-    pts, valid = _level_corners(img, budget, fast_thresh)
-    sign, m, packed = orb_cuda.level_describe(img, pts, valid)
-    angle = torch.atan2(m[..., 1], m[..., 0])
-    return pts, angle, packed, sign, valid
-
-
 def _level_budgets(n_features: int, n_levels: int, s: float) -> list[int]:
     """Per-level feature budgets summing to n_features, decaying by the
     scale factor per level (cv::ORB's geometric series)."""
@@ -238,6 +234,25 @@ def level_images(img: torch.Tensor, n_levels: int, scale_factor: float) -> list:
     return out
 
 
+class OrbCorners(NamedTuple):
+    """ORB's corner stage, level by level (:func:`_corner_stage`)."""
+
+    images: tuple  # the level images 1..L-1 (level 0 is the caller's image)
+    pts: tuple  # per level: (budget, 2) integer corners, level coordinates
+    valid: tuple  # per level: (budget,) bool
+
+
+def _corner_stage(img: torch.Tensor, n_features: int, n_levels: int, scale_factor: float,
+                  fast_thresh: float) -> OrbCorners:
+    """The pyramid of `img` and each level's corners (:func:`_level_corners`
+    at the level's budget); per lane for a (B, H, W) stack."""
+    budgets = ([n_features] if n_levels <= 1
+               else _level_budgets(n_features, n_levels, scale_factor))
+    images = level_images(img, len(budgets), scale_factor)
+    corners = [_level_corners(lvl, b, fast_thresh) for lvl, b in zip(images, budgets)]
+    return OrbCorners(tuple(images[1:]), *(tuple(c) for c in zip(*corners)))
+
+
 def detect_and_compute(
     img: torch.Tensor,
     n_features: int = 512,
@@ -251,14 +266,19 @@ def detect_and_compute(
     at per-level downscale `scale_factor`; points are reported in level-0
     coordinates with their detection level, and descriptors are computed
     on the level image.  A (B, H, W) stack gives (B, n_features, ...).
+
+    The corner stage goes through ORB's graph family (replayed on the
+    card, eager on the CPU); the description, K2 a level, runs eagerly.
     """
+    from ros_stereo_slam_tpu_torch.ops import orb_cuda
+
     h, w = img.shape[-2:]
-    budgets = ([n_features] if n_levels <= 1
-               else _level_budgets(n_features, n_levels, scale_factor))
+    c = cuda_graph.ORB(_corner_stage, img=img, n_features=n_features, n_levels=n_levels,
+                       scale_factor=scale_factor, fast_thresh=fast_thresh)
     parts = []
-    for l, (budget, lvl_img) in enumerate(zip(budgets, level_images(img, len(budgets),
-                                                                   scale_factor))):
-        pts, angle, bits, sign, valid = _level_features(lvl_img, budget, fast_thresh)
+    for l, (lvl_img, pts, valid) in enumerate(zip((img, *c.images), c.pts, c.valid)):
+        sign, m, bits = orb_cuda.level_describe(lvl_img, pts, valid)
+        angle = torch.atan2(m[..., 1], m[..., 0])
         if l > 0:  # pixel-center mapping back to level 0: x0 = (x_l + 0.5) s - 0.5
             sy = float(np.float32(h / lvl_img.shape[-2]))
             sx = float(np.float32(w / lvl_img.shape[-1]))

@@ -5,7 +5,7 @@
 form ``orb_descriptors_batch``: its one entry point ``orb_desc_f32`` takes
 B lanes in one launch (lanes on the grid's second axis).
 :func:`level_describe` launches it on one image (one lane) or a stack,
-with the epilogue of ``orb._level_features`` folded in: given each
+with the epilogue of ORB's level description folded in: given each
 corner's validity it also returns the packed words and writes zero signs
 for invalid corners; its contract is that of
 :func:`orb._level_describe_plain`.

@@ -2,7 +2,8 @@
 
 The port's solves that read nothing back to the host (PnP-RANSAC's,
 ``ops/pnp.py::_solve``; bundle adjustment's,
-``models/bundle_adjust.py::ba_solve``) run at fixed shapes, so each input
+``models/bundle_adjust.py::ba_solve``; ORB's corner stage,
+``ops/orb.py::_corner_stage``) run at fixed shapes, so each input
 signature is captured once and replayed: the same kernels on the same
 shapes, one launch where eager PyTorch makes one per ATen op.
 
@@ -24,7 +25,8 @@ class GraphedCall:
     """`fn` over static input buffers (clones of the first call's
     `tensors`; None stays None) captured as one CUDA graph.  A call copies
     its inputs in, replays, and returns clones of the outputs (a
-    NamedTuple of tensors): a result outlives the next replay."""
+    NamedTuple of tensors, or of tuples of tensors): a result outlives the
+    next replay."""
 
     WARMUP = 3  # eager calls on the capture stream first: library handles, workspaces, constants
 
@@ -46,7 +48,8 @@ class GraphedCall:
             if dst is not None:
                 dst.copy_(src)
         self.graph.replay()
-        return type(self.out)(*(t.clone() for t in self.out))
+        return type(self.out)(*(t.clone() if isinstance(t, torch.Tensor)
+                                else tuple(x.clone() for x in t) for t in self.out))
 
 
 def _is_input(v) -> bool:
@@ -80,14 +83,15 @@ class GraphFamily:
             for name, v in sorted(args.items()))
 
     def __call__(self, fn, mesh=None, **args):
-        """``fn(**args, mesh=mesh)``: replayed from the graph of `args`'
-        signature where :meth:`replays_on` allows it (captured first if it
-        is new), else eager.  Tensors and Nones are the graph's inputs;
-        every other argument is baked in and keys the graph."""
+        """``fn(**args)`` (and ``mesh=mesh`` where one is given): replayed
+        from the graph of `args`' signature where :meth:`replays_on` allows
+        it (captured first if it is new), else eager.  Tensors and Nones are
+        the graph's inputs; every other argument is baked in and keys the
+        graph."""
         key = self.key(args)
         if not self.replays_on(key[0], mesh):
             self.eager += 1
-            return fn(mesh=mesh, **args)
+            return fn(**args) if mesh is None else fn(mesh=mesh, **args)
         names = [n for n, v in args.items() if _is_input(v)]
         tensors = tuple(args[n] for n in names)
         graph = self.graphs.get(key)
@@ -105,4 +109,5 @@ class GraphFamily:
 
 PNP = GraphFamily()  # ops/pnp.py::_solve
 BA = GraphFamily()  # models/bundle_adjust.py::ba_solve
-FAMILIES = {"pnp": PNP, "ba": BA}
+ORB = GraphFamily()  # ops/orb.py::_corner_stage
+FAMILIES = {"pnp": PNP, "ba": BA, "orb": ORB}

@@ -53,6 +53,14 @@ imports nothing of JAX, so it runs on the GPU host, which has no JAX:
   lane 1's replay; the BA cell's 97-frame corridor through
   ``run_offline`` gives the eager run's poses and BA RMS, every solve
   after the capture replayed.
+- ORB's CUDA graph (``ops/orb.py::_corner_stage`` through
+  ``utils/cuda_graph.py::ORB``): ``detect_and_compute`` at 1241x376 with
+  its corner stage replayed equals the eager call on every field of
+  ``OrbFeatures``, bit for bit, over 3 frames of each case (4 levels with
+  512 features, 1 level at the frontend's 768, a 2-lane stack, a blank
+  frame with no corner); one capture per signature; K2 still launches
+  once a level outside the graph; a first result keeps its values through
+  a second frame's replay, which gives that frame's eager result.
 - The endurance CLI's scan posture (``tools/endurance_run.py``) at
   1241x376 over a tiled 160-pose lap with both rings wrapping: at least
   3 closures at exact revisits, post-PGO ATE below odometry-only, K3 once
@@ -979,3 +987,70 @@ def test_run_offline_ba_graph_equals_eager(cuda_device, monkeypatch):
         assert np.array_equal(a, b), (name, float(np.abs(a.astype(np.float64)
                                                          - b.astype(np.float64)).max()))
     assert graph.tracking_ok.all()
+
+
+def _orb_frame(seed: int, lanes: int = 0, shape=(376, 1241)) -> torch.Tensor:
+    """A full-size frame of smooth noise, or a (lanes, H, W) stack of them."""
+    rng = np.random.default_rng(seed)
+    imgs = [_smooth_noise_2d(shape, rng, octaves=5, base_period=24)
+            for _ in range(max(lanes, 1))]
+    return torch.from_numpy(np.stack(imgs) if lanes else imgs[0]).float()
+
+
+# case -> (n_features, n_levels, lanes): the SLAM cell's detection, the ORB
+# frontend's one level at max_points, a 2-lane stack, and a blank frame
+_ORB_CASES = {"four_levels": (512, 4, 0), "one_level": (768, 1, 0), "two_lanes": (512, 4, 2),
+              "blank": (512, 4, 0)}
+
+
+def _orb_eager(monkeypatch, img, n_features, n_levels):
+    with monkeypatch.context() as mp:
+        mp.setattr(cuda_graph.ORB, "replays_on", lambda device, mesh: False)
+        return orb.detect_and_compute(img, n_features, 12.0 / 255.0, n_levels=n_levels)
+
+
+@pytest.mark.parametrize("case", list(_ORB_CASES))
+def test_orb_graph_replays_the_eager_stage_bitwise(cuda_device, monkeypatch, case):
+    """``detect_and_compute`` replays its corner stage from one graph per
+    signature, bitwise the eager call on every field; K2 launches once a
+    level on the replay's outputs (the batched count for a stack)."""
+    monkeypatch.setattr(cuda_graph.ORB, "graphs", {})
+    n_features, n_levels, lanes = _ORB_CASES[case]
+    fam = cuda_graph.ORB
+    captures, replays = fam.captures, fam.replays
+    for draw in range(3):
+        img = _orb_frame(draw, lanes).to(cuda_device)
+        if case == "blank":
+            img = torch.zeros_like(img)
+        launches = (orb_cuda.LAUNCHES, orb_cuda.BATCH_LAUNCHES)
+        got = orb.detect_and_compute(img, n_features, 12.0 / 255.0, n_levels=n_levels)
+        assert (orb_cuda.LAUNCHES - launches[0], orb_cuda.BATCH_LAUNCHES - launches[1]) == (
+            (0, n_levels) if lanes else (n_levels, 0))
+        want = _orb_eager(monkeypatch, img, n_features, n_levels)
+        torch.cuda.synchronize()
+        _assert_bitwise(got, want)
+        assert got.pts.shape == img.shape[:-2] + (n_features, 2)
+        counts = got.valid.sum(-1).reshape(-1).tolist()
+        if case == "blank":
+            assert counts == [0]
+        else:
+            assert min(counts) > n_features // 2, counts
+    assert fam.captures == captures + 1 and len(fam.graphs) == 1
+    assert fam.replays == replays + 3
+
+
+def test_orb_graph_first_result_survives_a_second_replay(cuda_device, monkeypatch):
+    """A second frame through the same graph gives its own eager result,
+    and the first frame's result keeps its values after that replay."""
+    monkeypatch.setattr(cuda_graph.ORB, "graphs", {})
+    a, b = (_orb_frame(seed).to(cuda_device) for seed in (11, 12))
+    first = orb.detect_and_compute(a, 512, 12.0 / 255.0, n_levels=4)
+    kept = tuple(t.clone() for t in first)
+    second = orb.detect_and_compute(b, 512, 12.0 / 255.0, n_levels=4)
+    torch.cuda.synchronize()
+    assert len(cuda_graph.ORB.graphs) == 1
+    assert not torch.equal(first.pts, second.pts)
+    for x, y in zip(first, kept, strict=True):
+        assert torch.equal(x, y)
+    _assert_bitwise(first, _orb_eager(monkeypatch, a, 512, 4))
+    _assert_bitwise(second, _orb_eager(monkeypatch, b, 512, 4))

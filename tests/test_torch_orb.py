@@ -17,16 +17,27 @@ Same seeded numpy images go through both packages on the CPU.  Bounds:
 - The folded plain version (``_level_describe_plain``: signs zeroed and
   bits packed where a corner is invalid) equals masking and ``pack_bits``
   of ``_descriptors_plain`` exactly, one image or lanes; through
-  ``_level_features`` the port still gives the JAX package's
-  ``_level_features``: corners and validity equal, >= 99.5 % of bits equal,
-  the packed words equal on every row whose bits are, angles within 1e-4.
+  ``detect_and_compute`` on one level the port still gives the JAX
+  package's ``_level_features``: corners and validity equal, >= 99.5 % of
+  bits equal, the packed words equal on every row whose bits are, angles
+  within 1e-4.
 - ``desc_bits``, which the vocabulary descent reads, is exactly
   ``pack_bits(desc_sign > 0)`` on valid rows and zero on invalid rows.
+- ORB's graph family (``utils/cuda_graph.py::ORB``) on the CPU: every
+  ``detect_and_compute`` runs the corner stage eagerly (``eager`` + 1, no
+  capture), the stage gives each level's image and ``_level_corners`` at
+  its budget, and the family's key separates the image's shape and
+  lanes, ``n_features``, ``n_levels``, ``scale_factor`` and
+  ``fast_thresh``; the span report reads the ``detect.orb`` calls beside
+  the family's counters.
 - Fault F3 of the JAX package (ROADMAP queue 3): the Pallas kernel's tile
   clamp describes a corner 18 px from the left border from a shifted
   patch, so its moments differ from the jnp route's by far more than
   rounding; the port follows the jnp route there.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +50,7 @@ from ros_stereo_slam_tpu.ops import fast as jfast
 from ros_stereo_slam_tpu.ops import interp as jinterp
 from ros_stereo_slam_tpu.ops import orb as jorb
 from ros_stereo_slam_tpu_torch.ops import anms, fast, orb, orb_cuda, topk
+from ros_stereo_slam_tpu_torch.utils import cuda_graph
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -211,8 +223,9 @@ def test_level_features_matches_jnp_route(images, name, budget):
     img = images[name]
     pj, aj, bj, sj, vj = (np.asarray(a) for a in jorb._level_features(
         jnp.asarray(img), budget, 12.0 / 255.0, "jnp"))
-    pt, at, bt, st, vt = (a.numpy() for a in orb._level_features(
-        torch.from_numpy(img), budget, 12.0 / 255.0))
+    ft = orb.detect_and_compute(torch.from_numpy(img), budget, 12.0 / 255.0)
+    pt, at, bt, st, vt = (a.numpy() for a in (ft.pts, ft.angle, ft.desc_bits, ft.desc_sign,
+                                              ft.valid))
     np.testing.assert_array_equal(pt, pj)
     np.testing.assert_array_equal(vt, vj)
     assert vj.sum() > budget // 2
@@ -295,3 +308,76 @@ def test_hamming_packed_matches_reference():
         ht.numpy(), orb.hamming_mxu(orb.sign_of_packed(pt[:12]),
                                     orb.sign_of_packed(pt[12:])).numpy().astype(np.int32))
     assert int(ht[3, 8]) == 0 and int(ht[4, 9]) == 256
+
+
+@pytest.mark.parametrize("n_features,n_levels,lanes", [(128, 4, 0), (96, 1, 0), (128, 4, 2)])
+def test_orb_family_runs_the_corner_stage_eagerly_on_the_cpu(images, n_features, n_levels,
+                                                             lanes):
+    """On the CPU the corner stage runs eagerly through ORB's family, one
+    eager call a ``detect_and_compute``, no capture; the stage gives the
+    pyramid's levels 1.. and each level's ``_level_corners`` at its
+    budget, and the features' level-0 rows are level 0's corners."""
+    img = torch.from_numpy(images["frame"])
+    if lanes:
+        img = torch.stack([img, img.flip(-1)])
+    fam = cuda_graph.ORB
+    before = fam.eager
+    f = orb.detect_and_compute(img, n_features, 12.0 / 255.0, n_levels=n_levels)
+    assert fam.eager == before + 1
+    assert fam.captures == 0 and fam.replays == 0 and not fam.graphs
+    stage = orb._corner_stage(img, n_features, n_levels, 1.25, 12.0 / 255.0)
+    levels = orb.level_images(img, n_levels, 1.25)
+    budgets = orb._level_budgets(n_features, n_levels, 1.25) if n_levels > 1 else [n_features]
+    assert len(stage.images) == n_levels - 1 and len(stage.pts) == len(stage.valid) == n_levels
+    for l, (lvl, budget) in enumerate(zip(levels, budgets)):
+        if l:
+            assert torch.equal(stage.images[l - 1], lvl)
+        pts, valid = orb._level_corners(lvl, budget, 12.0 / 255.0)
+        assert pts.shape == img.shape[:-2] + (budget, 2)
+        assert torch.equal(stage.pts[l], pts) and torch.equal(stage.valid[l], valid)
+    assert f.pts.shape == img.shape[:-2] + (n_features, 2)
+    assert torch.equal(f.pts[..., :budgets[0], :], stage.pts[0])
+    assert torch.equal(f.valid[..., :budgets[0]], stage.valid[0])
+
+
+def _orb_key(monkeypatch, shape=(96, 128), lanes=0, **kw):
+    """The key of ORB's family for the arguments ``detect_and_compute``
+    gives it."""
+    seen = []
+
+    def family(fn, mesh=None, **args):
+        seen.append(cuda_graph.GraphFamily.key(args))
+        return fn(**args)
+
+    monkeypatch.setattr(cuda_graph, "ORB", family)
+    img = torch.zeros(((lanes,) if lanes else ()) + shape)
+    orb.detect_and_compute(img, **{"n_features": 64, "n_levels": 4, **kw})
+    assert len(seen) == 1
+    return seen[0]
+
+
+@pytest.mark.parametrize("change", [
+    {}, {"shape": (96, 127)}, {"shape": (95, 128)}, {"lanes": 1}, {"lanes": 2},
+    {"n_levels": 1}, {"n_levels": 3}, {"fast_thresh": 20.0 / 255.0}, {"n_features": 96},
+    {"scale_factor": 1.2},
+])
+def test_orb_graph_key_separates_shape_lanes_levels_and_threshold(monkeypatch, change):
+    """Equal arguments (a fresh image of the same signature) share one key;
+    another image shape, lane count, or ORB parameter gives another."""
+    assert (_orb_key(monkeypatch, **change) == _orb_key(monkeypatch)) == (not change)
+
+
+def test_span_report_reads_the_orb_family_beside_detect_orb():
+    """The span tool's reader of the graph families: ORB's calls in the
+    session, replays among them and the ``detect.orb`` spans."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "torch_span_report.py"
+    spec = importlib.util.spec_from_file_location("torch_span_report", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    rows = {"detect.orb": {"calls": 129}, "step.pnp": {"calls": 257}}
+    before = {"orb": {"captures": 2, "replays": 81, "eager": 0}}
+    after = {"orb": {"captures": 2, "replays": 210, "eager": 0}}
+    assert tool.graph_solves(before, after, rows) == {
+        "orb": {"solves": 129, "detect_orb_calls": 129, "captures_before_session": 2,
+                "captures_session": 0, "replays": 129, "eager_solves": 0,
+                "replayed_share": 1.0}}

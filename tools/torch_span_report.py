@@ -24,10 +24,11 @@ inside the session it prints, and writes to ``DIR/<workload>.<seed>.json``
   a frame, and the two sums they must meet (layers to the
   ``driver.session`` span, that to the window);
 - the benchmark's device-trace metrics of the cell but K1's roofline;
-- per CUDA-graph family (``utils/cuda_graph.py``: ``pnp``, ``ba``): graphs
-  captured in the set-up and in the session, the session's replays, eager
-  solves and solves, the session's calls of the family's step span
-  (``step.pnp``, ``step.ba``), and the share of solves replayed; for BA
+- per CUDA-graph family (``utils/cuda_graph.py``: ``pnp``, ``ba``,
+  ``orb``): graphs captured in the set-up and in the session, the
+  session's replays, eager solves and solves (for ``orb``, corner stages),
+  the session's calls of the family's span (``step.pnp``, ``step.ba``,
+  ``detect.orb``), and the share of solves replayed; for BA
   also the Gauss-Newton iterations (``models/bundle_adjust.py``'s
   ``ITERATIONS``) and the iterations a solve.  A BA replay records no
   ``ba.*`` span: on the card those rows appear only in a session that
@@ -60,6 +61,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 NO_SPAN = "(no span)"
+# the span around each graph family's calls
+FAMILY_SPANS = {"pnp": "step.pnp", "ba": "step.ba", "orb": "detect.orb"}
 
 
 def _busy_before(busy: np.ndarray, t: np.ndarray) -> np.ndarray:
@@ -157,8 +160,9 @@ def graph_solves(before: dict, after: dict, rows: dict) -> dict:
     for name, b in before.items():
         d = {k: after[name][k] - v for k, v in b.items()}
         solves = d["replays"] + d["eager"]
+        span = FAMILY_SPANS[name]
         out[name] = {"solves": solves,
-                     f"step_{name}_calls": rows.get(f"step.{name}", {}).get("calls", 0),
+                     f"{span.replace('.', '_')}_calls": rows.get(span, {}).get("calls", 0),
                      "captures_before_session": b["captures"], "captures_session": d["captures"],
                      "replays": d["replays"], "eager_solves": d["eager"],
                      "replayed_share": d["replays"] / solves if solves else None}

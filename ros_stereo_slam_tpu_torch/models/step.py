@@ -7,11 +7,13 @@ PyTorch on the device that holds the frames:
 - ``lax.scan`` over frames becomes a Python loop over frames staged on
   the device once (:func:`run_sequence`);
 - the two ``lax.cond``s become host branches that read one device scalar
-  each: the rescue re-track and the keyframe branch.  Every such read is
-  counted in ``HOST_READS`` and held by a ``host_read`` span
-  (:mod:`..utils.profiling`; the step's others: ``step.frame`` around
-  each frame, ``step.track``, ``step.pnp``, ``step.rescue``,
-  ``step.keyframe``, ``step.ba`` with each solve's lanes, poses ``W``,
+  each, the count of lanes that ask: the rescue re-track and the keyframe
+  branch.  Every such read is counted in ``HOST_READS`` and held by a
+  ``host_read`` span (:mod:`..utils.profiling`; the step's others:
+  ``step.frame`` around each frame, ``step.track``, ``step.pnp``,
+  ``step.rescue`` and ``step.keyframe`` with the lanes run and the lanes
+  that asked (``lanes``, ``asked``; steps of several lanes also count them
+  in ``LANE_BRANCHES``), ``step.ba`` with each solve's lanes, poses ``W``,
   landmark slots ``N`` and ``iters``, and the solves' ``ba.*`` spans in
   it);
 - ``jax.random.split(carry.key, ...)`` becomes a generator per frame and
@@ -60,6 +62,10 @@ from ros_stereo_slam_tpu_torch.utils.camera import Pinhole, project
 # the frames among them that ran the rescue re-track.
 HOST_READS = 0
 RESCUES = 0
+# Per any-lane branch ("rescue", "keyframe"), over the steps of more than
+# one lane that ran it: the runs, the lane-slots they ran (B a run) and the
+# lane-slots that asked for it.  Lanes that did not ask ride along.
+LANE_BRANCHES = {name: {"runs": 0, "lanes": 0, "asked": 0} for name in ("rescue", "keyframe")}
 
 # Generator streams of one frame: PnP on the seeded track and on the
 # rescue; the temporal F-gate on each; the keyframe branch's stereo F-gate
@@ -130,11 +136,20 @@ class SlamCarry(NamedTuple):
     ba: BAState | None = None  # present iff cfg.ba_enabled
 
 
-def _host_read(flag: torch.Tensor, site: str) -> bool:
+def _lanes_asking(mask: torch.Tensor, branch: str) -> int:
+    """How many of the (B,) lanes of `mask` ask for `branch`, in the one
+    host read the branch costs; a run of more than one lane is counted in
+    :data:`LANE_BRANCHES`."""
     global HOST_READS
     HOST_READS += 1
-    with profiling.span("host_read", site=site):
-        return bool(flag.item())
+    with profiling.span("host_read", site=f"step.{branch}"):
+        asked = int(mask.cpu().sum())  # B flags in one copy, counted on the host: no kernel
+    if asked and mask.shape[0] > 1:
+        c = LANE_BRANCHES[branch]
+        c["runs"] += 1
+        c["lanes"] += mask.shape[0]
+        c["asked"] += asked
+    return asked
 
 
 def _generator(key: int, frame_idx: int, stream: int, device) -> torch.Generator:
@@ -506,8 +521,8 @@ def _step_lanes(
     """The frame step of B lanes: `carry` with a leading lane axis on every
     tensor and B keys, (B, H, W) frames (and (B, H, W, 3) RGB frames or
     None), the (N, 2) grid shared by all lanes.  Every branch costs one
-    host read of "does any lane take it";
-    when it runs, it runs for all lanes and a per-lane ``where`` keeps it
+    host read of "how many lanes take it" (:func:`_lanes_asking`); when
+    any does, it runs for all lanes and a per-lane ``where`` keeps it
     only in the lanes that take it.  With one lane that is the reference's
     ``lax.cond``; with B it is the reference's batch-hoisted branch
     (``step_batched.py``).  `kf_window` > 1 is the batched step's shared
@@ -559,9 +574,10 @@ def _step_lanes(
         # Rescue: a wrong velocity prior starves PnP — re-track unseeded on
         # the full pyramid (coarse levels of both frames built only here).
         need_rescue = (tracked[2].n_inliers < fe.lk_rescue_min_inliers) | ~carry.dT_valid
-        if _host_read(need_rescue.any(), "step.rescue"):
+        asked = _lanes_asking(need_rescue, "rescue")
+        if asked:
             RESCUES += 1
-            with profiling.span("step.rescue"):
+            with profiling.span("step.rescue", lanes=B, asked=asked):
                 ref_full = tuple(pyramid.build_pyramid(carry.ref_pyr[0], fe.lk_levels))
                 cur_full = tuple(pyramid.build_pyramid(left_img, fe.lk_levels))
                 rescued = track_and_pnp(ref_full, cur_full, None, frontend._lk_params(fe),
@@ -595,8 +611,9 @@ def _step_lanes(
         # tracking failures fire at once.  frame_idx is lockstep across
         # lanes, so on window frames every due lane fires together.
         is_kf = ~tracking_ok
-    if _host_read(is_kf.any(), "step.keyframe"):
-        with profiling.span("step.keyframe"):
+    asked = _lanes_asking(is_kf, "keyframe")
+    if asked:
+        with profiling.span("step.keyframe", lanes=B, asked=asked):
             gp = grid_pts.expand(B, -1, -1).contiguous()
             gm = grid_mask.expand(B, -1)
             gens = _stereo_gate_generators(cfg, carry.key, carry.frame_idx, _STREAM_KEYFRAME,

@@ -19,7 +19,11 @@ step runs with one lane, in the reference's four phases:
    lanes' stores.
 
 The reference's two ``lax.cond(jnp.any(...))`` become one host read each
-(counted in ``step.HOST_READS``): 2 per frame, whatever B is.
+(counted in ``step.HOST_READS``): 2 per frame, whatever B is.  The read
+gives the count of lanes that ask, which the ``step.rescue`` and
+``step.keyframe`` spans carry (``lanes``, ``asked``) and
+``step.LANE_BRANCHES`` sums: the lane-slots a branch ran for lanes that
+did not ask are the cost of the batch hoist.
 
 Per-lane semantics equal :func:`.step.slam_frame_step`'s: lane b of a
 batched run is the single-lane run started with

@@ -61,12 +61,16 @@ def _is_input(v) -> bool:
 class GraphFamily:
     """One solver's graphs, one per signature, captured on its first call,
     with the family's pool and counters (``captures``, ``replays`` and
-    ``eager`` calls of this process)."""
+    ``eager`` calls of this process; ``lane_calls`` and ``lane_replays``,
+    its calls on more than one lane and those of them replayed, where
+    `lanes` gives a call's lanes from its arguments)."""
 
-    def __init__(self):
+    def __init__(self, lanes=None):
         self.graphs: dict = {}  # signature -> GraphedCall
         self.pool = None  # the family's graphs replay one at a time on one stream
         self.captures = self.replays = self.eager = 0
+        self.lanes = lanes
+        self.lane_calls = self.lane_replays = 0
 
     def replays_on(self, device: torch.device, mesh) -> bool:
         """The rule: replay on a CUDA device without a mesh."""
@@ -89,6 +93,8 @@ class GraphFamily:
         the graph's inputs; every other argument is baked in and keys the
         graph."""
         key = self.key(args)
+        stacked = self.lanes is not None and self.lanes(args) > 1
+        self.lane_calls += stacked
         if not self.replays_on(key[0], mesh):
             self.eager += 1
             return fn(**args) if mesh is None else fn(mesh=mesh, **args)
@@ -104,10 +110,12 @@ class GraphFamily:
             self.graphs[key] = graph
             self.captures += 1
         self.replays += 1
+        self.lane_replays += stacked
         return graph(tensors)
 
 
-PNP = GraphFamily()  # ops/pnp.py::_solve
+PNP = GraphFamily(lambda a: a["mask"].shape[0])  # ops/pnp.py::_solve, (B, N) masks
 BA = GraphFamily()  # models/bundle_adjust.py::ba_solve
-ORB = GraphFamily()  # ops/orb.py::_corner_stage
+# ops/orb.py::_corner_stage, an (H, W) image or a (B, H, W) stack
+ORB = GraphFamily(lambda a: a["img"].shape[0] if a["img"].dim() == 3 else 1)
 FAMILIES = {"pnp": PNP, "ba": BA, "orb": ORB}

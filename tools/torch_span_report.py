@@ -23,7 +23,7 @@ inside the session it prints, and writes to ``DIR/<workload>.<seed>.json``
   epilogue, the driver's own, the reads of the device), the session window
   a frame, and the two sums they must meet (layers to the
   ``driver.session`` span, that to the window);
-- the benchmark's device-trace metrics of the cell but K1's roofline;
+- the benchmark's per-layer metrics of the cell but the kernels' rooflines;
 - per CUDA-graph family (``utils/cuda_graph.py``: ``pnp``, ``ba``,
   ``orb``): graphs captured in the set-up and in the session, the
   session's replays, eager solves and solves (for ``orb``, corner stages),
@@ -32,7 +32,12 @@ inside the session it prints, and writes to ``DIR/<workload>.<seed>.json``
   also the Gauss-Newton iterations (``models/bundle_adjust.py``'s
   ``ITERATIONS``) and the iterations a solve.  A BA replay records no
   ``ba.*`` span: on the card those rows appear only in a session that
-  captured;
+  captured; also the session's calls on lane stacks (more than one lane,
+  ``lane_calls`` for ``pnp`` and ``orb``) and the share of them replayed;
+- per any-lane branch of the frame step (``rescue``, ``keyframe``), from
+  the session's ``step.rescue`` and ``step.keyframe`` spans: the runs with
+  more than one lane, the lane-slots they ran and the lane-slots that
+  asked;
 - ``--overhead n``: n pairs of sessions under the same capture without
   the recorder, one with spans on and one with them forced off, and each
   session's seconds;
@@ -131,7 +136,7 @@ def report(st, got: dict, frames: int) -> dict:
     rec = {"trace": got, "spans": got["spans"], "frames": frames, "k1_work": []}
     metrics = {m["name"]: st.man.reader(m["name"])(rec)
                for m in st.man.metrics(st.cell["name"], "per_layer")
-               if m["name"] != "k1_roofline_pct"}
+               if not m["name"].endswith("_roofline_pct")}
     layers = layer_spans.per_frame(spans, frames)
     session_ms = layers.get("driver.session", 0.0)
     summed = sum(layers.get(n, 0.0) for n in (*layer_spans.LAYERS, "driver.self"))
@@ -147,7 +152,8 @@ def graph_counts() -> dict:
     from ros_stereo_slam_tpu_torch.models import bundle_adjust as ba
     from ros_stereo_slam_tpu_torch.utils import cuda_graph
 
-    out = {name: {"captures": f.captures, "replays": f.replays, "eager": f.eager}
+    out = {name: {"captures": f.captures, "replays": f.replays, "eager": f.eager,
+                  "lane_calls": f.lane_calls, "lane_replays": f.lane_replays}
            for name, f in cuda_graph.FAMILIES.items()}
     out["ba"]["iterations"] = ba.ITERATIONS
     return out
@@ -166,9 +172,29 @@ def graph_solves(before: dict, after: dict, rows: dict) -> dict:
                      "captures_before_session": b["captures"], "captures_session": d["captures"],
                      "replays": d["replays"], "eager_solves": d["eager"],
                      "replayed_share": d["replays"] / solves if solves else None}
+        if "lane_calls" in d:
+            calls = d["lane_calls"]
+            out[name].update(lane_stacked_calls=calls, lane_stacked_replays=d["lane_replays"],
+                             lane_stacked_replayed_share=d["lane_replays"] / calls if calls
+                             else None)
         if "iterations" in d:
             out[name].update(iterations=d["iterations"],
                              iterations_per_solve=d["iterations"] / solves if solves else None)
+    return out
+
+
+def lane_branches(spans) -> dict:
+    """Each any-lane branch's runs of more than one lane in `spans`
+    (``step.rescue``, ``step.keyframe`` with their ``lanes`` and
+    ``asked``), the lane-slots they ran and those that asked, and the
+    share of lane-slots that did not ask."""
+    out = {}
+    for name in ("rescue", "keyframe"):
+        runs = [s.attrs for s in spans
+                if s.name == f"step.{name}" and s.attrs.get("lanes", 1) > 1]
+        lanes, asked = sum(r["lanes"] for r in runs), sum(r["asked"] for r in runs)
+        out[name] = {"runs": len(runs), "lanes": lanes, "asked": asked,
+                     "idle_pct": 100.0 * (lanes - asked) / lanes if lanes else None}
     return out
 
 
@@ -244,7 +270,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda:0")
     ap.add_argument("--out", default="runs/spans")
     args = ap.parse_args(argv)
-    from slambench import run
+    from slambench import drivers, run
     from ros_stereo_slam_tpu_torch.utils import profiling
 
     os.makedirs(args.out, exist_ok=True)
@@ -254,10 +280,12 @@ def main(argv=None) -> int:
                                   "--seconds", "0", "--trace", "1"]), args.device, ROOT)
         profiling.reset()
         before = graph_counts()
-        _, _, got, _, _ = st.measure(0.0, traced=True)
+        window, _, got, _, _ = st.measure(0.0, traced=True)
+        frames = len(drivers.flatten(window.sessions[:1])) * len(st.frames)
         out = {"workload": args.workload, "seed": seed, "card": run.smi_line(),
-               **report(st, got, len(st.frames))}
+               **report(st, got, frames)}
         out.update(graph_solves(before, graph_counts(), out["rows"]))
+        out["lane_branches"] = lane_branches(got["spans"])
         if args.overhead:
             out["overhead"] = overhead(st, args.overhead)
         if args.syncs:
